@@ -4,7 +4,7 @@
 
 Phases, each printing one line of numbers (or a few):
   1. device: the card, as nvidia-smi reports its name and power limit;
-  2. build: the nine hand-written kernels from csrc/ with nvcc, in parallel
+  2. build: the twelve hand-written kernels from csrc/ with nvcc, in parallel
      (one nvcc per source), with their build seconds and ptxas
      register/spill lines;
   3. K1, the fused Hyena window mixer, against its plain PyTorch version at
@@ -69,7 +69,26 @@ Phases, each printing one line of numbers (or a few):
      far as the host's, plus a floor;
  20. vessel throughput: the vessel train step and eval forward at batch 4
      on 1024x1024x3 in bf16, steady state, with peak memory and a one-step
-     profile.
+     profile;
+ 21. K5, the flash attention of the vit16k path: forward, dq and dk/dv
+     against the plain version and its VJP at ragged lengths (1, 63, 65,
+     1025 tokens) and at the vit16k shape (12 head-batches of 16,385 tokens,
+     D = 64; the plain version on 4 of them), fp32 and bf16, two launches
+     bitwise equal; then the times of the kernels, the plain version and
+     torch's scaled_dot_product_attention at vit16k in bf16;
+ 22. vit16k train slice: run_torch.main trains vit16k (--debug, 2 epochs)
+     on synthetic 1024x1024x1 images with the flags of projects/run_ptx.sh
+     for the ViT-small encoder (patch 8, attention), ViTLinear and batch 2,
+     saves and reloads checkpoints, evaluates; checks that K5 forward and K2
+     forward ran 12 times per forward batch, K5 dq, K5 dkv and K2 backward 12
+     times per train step, K1, K3 and K4 never; then --inference_only,
+     which must reproduce the test metrics;
+ 23. vit16k model gradients: one train step's gradients of the full-width
+     vit16k model on 256x256 images (1,025 tokens, so K5) at batch 2, on the
+     card against the host, fp32 and bf16, per parameter;
+ 24. vit16k throughput: the vit16k train step and eval forward at batch 2
+     on 1024x1024 in bf16, steady state, with peak memory and one-step
+     profiles.
 Then one JSON line with the kernels' numbers, and last the result line.
 Every time is on this card, with its name and power limit printed in phase 1.
 It imports neither JAX nor the JAX package, and fails (exit code != 0, no
@@ -113,6 +132,28 @@ def vessel_flags() -> list[str]:
     return project_flags("run_vessel.sh")
 
 
+def vit16k_flags() -> list[str]:
+    """vit16k (scripts/overfit_one_batch.py): the flags of projects/run_ptx.sh
+    with the ViT-small encoder (patch 8, softmax attention) for Swin,
+    ViTLinear for SwinLinear and batch 2."""
+    flags, out, i = ptx_flags(), [], 0
+    while i < len(flags):
+        flag, values = flags[i], []
+        i += 1
+        while i < len(flags) and not flags[i].startswith("--"):
+            values.append(flags[i])
+            i += 1
+        name = flag.split("=")[0]
+        if name.startswith("--Swin.") or name in ("--encoder_name", "--decoder_name"):
+            continue
+        if name == "--batch_size":
+            flag, values = f"--batch_size={VIT_BATCH}", []
+        out += [flag] + values
+    return out + ["--encoder_name=ViT", "--ViT.size=small", "--ViT.patch_size", "8",
+                  "--ViT.use_hyena", "False", "--ViT.use_mamba", "False",
+                  "--decoder_name=ViTLinear"]
+
+
 # ptx at batch 4: Swin-tiny stages on 512^2 .. 64^2 token grids, windows of 16
 STAGES = [(96, 512, 2), (192, 256, 2), (384, 128, 6), (768, 64, 2)]  # C, grid, depth
 BATCH = 4
@@ -147,6 +188,23 @@ EMB_K3_STAGES = [(96, 4096, 2), (192, 512, 2)]
 # depth (stage 3, 256 windows, runs the composed scan)
 VESSEL_K4_STAGES = [(96, 16384, 2), (192, 4096, 2), (384, 1024, 6)]
 VESSEL_K4_BLOCKS = sum(d for _, _, d in VESSEL_K4_STAGES)
+# vit16k at batch 2: 1024x1024 in 8x8 patches and the cls token; ViT-small's 6
+# heads of 64 in each of 12 layers
+VIT_BATCH, VIT_L, VIT_LAYERS = 2, 16385, 12
+VIT_BH = VIT_BATCH * 6
+# K5's ragged shapes (BH, L): a lone token, a short tile, a tile and a row,
+# 16 tiles and a row
+K5_RAGGED = [(3, 1), (3, 63), (2, 65), (2, 1025)]
+# phase 21's planted-key inputs at vit16k: queries lean on a unit direction u
+# by K5_LEAN, key L - 1 is K5_PLANT * u; its score is then scale * K5_PLANT *
+# (K5_LEAN + N(0, 1)), against the 16,384 iid keys' log-sum-exp of about 10
+K5_LEAN, K5_PLANT = 2.0, 32.0
+# at vit16k the plain version takes this many head-batches at a time: it holds
+# (L, L) fp32 scores per head-batch, several of them in its VJP
+K5_PLAIN_SLICE = 2
+# phase 23, bf16: each parameter's card error may exceed BF16_GRAD_RATIO x the
+# host's by this much of its max
+VIT_BF16_GRAD_FLOOR = 2e-2
 # the card's peaks for the bounds (H100 SXM data sheet, dense): bf16 tensor
 # cores, fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -206,14 +264,17 @@ def phase_device(torch):
 
 
 def all_kernels():
-    """K1 fwd, K2 fwd, K1 bwd, K2 bwd, K3 fwd, K3 bwd, K3 dM, K4 fwd, K4 bwd."""
-    from long_context_biomedical_imaging_tpu_torch.ops import (fused_mlp, hyena_window,
-                                                               mamba_window)
+    """K1 fwd, K2 fwd, K1 bwd, K2 bwd, K3 fwd, K3 bwd, K3 dM, K4 fwd, K4 bwd,
+    K5 fwd, K5 dq, K5 dkv."""
+    from long_context_biomedical_imaging_tpu_torch.ops import (flash_attention, fused_mlp,
+                                                               hyena_window, mamba_window)
 
     return (hyena_window.HYENA_WINDOW_FWD, fused_mlp.FUSED_LN_MLP_FWD,
             hyena_window.HYENA_WINDOW_BWD, fused_mlp.FUSED_LN_MLP_BWD,
             hyena_window.HYENA_CHUNKED_FWD, hyena_window.HYENA_CHUNKED_BWD,
-            hyena_window.HYENA_DM, mamba_window.MAMBA_WINDOW_FWD, mamba_window.MAMBA_WINDOW_BWD)
+            hyena_window.HYENA_DM, mamba_window.MAMBA_WINDOW_FWD, mamba_window.MAMBA_WINDOW_BWD,
+            flash_attention.FLASH_FWD, flash_attention.FLASH_BWD_DQ,
+            flash_attention.FLASH_BWD_DKV)
 
 
 def check_launches(kernels, launches, expected, where):
@@ -1276,6 +1337,364 @@ def phase_vessel_throughput(torch, dev):
     return ms, eval_ms
 
 
+def _k5_errors(torch, got, ref, dname, names, floor=0.0):
+    """{name: max abs err} of K5 outputs against their plain references, and
+    whether each is finite, of its reference's dtype and shape and within
+    TOL (o, lse) or GRAD_TOL (gradients) of max(max|ref|, floor)."""
+    errs, ok = {}, True
+    for name, g, r in zip(names, got, ref):
+        ok = ok and g.dtype == r.dtype and g.shape == r.shape
+        g, r = g.float(), r.float()
+        errs[name] = (g - r).abs().max().item()
+        tol = (TOL if name in ("o", "lse") else GRAD_TOL)[dname]
+        ok = (ok and bool(torch.isfinite(g).all().item())
+              and errs[name] <= tol * max(r.abs().max().item(), floor))
+    return errs, ok
+
+
+def phase_k5(torch, fa, dev):
+    """K5 forward, dq and dk/dv against the plain version and its VJP, fp32
+    and bf16: at ragged lengths (K5_RAGGED), and at the vit16k shape (12,
+    16385, 64) on every head-batch, for iid inputs and for inputs whose lone
+    last key takes most queries' weight, with the plain version on
+    head-batches 0-1 and 10-11; there two launches of each kernel must give
+    the same bits. Then the times at vit16k in bf16 (``_k5_times``). Returns
+    {"fwd" | "dq" | "dkv": (max abs err at vit16k in bf16 over both input
+    sets, kernel ms, plain ms, SDPA ms)} per call; the plain and SDPA backward
+    times are of the whole VJP (dq, dk and dv)."""
+    gen = torch.Generator().manual_seed(22)
+    scale = 64 ** -0.5
+
+    def mk(shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def run_both(args, d):
+        o, lse = fa.flash_attention_fwd(*args, scale)
+        return (o, lse), fa.flash_attention_bwd(d, *args, o, lse, scale)
+
+    for bh, l in K5_RAGGED:
+        raw = [mk((bh, l, 64)) for _ in range(4)]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            *args, d = (t.to(dtype) for t in raw)
+            fwd, grads = run_both(args, d)
+            torch.cuda.synchronize()
+            # at L = 1, dq and dk vanish exactly (one key): the kernels leave
+            # fp32 round-off of dp - delta, held on the inputs' scale, 1
+            floor = 1.0 if l == 1 else 0.0
+            e_fwd, ok_fwd = _k5_errors(torch, fwd, fa.flash_attention_plain(*args, scale), dname,
+                                       ("o", "lse"), floor)
+            e_bwd, ok_bwd = _k5_errors(torch, grads, fa.flash_attention_bwd_plain(d, *args, scale),
+                                       dname, ("dq", "dk", "dv"), floor)
+            print(f"phase 21 K5 BH={bh} L={l} {dname}: max_abs_err "
+                  + " ".join(f"{k}={v:.3e}" for k, v in {**e_fwd, **e_bwd}.items())
+                  + (" ok" if ok_fwd and ok_bwd else " MISMATCH"), flush=True)
+            check(ok_fwd and ok_bwd, f"K5 disagrees with its plain version at BH={bh} L={l} "
+                                     f"{dname}: {e_fwd} {e_bwd}")
+
+    raw = [mk((VIT_BH, VIT_L, 64)) for _ in range(4)]
+    # iid inputs spread every query's softmax over all 16,385 keys (max|o| is
+    # small and one key moves o little), so a second set plants the ragged
+    # tile's lone key: every query leans on a direction u by K5_LEAN, and key
+    # L - 1 is K5_PLANT * u, which takes most of the weight for many queries
+    u = torch.nn.functional.normalize(torch.randn((VIT_BH, 1, 64), generator=gen), dim=-1)
+    u = u.to(dev)
+    planted = [raw[0] + K5_LEAN * u, raw[1].clone(), raw[2], raw[3]]
+    planted[1][:, -1:] = K5_PLANT * u
+    worst, times = {}, None
+    for inputs, label in ((raw, "iid"), (planted, "planted key")):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            *args, d = (t.to(dtype) for t in inputs)
+            fwd, grads = run_both(args, d)
+            fwd2, grads2 = run_both(args, d)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in (*fwd, *grads)),
+                  f"K5 {dname} at vit16k, {label}: an output is not finite")
+            same = all(torch.equal(a, b) for a, b in zip((*fwd, *grads), (*fwd2, *grads2)))
+            check(same, f"K5 {dname} at vit16k, {label}: two launches gave different bits")
+            del fwd2, grads2
+            errs = {}
+            for i in (0, VIT_BH - K5_PLAIN_SLICE):
+                sl = [t[i:i + K5_PLAIN_SLICE] for t in (*args, d)]
+                e_fwd, ok_fwd = _k5_errors(torch, [t[i:i + K5_PLAIN_SLICE] for t in fwd],
+                                           fa.flash_attention_plain(*sl[:3], scale), dname,
+                                           ("o", "lse"))
+                e_bwd, ok_bwd = _k5_errors(torch, [t[i:i + K5_PLAIN_SLICE] for t in grads],
+                                           fa.flash_attention_bwd_plain(sl[3], *sl[:3], scale),
+                                           dname, ("dq", "dk", "dv"))
+                check(ok_fwd and ok_bwd, f"K5 disagrees with its plain version at vit16k, "
+                                         f"{label}, head-batches {i}-{i + K5_PLAIN_SLICE - 1}, "
+                                         f"{dname}: {e_fwd} {e_bwd}")
+                for k, v in {**e_fwd, **e_bwd}.items():
+                    errs[k] = max(errs.get(k, 0.0), v)
+                torch.cuda.empty_cache()
+            # each query's weight on the last key, from the kernel's base-2 lse
+            s_last = torch.einsum("bld,bd->bl", args[0].float(), args[1][:, -1].float())
+            p_last = torch.exp2(s_last * (scale * math.log2(math.e)) - fwd[1].float())
+            print(f"phase 21 K5 BH={VIT_BH} L={VIT_L} D=64 {dname}, {label}: max|o| "
+                  f"{fwd[0].abs().max().item():.3e}; weight on key L-1: mean "
+                  f"{p_last.mean().item():.3e}, over 0.5 for {(p_last > 0.5).sum().item()} of "
+                  f"{p_last.numel()} queries; every output finite, two launches bitwise equal; "
+                  f"head-batches 0-1 and {VIT_BH - 2}-{VIT_BH - 1} against the plain version, "
+                  f"max_abs_err " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + " ok",
+                  flush=True)
+            if dtype == torch.bfloat16:
+                for k, v in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+                if label == "iid":
+                    times = _k5_times(torch, fa, args, d, fwd[0], fwd[1], scale)
+            del args, d, fwd, grads, s_last, p_last
+            torch.cuda.empty_cache()
+    k_fwd, k_dq, k_dkv, p_fwd, p_bwd, s_fwd, s_bwd = times
+    return {"fwd": (worst["o"], k_fwd, p_fwd, s_fwd),
+            "dq": (worst["dq"], k_dq, p_bwd, s_bwd),
+            "dkv": (max(worst["dk"], worst["dv"]), k_dkv, p_bwd, s_bwd)}
+
+
+def _k5_times(torch, fa, args, d, o, lse, scale):
+    """ms per call at vit16k in bf16: K5 fwd, dq and dkv; the plain version
+    over all 12 head-batches (K5_PLAIN_SLICE at a time), forward and VJP;
+    SDPA forward and backward (and, printed only, both in one)."""
+    import torch.nn.functional as F
+
+    delta = (d.float() * o.float()).sum(dim=-1)
+    k_fwd = median_ms(torch, lambda: fa.flash_attention_fwd(*args, scale), warmup=1, reps=5)
+    k_dq = median_ms(torch, lambda: fa.flash_attention_dq(d, *args, lse, delta, scale),
+                     warmup=1, reps=5)
+    k_dkv = median_ms(torch, lambda: fa.flash_attention_dkv(d, *args, lse, delta, scale),
+                      warmup=1, reps=5)
+    slices = [[t[i:i + K5_PLAIN_SLICE] for t in (*args, d)]
+              for i in range(0, VIT_BH, K5_PLAIN_SLICE)]
+    p_fwd = median_ms(torch, lambda: [fa.flash_attention_plain(*sl[:3], scale)
+                                      for sl in slices], warmup=1, reps=3)
+    p_bwd = median_ms(torch, lambda: [fa.flash_attention_bwd_plain(sl[3], *sl[:3], scale)
+                                      for sl in slices], warmup=1, reps=3)
+    torch.cuda.empty_cache()
+    # SDPA on (B, H, L, D), the layout the model's attention has
+    qb, kb, vb, db = (t.view(VIT_BATCH, VIT_BH // VIT_BATCH, VIT_L, 64) for t in (*args, d))
+    s_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(qb, kb, vb),
+                      warmup=1, reps=5)
+    leaves = [t.detach().requires_grad_(True) for t in (qb, kb, vb)]
+    out = F.scaled_dot_product_attention(*leaves)
+    s_bwd = median_ms(torch, lambda: torch.autograd.grad(out, leaves, db, retain_graph=True),
+                      warmup=1, reps=5)
+    s_both = median_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves), leaves, db), warmup=1, reps=5)
+    del out, leaves
+    torch.cuda.empty_cache()
+    print(f"phase 21 K5 times at BH={VIT_BH} L={VIT_L} D=64 bf16, ms per call: kernel "
+          f"fwd {k_fwd:.3f}, dq {k_dq:.3f}, dkv {k_dkv:.3f}; plain fwd {p_fwd:.3f}, plain "
+          f"VJP {p_bwd:.3f}; SDPA fwd {s_fwd:.3f}, bwd {s_bwd:.3f}, fwd+bwd "
+          f"{s_both:.3f}", flush=True)
+    return k_fwd, k_dq, k_dkv, p_fwd, p_bwd, s_fwd, s_bwd
+
+
+def phase_vit_slice(torch, tmp):
+    """run_torch.main trains vit16k on the card (this slice's main path),
+    then an inference-only run reloads its best checkpoint."""
+    import numpy as np
+    import yaml
+
+    import run_torch
+
+    n_train, n_val, n_test, epochs = 4, 4, 4, 2
+    write_dataset(tmp, (1024, 1024), n_train, n_val, n_test)
+    steps = epochs * min(3, math.ceil(n_train / VIT_BATCH))      # --debug: 3 per epoch
+    val_batches = min(3, math.ceil(n_val / VIT_BATCH))
+    test_batches = min(3, math.ceil(n_test / VIT_BATCH))
+    eval_batches = epochs * val_batches + val_batches + test_batches
+    run_dir = os.path.join(tmp, "logs", "chip_smoke_vit")
+    argv = vit16k_flags() + [f"--data_dir={tmp}/data", f"--split_csv_path={tmp}/split.csv",
+                             "--device=cuda", "--debug", f"--num_epochs={epochs}",
+                             f"--log_dir={tmp}/logs", "--run_name=chip_smoke_vit"]
+    check("--train_model=True" in argv and not any(a.startswith("--Swin.") for a in argv),
+          "the vit16k flags changed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = all_kernels()
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    rc = run_torch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kernel.source: kernel.launches for kernel in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"run_torch.main returned {rc}")
+    forward = steps + eval_batches
+    check_launches(kernels, launches, {1: VIT_LAYERS * forward, 3: VIT_LAYERS * steps,
+                                       9: VIT_LAYERS * forward, 10: VIT_LAYERS * steps,
+                                       11: VIT_LAYERS * steps},
+                   f"the vit16k train slice ({steps} train steps, {eval_batches} eval batches)")
+    for name in ("model_last_epoch", "model_epoch_0", "model_best_checkpoint"):
+        path = os.path.join(run_dir, "models", name)
+        check(os.path.exists(os.path.join(path, "state.pt")), f"{path} missing")
+    meta = yaml.safe_load(open(os.path.join(run_dir, "models", "model_last_epoch", "meta.yaml")))
+    check(meta["step"] == steps and meta["epoch"] == epochs - 1,
+          f"model_last_epoch meta: step {meta['step']} epoch {meta['epoch']}")
+    log = open(os.path.join(run_dir, "run.log")).read()
+    trained = re.findall(r"epoch (\d+) train: (\d+) steps, (\d+) samples in ([\d.]+) s", log)
+    check(len(trained) == epochs, f"expected {epochs} train epoch lines, got {trained}")
+    losses = [float(v) for v in re.findall(r"train: \{'loss': ([-\d.e+naninf]+)", log)]
+    check(len(losses) == epochs and all(np.isfinite(losses)), f"train losses {losses}")
+    metrics = {}
+    for split in ("val", "test"):
+        path = os.path.join(run_dir, f"{split}_metrics.txt")
+        check(os.path.exists(path), f"{path} missing")
+        m = {k: float(v) for k, v in (ln.split(": ") for ln in open(path).read().split("\n") if ln)}
+        check(set(m) == {"loss", "acc_1", "auroc", "f1"} and np.isfinite(m["loss"]),
+              f"{split} metrics {m}")
+        metrics[split] = m
+    train_images = sum(int(n) for _, _, n, _ in trained)
+    train_seconds = sum(float(sec) for _, _, _, sec in trained)
+    print(f"phase 22 vit16k train slice: run_torch.main vit16k training on the card in "
+          f"{wall:.1f} s; {steps} train steps over {epochs} epochs, {train_images} images in "
+          f"{train_seconds:.3f} s = {train_images / train_seconds:.3f} images/s (first steps "
+          f"and loading included); train losses {losses}; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches}; val {metrics['val']}; test {metrics['test']}", flush=True)
+
+    for kernel in kernels:
+        kernel.launches = 0
+    rc = run_torch.main(["--inference_only=True", f"--inference_dir={run_dir}",
+                         f"--inference_log_dir={tmp}/logs",
+                         "--inference_run_name=chip_smoke_vit_inference"])
+    check(rc == 0, f"inference-only run returned {rc}")
+    inference = {kernel.source: kernel.launches for kernel in kernels}
+    batches = val_batches + test_batches
+    check_launches(kernels, inference, {1: VIT_LAYERS * batches, 9: VIT_LAYERS * batches},
+                   "the vit16k inference-only run")
+    path = os.path.join(tmp, "logs", "chip_smoke_vit_inference", "test_metrics.txt")
+    check(os.path.exists(path), f"{path} missing")
+    test = {k: float(v) for k, v in (ln.split(": ") for ln in open(path).read().split("\n") if ln)}
+    check(test == metrics["test"], f"inference-only test metrics {test} != {metrics['test']}")
+    print(f"phase 22 inference-only: reloaded {run_dir}/models/model_best_checkpoint; test "
+          f"{test} (the training run's own); launches {inference}", flush=True)
+    return launches
+
+
+def phase_vit_grads(torch, dev, seed=23):
+    """One train step's gradients of the full-width vit16k model (ViT-small,
+    patch 8, ViTLinear) on 256x256 images at batch 2: 1,024 patch tokens and
+    the cls token, so every block's attention takes the flash route (K5 on
+    the card, its plain version on the host). Weights and images from one
+    seed, on the card against the host, fp32 and bf16, per parameter
+    (max|err| / max|reference|). fp32: every parameter within
+    MODEL_GRAD_TOL. bf16 (AMP): the card's fp32 gradients are the reference;
+    each parameter's bf16 gradient on the card may stray from it at most
+    BF16_GRAD_RATIO times as far as the host's bf16 gradient, plus
+    VIT_BF16_GRAD_FLOOR of its max. On the card K5 runs 12 times forward and
+    its two backward kernels 12 times each, per gradient."""
+    from torch.func import functional_call
+
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import amp_params
+
+    argv = ([a for a in vit16k_flags() if a != "--use_amp"]
+            + ["--height=256", "--width=256", f"--seed={seed}"])
+    x = torch.randn(VIT_BATCH, 1, 256, 256, 1, generator=torch.Generator().manual_seed(seed))
+    y = torch.arange(VIT_BATCH) % 2
+    k5 = all_kernels()[9:]
+
+    def grads(model, amp, device):
+        model.to(device).zero_grad(set_to_none=True)
+        before = [k.launches for k in k5]
+        out = functional_call(model, amp_params(model, amp), (x.to(device),)).float()
+        cross_entropy_loss(out, y.to(device)).backward()
+        ran = [k.launches - b for k, b in zip(k5, before)]
+        check(ran == ([VIT_LAYERS] * 3 if device != "cpu" else [0] * 3),
+              f"K5 launches {ran} on {device}")
+        return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+    def errors(got, ref, dname):
+        errs = {}
+        for name, g in got.items():
+            check(bool(torch.isfinite(g).all()), f"{dname}: gradient of {name} not finite")
+            check(g.abs().max().item() > 0, f"{dname}: gradient of {name} is all zero")
+            errs[name] = ((g - ref[name]).abs().max().item()
+                          / max(ref[name].abs().max().item(), 1e-30))
+        return errs
+
+    model = build_model(check_args(parse_config(argv)))
+    amp_model = build_model(check_args(parse_config(argv + ["--use_amp"])))
+    amp_model.load_state_dict(model.state_dict())
+    host32 = grads(model, False, "cpu")
+    host16 = grads(amp_model, True, "cpu")
+    card32 = grads(model, False, dev)
+    card16 = grads(amp_model, True, dev)
+    e32 = errors(card32, host32, "float32")
+    at = max(e32, key=e32.get)
+    print(f"phase 23 vit16k model gradients: full-width ViT-small + ViTLinear, batch "
+          f"{VIT_BATCH} of 256x256 (1,025 tokens), float32, seed {seed}: {len(card32)} "
+          f"parameters, every card gradient finite and non-zero; card vs host worst max|err| / "
+          f"max|host grad| {e32[at]:.3e} ({at})", flush=True)
+    check(e32[at] <= MODEL_GRAD_TOL["float32"],
+          f"float32 vit16k model gradients: {at} off by {e32[at]} of its max")
+    card_e = errors(card16, card32, "bfloat16")
+    host_e = errors(host16, card32, "bfloat16 host")
+    limit = {k: BF16_GRAD_RATIO * host_e[k] + VIT_BF16_GRAD_FLOOR for k in card_e}
+    tight = max(card_e, key=lambda k: card_e[k] / limit[k])
+    ratio = max(card_e, key=lambda k: card_e[k] / max(host_e[k], 1e-30))
+    worst_card, worst_host = max(card_e, key=card_e.get), max(host_e, key=host_e.get)
+    print(f"phase 23 vit16k model gradients, bfloat16: every card gradient finite and non-zero; "
+          f"max|err| / max|fp32 card grad|, worst: card {card_e[worst_card]:.3e} ({worst_card}), "
+          f"host {host_e[worst_host]:.3e} ({worst_host}); per parameter, nearest its limit "
+          f"{tight}: card {card_e[tight]:.3e}, host {host_e[tight]:.3e}, limit "
+          f"{limit[tight]:.3e}; largest card/host ratio {ratio}: {card_e[ratio]:.3e} / "
+          f"{host_e[ratio]:.3e}", flush=True)
+    check(card_e[tight] <= limit[tight],
+          f"bfloat16 vit16k model gradients: the card strays {card_e[tight]} from fp32 at "
+          f"{tight}, more than {BF16_GRAD_RATIO} x the host's {host_e[tight]} + "
+          f"{VIT_BF16_GRAD_FLOOR}")
+    return e32, card_e, host_e
+
+
+def phase_vit_throughput(torch, dev):
+    """The vit16k train step and eval forward at batch 2 on 1024x1024x1, bf16."""
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.metrics.device import make_train_metric_fn
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.optim import OptimManager
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import (amp_params, make_eval_step,
+                                                                   make_train_step)
+
+    cfg = check_args(parse_config(vit16k_flags()))
+    model = build_model(cfg).to(dev)
+    gen = torch.Generator().manual_seed(24)
+    x = torch.randn(VIT_BATCH, 1, 1024, 1024, 1, generator=gen).to(dev)
+    y = (torch.arange(VIT_BATCH) % 2).to(dev)
+    step = make_eval_step(model.eval(), cross_entropy_loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eval_ms = median_ms(torch, lambda: step(amp_params(model, True), x, y, VIT_BATCH), warmup=2,
+                        reps=5)
+    eval_peak = torch.cuda.max_memory_allocated()
+    print(f"phase 24 vit16k eval forward, batch {VIT_BATCH} of 1024x1024, bf16: {eval_ms:.2f} "
+          f"ms/batch = {VIT_BATCH * 1000 / eval_ms:.3f} images/s (median of 5); peak memory "
+          f"{eval_peak / 2**30:.2f} GiB", flush=True)
+    profile_step(torch, lambda: step(amp_params(model, True), x, y, VIT_BATCH),
+                 "phase 24 vit16k eval profile")
+
+    model.train()
+    optim = OptimManager(cfg, num_train_samples=1000)
+    optim.build(model.parameters())
+    _, metrics_fn = make_train_metric_fn(cfg)
+    train = make_train_step(model, cross_entropy_loss, optim, use_amp=True, metrics_fn=metrics_fn)
+    lr = cfg.optim.lr
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(torch, lambda: train([(x, y)], lr, VIT_BATCH), warmup=2, reps=5)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 24 vit16k train step (forward, backward, Adam), batch {VIT_BATCH} of "
+          f"1024x1024, bf16: {ms:.2f} ms/step = {VIT_BATCH * 1000 / ms:.3f} images/s (median of "
+          f"5 after 2 warm-ups); peak memory {peak / 2**30:.2f} GiB", flush=True)
+    profile_step(torch, lambda: train([(x, y)], lr, VIT_BATCH), "phase 24 vit16k profile")
+    return ms, eval_ms
+
+
 def profile_step(torch, fn, label):
     """Device time of one call by event name, from torch.profiler, without
     the autograd Functions' own ranges (the profiler attributes the
@@ -1289,7 +1708,8 @@ def profile_step(torch, fn, label):
     events = [e for e in prof.key_averages() if getattr(e, attr, 0) > 0
               and not e.key.startswith(("_HyenaWindowMixer", "_FusedLnMlpResidual",
                                         "_HyenaChunkedMixer", "_ToeplitzConv",
-                                        "_ChunkToeplitz", "_MambaWindowMixer"))]
+                                        "_ChunkToeplitz", "_MambaWindowMixer",
+                                        "_FlashAttention"))]
     total = sum(getattr(e, attr) for e in events)
     if total:
         top = sorted(events, key=lambda e: -getattr(e, attr))[:20]
@@ -1315,7 +1735,7 @@ def kernel_bounds():
     channels per stage; K1 fwd 8TC^2 of products plus its fp32 convolutions,
     K1 bwd 22TC^2 plus three times those; K2 fwd 16NC^2, bwd 40NC^2), emb
     for K3 (the Toeplitz products 2 * BW * C * chunk^2 * n(n+1)/2), vessel
-    for K4 (its stages 0-2)."""
+    for K4 (its stages 0-2), vit16k for K5 (12 layers)."""
     out = {}
 
     def add(name, depth, b):
@@ -1358,6 +1778,20 @@ def kernel_bounds():
         add("mamba_window_fwd", depth, bound(prod, f32, 4 * t * c + w))
         add("mamba_window_bwd", depth, bound(prod + 6 * t * c * c + 4 * t * dh * (r + 2 * n)
                                              + 4 * t * r * dh, 3 * f32, 6 * t * c + 3 * w))
+    # vit16k K5, per layer: BH head-batches of L tokens at D = 64; each product
+    # 2 BH L^2 D, each pass of exp2 BH L^2 in fp32. The forward is 2 products
+    # (q k^T, p v) and one exp2 pass. The backward's function is 5 products
+    # (q k^T recomputed, do v^T, p^T do, ds^T q, ds k) and one exp2 pass,
+    # split between its two kernels so that their bounds add up to it: dq
+    # takes ds k, half of the shared q k^T and do v^T and half the exp2; dkv
+    # the rest. Bytes: the bf16 (BH, L, D) tensors read and written once (the
+    # forward q, k, v, o; the backward q, o, do, dq for dq and k, v, dk, dv for
+    # dkv) and the fp32 (BH, L) lse
+    bh, l = VIT_BH, VIT_L
+    prod, ex, tile, lse = 2 * bh * l * l * 64, bh * l * l, 2 * bh * l * 64, 4 * bh * l
+    add("flash_attention_fwd", VIT_LAYERS, bound(2 * prod, ex, 4 * tile + lse))
+    add("flash_attention_dq", VIT_LAYERS, bound(2 * prod, ex / 2, 4 * tile + lse))
+    add("flash_attention_dkv", VIT_LAYERS, bound(3 * prod, ex / 2, 4 * tile))
     return {name: (ms, max(votes, key=votes.get)) for name, (ms, votes) in out.items()}
 
 
@@ -1404,46 +1838,71 @@ def run():
         shutil.rmtree(tmp, ignore_errors=True)
     phase_vessel_grads(torch, dev)
     phase_vessel_throughput(torch, dev)
+    from long_context_biomedical_imaging_tpu_torch.ops import flash_attention
+
+    k5 = phase_k5(torch, flash_attention, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vit_")
+    try:
+        vit_launches = phase_vit_slice(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_vit_grads(torch, dev)
+    phase_vit_throughput(torch, dev)
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "long_context_biomedical_imaging_tpu")
                   for m in sys.modules), "JAX was imported")
 
     # per kernel, in its main path's configuration (bf16 under AMP, the
     # folded LN): launches in that path's train slice (ptx for K1 and K2, emb
-    # for K3, vessel for K4), worst error over the stage shapes (the backward: over every
-    # gradient), and the time of one train step at batch 4 (each stage's
-    # time x its depth), with its bound; no single PyTorch call computes any
-    # of these functions, so library_ms is null
+    # for K3, vessel for K4, vit16k for K5), worst error over the stage shapes
+    # (the backward: over every gradient), and the time of one train step
+    # (each stage's time x its depth), with its bound; library_ms is the time
+    # of torch's scaled_dot_product_attention for K5 (forward; its backward
+    # shared between dq and dkv) and null for K1-K4, which no single PyTorch
+    # call computes
     bounds = kernel_bounds()
     depths = [d for _, _, d in STAGES]
     emb_depths = [d for _, _, d in EMB_K3_STAGES]
     vessel_depths = [d for _, _, d in VESSEL_K4_STAGES]
     tpu = "long_context_biomedical_imaging_tpu/ops/"
     rows = [("hyena_window_fwd", hyena_window.HYENA_WINDOW_FWD, k1[("bfloat16", True)], depths,
-             launches, tpu + "hyena_window.py:328"),
+             launches, tpu + "hyena_window.py:328", None),
             ("fused_ln_mlp_fwd", fused_mlp.FUSED_LN_MLP_FWD, k2["bfloat16"], depths, launches,
-             tpu + "fused_mlp.py:197"),
+             tpu + "fused_mlp.py:197", None),
             ("hyena_window_bwd", hyena_window.HYENA_WINDOW_BWD, k1b[("bfloat16", True)], depths,
-             launches, tpu + "hyena_window.py:410"),
+             launches, tpu + "hyena_window.py:410", None),
             ("fused_ln_mlp_bwd", fused_mlp.FUSED_LN_MLP_BWD, k2b["bfloat16"], depths, launches,
-             tpu + "fused_mlp.py:210"),
+             tpu + "fused_mlp.py:210", None),
             ("hyena_chunked_fwd", hyena_window.HYENA_CHUNKED_FWD, k3["bfloat16"]["fwd"],
-             emb_depths, emb_launches, tpu + "hyena_window.py:592"),
+             emb_depths, emb_launches, tpu + "hyena_window.py:592", None),
             ("hyena_chunked_bwd", hyena_window.HYENA_CHUNKED_BWD, k3["bfloat16"]["bwd"],
-             emb_depths, emb_launches, tpu + "hyena_window.py:680"),
+             emb_depths, emb_launches, tpu + "hyena_window.py:680", None),
             ("hyena_dm", hyena_window.HYENA_DM, k3["bfloat16"]["dm"], emb_depths, emb_launches,
-             tpu + "hyena_window.py:854"),
+             tpu + "hyena_window.py:854", None),
             ("mamba_window_fwd", mamba_window.MAMBA_WINDOW_FWD, k4["bfloat16"]["fwd"],
-             vessel_depths, vessel_launches, tpu + "mamba_window.py:201"),
+             vessel_depths, vessel_launches, tpu + "mamba_window.py:201", None),
             ("mamba_window_bwd", mamba_window.MAMBA_WINDOW_BWD, k4["bfloat16"]["bwd"],
-             vessel_depths, vessel_launches, tpu + "mamba_window.py:270")]
+             vessel_depths, vessel_launches, tpu + "mamba_window.py:270", None)]
+    # the plain VJP and SDPA's backward each compute dq, dk and dv in one
+    # call: their times are split between the dq and dkv rows as the rows'
+    # bounds split the backward's work, so that the two rows add up to them
+    bwd_bound = bounds["flash_attention_dq"][0] + bounds["flash_attention_dkv"][0]
+    for label, kernel, key, replaces in (
+            ("flash_attention_fwd", flash_attention.FLASH_FWD, "fwd", "flash_attention.py:65"),
+            ("flash_attention_dq", flash_attention.FLASH_BWD_DQ, "dq", "flash_attention.py:159"),
+            ("flash_attention_dkv", flash_attention.FLASH_BWD_DKV, "dkv",
+             "flash_attention.py:189")):
+        err, k_ms, p_ms, s_ms = k5[key]
+        share = 1.0 if key == "fwd" else bounds[label][0] / bwd_bound
+        rows.append((label, kernel, [(err, k_ms, share * p_ms)], [VIT_LAYERS], vit_launches,
+                     tpu + replaces, VIT_LAYERS * share * s_ms))
     kernels = [{
         "name": label, "route": "cuda", "source": f"{PACKAGE}/csrc/{kernel.source}",
         "replaces": replaces, "launches": path_launches[kernel.source],
         "max_abs_err": max(r[0] for r in res),
         "ms": sum(d * r[1] for d, r in zip(dep, res)),
         "plain_ms": sum(d * r[2] for d, r in zip(dep, res)),
-        "bound_ms": bounds[label][0], "bound_by": bounds[label][1], "library_ms": None,
-    } for label, kernel, res, dep, path_launches, replaces in rows]
+        "bound_ms": bounds[label][0], "bound_by": bounds[label][1], "library_ms": library,
+    } for label, kernel, res, dep, path_launches, replaces, library in rows]
     for row in kernels:
         check(row["launches"] > 0, f"{row['name']} never ran on its main path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,7 +22,8 @@
 // device and a VMEM limit, and are not copied. wb starts at 256 / V windows
 // and halves until the tiles fit in shared memory (C = 384 in fp32 takes one
 // window of 64 tokens, 205 KB); where one window does not fit, the fp32
-// accumulator moves to global scratch (mamba_fwd_plan).
+// accumulator moves to global scratch, and where the rows do not fit either,
+// they follow it (mamba_fwd_plan).
 //
 // Operands arrive prepared by the wrapper, as for the TPU kernel: wconv (3, C)
 // the conv taps (tap j on token t-1+j), at (N, Dh) = A^T, dtb2 = 2 * dt_bias
@@ -31,28 +32,37 @@
 
 namespace lcbi {
 
+// Where a tile's arrays live: kShared all in shared memory; kAccGlobal the
+// fp32 accumulator in global scratch; kRowsGlobal the rows (ys) too, so that
+// only x_proj's columns stay in shared memory.
+enum MambaFwdPlace { kShared = 0, kAccGlobal = 1, kRowsGlobal = 2 };
+
 struct MambaFwdLayout {
   int lds, ldacc, ldd;
-  size_t off_dbl, off_acc, acc_bytes, bytes;
+  size_t ys_bytes, dbl_bytes, acc_bytes;
+  size_t smem, work;  // dynamic shared memory and global scratch a block
 };
 
-// Shared memory of a tile of rows_pad rows: ys, then dbl, then (unless
-// acc_global) the fp32 accumulator; acc_bytes is the accumulator's size.
+// A tile of rows_pad rows: in shared memory ys (unless kRowsGlobal), then
+// dbl, then the fp32 accumulator (unless global); in a block's global
+// scratch the accumulator, then ys.
 __host__ __device__ inline MambaFwdLayout mamba_fwd_layout(int rows_pad, int C, int W, int elem,
-                                                           int acc_global) {
+                                                           int place) {
   MambaFwdLayout L;
   L.lds = C + 8;
   L.ldacc = C + 4;
   L.ldd = W;
-  L.off_dbl = align128((size_t)rows_pad * L.lds * elem);
-  L.off_acc = L.off_dbl + align128((size_t)rows_pad * L.ldd * 4);
+  L.ys_bytes = align128((size_t)rows_pad * L.lds * elem);
+  L.dbl_bytes = align128((size_t)rows_pad * L.ldd * 4);
   L.acc_bytes = align128((size_t)rows_pad * L.ldacc * 4);
-  L.bytes = L.off_acc + (acc_global ? 0 : L.acc_bytes);
+  L.smem = L.dbl_bytes + (place < kRowsGlobal ? L.ys_bytes : 0) +
+           (place < kAccGlobal ? L.acc_bytes : 0);
+  L.work = (place >= kAccGlobal ? L.acc_bytes : 0) + (place >= kRowsGlobal ? L.ys_bytes : 0);
   return L;
 }
 
 struct MambaFwdPlan {
-  int wb, acc_global;      // wb == 0: the shape does not fit
+  int wb, place;            // wb == 0: the shape does not fit
   size_t smem, work_bytes;  // dynamic shared memory a block; global scratch in all
   long long blocks;
 };
@@ -61,48 +71,62 @@ struct MambaFwdPlan {
 // halving until the tile fits in shared memory. Where one window's fp32
 // accumulator does not fit beside its rows (V = 64 at C = 768 in bf16, or C >
 // 384 in fp32), the accumulator moves to a per-block scratch in global memory
-// (mostly L2-resident) and only the rows and x_proj's columns stay in shared
-// memory; wb == 0 where even those do not fit (V = 64 at C > 832 in fp32).
+// (mostly L2-resident); where the rows do not fit either (V = 64 at C > 832 in
+// fp32: Swin-base without AMP), they follow it, and only x_proj's columns stay
+// in shared memory.
 inline MambaFwdPlan mamba_fwd_plan(int BW, int V, int C, int R, int elem) {
   const size_t limit = (size_t)max_dynamic_smem();
   const int W = R + 2 * kMambaN;
   MambaFwdPlan P{0, 0, 0, 0, 0};
-  for (int g = 0; g < 2; ++g) {
-    auto layout = [&](int nw) { return mamba_fwd_layout(round_up16(nw * V), C, W, elem, g); };
+  for (int place = kShared; place <= kRowsGlobal; ++place) {
+    auto layout = [&](int nw) { return mamba_fwd_layout(round_up16(nw * V), C, W, elem, place); };
     int wb = 256 / V;
-    while (wb > 1 && layout(wb).bytes > limit) wb /= 2;
+    while (wb > 1 && layout(wb).smem > limit) wb /= 2;
     const MambaFwdLayout L = layout(wb);
-    if (L.bytes > limit) continue;
+    if (L.smem > limit) continue;
     P.wb = wb;
-    P.acc_global = g;
-    P.smem = L.bytes;
+    P.place = place;
+    P.smem = L.smem;
     P.blocks = (BW + wb - 1) / wb;
-    P.work_bytes = g ? (size_t)P.blocks * L.acc_bytes : 0;
+    P.work_bytes = (size_t)P.blocks * L.work;
     return P;
   }
   return P;
 }
 
-// kAccGlobal: the accumulator lives in work, not in shared memory (a template
-// argument, so that the shared-memory variant keeps shared-memory addressing).
-template <typename T, bool kAccGlobal>
+// kPlace (a MambaFwdPlace) is a template argument, so that the shared-memory
+// variant keeps shared-memory addressing.
+template <typename T, int kPlace>
 __global__ void __launch_bounds__(kThreads)
 mamba_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         const float* __restrict__ ln_b, const T* __restrict__ wxz,
                         const float* __restrict__ wconv, const T* __restrict__ wdbl,
                         const T* __restrict__ wdt, const float* __restrict__ dtb2,
                         const float* __restrict__ at, const float* __restrict__ dskip,
-                        const T* __restrict__ wout, T* __restrict__ out, float* __restrict__ work,
-                        int BW, int V, int C, int R, int wb, int rows_pad, int has_ln) {
+                        const T* __restrict__ wout, T* __restrict__ out,
+                        unsigned char* __restrict__ work, int BW, int V, int C, int R, int wb,
+                        int rows_pad, int has_ln) {
   constexpr int N = kMambaN;
   extern __shared__ __align__(128) unsigned char smem[];
   const int Dh = C / 2, W = R + 2 * N;
-  const MambaFwdLayout L = mamba_fwd_layout(rows_pad, C, W, sizeof(T), kAccGlobal);
-  T* ys = reinterpret_cast<T*>(smem);                    // LN'd rows, then [y | z]
-  float* dbl = reinterpret_cast<float*>(smem + L.off_dbl);
-  float* acc = kAccGlobal                                // xz -> s -> out_proj
-                   ? work + (size_t)blockIdx.x * (L.acc_bytes / 4)
-                   : reinterpret_cast<float*>(smem + L.off_acc);
+  const MambaFwdLayout L = mamba_fwd_layout(rows_pad, C, W, sizeof(T), kPlace);
+  unsigned char* sp = smem;
+  unsigned char* gp = kPlace >= kAccGlobal ? work + (size_t)blockIdx.x * L.work : nullptr;
+  float* acc = nullptr;                                  // xz -> s -> out_proj
+  if constexpr (kPlace >= kAccGlobal) {
+    acc = reinterpret_cast<float*>(gp);
+    gp += L.acc_bytes;
+  }
+  T* ys;                                                 // LN'd rows, then [y | z]
+  if constexpr (kPlace >= kRowsGlobal) {
+    ys = reinterpret_cast<T*>(gp);
+  } else {
+    ys = reinterpret_cast<T*>(sp);
+    sp += L.ys_bytes;
+  }
+  float* dbl = reinterpret_cast<float*>(sp);
+  sp += L.dbl_bytes;
+  if constexpr (kPlace < kAccGlobal) acc = reinterpret_cast<float*>(sp);
 
   const int w0 = blockIdx.x * wb;
   const int nwin = min(wb, BW - w0);
@@ -169,7 +193,9 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* wxz, c
            int has_ln, cudaStream_t stream) {
   const MambaFwdPlan P = mamba_fwd_plan(BW, V, C, R, sizeof(T));
   if (P.wb == 0 || P.work_bytes > work_bytes) return (int)cudaErrorInvalidValue;
-  auto kernel = P.acc_global ? mamba_window_fwd_kernel<T, true> : mamba_window_fwd_kernel<T, false>;
+  auto kernel = P.place == kShared      ? mamba_window_fwd_kernel<T, kShared>
+                : P.place == kAccGlobal ? mamba_window_fwd_kernel<T, kAccGlobal>
+                                        : mamba_window_fwd_kernel<T, kRowsGlobal>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.smem);
   if (err != cudaSuccess) return (int)err;
@@ -178,7 +204,7 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* wxz, c
       static_cast<const T*>(wxz), static_cast<const float*>(wconv), static_cast<const T*>(wdbl),
       static_cast<const T*>(wdt), static_cast<const float*>(dtb2), static_cast<const float*>(at),
       static_cast<const float*>(dskip), static_cast<const T*>(wout), static_cast<T*>(out),
-      static_cast<float*>(work), BW, V, C, R, P.wb, round_up16(P.wb * V), has_ln);
+      static_cast<unsigned char*>(work), BW, V, C, R, P.wb, round_up16(P.wb * V), has_ln);
   return (int)cudaGetLastError();
 }
 

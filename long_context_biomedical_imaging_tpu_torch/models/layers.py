@@ -1,4 +1,4 @@
-"""Shared model blocks: Dense, patch embedding, fused LN+MLP, LayerNorms.
+"""Shared model blocks: Dense, patch embeddings, fused LN+MLP, LayerNorms.
 
 Counterpart of the JAX package's ``models/layers.py``. Parameters keep the
 JAX names and layouts (Dense kernels are (in, out)), so a JAX parameter tree
@@ -103,6 +103,41 @@ class PatchEmbed(nn.Module):
         return x @ self.kernel + self.bias
 
 
+def trunc_normal_init_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    """flax's truncated_normal(stddev=std): a standard normal truncated to
+    [-2, 2], scaled by std over that truncated normal's own std."""
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        t.mul_(std / 0.87962566103423978)
+
+
+class PatchEmbeddingBlock(PatchEmbed):
+    """ViT patchify (B, *spatial, C) -> tokens (B, L, E), row-major over the
+    patch grid, plus a learnable position embedding (trunc_normal(0.02),
+    shape (1, L, E), cast to the tokens' dtype before the add).
+    ``dtype`` (bf16 under AMP) applies after patch extraction, as in
+    PatchEmbed."""
+
+    def __init__(self, img_size: Sequence[int], patch_size: Sequence[int], in_channels: int,
+                 hidden_size: int, dtype: torch.dtype | None = None):
+        super().__init__(patch_size, in_channels, hidden_size, dtype)
+        for i, p in zip(img_size, patch_size):
+            if i % p:
+                raise ValueError(f"img_size {tuple(img_size)} not divisible by patch "
+                                 f"{tuple(patch_size)}")
+        n_patches = math.prod(i // p for i, p in zip(img_size, patch_size))
+        self.position_embeddings = nn.Parameter(torch.empty(1, n_patches, hidden_size))
+
+    def init_params(self, gen):
+        super().init_params(gen)
+        trunc_normal_init_(self.position_embeddings, 0.02, gen)
+
+    def forward(self, x):
+        x = super().forward(x)
+        x = x.reshape(x.shape[0], -1, x.shape[-1])
+        return x + self.position_embeddings.to(x.dtype)
+
+
 class LNMLPResidual(nn.Module):
     """x + MLP(LayerNorm(x)), the pre-LN transformer second half, in one
     kernel (``ops.fused_ln_mlp_residual``). x: (N, C)."""
@@ -159,6 +194,32 @@ class LayerNormAmp(nn.Module):
         var = (x32 - mu).square().mean(dim=-1, keepdim=True)
         y = (x32 - mu) * torch.rsqrt(var + self.eps)
         return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+
+class FlaxLayerNorm(nn.Module):
+    """flax's nn.LayerNorm (scale/bias, eps 1e-6), which the ViT uses: fp32
+    statistics in the fast form var = max(E[x^2] - mu^2, 0), y = (x - mu) *
+    (rsqrt(var + eps) * scale) + bias in fp32, the result in the promoted
+    dtype of x and the parameters (bf16 under AMP, where both are bf16).
+    LayerNormAmp differs in its variance (two-pass) and its result dtype
+    (always x's)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+
+    def init_params(self, gen):
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        x32 = x.float()
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = ((x32 * x32).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        y = (x32 - mu) * (torch.rsqrt(var + self.eps) * self.scale.float()) + self.bias.float()
+        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
 
 
 class ConvNd(nn.Module):

@@ -30,9 +30,9 @@ copied. The backward rounds its products' operands where the TPU kernel does
 and returns the projection weights' gradients in their dtype, the rest in fp32.
 
 The kernels take every window length of the gate (:func:`mamba_window_supported`)
-at C % 32 == 0 and a dt rank up to 64, with one exception: the forward keeps a
-tile's rows in shared memory and refuses fp32 windows of 64 tokens at C > 832.
-Each kernel sizes its global scratch itself; the wrappers ask the library
+at C % 32 == 0 and a dt rank up to 64. Each kernel sizes its global scratch
+itself (the forward's tile moves there, wholly or in part, where it outgrows
+shared memory); the wrappers ask the library
 (``lcbi_mamba_window_{fwd,bwd}_workspace``) and allocate it.
 """
 
@@ -158,8 +158,7 @@ def _workspace_bytes(kernel, symbol, *shape) -> int:
     n = kernel.query(symbol, [ctypes.c_int] * len(shape), ctypes.c_longlong, *shape)
     if n < 0:
         raise ValueError(f"{symbol}: the Mamba window kernel cannot take (V, C, R, bf16) = "
-                         f"{shape[-4:]} (the forward: one window's rows do not fit in shared "
-                         f"memory)")
+                         f"{shape[-4:]}")
     return n
 
 

@@ -2,13 +2,15 @@
 
 The port's modules keep the JAX parameter names and layouts (Dense kernels
 stay (in, out), in_proj stays (C, 3C) with head-major [x1 | x2 | v] blocks),
-so conversion is a flatten and three renames, with no transposes:
+so conversion is a flatten and a few renames, with no transposes:
 
   * flax's inner ``Dense_0`` scope of a Dense wrapper is dropped
     (``.../linears_in/Dense_0/kernel`` -> ``...linears_in.kernel``);
   * so is the inner ``Conv_0`` scope of a ConvNd (conv kernels stay HWIO:
     ``.../conv1x1_0/Conv_0/kernel`` -> ``...conv1x1_0.kernel``);
-  * PatchMergingV2's ``TorchDense_0`` is the port's ``reduction``.
+  * flax's auto-named ``TorchDense_<i>`` scopes get the port's names, by
+    their parent scope: PatchMergingV2's (``downsample``) is ``reduction``,
+    the ViT attention's (``attn``) are ``qkv`` and ``proj``.
 
 The JAX ``batch_stats`` collection (BatchNorm ``mean`` / ``var``) maps the
 same way onto the port's BatchNorm buffers of those names. Load the result
@@ -23,13 +25,16 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-_RENAME = {"TorchDense_0": "reduction"}
+# (parent scope, scope) -> the port's name
+_RENAME = {("downsample", "TorchDense_0"): "reduction",
+           ("attn", "TorchDense_0"): "qkv", ("attn", "TorchDense_1"): "proj"}
 _DROP = {"Dense_0", "Conv_0"}
 
 
 def port_key(path) -> str:
     """JAX tree path (tuple of names) -> port state_dict key."""
-    return ".".join(_RENAME.get(p, p) for p in path if p not in _DROP)
+    return ".".join(_RENAME.get((path[i - 1] if i else None, p), p)
+                    for i, p in enumerate(path) if p not in _DROP)
 
 
 def params_from_jax(tree) -> dict[str, torch.Tensor]:

@@ -1,8 +1,9 @@
 """PyTorch port, on a CUDA card: each hand-written kernel (forward and
 backward) against its plain PyTorch version, at small odd shapes the ptx
 path does not reach (ragged row tiles, V = 1/24/64, C = 16/768; for K3
-ragged window groups and chunks of 64), K3 also at the emb stage shapes, and
-a whole model whose every parameter gets a gradient on the card. Marked ``cuda``;
+ragged window groups and chunks of 64), K3 also at the emb stage shapes, K5
+(flash attention) at ragged sequence lengths and at the vit16k shape, and
+whole models whose every parameter gets a gradient on the card. Marked ``cuda``;
 without a card every test skips. This file imports neither JAX nor flax, so that it runs where
 only PyTorch is installed:
 
@@ -14,6 +15,7 @@ chip_smoke.py makes the same comparison at the ptx and emb shapes.
 import pytest
 import torch
 
+from long_context_biomedical_imaging_tpu_torch.ops import flash_attention as tfa
 from long_context_biomedical_imaging_tpu_torch.ops import fused_mlp as tmlp
 from long_context_biomedical_imaging_tpu_torch.ops import hyena_window as thw
 from long_context_biomedical_imaging_tpu_torch.ops import mamba_window as tmw
@@ -400,6 +402,27 @@ def test_mamba_window_backward_kernel_matches_plain(cuda_device, dtype, bw, v, c
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_ln", [False, True])
+def test_mamba_window_kernels_take_fp32_swin_base_windows(cuda_device, with_ln):
+    """Swin-base (C = 1024) without AMP: fp32 windows of 64 tokens, whose rows
+    outgrow a block's shared memory, so the forward keeps its rows and its
+    accumulator in global scratch. Forward and backward against the plain
+    versions."""
+    gen = torch.Generator().manual_seed(1024 + with_ln)
+    args = _mamba_args(gen, 1024, 64, 1024, torch.float32, cuda_device, with_ln)
+    out = tmw.mamba_window_fwd(*args)
+    torch.cuda.synchronize()
+    ref = tmw.mamba_window_plain(*args)
+    err = (out - ref).abs().max().item()
+    assert err <= _tol(torch.float32) * ref.abs().max().item(), err
+    del out, ref
+    do = _randn(gen, (1024, 64, 1024), 1.0).to(cuda_device)
+    got = tmw.mamba_window_bwd(do, *args)
+    torch.cuda.synchronize()
+    _check_grads(got, tmw.mamba_window_bwd_plain(do, *args), torch.float32, _K4_NAMES)
+
+
+@pytest.mark.cuda
 def test_mamba_window_mixer_goes_through_both_kernels(cuda_device):
     """mamba_window_mixer on CUDA tensors launches K4 forward and backward,
     never the plain version, and its gradients reach the raw parameters
@@ -429,9 +452,9 @@ def test_mamba_window_kernels_are_deterministic_and_refuse(cuda_device):
     """Two K4 backward launches on the same inputs at the vessel stage-1
     shape give bitwise-equal gradients (ordered slot and warp sums); a
     launch the kernel refuses (V = 72) raises and the wrapper refuses what
-    it cannot take: d_state 4, and fp32 windows of 64 tokens at C = 864, whose
-    rows alone outgrow a block's shared memory (the forward takes C <= 832
-    there)."""
+    it cannot take (d_state 4). fp32 windows of 64 tokens at C = 864, whose
+    rows alone outgrow a block's shared memory, run with the rows in global
+    scratch and match the plain version."""
     gen = torch.Generator().manual_seed(11)
     args = _mamba_args(gen, 4096, 64, 192, torch.bfloat16, cuda_device, True)
     do = _randn(gen, (4096, 64, 192), 1.0).to(cuda_device, torch.bfloat16)
@@ -447,8 +470,9 @@ def test_mamba_window_kernels_are_deterministic_and_refuse(cuda_device):
     edge = _mamba_args(gen, 2, 64, 832, torch.float32, cuda_device, False)
     assert tmw.mamba_window_fwd(*edge).shape == (2, 64, 832)
     wide = _mamba_args(gen, 2, 64, 864, torch.float32, cuda_device, False)
-    with pytest.raises(ValueError, match="cannot take"):
-        tmw.mamba_window_fwd(*wide)
+    got = tmw.mamba_window_fwd(*wide)
+    ref = tmw.mamba_window_plain(*wide)
+    assert (got - ref).abs().max().item() <= _tol(torch.float32) * ref.abs().max().item()
     small = _mamba_args(gen, 2, 16, 64, torch.float32, cuda_device, False)
     small[6] = small[6][:4].contiguous()
     with pytest.raises(ValueError):
@@ -484,6 +508,135 @@ def test_every_vessel_parameter_gets_a_gradient_on_the_card(cuda_device, amp):
     torch.cuda.synchronize()
     assert (tmw.MAMBA_WINDOW_FWD.launches - counts[0],
             tmw.MAMBA_WINDOW_BWD.launches - counts[1]) == (1, 1)
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        assert p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max() > 0, name
+
+
+# ---------------------------------------------------------------------------
+# K5, flash attention (vit16k)
+# ---------------------------------------------------------------------------
+
+def _flash_args(gen, bh, l, dtype, device):
+    return [_randn(gen, (bh, l, 64), 1.0).to(device, dtype) for _ in range(4)]
+
+
+def _check_flash(got, ref, dtype, names, floor):
+    """Each output against its plain reference within the forward's (_tol)
+    or the gradients' (_grad_tol) share of max(max|ref|, floor)."""
+    for name, g, r in zip(names, got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert torch.isfinite(g).all(), name
+        tol = _tol(dtype) if name in ("o", "lse") else _grad_tol(dtype)
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= tol * max(r.float().abs().max().item(), floor), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,l", [(3, 1), (3, 63), (2, 65), (2, 1025)])
+def test_flash_attention_kernels_match_plain(cuda_device, dtype, bh, l):
+    """K5 forward (o, lse), dq and dk/dv against the plain version and its
+    VJP at ragged lengths: a lone key and query (L = 1), one short tile, a
+    tile and one row, 16 tiles and one row (the vit16k tail at 1,025 tokens).
+    One launch each. At L = 1 dq and dk vanish exactly (a softmax over one
+    key) and the kernels leave fp32 round-off of dp - delta, so their floor
+    is the inputs' scale, 1."""
+    gen = torch.Generator().manual_seed(bh * 10000 + l)
+    q, k, v, do = _flash_args(gen, bh, l, dtype, cuda_device)
+    scale = 64 ** -0.5
+    counts = (tfa.FLASH_FWD.launches, tfa.FLASH_BWD_DQ.launches, tfa.FLASH_BWD_DKV.launches)
+    o, lse = tfa.flash_attention_fwd(q, k, v, scale)
+    grads = tfa.flash_attention_bwd(do, q, k, v, o, lse, scale)
+    torch.cuda.synchronize()
+    assert (tfa.FLASH_FWD.launches - counts[0], tfa.FLASH_BWD_DQ.launches - counts[1],
+            tfa.FLASH_BWD_DKV.launches - counts[2]) == (1, 1, 1)
+    floor = 1.0 if l == 1 else 1e-6
+    _check_flash((o, lse), tfa.flash_attention_plain(q, k, v, scale), dtype, ("o", "lse"), floor)
+    _check_flash(grads, tfa.flash_attention_bwd_plain(do, q, k, v, scale), dtype,
+                 ("dq", "dk", "dv"), floor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_plain_at_vit16k(cuda_device, dtype):
+    """K5 at the vit16k shape, (12, 16385, 64): the kernels run on all 12
+    head-batches, every output is finite, and head-batches 0 and 11 (the
+    plain version holds (L, L) fp32 scores per head-batch, several of them in
+    its VJP) match the plain version and its VJP."""
+    gen = torch.Generator().manual_seed(16385)
+    q, k, v, do = _flash_args(gen, 12, 16385, dtype, cuda_device)
+    scale = 64 ** -0.5
+    o, lse = tfa.flash_attention_fwd(q, k, v, scale)
+    grads = tfa.flash_attention_bwd(do, q, k, v, o, lse, scale)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in (o, lse, *grads))
+    for i in (0, 11):
+        sl = [t[i:i + 1] for t in (q, k, v, do)]
+        _check_flash((o[i:i + 1], lse[i:i + 1]), tfa.flash_attention_plain(*sl[:3], scale),
+                     dtype, ("o", "lse"), 1e-6)
+        _check_flash([g[i:i + 1] for g in grads],
+                     tfa.flash_attention_bwd_plain(sl[3], *sl[:3], scale), dtype,
+                     ("dq", "dk", "dv"), 1e-6)
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernels_are_deterministic_and_refuse(cuda_device):
+    """Two launches of each K5 kernel on the same inputs give the same bits
+    (no atomics); the wrappers refuse a head dim other than 64, fp16, a
+    non-contiguous tensor, operands on two devices or of two dtypes."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do = _flash_args(gen, 4, 777, torch.bfloat16, cuda_device)
+    first = tfa.flash_attention_fwd(q, k, v, 0.125)
+    again = tfa.flash_attention_fwd(q, k, v, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    g1 = tfa.flash_attention_bwd(do, q, k, v, *first, 0.125)
+    g2 = tfa.flash_attention_bwd(do, q, k, v, *first, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    narrow = [t[..., :32].contiguous() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="D == 64"):
+        tfa.flash_attention_fwd(*narrow, 0.125)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_fwd(*(t.half() for t in (q, k, v)), 0.125)
+    strided = q.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_fwd(strided, k, v, 0.125)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(q, k.cpu(), v, 0.125)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_fwd(q, k.float(), v, 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [False, True])
+def test_every_vit_parameter_gets_a_gradient_on_the_card(cuda_device, amp):
+    """A ViT (hidden 128, 2 heads of 64, 2 layers) on 128x128 images with
+    patch 4 (1,024 tokens and the cls token, so K5) trains one step on the
+    card: K5 forward launches twice (one per block) and dq and dkv twice in
+    the backward, and the loss backward reaches every parameter, through the
+    bf16 AMP cast too, with finite, non-zero gradients."""
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import amp_params
+
+    argv = ["--task_type=class", "--encoder_name=ViT", "--decoder_name=ViTLinear",
+            "--height=128", "--width=128", "--no_in_channel=1", "--no_out_channel=2",
+            "--seed=3", "--ViT.size=custom", "--ViT.hidden_size=128", "--ViT.mlp_dim=256",
+            "--ViT.num_layers=2", "--ViT.num_heads=2", "--ViT.patch_size", "4"] + (
+                ["--use_amp"] if amp else [])
+    model = build_model(check_args(parse_config(argv))).to(cuda_device)
+    x = torch.randn(2, 1, 128, 128, 1, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    y = torch.tensor([0, 1], device=cuda_device)
+    counts = (tfa.FLASH_FWD.launches, tfa.FLASH_BWD_DQ.launches, tfa.FLASH_BWD_DKV.launches)
+    out = torch.func.functional_call(model, amp_params(model, amp), (x,))
+    assert out.shape == (2, 2)
+    cross_entropy_loss(out.float(), y).backward()
+    torch.cuda.synchronize()
+    assert (tfa.FLASH_FWD.launches - counts[0], tfa.FLASH_BWD_DQ.launches - counts[1],
+            tfa.FLASH_BWD_DKV.launches - counts[2]) == (2, 2, 2)
     for name, p in model.named_parameters():
         assert p.grad is not None, name
         assert p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name

@@ -162,7 +162,7 @@ _EVAL = ["--train_model=False", "--device=cpu", "--task_type=class",
     ["--train_model=True", "--optim_type=nadam"],
     ["--train_model=True", "--optim_type=lbfgs"],
     ["--model_parallel=2"],
-    ["--encoder_name=ViT", "--decoder_name=ViTLinear"],
+    ["--encoder_name=ViT", "--decoder_name=ViTLinear", "--ViT.use_hyena=True"],
     ["--encoder_name=ViT", "--decoder_name=ViTLinear", "--ViT.use_mamba=True"],
     ["--Swin.use_hyena=False"],
     ["--task_type=seg", "--decoder_name=UperNet3D", "--time=16"],
