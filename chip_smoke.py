@@ -4,7 +4,7 @@
 
 Phases, each printing one line of numbers (or a few):
   1. device: the card, as nvidia-smi reports its name and power limit;
-  2. build: the twelve hand-written kernels from csrc/ with nvcc, in parallel
+  2. build: the fourteen hand-written kernels from csrc/ with nvcc, in parallel
      (one nvcc per source), with their build seconds and ptxas
      register/spill lines;
   3. K1, the fused Hyena window mixer, against its plain PyTorch version at
@@ -72,10 +72,11 @@ Phases, each printing one line of numbers (or a few):
      profile;
  21. K5, the flash attention of the vit16k path: forward, dq and dk/dv
      against the plain version and its VJP at ragged lengths (1, 63, 65,
-     1025 tokens) and at the vit16k shape (12 head-batches of 16,385 tokens,
-     D = 64; the plain version on 4 of them), fp32 and bf16, two launches
-     bitwise equal; then the times of the kernels, the plain version and
-     torch's scaled_dot_product_attention at vit16k in bf16;
+     1025 tokens), at head dims 32 and 128 (1,025 tokens) and at the vit16k
+     shape (12 head-batches of 16,385 tokens, D = 64; the plain version on 4
+     of them), fp32 and bf16, two launches bitwise equal; then the times of
+     the kernels, the plain version and torch's scaled_dot_product_attention
+     at vit16k in bf16;
  22. vit16k train slice: run_torch.main trains vit16k (--debug, 2 epochs)
      on synthetic 1024x1024x1 images with the flags of projects/run_ptx.sh
      for the ViT-small encoder (patch 8, attention), ViTLinear and batch 2,
@@ -88,6 +89,28 @@ Phases, each printing one line of numbers (or a few):
      card against the host, fp32 and bf16, per parameter;
  24. vit16k throughput: the vit16k train step and eval forward at batch 2
      on 1024x1024 in bf16, steady state, with peak memory and one-step
+     profiles;
+ 25. K6, the spectral long conv of the vit65k_hyena path: the convolution
+     (forward, and with the conjugate spectrum the du of its backward), dk
+     and dbias against the plain version and its VJP at the vit65k_hyena
+     shape (1, 384, 65536), the odd batch at the gate's floor (3, 8, 8192)
+     and the gate's ceiling (1, 4, 131072), with and without the skip bias,
+     fp32 and bf16, two launches bitwise equal; the refusals; then the times
+     of the kernels and the plain version at (1, 384, 65536) in bf16;
+ 26. vit65k_hyena train slice: run_torch.main trains vit65k_hyena (--debug,
+     2 epochs) on synthetic 1024x1024x1 images with the flags of
+     projects/run_ptx.sh for the ViT-small encoder (patch 4, Hyena),
+     ViTLinear and batch 1, saves and reloads checkpoints, evaluates; checks
+     that the K6 conv ran 12 times per forward batch and 12 more per train
+     step (du), K6 dk and K2 backward 12 times per train step, K2 forward 12
+     times per forward batch, K1, K3, K4 and K5 never; then
+     --inference_only, which must reproduce the test metrics;
+ 27. vit65k_hyena model gradients: one train step's gradients of the
+     full-width ViT-small Hyena on 256x512 images (8,192 tokens, K6's lowest
+     length) at batch 1, on the card against the host, fp32 and bf16, per
+     parameter;
+ 28. vit65k_hyena throughput: the train step and eval forward at batch 1 on
+     1024x1024 in bf16, steady state, with peak memory and one-step
      profiles.
 Then one JSON line with the kernels' numbers, and last the result line.
 Every time is on this card, with its name and power limit printed in phase 1.
@@ -132,10 +155,9 @@ def vessel_flags() -> list[str]:
     return project_flags("run_vessel.sh")
 
 
-def vit16k_flags() -> list[str]:
-    """vit16k (scripts/overfit_one_batch.py): the flags of projects/run_ptx.sh
-    with the ViT-small encoder (patch 8, softmax attention) for Swin,
-    ViTLinear for SwinLinear and batch 2."""
+def _vit_flags(patch: int, batch: int, use_hyena: bool) -> list[str]:
+    """The flags of projects/run_ptx.sh with the ViT-small encoder for Swin,
+    ViTLinear for SwinLinear and the given patch, batch size and mixer."""
     flags, out, i = ptx_flags(), [], 0
     while i < len(flags):
         flag, values = flags[i], []
@@ -147,11 +169,23 @@ def vit16k_flags() -> list[str]:
         if name.startswith("--Swin.") or name in ("--encoder_name", "--decoder_name"):
             continue
         if name == "--batch_size":
-            flag, values = f"--batch_size={VIT_BATCH}", []
+            flag, values = f"--batch_size={batch}", []
         out += [flag] + values
-    return out + ["--encoder_name=ViT", "--ViT.size=small", "--ViT.patch_size", "8",
-                  "--ViT.use_hyena", "False", "--ViT.use_mamba", "False",
+    return out + ["--encoder_name=ViT", "--ViT.size=small", "--ViT.patch_size", str(patch),
+                  "--ViT.use_hyena", str(use_hyena), "--ViT.use_mamba", "False",
                   "--decoder_name=ViTLinear"]
+
+
+def vit16k_flags() -> list[str]:
+    """vit16k (scripts/overfit_one_batch.py): ViT-small, patch 8, softmax
+    attention, batch 2."""
+    return _vit_flags(8, VIT_BATCH, False)
+
+
+def vit65k_hyena_flags() -> list[str]:
+    """vit65k_hyena (scripts/overfit_one_batch.py): ViT-small, patch 4, the
+    Hyena mixer over all 65,536 tokens, batch 1."""
+    return _vit_flags(4, H65_BATCH, True)
 
 
 # ptx at batch 4: Swin-tiny stages on 512^2 .. 64^2 token grids, windows of 16
@@ -205,6 +239,21 @@ K5_PLAIN_SLICE = 2
 # phase 23, bf16: each parameter's card error may exceed BF16_GRAD_RATIO x the
 # host's by this much of its max
 VIT_BF16_GRAD_FLOOR = 2e-2
+# phase 21, K5 at the other head dims (BH, L, D): 1,025 tokens, ragged at
+# either tile edge (64 rows at D = 32, 32 at D = 128)
+K5_HEAD_DIMS = [(2, 1025, 32), (2, 1025, 128)]
+# vit65k_hyena at batch 1: 1024x1024 in 4x4 patches, no cls token; the Hyena
+# long conv of each of ViT-small's 12 layers on (1, 384, 65536)
+H65_BATCH, H65_L, H65_D = 1, 65536, 384
+# phase 25, K6's shapes (B, D, L): the vit65k_hyena call, the odd batch at the
+# gate's floor, the gate's ceiling
+K6_SHAPES = [(H65_BATCH, H65_D, H65_L), (3, 8, 8192), (1, 4, 131072)]
+# of each output's max|plain|: fp32, the four-step FFT against cuFFT, fp32
+# round-off of a length-2L transform; bf16, both sum in fp32 and round once
+K6_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# phase 27, bf16: each parameter's card error may exceed BF16_GRAD_RATIO x the
+# host's by this much of its max
+H65_BF16_GRAD_FLOOR = 2e-2
 # the card's peaks for the bounds (H100 SXM data sheet, dense): bf16 tensor
 # cores, fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -265,16 +314,18 @@ def phase_device(torch):
 
 def all_kernels():
     """K1 fwd, K2 fwd, K1 bwd, K2 bwd, K3 fwd, K3 bwd, K3 dM, K4 fwd, K4 bwd,
-    K5 fwd, K5 dq, K5 dkv."""
+    K5 fwd, K5 dq, K5 dkv, K6 conv, K6 dk."""
     from long_context_biomedical_imaging_tpu_torch.ops import (flash_attention, fused_mlp,
-                                                               hyena_window, mamba_window)
+                                                               hyena_window, mamba_window,
+                                                               spectral_conv)
 
     return (hyena_window.HYENA_WINDOW_FWD, fused_mlp.FUSED_LN_MLP_FWD,
             hyena_window.HYENA_WINDOW_BWD, fused_mlp.FUSED_LN_MLP_BWD,
             hyena_window.HYENA_CHUNKED_FWD, hyena_window.HYENA_CHUNKED_BWD,
             hyena_window.HYENA_DM, mamba_window.MAMBA_WINDOW_FWD, mamba_window.MAMBA_WINDOW_BWD,
             flash_attention.FLASH_FWD, flash_attention.FLASH_BWD_DQ,
-            flash_attention.FLASH_BWD_DKV)
+            flash_attention.FLASH_BWD_DKV, spectral_conv.SPECTRAL_CONV,
+            spectral_conv.SPECTRAL_CONV_DK)
 
 
 def check_launches(kernels, launches, expected, where):
@@ -1354,7 +1405,8 @@ def _k5_errors(torch, got, ref, dname, names, floor=0.0):
 
 def phase_k5(torch, fa, dev):
     """K5 forward, dq and dk/dv against the plain version and its VJP, fp32
-    and bf16: at ragged lengths (K5_RAGGED), and at the vit16k shape (12,
+    and bf16: at ragged lengths (K5_RAGGED) and head dims 32 and 128
+    (K5_HEAD_DIMS), and at the vit16k shape (12,
     16385, 64) on every head-batch, for iid inputs and for inputs whose lone
     last key takes most queries' weight, with the plain version on
     head-batches 0-1 and 10-11; there two launches of each kernel must give
@@ -1372,25 +1424,27 @@ def phase_k5(torch, fa, dev):
         o, lse = fa.flash_attention_fwd(*args, scale)
         return (o, lse), fa.flash_attention_bwd(d, *args, o, lse, scale)
 
-    for bh, l in K5_RAGGED:
-        raw = [mk((bh, l, 64)) for _ in range(4)]
+    for bh, l, hd in [(bh, l, 64) for bh, l in K5_RAGGED] + K5_HEAD_DIMS:
+        raw = [mk((bh, l, hd)) for _ in range(4)]
+        sc = hd ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             *args, d = (t.to(dtype) for t in raw)
-            fwd, grads = run_both(args, d)
+            o, lse = fa.flash_attention_fwd(*args, sc)
+            fwd, grads = (o, lse), fa.flash_attention_bwd(d, *args, o, lse, sc)
             torch.cuda.synchronize()
             # at L = 1, dq and dk vanish exactly (one key): the kernels leave
             # fp32 round-off of dp - delta, held on the inputs' scale, 1
             floor = 1.0 if l == 1 else 0.0
-            e_fwd, ok_fwd = _k5_errors(torch, fwd, fa.flash_attention_plain(*args, scale), dname,
+            e_fwd, ok_fwd = _k5_errors(torch, fwd, fa.flash_attention_plain(*args, sc), dname,
                                        ("o", "lse"), floor)
-            e_bwd, ok_bwd = _k5_errors(torch, grads, fa.flash_attention_bwd_plain(d, *args, scale),
+            e_bwd, ok_bwd = _k5_errors(torch, grads, fa.flash_attention_bwd_plain(d, *args, sc),
                                        dname, ("dq", "dk", "dv"), floor)
-            print(f"phase 21 K5 BH={bh} L={l} {dname}: max_abs_err "
+            print(f"phase 21 K5 BH={bh} L={l} D={hd} {dname}: max_abs_err "
                   + " ".join(f"{k}={v:.3e}" for k, v in {**e_fwd, **e_bwd}.items())
                   + (" ok" if ok_fwd and ok_bwd else " MISMATCH"), flush=True)
             check(ok_fwd and ok_bwd, f"K5 disagrees with its plain version at BH={bh} L={l} "
-                                     f"{dname}: {e_fwd} {e_bwd}")
+                                     f"D={hd} {dname}: {e_fwd} {e_bwd}")
 
     raw = [mk((VIT_BH, VIT_L, 64)) for _ in range(4)]
     # iid inputs spread every query's softmax over all 16,385 keys (max|o| is
@@ -1596,7 +1650,7 @@ def phase_vit_grads(torch, dev, seed=23):
             + ["--height=256", "--width=256", f"--seed={seed}"])
     x = torch.randn(VIT_BATCH, 1, 256, 256, 1, generator=torch.Generator().manual_seed(seed))
     y = torch.arange(VIT_BATCH) % 2
-    k5 = all_kernels()[9:]
+    k5 = all_kernels()[9:12]
 
     def grads(model, amp, device):
         model.to(device).zero_grad(set_to_none=True)
@@ -1695,6 +1749,303 @@ def phase_vit_throughput(torch, dev):
     return ms, eval_ms
 
 
+def _k6_inputs(torch, gen, shape, dtype, dev, with_bias):
+    """u, k, bias, g of one K6 case: u and the cotangent g iid, k an iid
+    filter decaying along the sequence as the Hyena filter does."""
+    b, d, length = shape
+    u = torch.randn(shape, generator=gen).to(dev, dtype)
+    k = (torch.randn((d, length), generator=gen) * torch.exp(-torch.arange(length) / 4000.0))
+    bias = torch.randn((d,), generator=gen).to(dev) if with_bias else None
+    g = torch.randn(shape, generator=gen).to(dev, dtype)
+    return u, k.to(dev), bias, g
+
+
+def phase_k6(torch, sc, dev):
+    """K6's convolution (y, and du from the conjugate spectrum plus bias g),
+    dk and dbias = dk[:, 0] against the plain version and its VJP at
+    K6_SHAPES, with and without the bias, fp32 and bf16; two launches of each
+    must give the same bits. Then the refusals, and the times at the
+    vit65k_hyena shape in bf16. Returns {"conv" | "dk": (max abs err at
+    (1, 384, 65536) in bf16, kernel ms, plain ms)} per call: the conv row's
+    kernel time is the forward and the du call, its plain time the plain
+    forward and du's share of the plain VJP; the dk row's the dk call and
+    dk's share (the VJP computes du, dk and dbias in one call: it is split as
+    the two rows' bounds split the backward's work)."""
+    gen = torch.Generator().manual_seed(25)
+    worst = {"conv": 0.0, "dk": 0.0}
+    for shape in K6_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for with_bias in (False, True):
+                u, k, bias, g = _k6_inputs(torch, gen, shape, dtype, dev, with_bias)
+                got = [sc.spectral_conv_fwd(u, k, bias), sc.spectral_conv_fwd(g, k, bias, True),
+                       sc.spectral_conv_dk(g, u)]
+                again = [sc.spectral_conv_fwd(u, k, bias), sc.spectral_conv_fwd(g, k, bias, True),
+                         sc.spectral_conv_dk(g, u)]
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"K6 {shape} {dname} bias={with_bias}: two launches gave different bits")
+                got.append(got[2][:, 0] if with_bias else None)
+                ref = [sc.spectral_causal_conv_plain(u, k, bias),
+                       *sc.spectral_causal_conv_bwd_plain(g, u, k, bias)]
+                errs, ok = {}, True
+                for name, a, r in zip(("y", "du", "dk", "dbias"), got, ref):
+                    if r is None:
+                        continue
+                    ok = ok and a.dtype == r.dtype and a.shape == r.shape
+                    a, r = a.float(), r.float()
+                    errs[name] = (a - r).abs().max().item()
+                    ok = (ok and bool(torch.isfinite(a).all().item())
+                          and errs[name] <= K6_TOL[dname] * r.abs().max().item())
+                print(f"phase 25 K6 B,D,L={shape} {dname} bias={with_bias}: max_abs_err "
+                      + " ".join(f"{k_}={v:.3e}" for k_, v in errs.items())
+                      + " (max|y| {:.3e}, max|dk| {:.3e}); two launches bitwise equal".format(
+                          ref[0].float().abs().max().item(), ref[2].abs().max().item())
+                      + (" ok" if ok else " MISMATCH"), flush=True)
+                check(ok, f"K6 disagrees with its plain version at {shape} {dname} "
+                          f"bias={with_bias}: {errs}")
+                if shape == K6_SHAPES[0] and dtype == torch.bfloat16:
+                    worst["conv"] = max(worst["conv"], errs["y"], errs["du"])
+                    worst["dk"] = max(worst["dk"], errs["dk"], errs.get("dbias", 0.0))
+                del u, k, bias, g, got, again, ref
+                torch.cuda.empty_cache()
+    for args, exc in (((torch.zeros(1, 2, 4096, device=dev), torch.zeros(2, 4096, device=dev)),
+                       ValueError),
+                      ((torch.zeros(1, 2, 8192), torch.zeros(2, 8192)), ValueError),
+                      ((torch.zeros(1, 2, 8192, device=dev, dtype=torch.float16),
+                        torch.zeros(2, 8192, device=dev)), TypeError)):
+        try:
+            sc.spectral_conv_fwd(*args)
+        except exc:
+            continue
+        raise SmokeFailure(f"K6 took {tuple(args[0].shape)} {args[0].dtype} on "
+                           f"{args[0].device}")
+    print("phase 25 K6 refusals: L = 4096, a CPU tensor, fp16: refused", flush=True)
+
+    u, k, bias, g = _k6_inputs(torch, gen, K6_SHAPES[0], torch.bfloat16, dev, True)
+    k_fwd = median_ms(torch, lambda: sc.spectral_conv_fwd(u, k, bias), warmup=1, reps=5)
+    k_du = median_ms(torch, lambda: sc.spectral_conv_fwd(g, k, bias, True), warmup=1, reps=5)
+    k_dk = median_ms(torch, lambda: sc.spectral_conv_dk(g, u), warmup=1, reps=5)
+    p_fwd = median_ms(torch, lambda: sc.spectral_causal_conv_plain(u, k, bias), warmup=1, reps=5)
+    p_vjp = median_ms(torch, lambda: sc.spectral_causal_conv_bwd_plain(g, u, k, bias), warmup=1,
+                      reps=5)
+    del u, k, bias, g
+    torch.cuda.empty_cache()
+    bounds = k6_bounds()
+    share = bounds["conv"][0] / (bounds["conv"][0] + bounds["dk"][0])
+    print(f"phase 25 K6 times at B,D,L={K6_SHAPES[0]} bf16 with the bias, ms per call: kernel "
+          f"conv {k_fwd:.3f}, conv du {k_du:.3f}, dk {k_dk:.3f}; plain fwd {p_fwd:.3f}, plain VJP "
+          f"{p_vjp:.3f}; bounds conv {bounds['conv'][0]:.4f} ({bounds['conv'][1]}), dk "
+          f"{bounds['dk'][0]:.4f} ({bounds['dk'][1]})", flush=True)
+    return {"conv": (worst["conv"], k_fwd + k_du, p_fwd + share * p_vjp),
+            "dk": (worst["dk"], k_dk, (1 - share) * p_vjp)}
+
+
+def phase_h65_slice(torch, tmp):
+    """run_torch.main trains vit65k_hyena on the card (this slice's main
+    path), then an inference-only run reloads its best checkpoint."""
+    import numpy as np
+    import yaml
+
+    import run_torch
+
+    n_train, n_val, n_test, epochs = 3, 2, 2, 2
+    write_dataset(tmp, (1024, 1024), n_train, n_val, n_test)
+    steps = epochs * min(3, math.ceil(n_train / H65_BATCH))      # --debug: 3 per epoch
+    val_batches = min(3, math.ceil(n_val / H65_BATCH))
+    test_batches = min(3, math.ceil(n_test / H65_BATCH))
+    eval_batches = epochs * val_batches + val_batches + test_batches
+    run_dir = os.path.join(tmp, "logs", "chip_smoke_h65")
+    argv = vit65k_hyena_flags() + [f"--data_dir={tmp}/data", f"--split_csv_path={tmp}/split.csv",
+                                   "--device=cuda", "--debug", f"--num_epochs={epochs}",
+                                   f"--log_dir={tmp}/logs", "--run_name=chip_smoke_h65"]
+    check("--train_model=True" in argv and "--ViT.patch_size" in argv
+          and not any(a.startswith("--Swin.") for a in argv), "the vit65k_hyena flags changed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = all_kernels()
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    rc = run_torch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kernel.source: kernel.launches for kernel in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"run_torch.main returned {rc}")
+    forward = steps + eval_batches
+    check_launches(kernels, launches, {1: VIT_LAYERS * forward, 3: VIT_LAYERS * steps,
+                                       12: VIT_LAYERS * (forward + steps), 13: VIT_LAYERS * steps},
+                   f"the vit65k_hyena train slice ({steps} train steps, {eval_batches} eval "
+                   f"batches)")
+    for name in ("model_last_epoch", "model_epoch_0", "model_best_checkpoint"):
+        path = os.path.join(run_dir, "models", name)
+        check(os.path.exists(os.path.join(path, "state.pt")), f"{path} missing")
+    meta = yaml.safe_load(open(os.path.join(run_dir, "models", "model_last_epoch", "meta.yaml")))
+    check(meta["step"] == steps and meta["epoch"] == epochs - 1,
+          f"model_last_epoch meta: step {meta['step']} epoch {meta['epoch']}")
+    log = open(os.path.join(run_dir, "run.log")).read()
+    trained = re.findall(r"epoch (\d+) train: (\d+) steps, (\d+) samples in ([\d.]+) s", log)
+    check(len(trained) == epochs, f"expected {epochs} train epoch lines, got {trained}")
+    losses = [float(v) for v in re.findall(r"train: \{'loss': ([-\d.e+naninf]+)", log)]
+    check(len(losses) == epochs and all(np.isfinite(losses)), f"train losses {losses}")
+    metrics = {}
+    for split in ("val", "test"):
+        path = os.path.join(run_dir, f"{split}_metrics.txt")
+        check(os.path.exists(path), f"{path} missing")
+        m = {k: float(v) for k, v in (ln.split(": ") for ln in open(path).read().split("\n") if ln)}
+        check(set(m) == {"loss", "acc_1", "auroc", "f1"} and np.isfinite(m["loss"]),
+              f"{split} metrics {m}")
+        metrics[split] = m
+    train_images = sum(int(n) for _, _, n, _ in trained)
+    train_seconds = sum(float(sec) for _, _, _, sec in trained)
+    print(f"phase 26 vit65k_hyena train slice: run_torch.main vit65k_hyena training on the card "
+          f"in {wall:.1f} s; {steps} train steps over {epochs} epochs, {train_images} images in "
+          f"{train_seconds:.3f} s = {train_images / train_seconds:.3f} images/s (first steps "
+          f"and loading included); train losses {losses}; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches}; val {metrics['val']}; test {metrics['test']}", flush=True)
+
+    for kernel in kernels:
+        kernel.launches = 0
+    rc = run_torch.main(["--inference_only=True", f"--inference_dir={run_dir}",
+                         f"--inference_log_dir={tmp}/logs",
+                         "--inference_run_name=chip_smoke_h65_inference"])
+    check(rc == 0, f"inference-only run returned {rc}")
+    inference = {kernel.source: kernel.launches for kernel in kernels}
+    batches = val_batches + test_batches
+    check_launches(kernels, inference, {1: VIT_LAYERS * batches, 12: VIT_LAYERS * batches},
+                   "the vit65k_hyena inference-only run")
+    path = os.path.join(tmp, "logs", "chip_smoke_h65_inference", "test_metrics.txt")
+    check(os.path.exists(path), f"{path} missing")
+    test = {k: float(v) for k, v in (ln.split(": ") for ln in open(path).read().split("\n") if ln)}
+    check(test == metrics["test"], f"inference-only test metrics {test} != {metrics['test']}")
+    print(f"phase 26 inference-only: reloaded {run_dir}/models/model_best_checkpoint; test "
+          f"{test} (the training run's own); launches {inference}", flush=True)
+    return launches
+
+
+def phase_h65_grads(torch, dev, seed=27):
+    """One train step's gradients of the full-width vit65k_hyena model
+    (ViT-small, patch 4, Hyena, mean-pool ViTLinear) on one 256x512 image:
+    8,192 tokens, K6's lowest length, so every block's long conv takes K6 on
+    the card (its plain version on the host). Weights and image from one
+    seed, on the card against the host, fp32 and bf16, per parameter
+    (max|err| / max|reference|), as phase 23 holds vit16k: fp32 within
+    MODEL_GRAD_TOL; bf16 (AMP) against the card's fp32 gradients, at most
+    BF16_GRAD_RATIO times the host's distance plus H65_BF16_GRAD_FLOOR. On
+    the card the K6 conv runs 12 times forward and 12 in the backward, dk
+    12 times, per gradient."""
+    from torch.func import functional_call
+
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import amp_params
+
+    argv = ([a for a in vit65k_hyena_flags() if a != "--use_amp"]
+            + ["--height=256", "--width=512", f"--seed={seed}"])
+    x = torch.randn(H65_BATCH, 1, 256, 512, 1, generator=torch.Generator().manual_seed(seed))
+    y = torch.arange(H65_BATCH) % 2
+    k6 = all_kernels()[12:]
+
+    def grads(model, amp, device):
+        model.to(device).zero_grad(set_to_none=True)
+        before = [k.launches for k in k6]
+        out = functional_call(model, amp_params(model, amp), (x.to(device),)).float()
+        cross_entropy_loss(out, y.to(device)).backward()
+        ran = [k.launches - b for k, b in zip(k6, before)]
+        check(ran == ([2 * VIT_LAYERS, VIT_LAYERS] if device != "cpu" else [0, 0]),
+              f"K6 launches {ran} on {device}")
+        return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+    def errors(got, ref, dname):
+        errs = {}
+        for name, g in got.items():
+            check(bool(torch.isfinite(g).all()), f"{dname}: gradient of {name} not finite")
+            check(g.abs().max().item() > 0, f"{dname}: gradient of {name} is all zero")
+            errs[name] = ((g - ref[name]).abs().max().item()
+                          / max(ref[name].abs().max().item(), 1e-30))
+        return errs
+
+    model = build_model(check_args(parse_config(argv)))
+    amp_model = build_model(check_args(parse_config(argv + ["--use_amp"])))
+    amp_model.load_state_dict(model.state_dict())
+    host32 = grads(model, False, "cpu")
+    host16 = grads(amp_model, True, "cpu")
+    card32 = grads(model, False, dev)
+    card16 = grads(amp_model, True, dev)
+    e32 = errors(card32, host32, "float32")
+    at = max(e32, key=e32.get)
+    print(f"phase 27 vit65k_hyena model gradients: full-width ViT-small Hyena + ViTLinear, batch "
+          f"{H65_BATCH} of 256x512 (8,192 tokens), float32, seed {seed}: {len(card32)} "
+          f"parameters, every card gradient finite and non-zero; card vs host worst max|err| / "
+          f"max|host grad| {e32[at]:.3e} ({at})", flush=True)
+    check(e32[at] <= MODEL_GRAD_TOL["float32"],
+          f"float32 vit65k_hyena model gradients: {at} off by {e32[at]} of its max")
+    card_e = errors(card16, card32, "bfloat16")
+    host_e = errors(host16, card32, "bfloat16 host")
+    limit = {k: BF16_GRAD_RATIO * host_e[k] + H65_BF16_GRAD_FLOOR for k in card_e}
+    tight = max(card_e, key=lambda k: card_e[k] / limit[k])
+    ratio = max(card_e, key=lambda k: card_e[k] / max(host_e[k], 1e-30))
+    worst_card, worst_host = max(card_e, key=card_e.get), max(host_e, key=host_e.get)
+    print(f"phase 27 vit65k_hyena model gradients, bfloat16: every card gradient finite and "
+          f"non-zero; max|err| / max|fp32 card grad|, worst: card {card_e[worst_card]:.3e} "
+          f"({worst_card}), host {host_e[worst_host]:.3e} ({worst_host}); per parameter, nearest "
+          f"its limit {tight}: card {card_e[tight]:.3e}, host {host_e[tight]:.3e}, limit "
+          f"{limit[tight]:.3e}; largest card/host ratio {ratio}: {card_e[ratio]:.3e} / "
+          f"{host_e[ratio]:.3e}", flush=True)
+    check(card_e[tight] <= limit[tight],
+          f"bfloat16 vit65k_hyena model gradients: the card strays {card_e[tight]} from fp32 at "
+          f"{tight}, more than {BF16_GRAD_RATIO} x the host's {host_e[tight]} + "
+          f"{H65_BF16_GRAD_FLOOR}")
+    return e32, card_e, host_e
+
+
+def phase_h65_throughput(torch, dev):
+    """The vit65k_hyena train step and eval forward at batch 1 on
+    1024x1024x1, bf16."""
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.metrics.device import make_train_metric_fn
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.optim import OptimManager
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import (amp_params, make_eval_step,
+                                                                   make_train_step)
+
+    cfg = check_args(parse_config(vit65k_hyena_flags()))
+    model = build_model(cfg).to(dev)
+    gen = torch.Generator().manual_seed(28)
+    x = torch.randn(H65_BATCH, 1, 1024, 1024, 1, generator=gen).to(dev)
+    y = (torch.arange(H65_BATCH) % 2).to(dev)
+    step = make_eval_step(model.eval(), cross_entropy_loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eval_ms = median_ms(torch, lambda: step(amp_params(model, True), x, y, H65_BATCH), warmup=2,
+                        reps=5)
+    eval_peak = torch.cuda.max_memory_allocated()
+    print(f"phase 28 vit65k_hyena eval forward, batch {H65_BATCH} of 1024x1024, bf16: "
+          f"{eval_ms:.2f} ms/batch = {H65_BATCH * 1000 / eval_ms:.3f} images/s (median of 5); "
+          f"peak memory {eval_peak / 2**30:.2f} GiB", flush=True)
+    profile_step(torch, lambda: step(amp_params(model, True), x, y, H65_BATCH),
+                 "phase 28 vit65k_hyena eval profile")
+
+    model.train()
+    optim = OptimManager(cfg, num_train_samples=1000)
+    optim.build(model.parameters())
+    _, metrics_fn = make_train_metric_fn(cfg)
+    train = make_train_step(model, cross_entropy_loss, optim, use_amp=True, metrics_fn=metrics_fn)
+    lr = cfg.optim.lr
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(torch, lambda: train([(x, y)], lr, H65_BATCH), warmup=2, reps=5)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 28 vit65k_hyena train step (forward, backward, Adam), batch {H65_BATCH} of "
+          f"1024x1024, bf16: {ms:.2f} ms/step = {H65_BATCH * 1000 / ms:.3f} images/s (median of "
+          f"5 after 2 warm-ups); peak memory {peak / 2**30:.2f} GiB", flush=True)
+    profile_step(torch, lambda: train([(x, y)], lr, H65_BATCH), "phase 28 vit65k_hyena profile")
+    return ms, eval_ms
+
+
 def profile_step(torch, fn, label):
     """Device time of one call by event name, from torch.profiler, without
     the autograd Functions' own ranges (the profiler attributes the
@@ -1709,7 +2060,7 @@ def profile_step(torch, fn, label):
               and not e.key.startswith(("_HyenaWindowMixer", "_FusedLnMlpResidual",
                                         "_HyenaChunkedMixer", "_ToeplitzConv",
                                         "_ChunkToeplitz", "_MambaWindowMixer",
-                                        "_FlashAttention"))]
+                                        "_FlashAttention", "_SpectralConv"))]
     total = sum(getattr(e, attr) for e in events)
     if total:
         top = sorted(events, key=lambda e: -getattr(e, attr))[:20]
@@ -1729,13 +2080,30 @@ def bound(ops_bf16, ops_fp32, nbytes):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def k6_bounds():
+    """K6 per call at the vit65k_hyena shape in bf16, {"conv" | "dk": (ms,
+    bound_by)}. The yardstick of a transform is 2.5 n log2 n fp32 operations
+    per real FFT of n points (n = 2L, the zero-padded length), over the fp32
+    peak; the bytes are the inputs read once and the outputs written once.
+    The convolution (and its du call) transforms the filter (D transforms)
+    and the input (B D) and inverts (B D): u or g and y in bf16, k and bias
+    in fp32. dk transforms g and u (2 B D) and inverts once per channel (D):
+    g and u in bf16, dk in fp32."""
+    b, d, length = K6_SHAPES[0]
+    n = 2 * length
+    fft = 2.5 * n * math.log2(n)
+    return {"conv": bound(0, (d + 2 * b * d) * fft, 2 * 2 * b * d * length + 4 * d * (length + 1)),
+            "dk": bound(0, (2 * b * d + d) * fft, 2 * 2 * b * d * length + 4 * d * length)}
+
+
 def kernel_bounds():
     """Per kernel: (bound ms of one train step of its main path, bound_by),
     from the main path's bf16 shapes: ptx for K1 and K2 (T tokens, C
     channels per stage; K1 fwd 8TC^2 of products plus its fp32 convolutions,
     K1 bwd 22TC^2 plus three times those; K2 fwd 16NC^2, bwd 40NC^2), emb
     for K3 (the Toeplitz products 2 * BW * C * chunk^2 * n(n+1)/2), vessel
-    for K4 (its stages 0-2), vit16k for K5 (12 layers)."""
+    for K4 (its stages 0-2), vit16k for K5 (12 layers), vit65k_hyena for K6
+    (12 layers, the conv twice in each, forward and du; ``k6_bounds``)."""
     out = {}
 
     def add(name, depth, b):
@@ -1792,6 +2160,9 @@ def kernel_bounds():
     add("flash_attention_fwd", VIT_LAYERS, bound(2 * prod, ex, 4 * tile + lse))
     add("flash_attention_dq", VIT_LAYERS, bound(2 * prod, ex / 2, 4 * tile + lse))
     add("flash_attention_dkv", VIT_LAYERS, bound(3 * prod, ex / 2, 4 * tile))
+    k6 = k6_bounds()
+    add("spectral_conv", 2 * VIT_LAYERS, k6["conv"])
+    add("spectral_conv_dk", VIT_LAYERS, k6["dk"])
     return {name: (ms, max(votes, key=votes.get)) for name, (ms, votes) in out.items()}
 
 
@@ -1848,17 +2219,27 @@ def run():
         shutil.rmtree(tmp, ignore_errors=True)
     phase_vit_grads(torch, dev)
     phase_vit_throughput(torch, dev)
+    from long_context_biomedical_imaging_tpu_torch.ops import spectral_conv
+
+    k6 = phase_k6(torch, spectral_conv, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_h65_")
+    try:
+        h65_launches = phase_h65_slice(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_h65_grads(torch, dev)
+    phase_h65_throughput(torch, dev)
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "long_context_biomedical_imaging_tpu")
                   for m in sys.modules), "JAX was imported")
 
     # per kernel, in its main path's configuration (bf16 under AMP, the
     # folded LN): launches in that path's train slice (ptx for K1 and K2, emb
-    # for K3, vessel for K4, vit16k for K5), worst error over the stage shapes
-    # (the backward: over every gradient), and the time of one train step
-    # (each stage's time x its depth), with its bound; library_ms is the time
-    # of torch's scaled_dot_product_attention for K5 (forward; its backward
-    # shared between dq and dkv) and null for K1-K4, which no single PyTorch
-    # call computes
+    # for K3, vessel for K4, vit16k for K5, vit65k_hyena for K6), worst error
+    # over the stage shapes (the backward: over every gradient), and the time
+    # of one train step (each stage's time x its depth), with its bound;
+    # library_ms is the time of torch's scaled_dot_product_attention for K5
+    # (forward; its backward shared between dq and dkv) and null for K1-K4
+    # and K6, which no single PyTorch call computes
     bounds = kernel_bounds()
     depths = [d for _, _, d in STAGES]
     emb_depths = [d for _, _, d in EMB_K3_STAGES]
@@ -1895,6 +2276,11 @@ def run():
         share = 1.0 if key == "fwd" else bounds[label][0] / bwd_bound
         rows.append((label, kernel, [(err, k_ms, share * p_ms)], [VIT_LAYERS], vit_launches,
                      tpu + replaces, VIT_LAYERS * share * s_ms))
+    # K6: the conv row's ms is the forward and the du call of each layer
+    for label, kernel, key, replaces in (
+            ("spectral_conv", spectral_conv.SPECTRAL_CONV, "conv", "spectral_conv.py:158"),
+            ("spectral_conv_dk", spectral_conv.SPECTRAL_CONV_DK, "dk", "spectral_conv.py:183")):
+        rows.append((label, kernel, [k6[key]], [VIT_LAYERS], h65_launches, tpu + replaces, None))
     kernels = [{
         "name": label, "route": "cuda", "source": f"{PACKAGE}/csrc/{kernel.source}",
         "replaces": replaces, "launches": path_launches[kernel.source],

@@ -8,9 +8,9 @@ grid. Windows a fused kernel takes (``ops.hyena_window_supported``: K1 at
 kernel (``ops.hyena_window_mixer``); every other window runs the composed
 path in the stream dtype, as the JAX package routes them: in_proj, the causal
 depthwise short conv (``ops.conv``), the pre-gate, the causal long conv
-(``ops.fftconv``), the post-gate and out_proj.
-
-The full-sequence ViT Hyena path is not ported.
+(``ops.fftconv``), the post-gate and out_proj. The full-sequence ViT call
+(65,536 tokens at vit65k_hyena) takes the composed path too, its long
+convolution the spectral kernel K6.
 """
 
 from __future__ import annotations

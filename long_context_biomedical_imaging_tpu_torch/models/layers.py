@@ -113,28 +113,36 @@ def trunc_normal_init_(t: torch.Tensor, std: float, gen: torch.Generator) -> Non
 
 class PatchEmbeddingBlock(PatchEmbed):
     """ViT patchify (B, *spatial, C) -> tokens (B, L, E), row-major over the
-    patch grid, plus a learnable position embedding (trunc_normal(0.02),
-    shape (1, L, E), cast to the tokens' dtype before the add).
-    ``dtype`` (bf16 under AMP) applies after patch extraction, as in
-    PatchEmbed."""
+    patch grid, plus, with ``pos_embed_type="learnable"``, a learnable
+    position embedding (trunc_normal(0.02), shape (1, L, E), cast to the
+    tokens' dtype before the add); ``"none"`` (the Hyena and Mamba ViTs) has
+    no such parameter, as in the JAX tree. ``dtype`` (bf16 under AMP)
+    applies after patch extraction, as in PatchEmbed."""
 
     def __init__(self, img_size: Sequence[int], patch_size: Sequence[int], in_channels: int,
-                 hidden_size: int, dtype: torch.dtype | None = None):
+                 hidden_size: int, pos_embed_type: str = "learnable",
+                 dtype: torch.dtype | None = None):
         super().__init__(patch_size, in_channels, hidden_size, dtype)
         for i, p in zip(img_size, patch_size):
             if i % p:
                 raise ValueError(f"img_size {tuple(img_size)} not divisible by patch "
                                  f"{tuple(patch_size)}")
+        if pos_embed_type not in ("learnable", "none"):
+            raise ValueError(f"unknown pos_embed_type {pos_embed_type}")
         n_patches = math.prod(i // p for i, p in zip(img_size, patch_size))
-        self.position_embeddings = nn.Parameter(torch.empty(1, n_patches, hidden_size))
+        self.position_embeddings = (nn.Parameter(torch.empty(1, n_patches, hidden_size))
+                                    if pos_embed_type == "learnable" else None)
 
     def init_params(self, gen):
         super().init_params(gen)
-        trunc_normal_init_(self.position_embeddings, 0.02, gen)
+        if self.position_embeddings is not None:
+            trunc_normal_init_(self.position_embeddings, 0.02, gen)
 
     def forward(self, x):
         x = super().forward(x)
         x = x.reshape(x.shape[0], -1, x.shape[-1])
+        if self.position_embeddings is None:
+            return x
         return x + self.position_embeddings.to(x.dtype)
 
 

@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``models/model_base.py``. ``build_model``
 returns ``decoder(encoder(x))`` on channels-last (B, T, H, W, C) input, with
 parameters initialised from an explicit ``torch.Generator``. The port builds
 Swin (Hyena or Mamba mixer) with SwinLinear for classification or UperNet2D
-for segmentation, and the ViT with softmax attention and ViTLinear;
+for segmentation, and the ViT (softmax attention or Hyena) with ViTLinear,
+which reads the cls token after attention and mean-pools the tokens after
+Hyena;
 :func:`check_ported` raises NotImplementedError for everything else, naming
 the slice that ports it. UperNet's BatchNorm layers train on batch
 statistics in ``model.train()`` and use their running statistics in
@@ -42,10 +44,6 @@ def check_ported(config) -> None:
             f"task {config.task_type}: enhance comes with the micro slice "
             "(ROADMAP.md queue 1)")
     if config.encoder_name == "ViT":
-        if config.ViT.use_hyena:
-            raise NotImplementedError(
-                "ViT with the Hyena mixer: it comes with the ViT-hyena slice (kernel K6, "
-                "ROADMAP.md queue 1)")
         if config.ViT.use_mamba:
             raise NotImplementedError(
                 "ViT with the Mamba mixer: it comes with the ViT-mamba slice (kernel K7, "
@@ -82,7 +80,8 @@ def build_model(config) -> EncoderDecoderModel:
     check_ported(config)
     if config.encoder_name == "ViT":
         encoder, feature_channels = build_vit(config, config.no_in_channel)
-        decoder = ViTLinear(feature_channels[-1], config.no_out_channel)
+        decoder = ViTLinear(feature_channels[-1], config.no_out_channel,
+                            use_cls_token=not (config.ViT.use_hyena or config.ViT.use_mamba))
     else:
         encoder, feature_channels = build_swin(config, config.no_in_channel)
         if config.decoder_name == "UperNet2D":

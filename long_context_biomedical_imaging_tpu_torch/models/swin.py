@@ -19,7 +19,11 @@ Contract kept from the JAX package:
     ``models/mamba.py``: K4 for 16 to 64 tokens in calls of at least 1024
     windows, the composed path otherwise);
   * returns [input, x0_out..x4_out], each but the input through a
-    parameterless LayerNorm.
+    parameterless LayerNorm;
+  * ``--Swin.use_checkpoint`` recomputes each block's activations in the
+    backward (``torch.utils.checkpoint``), as the JAX package remats each
+    block: the same gradients, less memory, and a second launch of each
+    forward kernel per block in a train step.
 
 Not ported here: window attention (its slice raises at setup), and the
 per-block path the JAX package takes when windows do not divide the token
@@ -32,6 +36,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.window import get_window_size, window_partition, window_reverse
 from .hyena import HyenaOperator
@@ -107,16 +112,33 @@ class SwinTransformerBlock(nn.Module):
         return self.mlp(x.reshape(-1, c)).reshape(bw, v, c)
 
 
+def run_checkpointed(block: nn.Module, x):
+    """block(x) with its activations recomputed in the backward
+    (non-reentrant ``torch.utils.checkpoint``). The block's parameters enter
+    as explicit inputs, so the recompute runs on the tensors the forward ran
+    on (under ``functional_call`` the AMP casts, not the module's own fp32
+    parameters) and their gradients flow through them."""
+    names, tensors = zip(*block.named_parameters())
+
+    def run(inp, *params):
+        return torch.func.functional_call(block, dict(zip(names, params)), (inp,))
+
+    return checkpoint(run, x, *tensors, use_reentrant=False)
+
+
 class BasicLayer(nn.Module):
     """One stage: ``depth`` blocks on a once-partitioned window layout, then
-    PatchMergingV2 (ref: backbone_swin.py:630-733)."""
+    PatchMergingV2 (ref: backbone_swin.py:630-733). With ``use_checkpoint``
+    each block runs through :func:`run_checkpointed` while gradients are
+    recorded."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: Sequence[int],
                  spatial_dims: int = 3, mlp_ratio: float = 4.0, use_hyena: bool = True,
-                 use_mamba: bool = False):
+                 use_mamba: bool = False, use_checkpoint: bool = False):
         super().__init__()
         self.window_size = tuple(window_size)
         self.depth = depth
+        self.use_checkpoint = use_checkpoint
         for i in range(depth):
             self.add_module(f"block_{i}", SwinTransformerBlock(dim, num_heads, mlp_ratio,
                                                                use_hyena, use_mamba))
@@ -130,8 +152,10 @@ class BasicLayer(nn.Module):
                 f"token grid {(d, h, w)} is not a multiple of the window {window}: "
                 "the per-block padded mixer path is not ported")
         xw = window_partition(x, window)
+        remat = self.use_checkpoint and torch.is_grad_enabled()
         for i in range(self.depth):
-            xw = getattr(self, f"block_{i}")(xw)
+            block = getattr(self, f"block_{i}")
+            xw = run_checkpointed(block, xw) if remat else block(xw)
         return self.downsample(window_reverse(xw, window, (b, d, h, w)))
 
 
@@ -144,7 +168,7 @@ class SwinBackbone(nn.Module):
                  depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), mlp_ratio: float = 4.0,
                  use_hyena: bool = True, use_mamba: bool = False,
-                 embed_dtype: torch.dtype | None = None):
+                 embed_dtype: torch.dtype | None = None, use_checkpoint: bool = False):
         super().__init__()
         spatial_dims = 2 if len(patch_size) == 2 else 3
         patch = ((1,) + tuple(patch_size)) if spatial_dims == 2 else tuple(patch_size)
@@ -154,7 +178,7 @@ class SwinBackbone(nn.Module):
         for i, (depth, heads) in enumerate(zip(depths, num_heads)):
             self.add_module(f"layer_{i}", BasicLayer(int(embed_dim * 2 ** i), depth, heads,
                                                      window, spatial_dims, mlp_ratio,
-                                                     use_hyena, use_mamba))
+                                                     use_hyena, use_mamba, use_checkpoint))
 
     def forward(self, x):
         hidden_states = [x]
@@ -202,7 +226,8 @@ def build_swin(config, input_feature_channels: int):
         in_channels=input_feature_channels, embed_dim=preset["embed_dim"],
         depths=tuple(preset["depths"]), num_heads=tuple(preset["num_heads"]),
         use_hyena=bool(config.Swin.use_hyena), use_mamba=bool(config.Swin.use_mamba),
-        embed_dtype=torch.bfloat16 if config.get("use_amp") else None)
+        embed_dtype=torch.bfloat16 if config.get("use_amp") else None,
+        use_checkpoint=bool(config.Swin.get("use_checkpoint", False)))
 
     e, nl = preset["embed_dim"], len(preset["depths"])
     out_channels = [e * 2 ** (nl - i) for i in range(nl, 0, -1)] + [e * 2 ** nl]

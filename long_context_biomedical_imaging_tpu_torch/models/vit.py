@@ -1,21 +1,24 @@
-"""ViT backbone with full-sequence softmax attention.
+"""ViT backbone with a full-sequence token mixer: softmax attention or Hyena.
 
 Counterpart of the JAX package's ``models/vit.py`` (ref:
 model/models/backbone_vit.py:45-397): channels-last input (B, T, H, W, C),
-pre-LN blocks x += Attention(LN(x)); x += MLP(LN(x)), the second half in K2
-(``LNMLPResidual``) on (B*L, C) rows, the attention through
-``ops.multi_head_attention`` (K5 from 1024 tokens). Returns the JAX
-package's hidden-state list [input, h1..hN, final norm] (N + 2 tensors).
+pre-LN blocks x += Mixer(LN(x)); x += MLP(LN(x)), the second half in K2
+(``LNMLPResidual``) on (B*L, C) rows. The attention goes through
+``ops.multi_head_attention`` (K5 from 1024 tokens); the Hyena mixer is the
+``HyenaOperator`` over the whole sequence, whose long convolution takes K6
+(``ops.spectral_conv``) at 8192 <= L <= 131072 with L a power of two. Returns
+the JAX package's hidden-state list [input, h1..hN, final norm] (N + 2
+tensors).
 
 Contract kept from the JAX package:
   * size presets small (384/1536/12/6), base (768/3072/12/12), custom;
-  * a learnable position embedding and, for classification, a zero-init
-    cls token prepended to the tokens;
+  * attention: a learnable position embedding and, for classification, a
+    zero-init cls token prepended to the tokens; Hyena (and Mamba): neither;
   * output_feature_channels = [hidden] * (num_layers + 1).
 
-Not ported here: the Hyena mixer (K6, the ViT-hyena slice) and the Mamba
-mixer (K7, the ViT-mamba slice), which raise NotImplementedError, and the
-sequence-parallel padding of the token axis (the sequence-parallel slice).
+Not ported here: the Mamba mixer (K7, the ViT-mamba slice), which raises
+NotImplementedError, and the sequence-parallel padding of the token axis (the
+sequence-parallel slice).
 """
 
 from __future__ import annotations
@@ -26,30 +29,37 @@ import torch
 from torch import nn
 
 from ..ops.attention import multi_head_attention
+from .hyena import HyenaOperator
 from .layers import FlaxLayerNorm, LNMLPResidual, PatchEmbeddingBlock, TorchDense
+
+HYENA_L_MAX = 66000  # ref: backbone_vit.py:172
 
 
 class SABlock(nn.Module):
-    """Token mixer: softmax multi-head attention. qkv (C -> 3C, no bias, as
+    """Token mixer. Softmax multi-head attention: qkv (C -> 3C, no bias, as
     every ViT of the JAX package builds it) split as (B, L, 3, heads,
-    head_dim), the out projection C -> C."""
+    head_dim), the out projection C -> C. With ``use_hyena`` the Hyena
+    operator over the whole sequence instead, as the submodule ``hyena``."""
 
     def __init__(self, hidden_size: int, num_heads: int, use_hyena: bool = False,
                  use_mamba: bool = False):
         super().__init__()
-        if use_hyena:
-            raise NotImplementedError(
-                "ViT with the Hyena mixer is not ported yet: it comes with the ViT-hyena "
-                "slice and its spectral long-conv kernel K6 (ROADMAP.md queue 1)")
         if use_mamba:
             raise NotImplementedError(
                 "ViT with the Mamba mixer is not ported yet: it comes with the ViT-mamba "
                 "slice and its long-scan kernel K7 (ROADMAP.md queue 1)")
         self.num_heads = num_heads
+        if use_hyena:
+            self.hyena = HyenaOperator(d_model=hidden_size, l_max=HYENA_L_MAX, filter_order=64,
+                                       num_heads=num_heads, short_filter_order=5)
+            return
+        self.hyena = None
         self.qkv = TorchDense(hidden_size, 3 * hidden_size, use_bias=False)
         self.proj = TorchDense(hidden_size, hidden_size)
 
     def forward(self, x):
+        if self.hyena is not None:
+            return self.hyena(x)
         b, l, c = x.shape
         qkv = self.qkv(x).reshape(b, l, 3, self.num_heads, c // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)                      # each (b, h, l, hd)
@@ -84,10 +94,12 @@ class ViTBackbone(nn.Module):
         super().__init__()
         self.spatial_2d = len(img_size) == 2
         self.num_layers = num_layers
-        self.patch_embedding = PatchEmbeddingBlock(img_size, patch_size, in_channels,
-                                                   hidden_size, dtype=embed_dtype)
+        use_alt = use_hyena or use_mamba
+        self.patch_embedding = PatchEmbeddingBlock(
+            img_size, patch_size, in_channels, hidden_size,
+            pos_embed_type="none" if use_alt else "learnable", dtype=embed_dtype)
         self.cls_token = (nn.Parameter(torch.empty(1, 1, hidden_size))
-                          if classification else None)
+                          if classification and not use_alt else None)
         for i in range(num_layers):
             setattr(self, f"block_{i}", TransformerBlock(hidden_size, mlp_dim, num_heads,
                                                          use_hyena, use_mamba))

@@ -1,7 +1,8 @@
-"""Causal long convolution of the composed Hyena path, channels last.
+"""Causal long convolution of the composed Hyena path.
 
-Counterpart of the JAX package's ``ops/fftconv.py`` ``causal_long_conv_cm``
-and its three regimes, chosen by the same rules:
+Counterpart of the JAX package's ``ops/fftconv.py``: ``causal_long_conv_cm``
+on channels-last (B, L, D) and its regimes, chosen by the same rules in the
+same order:
 
   * L <= 64: L shift-and-multiply-add steps in u.dtype;
   * L * L * D * itemsize <= 256 MB: the causal Toeplitz operator as one
@@ -9,10 +10,14 @@ and its three regimes, chosen by the same rules:
     backward: du from the transposed product, dk from chunk-lag products and
     per-offset diagonal sums in fp32 (the JAX package rounds those products to
     u.dtype first, a fault this port does not copy);
-  * beyond that, the FFT product through ``torch.fft`` in fp32.
+  * beyond that, one transpose to (B, D, L) and :func:`fft_causal_conv`, whose
+    own three routes are the JAX package's: a direct depthwise convolution in
+    u.dtype for L <= 512; the spectral kernel K6 (``ops/spectral_conv.py``)
+    where ``spectral_supported(L)`` holds; the fp32 FFT product through
+    ``torch.fft`` otherwise.
 
-These are plain tensor products in the JAX package too (XLA ops outside any
-Pallas kernel), so they stay plain PyTorch here on every device.
+Every route but K6 is plain tensor code in the JAX package too (XLA ops
+outside any Pallas kernel), so it stays plain PyTorch here on every device.
 """
 
 from __future__ import annotations
@@ -20,9 +25,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .spectral_conv import (spectral_causal_conv, spectral_causal_conv_plain,
+                            spectral_supported)
+
 CM_DIRECT_MAX_LEN = 64
 TOEPLITZ_MAX_BYTES = 256 * 1024 * 1024
 LAG_CHUNK = 128
+# fft_causal_conv: up to this length a direct depthwise convolution
+DIRECT_CONV_MAX_LEN = 512
 
 
 def diagonal_sums(a):
@@ -91,6 +101,37 @@ class _ToeplitzConv(torch.autograd.Function):
         return du, lag_sums(sums, length).to(k.dtype)
 
 
+def long_conv_route(length: int) -> str:
+    """The route of :func:`fft_causal_conv` for a length, as the JAX package
+    chooses it: "direct", "spectral" (K6) or "fft"."""
+    if length <= DIRECT_CONV_MAX_LEN:
+        return "direct"
+    return "spectral" if spectral_supported(length) else "fft"
+
+
+def fft_causal_conv(u, k, bias=None):
+    """Causal long convolution with a per-channel skip term on (B, D, L): y[t]
+    = sum_{tau <= t} k[:, tau] u[t - tau] + bias * u[t], in u.dtype. k (D, L)
+    and bias (D,) enter in fp32 (the direct route casts k to u.dtype)."""
+    length, d = u.shape[-1], u.shape[1]
+    route = long_conv_route(length)
+    if route == "direct":
+        # y[t] = sum_tau u[t - tau] k[tau]: the causal correlation with the
+        # flipped filter, in u.dtype, as the JAX package's depthwise conv
+        w = torch.flip(k, dims=(-1,)).to(u.dtype)[:, None, :]
+        y32 = F.conv1d(F.pad(u, (length - 1, 0)), w, groups=d).float()
+        if bias is not None:
+            y32 = y32 + u.float() * bias.float()[:, None]
+        return y32.to(u.dtype)
+    k32 = k.float()
+    b32 = None if bias is None else bias.float()
+    if route == "spectral":
+        return spectral_causal_conv(u, k32, b32)
+    # the fp32 FFT product, differentiated by autograd: the JAX package's XLA
+    # FFT route computes the same function as K6's plain version
+    return spectral_causal_conv_plain(u, k32, b32)
+
+
 def causal_long_conv_cm(u, k, bias=None):
     """Causal long convolution, u: (B, L, D), k: (D, L), bias: (D,) skip
     weight: y[t] = sum_{tau <= t} k[:, tau] u[t - tau] + bias * u[t]. Returns
@@ -105,10 +146,4 @@ def causal_long_conv_cm(u, k, bias=None):
     if length * length * d * u.element_size() <= TOEPLITZ_MAX_BYTES:
         y = _ToeplitzConv.apply(u, k)
         return y if bias is None else y + u * bias.to(u.dtype)
-    u32 = u.float()
-    spec = torch.fft.rfft(u32, n=2 * length, dim=1) * torch.fft.rfft(
-        k.float(), n=2 * length, dim=-1).t()
-    y = torch.fft.irfft(spec, n=2 * length, dim=1)[:, :length]
-    if bias is not None:
-        y = y + u32 * bias.float()
-    return y.to(u.dtype)
+    return fft_causal_conv(u.transpose(1, 2), k, bias).transpose(1, 2)

@@ -17,9 +17,9 @@ TPU kernel: the softmax runs in base 2, with scale * log2(e) folded into q,
 which is rounded to k's dtype before q k^T; scores, softmax statistics and
 sums are fp32; the probabilities are rounded to v's dtype before p v; the
 backward rounds ds to k's dtype for dq and to q's for dk, contracts dk against
-the unscaled q and applies the scale once at the end. The kernels take D = 64
-(both ViT presets), fp32 or bf16, contiguous tensors on the card; fp32 runs on
-the CUDA cores in full fp32.
+the unscaled q and applies the scale once at the end. The kernels take a head
+dim D of 32, 64 (both ViT presets) or 128, fp32 or bf16, contiguous tensors on
+the card; fp32 runs on the CUDA cores in full fp32.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch
 from .cuda_build import CudaKernel, check_cuda_operand, ptr, stream_handle
 
 LOG2E = math.log2(math.e)
-FLASH_HEAD_DIM = 64
+FLASH_HEAD_DIMS = (32, 64, 128)
 
 FLASH_FWD = CudaKernel(
     "flash_attention.cu", "lcbi_flash_fwd",
@@ -76,39 +76,39 @@ def _check_operands(q, k, v):
     if q.dim() != 3:
         raise ValueError(f"flash attention kernel takes (BH, L, D), got {tuple(q.shape)}")
     bh, l, d = q.shape
-    if d != FLASH_HEAD_DIM or not 0 < bh < 65536 or l == 0 or q.numel() >= 2**31:
-        raise ValueError(f"flash attention kernel needs D == {FLASH_HEAD_DIM}, "
+    if d not in FLASH_HEAD_DIMS or not 0 < bh < 65536 or l == 0 or q.numel() >= 2**31:
+        raise ValueError(f"flash attention kernel needs D in {FLASH_HEAD_DIMS}, "
                          f"0 < BH < 65536, L > 0 and BH*L*D < 2^31; got {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_operand(name, t, q.device, q.dtype, (bh, l, d))
-    return bh, l
+    return bh, l, d
 
 
 def flash_attention_fwd(q, k, v, scale: float):
     """The K5 forward kernel on CUDA: (o, lse) of :func:`flash_attention_plain`."""
-    bh, l = _check_operands(q, k, v)
+    bh, l, d = _check_operands(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(bh, l, device=q.device, dtype=torch.float32)
-    FLASH_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), bh, l, FLASH_HEAD_DIM, scale * LOG2E,
+    FLASH_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), bh, l, d, scale * LOG2E,
               int(q.dtype == torch.bfloat16), stream_handle(q.device))
     return o, lse
 
 
 def _check_bwd_operands(do, q, k, v, lse, delta):
-    bh, l = _check_operands(q, k, v)
-    check_cuda_operand("do", do, q.device, q.dtype, (bh, l, FLASH_HEAD_DIM))
+    bh, l, d = _check_operands(q, k, v)
+    check_cuda_operand("do", do, q.device, q.dtype, (bh, l, d))
     check_cuda_operand("lse", lse, q.device, torch.float32, (bh, l))
     check_cuda_operand("delta", delta, q.device, torch.float32, (bh, l))
-    return bh, l
+    return bh, l, d
 
 
 def flash_attention_dq(do, q, k, v, lse, delta, scale: float):
     """The K5 dq kernel on CUDA, from the forward's lse and delta =
     rowsum(do * o) in fp32: dq of :func:`flash_attention_bwd_plain`."""
-    bh, l = _check_bwd_operands(do, q, k, v, lse, delta)
+    bh, l, d = _check_bwd_operands(do, q, k, v, lse, delta)
     dq = torch.empty_like(q)
     FLASH_BWD_DQ(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq), bh, l,
-                 FLASH_HEAD_DIM, scale * LOG2E, scale, int(q.dtype == torch.bfloat16),
+                 d, scale * LOG2E, scale, int(q.dtype == torch.bfloat16),
                  stream_handle(q.device))
     return dq
 
@@ -116,10 +116,10 @@ def flash_attention_dq(do, q, k, v, lse, delta, scale: float):
 def flash_attention_dkv(do, q, k, v, lse, delta, scale: float):
     """The K5 dk/dv kernel on CUDA, from the forward's lse and delta =
     rowsum(do * o) in fp32: (dk, dv) of :func:`flash_attention_bwd_plain`."""
-    bh, l = _check_bwd_operands(do, q, k, v, lse, delta)
+    bh, l, d = _check_bwd_operands(do, q, k, v, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     FLASH_BWD_DKV(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dk), ptr(dv), bh,
-                  l, FLASH_HEAD_DIM, scale * LOG2E, scale, int(q.dtype == torch.bfloat16),
+                  l, d, scale * LOG2E, scale, int(q.dtype == torch.bfloat16),
                   stream_handle(q.device))
     return dk, dv
 

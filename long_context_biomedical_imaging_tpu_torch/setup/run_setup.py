@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``setup/run_setup.py``. A run is one process
 on one device: ``--device=cuda`` is the first CUDA card and must exist,
-``--device=cpu`` the host. There is no distributed initialisation.
+``--device=cpu`` the host. There is no distributed initialisation: ``--ddp``
+and a ``WORLD_SIZE`` above 1 raise until the data-parallel slice.
 
 Surfaces that are not ported yet raise ``NotImplementedError`` naming the
 ROADMAP.md slice that ports them, before any directory is made; nothing is
@@ -90,6 +91,10 @@ def reject_unported(config: Config) -> None:
                 f"--with_timer: the step timer and profiler trace are ported with "
                 f"utils/status.py ({_LATER})")
         reject_unported_optim(config)
+    if config.get("ddp") or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
+        raise NotImplementedError(
+            f"--ddp or WORLD_SIZE > 1: data-parallel training comes with the "
+            f"data-parallel slice ({_LATER})")
     if int(config.get("model_parallel", 1) or 1) > 1:
         raise NotImplementedError(
             f"--model_parallel > 1: sequence parallelism is the last slice "

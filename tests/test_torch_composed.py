@@ -88,18 +88,26 @@ def test_causal_long_conv_cm_matches_jax(rng, length, c, dtype):
 
 
 def test_causal_long_conv_cm_fft_regime_matches_jax(rng):
-    """fp32 at (L, C) = (512, 384), the emb stage-2 window: L*L*C*4 = 402 MB
-    is past the Toeplitz ceiling, so the port takes its FFT regime
-    (torch.fft) and the JAX package its long-conv fallback. Forward and
-    every gradient within 1e-5 of max (fp32 FFT round-off)."""
-    u, k, bias = _mk(rng, (1, 512, 384)), _mk(rng, (384, 512), 0.2), _mk(rng, (384,), 0.5)
-    assert 512 * 512 * 384 * 4 > tfft.TOEPLITZ_MAX_BYTES
-    do = _mk(rng, (1, 512, 384))
-    jo, jg, to, tg, _ = _both(jfft.causal_long_conv_cm, tfft.causal_long_conv_cm,
-                              [u, k, bias], "float32", do)
-    _close(to, jo, 1e-5, "out")
-    for name, g, r in zip(("du", "dk", "dbias"), tg, jg):
-        _close(g, r, 1e-5, name)
+    """Past the Toeplitz ceiling both packages transpose to (B, D, L) and call
+    fft_causal_conv, which at L <= 512 runs a direct depthwise convolution in
+    u's dtype with the skip term summed in fp32. fp32 at (L, C) = (512, 384),
+    the emb stage-2 window (L*L*C*4 = 402 MB): forward and every gradient
+    within 1e-5 of max (sum order). bf16 at (512, 1024), a Swin-base 3D
+    window (L*L*C*2 = 537 MB): both convolve in bf16 and round once, the
+    forward, du and dk within 1e-2 of max (a bf16 ulp), dbias, an fp32 sum
+    of g * u, within 1e-5."""
+    for (length, c), dtype in (((512, 384), "float32"), ((512, 1024), "bfloat16")):
+        u, k, bias = _mk(rng, (1, length, c)), _mk(rng, (c, length), 0.2), _mk(rng, (c,), 0.5)
+        assert length * length * c * (4 if dtype == "float32" else 2) > tfft.TOEPLITZ_MAX_BYTES
+        assert tfft.long_conv_route(length) == "direct"
+        do = _mk(rng, (1, length, c))
+        jo, jg, to, tg, tdt = _both(jfft.causal_long_conv_cm, tfft.causal_long_conv_cm,
+                                    [u, k, bias], dtype, do)
+        assert tdt == _DT[dtype][1]
+        rel = 1e-5 if dtype == "float32" else 1e-2
+        _close(to, jo, rel, "out")
+        for name, g, r in zip(("du", "dk", "dbias"), tg, jg):
+            _close(g, r, 1e-5 if name == "dbias" else rel, name)
 
 
 @pytest.mark.parametrize("ch", [4, 8])

@@ -2,8 +2,11 @@
 backward) against its plain PyTorch version, at small odd shapes the ptx
 path does not reach (ragged row tiles, V = 1/24/64, C = 16/768; for K3
 ragged window groups and chunks of 64), K3 also at the emb stage shapes, K5
-(flash attention) at ragged sequence lengths and at the vit16k shape, and
-whole models whose every parameter gets a gradient on the card. Marked ``cuda``;
+(flash attention) at ragged sequence lengths, head dims 32, 64 and 128 and at
+the vit16k shape, K6 (the spectral long conv) at the vit65k_hyena shape, the
+odd batch at its floor and its ceiling, and whole models whose every
+parameter gets a gradient on the card (a ViT-hyena also against the host),
+and the Swin checkpointing's memory. Marked ``cuda``;
 without a card every test skips. This file imports neither JAX nor flax, so that it runs where
 only PyTorch is installed:
 
@@ -19,6 +22,7 @@ from long_context_biomedical_imaging_tpu_torch.ops import flash_attention as tfa
 from long_context_biomedical_imaging_tpu_torch.ops import fused_mlp as tmlp
 from long_context_biomedical_imaging_tpu_torch.ops import hyena_window as thw
 from long_context_biomedical_imaging_tpu_torch.ops import mamba_window as tmw
+from long_context_biomedical_imaging_tpu_torch.ops import spectral_conv as tsc
 
 
 @pytest.fixture
@@ -26,6 +30,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels in csrc/ run only there")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -518,8 +523,8 @@ def test_every_vessel_parameter_gets_a_gradient_on_the_card(cuda_device, amp):
 # K5, flash attention (vit16k)
 # ---------------------------------------------------------------------------
 
-def _flash_args(gen, bh, l, dtype, device):
-    return [_randn(gen, (bh, l, 64), 1.0).to(device, dtype) for _ in range(4)]
+def _flash_args(gen, bh, l, dtype, device, d=64):
+    return [_randn(gen, (bh, l, d), 1.0).to(device, dtype) for _ in range(4)]
 
 
 def _check_flash(got, ref, dtype, names, floor):
@@ -583,10 +588,31 @@ def test_flash_attention_kernels_match_plain_at_vit16k(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("bh,l", [(3, 63), (2, 1025)])
+def test_flash_attention_kernels_match_plain_at_head_dims(cuda_device, dtype, d, bh, l):
+    """K5 at head dims 32 (64-row tiles) and 128 (32-row tiles): forward (o,
+    lse), dq and dk/dv against the plain version and its VJP at a short tile
+    and at 16 tiles and one row (ragged at either tile edge)."""
+    gen = torch.Generator().manual_seed(d * 100000 + bh * 10000 + l)
+    q, k, v, do = _flash_args(gen, bh, l, dtype, cuda_device, d)
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_fwd(q, k, v, scale)
+    grads = tfa.flash_attention_bwd(do, q, k, v, o, lse, scale)
+    torch.cuda.synchronize()
+    _check_flash((o, lse), tfa.flash_attention_plain(q, k, v, scale), dtype, ("o", "lse"), 1e-6)
+    _check_flash(grads, tfa.flash_attention_bwd_plain(do, q, k, v, scale), dtype,
+                 ("dq", "dk", "dv"), 1e-6)
+
+
+@pytest.mark.cuda
 def test_flash_attention_kernels_are_deterministic_and_refuse(cuda_device):
     """Two launches of each K5 kernel on the same inputs give the same bits
-    (no atomics); the wrappers refuse a head dim other than 64, fp16, a
-    non-contiguous tensor, operands on two devices or of two dtypes."""
+    (no atomics); D = 32 and 128 sliced from the same inputs match the plain
+    version and its VJP, fp32 and bf16, and repeat bitwise; the wrappers
+    refuse a head dim no instance takes (48), fp16, a non-contiguous tensor,
+    operands on two devices or of two dtypes."""
     gen = torch.Generator().manual_seed(5)
     q, k, v, do = _flash_args(gen, 4, 777, torch.bfloat16, cuda_device)
     first = tfa.flash_attention_fwd(q, k, v, 0.125)
@@ -595,9 +621,25 @@ def test_flash_attention_kernels_are_deterministic_and_refuse(cuda_device):
     g1 = tfa.flash_attention_bwd(do, q, k, v, *first, 0.125)
     g2 = tfa.flash_attention_bwd(do, q, k, v, *first, 0.125)
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
-    narrow = [t[..., :32].contiguous() for t in (q, k, v)]
-    with pytest.raises(ValueError, match="D == 64"):
-        tfa.flash_attention_fwd(*narrow, 0.125)
+    wide = [_randn(gen, (4, 777, 128), 1.0).to(cuda_device) for _ in range(4)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for sliced in ([t[..., :32].contiguous() for t in (q, k, v, do)],
+                       [t.to(dtype) for t in wide]):
+            sl = [t.to(dtype) for t in sliced]
+            scale = sl[0].shape[-1] ** -0.5
+            fwd = tfa.flash_attention_fwd(*sl[:3], scale)
+            grads = tfa.flash_attention_bwd(sl[3], *sl[:3], *fwd, scale)
+            assert all(torch.equal(a, b) for a, b in zip(
+                (*fwd, *grads),
+                (*tfa.flash_attention_fwd(*sl[:3], scale),
+                 *tfa.flash_attention_bwd(sl[3], *sl[:3], *fwd, scale))))
+            _check_flash(fwd, tfa.flash_attention_plain(*sl[:3], scale), dtype, ("o", "lse"),
+                         1e-6)
+            _check_flash(grads, tfa.flash_attention_bwd_plain(sl[3], *sl[:3], scale), dtype,
+                         ("dq", "dk", "dv"), 1e-6)
+    odd = [t[..., :48].contiguous() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="D in"):
+        tfa.flash_attention_fwd(*odd, 0.125)
     with pytest.raises(TypeError):
         tfa.flash_attention_fwd(*(t.half() for t in (q, k, v)), 0.125)
     strided = q.transpose(0, 1).contiguous().transpose(0, 1)
@@ -641,3 +683,195 @@ def test_every_vit_parameter_gets_a_gradient_on_the_card(cuda_device, amp):
         assert p.grad is not None, name
         assert p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name
         assert p.grad.abs().max() > 0, name
+
+
+# ---------------------------------------------------------------------------
+# K6, the spectral long conv (vit65k_hyena)
+# ---------------------------------------------------------------------------
+
+def _spec_tol(dtype):
+    # of max|plain|. fp32: the four-step FFT and cuFFT agree to fp32
+    # round-off of a length-2L transform; bf16: both compute in fp32 and round
+    # the result once, so they differ by at most a bf16 ulp
+    return 1e-5 if dtype == torch.float32 else 1e-2
+
+
+def _spec_args(gen, shape, dtype, device, with_bias):
+    b, d, length = shape
+    u = _randn(gen, shape, 1.0).to(device, dtype)
+    k = (_randn(gen, (d, length), 1.0) * torch.exp(-torch.arange(length) / 2000.0)).to(device)
+    bias = _randn(gen, (d,), 1.0).to(device) if with_bias else None
+    g = _randn(gen, shape, 1.0).to(device, dtype)
+    return u, k, bias, g
+
+
+def _check_spec(got, ref, dtype, names):
+    for name, a, r in zip(names, got, ref):
+        if r is None:
+            assert a is None, name
+            continue
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= _spec_tol(dtype) * r.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 8, 8192), (1, 4, 131072), (1, 384, 65536)])
+def test_spectral_conv_kernels_match_plain(cuda_device, dtype, shape, with_bias):
+    """K6 through its autograd Function: the forward (one conv launch) and
+    du, dk, dbias (one conv launch with the conjugate spectrum, one dk
+    launch) against the plain version and its VJP, at the vit65k_hyena shape,
+    the odd batch at the gate's floor and one channel block at its ceiling."""
+    gen = torch.Generator().manual_seed(sum(shape) + with_bias)
+    u, k, bias, g = _spec_args(gen, shape, dtype, cuda_device, with_bias)
+    leaves = [t.clone().requires_grad_(True) if t is not None else None for t in (u, k, bias)]
+    before = (tsc.SPECTRAL_CONV.launches, tsc.SPECTRAL_CONV_DK.launches)
+    y = tsc.spectral_causal_conv(*leaves)
+    assert tsc.SPECTRAL_CONV.launches == before[0] + 1
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (tsc.SPECTRAL_CONV.launches, tsc.SPECTRAL_CONV_DK.launches) == (
+        before[0] + 2, before[1] + 1)
+    _check_spec([y], [tsc.spectral_causal_conv_plain(u, k, bias)], dtype, ["y"])
+    _check_spec([t.grad if t is not None else None for t in leaves],
+                tsc.spectral_causal_conv_bwd_plain(g, u, k, bias), dtype,
+                ("du", "dk", "dbias"))
+
+
+@pytest.mark.cuda
+def test_spectral_conv_kernels_are_deterministic_and_refuse(cuda_device):
+    """Two launches of each K6 kernel give the same bits (the dk kernel sums
+    the batch in a fixed order); the wrappers refuse a length outside the gate
+    (4096, 262144) or not a power of two (12288), a CPU tensor, fp16, a filter
+    that is not fp32, a non-contiguous tensor."""
+    gen = torch.Generator().manual_seed(6)
+    u, k, bias, g = _spec_args(gen, (3, 8, 8192), torch.bfloat16, cuda_device, True)
+    for conj in (False, True):
+        assert torch.equal(tsc.spectral_conv_fwd(u, k, bias, conj),
+                           tsc.spectral_conv_fwd(u, k, bias, conj))
+    assert torch.equal(tsc.spectral_conv_dk(g, u), tsc.spectral_conv_dk(g, u))
+    for length in (4096, 12288, 262144):
+        with pytest.raises(ValueError, match="8192"):
+            tsc.spectral_conv_fwd(torch.zeros(1, 2, length, device=cuda_device),
+                                  torch.zeros(2, length, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA"):
+        tsc.spectral_conv_fwd(u.cpu(), k.cpu(), bias.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        tsc.spectral_conv_dk(g.cpu(), u.cpu())
+    with pytest.raises(TypeError):
+        tsc.spectral_conv_fwd(u.half(), k, bias)
+    with pytest.raises(TypeError):
+        tsc.spectral_conv_fwd(u, k.bfloat16(), bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsc.spectral_conv_fwd(u.transpose(0, 1).contiguous().transpose(0, 1), k, bias)
+
+
+@pytest.mark.cuda
+def test_long_conv_routes_on_the_card(cuda_device):
+    """causal_long_conv_cm on a CUDA tensor past the Toeplitz budget: a
+    spectral length (8192) launches K6 (the conv forward; conv and dk in the
+    backward) and matches the host's route (K6's plain version); 4096 takes
+    the fp32 FFT and 512 the direct convolution, with no K6 launch, each
+    matching the host."""
+    from long_context_biomedical_imaging_tpu_torch.ops import fftconv as tfft
+
+    for length, launches in ((8192, (2, 1)), (4096, (0, 0)), (512, (0, 0))):
+        gen = torch.Generator().manual_seed(length)
+        c = 1024 if length == 512 else 16
+        u = _randn(gen, (1, length, c), 1.0)
+        k = _randn(gen, (c, length), 0.2)
+        bias = _randn(gen, (c,), 0.5)
+        g = _randn(gen, (1, length, c), 1.0)
+        outs = []
+        for dev in (cuda_device, torch.device("cpu")):
+            leaves = [t.to(dev).requires_grad_(True) for t in (u, k, bias)]
+            before = (tsc.SPECTRAL_CONV.launches, tsc.SPECTRAL_CONV_DK.launches)
+            y = tfft.causal_long_conv_cm(*leaves)
+            y.backward(g.to(dev))
+            ran = (tsc.SPECTRAL_CONV.launches - before[0], tsc.SPECTRAL_CONV_DK.launches - before[1])
+            assert ran == (launches if dev.type == "cuda" else (0, 0)), (length, dev, ran)
+            outs.append([y.detach().cpu()] + [t.grad.cpu() for t in leaves])
+        for name, a, r in zip(("y", "du", "dk", "dbias"), *outs):
+            err = (a - r).abs().max().item()
+            assert err <= 1e-5 * r.abs().max().item(), (length, name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [False, True])
+def test_vit_hyena_gradients_on_the_card_match_the_host(cuda_device, amp):
+    """A ViT-hyena (hidden 32, 2 heads, 2 layers, MLP 64) on 256x512 images
+    with patch 4: 8,192 tokens, K6's lowest length. One train step on the card
+    launches the K6 conv twice forward and twice in the backward, dk twice;
+    every parameter's gradient is finite and non-zero and, in fp32, within
+    1e-4 of its max of the host's (K6's plain version), in bf16 within 1e-1
+    (bf16 roundings compounded over the blocks)."""
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import amp_params
+
+    argv = ["--task_type=class", "--encoder_name=ViT", "--decoder_name=ViTLinear",
+            "--height=256", "--width=512", "--no_in_channel=1", "--no_out_channel=2",
+            "--seed=3", "--ViT.size=custom", "--ViT.hidden_size=32", "--ViT.mlp_dim=64",
+            "--ViT.num_layers=2", "--ViT.num_heads=2", "--ViT.patch_size", "4",
+            "--ViT.use_hyena=True"] + (["--use_amp"] if amp else [])
+    model = build_model(check_args(parse_config(argv)))
+    x = torch.randn(1, 1, 256, 512, 1, generator=torch.Generator().manual_seed(0))
+    y = torch.tensor([1])
+    grads = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        model.to(dev).zero_grad(set_to_none=True)
+        before = (tsc.SPECTRAL_CONV.launches, tsc.SPECTRAL_CONV_DK.launches)
+        out = torch.func.functional_call(model, amp_params(model, amp), (x.to(dev),))
+        cross_entropy_loss(out.float(), y.to(dev)).backward()
+        torch.cuda.synchronize()
+        ran = (tsc.SPECTRAL_CONV.launches - before[0], tsc.SPECTRAL_CONV_DK.launches - before[1])
+        assert ran == ((4, 2) if dev.type == "cuda" else (0, 0)), (dev, ran)
+        grads[dev.type] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    tol = 1e-1 if amp else 1e-4
+    for name, g in grads["cuda"].items():
+        ref = grads["cpu"][name]
+        assert torch.isfinite(g).all() and g.abs().max() > 0, name
+        assert (g - ref).abs().max().item() <= tol * ref.abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_swin_checkpointing_lowers_peak_memory(cuda_device):
+    """--Swin.use_checkpoint=True on the ptx model (Swin-tiny + Hyena, patch
+    2, window 4) at batch 2 of 256x256, bf16 AMP: one forward and backward
+    keeps only the block boundaries, so its peak memory is lower than
+    without the flag, and the gradients are the same to 1e-6 of each max (the
+    recompute runs the same kernels on the same inputs)."""
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import amp_params
+
+    base = ["--task_type=class", "--encoder_name=Swin", "--decoder_name=SwinLinear",
+            "--height=256", "--width=256", "--no_out_channel=2", "--seed=3", "--use_amp",
+            "--Swin.size=tiny", "--Swin.patch_size", "2", "--Swin.window_size", "4",
+            "--Swin.use_hyena", "True"]
+    x = torch.randn(2, 1, 256, 256, 1, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    y = torch.tensor([0, 1], device=cuda_device)
+    peaks, grads = [], []
+    model = build_model(check_args(parse_config(base))).to(cuda_device)
+    for flag in ("False", "True"):
+        remat = build_model(check_args(parse_config(base + [f"--Swin.use_checkpoint={flag}"])))
+        remat.load_state_dict(model.state_dict())
+        remat.to(cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        out = torch.func.functional_call(remat, amp_params(remat, True), (x,))
+        cross_entropy_loss(out.float(), y).backward()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - start)
+        grads.append({k: p.grad.detach() for k, p in remat.named_parameters()})
+        del remat, out
+    assert peaks[1] < peaks[0], peaks
+    for name, g in grads[0].items():
+        err = (g - grads[1][name]).abs().max().item()
+        assert err <= 1e-6 * g.abs().max().item(), (name, err)

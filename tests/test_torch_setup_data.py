@@ -162,19 +162,56 @@ _EVAL = ["--train_model=False", "--device=cpu", "--task_type=class",
     ["--train_model=True", "--optim_type=nadam"],
     ["--train_model=True", "--optim_type=lbfgs"],
     ["--model_parallel=2"],
-    ["--encoder_name=ViT", "--decoder_name=ViTLinear", "--ViT.use_hyena=True"],
+    ["--encoder_name=ViT", "--decoder_name=UperNet2D", "--task_type=seg"],
     ["--encoder_name=ViT", "--decoder_name=ViTLinear", "--ViT.use_mamba=True"],
     ["--Swin.use_hyena=False"],
     ["--task_type=seg", "--decoder_name=UperNet3D", "--time=16"],
     ["--task_type=enhance", "--decoder_name=SwinUNETR", "--loss_func=MSE"],
+    ["--ddp"],
 ], ids=["train_timer", "train_nadam", "train_lbfgs", "model_parallel", "vit", "mamba",
-        "attention", "seg_head", "enhance_head"])
+        "attention", "seg_head", "enhance_head", "ddp"])
 def test_unported_surfaces_raise(tmp_path, extra):
     """Each surface the port does not run yet raises NotImplementedError
     before the run directory is made."""
     with pytest.raises(NotImplementedError):
         parse_config_and_setup_run(_EVAL + extra + [f"--log_dir={tmp_path}", "--run_name=r"])
     assert not os.path.exists(os.path.join(tmp_path, "r"))
+
+
+def test_world_size_above_one_raises(tmp_path, monkeypatch):
+    """Under a launcher that sets WORLD_SIZE > 1 (torchrun), setup raises
+    NotImplementedError naming the data-parallel slice before the run
+    directory is made, instead of training alone on all the data in every
+    process; WORLD_SIZE=1 sets up."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="data-parallel"):
+        parse_config_and_setup_run(_EVAL + [f"--log_dir={tmp_path}", "--run_name=r"])
+    assert not os.path.exists(os.path.join(tmp_path, "r"))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    cfg = parse_config_and_setup_run(_EVAL + ["--Swin.use_hyena=True", f"--log_dir={tmp_path}",
+                                              "--run_name=r"])
+    assert os.path.isdir(cfg.log_dir_run)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_vit_hyena_sets_up(tmp_path, train):
+    """The ViT-hyena slice's surface (ViT with the Hyena mixer and ViTLinear)
+    sets up a run, evaluation and training; the model holds the Hyena
+    operator in each block, no position embedding and no cls token, and its
+    head mean-pools."""
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+
+    extra = ["--encoder_name=ViT", "--decoder_name=ViTLinear", "--ViT.use_hyena=True",
+             "--ViT.size=custom", "--ViT.hidden_size=32", "--ViT.mlp_dim=64",
+             "--ViT.num_layers=1", "--ViT.num_heads=2", "--height=32", "--width=32"]
+    cfg = parse_config_and_setup_run(_EVAL + extra + [f"--train_model={train}",
+                                                      f"--log_dir={tmp_path}", "--run_name=r"])
+    assert os.path.isdir(os.path.join(cfg.log_dir_run, "models"))
+    model = build_model(cfg)
+    assert model.encoder.block_0.attn.hyena is not None
+    assert model.encoder.cls_token is None
+    assert model.encoder.patch_embedding.position_embeddings is None
+    assert not model.decoder.use_cls_token
 
 
 @pytest.mark.parametrize("extra", [
