@@ -4,7 +4,7 @@
 
 Phases, each printing one line of numbers (or a few):
   1. device: the card, as nvidia-smi reports its name and power limit;
-  2. build: the fourteen hand-written kernels from csrc/ with nvcc, in parallel
+  2. build: the seventeen hand-written kernels from csrc/ with nvcc, in parallel
      (one nvcc per source), with their build seconds and ptxas
      register/spill lines;
   3. K1, the fused Hyena window mixer, against its plain PyTorch version at
@@ -111,6 +111,29 @@ Phases, each printing one line of numbers (or a few):
      parameter;
  28. vit65k_hyena throughput: the train step and eval forward at batch 1 on
      1024x1024 in bf16, steady state, with peak memory and one-step
+     profiles;
+ 29. K7, the long-sequence scan of the vit65k_mamba path: selective_scan_long
+     (the forward kernel twice, the carry and backward kernels, the
+     stitches) against its plain version (the chunked scan) and the
+     gradients of all seven inputs at the vit65k_mamba shape (2, 65536, 192),
+     a ragged length with an odd batch (3, 2113, 40) and the gate's widest
+     channels (1, 4096, 1024), fp32 and bf16, two runs bitwise equal; each
+     kernel against its pass's plain version; the refusals; then the times
+     of the kernels and the plain version at the vit65k_mamba shape;
+ 30. vit65k_mamba train slice: run_torch.main trains vit65k_mamba (--debug,
+     2 epochs) on synthetic 1024x1024x1 images with the flags of
+     projects/run_ptx.sh for the ViT-small encoder (patch 4, Mamba),
+     ViTLinear and batch 1, saves and reloads checkpoints, evaluates; checks
+     that the K7 forward ran 24 times per forward batch (twice per block),
+     K7 carry backward, K7 backward and K2 backward 12 times per train step,
+     K2 forward 12 times per forward batch, K1 and K3-K6 never; then
+     --inference_only, which must reproduce the test metrics;
+ 31. vit65k_mamba model gradients: one train step's gradients of the
+     full-width ViT-small Mamba on 128x256 images (2,048 tokens, K7's
+     floor) at batch 1, on the card against the host, fp32 and bf16, per
+     parameter;
+ 32. vit65k_mamba throughput: the train step and eval forward at batch 1 on
+     1024x1024 in bf16, steady state, with peak memory and one-step
      profiles.
 Then one JSON line with the kernels' numbers, and last the result line.
 Every time is on this card, with its name and power limit printed in phase 1.
@@ -155,9 +178,10 @@ def vessel_flags() -> list[str]:
     return project_flags("run_vessel.sh")
 
 
-def _vit_flags(patch: int, batch: int, use_hyena: bool) -> list[str]:
+def _vit_flags(patch: int, batch: int, mixer: str) -> list[str]:
     """The flags of projects/run_ptx.sh with the ViT-small encoder for Swin,
-    ViTLinear for SwinLinear and the given patch, batch size and mixer."""
+    ViTLinear for SwinLinear and the given patch, batch size and mixer
+    ("attention", "hyena" or "mamba")."""
     flags, out, i = ptx_flags(), [], 0
     while i < len(flags):
         flag, values = flags[i], []
@@ -172,20 +196,26 @@ def _vit_flags(patch: int, batch: int, use_hyena: bool) -> list[str]:
             flag, values = f"--batch_size={batch}", []
         out += [flag] + values
     return out + ["--encoder_name=ViT", "--ViT.size=small", "--ViT.patch_size", str(patch),
-                  "--ViT.use_hyena", str(use_hyena), "--ViT.use_mamba", "False",
-                  "--decoder_name=ViTLinear"]
+                  "--ViT.use_hyena", str(mixer == "hyena"), "--ViT.use_mamba",
+                  str(mixer == "mamba"), "--decoder_name=ViTLinear"]
 
 
 def vit16k_flags() -> list[str]:
     """vit16k (scripts/overfit_one_batch.py): ViT-small, patch 8, softmax
     attention, batch 2."""
-    return _vit_flags(8, VIT_BATCH, False)
+    return _vit_flags(8, VIT_BATCH, "attention")
 
 
 def vit65k_hyena_flags() -> list[str]:
     """vit65k_hyena (scripts/overfit_one_batch.py): ViT-small, patch 4, the
     Hyena mixer over all 65,536 tokens, batch 1."""
-    return _vit_flags(4, H65_BATCH, True)
+    return _vit_flags(4, H65_BATCH, "hyena")
+
+
+def vit65k_mamba_flags() -> list[str]:
+    """vit65k_mamba (scripts/overfit_one_batch.py): ViT-small, patch 4, the
+    Mamba mixer (d_state 8) over all 65,536 tokens, batch 1."""
+    return _vit_flags(4, H65_BATCH, "mamba")
 
 
 # ptx at batch 4: Swin-tiny stages on 512^2 .. 64^2 token grids, windows of 16
@@ -254,6 +284,25 @@ K6_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # phase 27, bf16: each parameter's card error may exceed BF16_GRAD_RATIO x the
 # host's by this much of its max
 H65_BF16_GRAD_FLOOR = 2e-2
+# vit65k_mamba's scan in each of ViT-small's 12 layers: u, delta (b, L, D) and
+# B, C (b, L, 8), b = 2 (run_torch.main duplicates a batch of one image), D the
+# mixer's d_half
+M65_D, K7_N = 192, 8
+# phase 29, K7's shapes (b, L, D): the vit65k_mamba call, a ragged length with
+# an odd batch (the carries stay within their batch row), the gate's widest
+# channels (N D = 8192)
+K7_SHAPES = [(2, H65_L, M65_D), (3, 2113, 40), (1, 4096, 1024)]
+# of each output's max|plain|: fp32, the kernels' exp2 and softplus forms and
+# the chunked scan's log-depth association (y), the sums of dA, dD and the
+# bias gradient over up to 131,072 tokens in another order (gradients); bf16,
+# the output and the inputs' gradients are rounded once to bf16 on both sides
+K7_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 3e-2)}
+# each kernel against its pass's plain version on the same fp32 inputs: the
+# exp2 and softplus forms, dA's sum order
+K7_PASS_TOL = 1e-4
+# phase 31, bf16: each parameter's card error may exceed BF16_GRAD_RATIO x the
+# host's by this much of its max
+M65_BF16_GRAD_FLOOR = 2e-2
 # the card's peaks for the bounds (H100 SXM data sheet, dense): bf16 tensor
 # cores, fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -314,9 +363,10 @@ def phase_device(torch):
 
 def all_kernels():
     """K1 fwd, K2 fwd, K1 bwd, K2 bwd, K3 fwd, K3 bwd, K3 dM, K4 fwd, K4 bwd,
-    K5 fwd, K5 dq, K5 dkv, K6 conv, K6 dk."""
+    K5 fwd, K5 dq, K5 dkv, K6 conv, K6 dk, K7 fwd, K7 carry bwd, K7 bwd."""
     from long_context_biomedical_imaging_tpu_torch.ops import (flash_attention, fused_mlp,
                                                                hyena_window, mamba_window,
+                                                               selective_scan_long,
                                                                spectral_conv)
 
     return (hyena_window.HYENA_WINDOW_FWD, fused_mlp.FUSED_LN_MLP_FWD,
@@ -325,7 +375,8 @@ def all_kernels():
             hyena_window.HYENA_DM, mamba_window.MAMBA_WINDOW_FWD, mamba_window.MAMBA_WINDOW_BWD,
             flash_attention.FLASH_FWD, flash_attention.FLASH_BWD_DQ,
             flash_attention.FLASH_BWD_DKV, spectral_conv.SPECTRAL_CONV,
-            spectral_conv.SPECTRAL_CONV_DK)
+            spectral_conv.SPECTRAL_CONV_DK, selective_scan_long.LONG_SCAN_FWD,
+            selective_scan_long.LONG_SCAN_CARRY_BWD, selective_scan_long.LONG_SCAN_BWD)
 
 
 def check_launches(kernels, launches, expected, where):
@@ -1841,9 +1892,170 @@ def phase_k6(torch, sc, dev):
             "dk": (worst["dk"], k_dk, (1 - share) * p_vjp)}
 
 
-def phase_h65_slice(torch, tmp):
-    """run_torch.main trains vit65k_hyena on the card (this slice's main
-    path), then an inference-only run reloads its best checkpoint."""
+def _k7_inputs(torch, gen, shape, dtype, dev):
+    """u, delta, A, B, C, D, delta_bias and a cotangent g of one K7 case:
+    A = -(1..8) per channel times exp(0.3 N(0, 1)), as A_log's init plus
+    noise; u, delta, B, C and g in dtype, the rest fp32."""
+    b, length, d = shape
+    a = -torch.arange(1, K7_N + 1.0) * torch.exp(0.3 * torch.randn(d, K7_N, generator=gen))
+    args = [torch.randn(shape, generator=gen), torch.randn(shape, generator=gen), a,
+            torch.randn(b, length, K7_N, generator=gen),
+            torch.randn(b, length, K7_N, generator=gen), torch.randn(d, generator=gen),
+            torch.randn(d, generator=gen), torch.randn(shape, generator=gen)]
+    return [t.to(dev, dtype if i in (0, 1, 3, 4, 7) else torch.float32)
+            for i, t in enumerate(args)]
+
+
+def _k7_vjp(torch, fn, args):
+    """fn(*args[:7]) and its gradients for the cotangent args[7]."""
+    leaves = [t.detach().requires_grad_(True) for t in args[:7]]
+    y = fn(*leaves)
+    return [y.detach()] + list(torch.autograd.grad(y, leaves, args[7]))
+
+
+def phase_k7(torch, ssl, dev):
+    """K7, the long-sequence scan of the vit65k_mamba path. selective_scan_long
+    on the card (the forward kernel twice, the carry and backward kernels,
+    the stitches) against its plain version (the chunked scan) at K7_SHAPES,
+    fp32 and bf16: y and the gradients of u, delta, A, B, C, D and
+    delta_bias, two runs bitwise equal. Then each kernel against its pass's
+    plain version on the same fp32 inputs at K7_SHAPES, the refusals, and
+    the times at the vit65k_mamba shape (fp32 operands, as the path casts its
+    bf16 ones). Returns {"fwd" | "carry" | "bwd": (max abs err against the
+    pass's plain version at that shape, kernel ms, plain ms)} per layer: the
+    fwd row's kernel time is both forward calls, its plain time the plain
+    forward; the plain backward (the VJP less the forward) is split between
+    the carry and bwd rows as their bounds split the backward's work."""
+    gen = torch.Generator().manual_seed(29)
+    kernels = (ssl.LONG_SCAN_FWD, ssl.LONG_SCAN_CARRY_BWD, ssl.LONG_SCAN_BWD)
+    names = ("y", "du", "ddelta", "dA", "dB", "dC", "dD", "ddelta_bias")
+    for shape in K7_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            args = _k7_inputs(torch, gen, shape, dtype, dev)
+            before = [k.launches for k in kernels]
+            got = _k7_vjp(torch, ssl.selective_scan_long, args)
+            again = _k7_vjp(torch, ssl.selective_scan_long, args)
+            torch.cuda.synchronize()
+            ran = [k.launches - b for k, b in zip(kernels, before)]
+            check(ran == [4, 2, 2], f"K7 {shape} {dname}: launches {ran}, expected [4, 2, 2]")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K7 {shape} {dname}: two runs gave different bits")
+            ref = _k7_vjp(torch, ssl.selective_scan_long_plain, args)
+            errs, ok = {}, True
+            for i, (name, a, r) in enumerate(zip(names, got, ref)):
+                ok = ok and a.dtype == r.dtype and a.shape == r.shape
+                a, r = a.float(), r.float()
+                errs[name] = (a - r).abs().max().item()
+                ok = (ok and bool(torch.isfinite(a).all().item())
+                      and errs[name] <= K7_TOL[dname][i > 0] * r.abs().max().item())
+            print(f"phase 29 K7 b,L,D={shape} {dname}: max_abs_err "
+                  + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                  + " (max|y| {:.3e}, max|dA| {:.3e}); two runs bitwise equal".format(
+                      ref[0].float().abs().max().item(), ref[3].abs().max().item())
+                  + (" ok" if ok else " MISMATCH"), flush=True)
+            check(ok, f"K7 disagrees with its plain version at {shape} {dname}: {errs}")
+            del args, got, again, ref
+            torch.cuda.empty_cache()
+
+    worst = {}
+    for shape in K7_SHAPES:
+        b, length, _ = shape
+        nseg = -(-length // ssl.SEG)
+        u, delta, a, bm, cm, _, _, g = _k7_inputs(torch, gen, shape, torch.float32, dev)
+        at = a.t().contiguous()
+        _, hl, ap = ssl.long_scan_fwd_plain(u, delta, at, bm, cm, emit_y=False)
+        hstart = ssl._stitch_fwd(hl, ap, b, nseg)
+        dht = ssl._stitch_bwd(ssl.long_scan_carry_bwd_plain(delta, at, cm, g), ap, b, nseg)
+        pairs = {
+            "fwd": ([*ssl.long_scan_fwd(u, delta, at, bm, cm, emit_y=False)[1:],
+                     ssl.long_scan_fwd(u, delta, at, bm, cm, hstart)[0]],
+                    [hl, ap, ssl.long_scan_fwd_plain(u, delta, at, bm, cm, hstart)[0]]),
+            "carry": ([ssl.long_scan_carry_bwd(delta, at, cm, g)],
+                      [ssl.long_scan_carry_bwd_plain(delta, at, cm, g)]),
+            "bwd": (ssl.long_scan_bwd(u, delta, at, bm, cm, g, hstart, dht),
+                    ssl.long_scan_bwd_plain(u, delta, at, bm, cm, g, hstart, dht))}
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for key, (got, ref) in pairs.items():
+            e = [(x - r).abs().max().item() for x, r in zip(got, ref)]
+            ok = ok and all(bool(torch.isfinite(x).all().item())
+                            and v <= K7_PASS_TOL * r.abs().max().item()
+                            for x, r, v in zip(got, ref, e))
+            errs[key] = max(e)
+        print(f"phase 29 K7 kernels against their passes' plain versions, b,L,D={shape} "
+              f"float32: max_abs_err fwd (hl, ap, y) {errs['fwd']:.3e}, carry bwd (dh0) "
+              f"{errs['carry']:.3e}, bwd (du, ddelta, dat, dB, dC) {errs['bwd']:.3e}"
+              + (" ok" if ok else " MISMATCH"), flush=True)
+        check(ok, f"a K7 kernel disagrees with its pass's plain version at {shape}: {errs}")
+        if shape == K7_SHAPES[0]:
+            worst = errs
+        del u, delta, a, bm, cm, g, at, hl, ap, hstart, dht, pairs
+        torch.cuda.empty_cache()
+
+    u, delta, a, bm, cm, _, _, g = _k7_inputs(torch, gen, K7_SHAPES[2], torch.float32, dev)
+    for args, what in (((u.cpu(), delta.cpu(), a.t().contiguous().cpu(), bm.cpu(), cm.cpu()),
+                        "a CPU tensor"),
+                       ((u, delta, a.t()[:4].contiguous(), bm[..., :4].contiguous(),
+                         cm[..., :4].contiguous()), "d_state 4")):
+        try:
+            ssl.long_scan_fwd(*args)
+        except ValueError:
+            continue
+        raise SmokeFailure(f"K7 took {what}")
+    print("phase 29 K7 refusals: a CPU tensor, d_state 4: refused", flush=True)
+
+    b, length, _ = K7_SHAPES[0]
+    nseg = -(-length // ssl.SEG)
+    args = _k7_inputs(torch, gen, K7_SHAPES[0], torch.bfloat16, dev)
+    u, delta, a, bm, cm, dskip, dbias, g = args
+    u32, d32, at = u.float(), (delta.float() + dbias).contiguous(), a.t().contiguous()
+    b32, c32, g32 = bm.float(), cm.float(), g.float()
+    _, hl, ap = ssl.long_scan_fwd(u32, d32, at, b32, c32, emit_y=False)
+    hstart = ssl._stitch_fwd(hl, ap, b, nseg)
+    dht = ssl._stitch_bwd(ssl.long_scan_carry_bwd(d32, at, c32, g32), ap, b, nseg)
+    k_zero = median_ms(torch, lambda: ssl.long_scan_fwd(u32, d32, at, b32, c32, emit_y=False))
+    k_y = median_ms(torch, lambda: ssl.long_scan_fwd(u32, d32, at, b32, c32, hstart))
+    k_carry = median_ms(torch, lambda: ssl.long_scan_carry_bwd(d32, at, c32, g32))
+    k_bwd = median_ms(torch, lambda: ssl.long_scan_bwd(u32, d32, at, b32, c32, g32, hstart, dht))
+    with torch.no_grad():
+        p_fwd = median_ms(torch, lambda: ssl.selective_scan_long_plain(*args[:7]), warmup=1,
+                          reps=5)
+    p_vjp = median_ms(torch, lambda: _k7_vjp(torch, ssl.selective_scan_long_plain, args),
+                      warmup=1, reps=5)
+    peaks = {}
+    for label, fn in (("K7", ssl.selective_scan_long), ("plain", ssl.selective_scan_long_plain)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _k7_vjp(torch, fn, args)
+        torch.cuda.synchronize()
+        peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del args, u, delta, a, bm, cm, dskip, dbias, g, u32, d32, at, b32, c32, g32, hl, ap
+    del hstart, dht
+    torch.cuda.empty_cache()
+    bounds = k7_bounds()
+    share = bounds["carry_bwd"][0] / (bounds["carry_bwd"][0] + bounds["bwd"][0])
+    p_bwd = max(p_vjp - p_fwd, 0.0)
+    print(f"phase 29 K7 times at b,L,D={K7_SHAPES[0]}, N={K7_N}, fp32 operands, ms per call: "
+          f"kernel fwd zero-carry {k_zero:.3f}, fwd seeded with y {k_y:.3f}, carry bwd "
+          f"{k_carry:.3f}, bwd {k_bwd:.3f}; plain (chunked scan, bf16 inputs) fwd {p_fwd:.3f}, "
+          f"VJP {p_vjp:.3f}; peak memory of the forward and VJP above their inputs: K7 "
+          f"{peaks['K7']:.3f} GiB, plain {peaks['plain']:.3f} GiB; bounds fwd "
+          f"{bounds['fwd_zero'][0]:.4f} + {bounds['fwd_y'][0]:.4f} ({bounds['fwd_y'][1]}), "
+          f"carry bwd {bounds['carry_bwd'][0]:.4f} ({bounds['carry_bwd'][1]}), "
+          f"bwd {bounds['bwd'][0]:.4f} ({bounds['bwd'][1]})",
+          flush=True)
+    return {"fwd": (worst["fwd"], k_zero + k_y, p_fwd),
+            "carry": (worst["carry"], k_carry, share * p_bwd),
+            "bwd": (worst["bwd"], k_bwd, (1 - share) * p_bwd)}
+
+
+def phase_long_vit_slice(torch, tmp, flags, name, phase, expected):
+    """run_torch.main trains a 65,536-token ViT at batch 1 on the card (the
+    vit65k_hyena or vit65k_mamba path), then an inference-only run reloads
+    its best checkpoint. expected(forward batches, train steps) gives each
+    kernel's launch count by its index in all_kernels()."""
     import numpy as np
     import yaml
 
@@ -1855,12 +2067,13 @@ def phase_h65_slice(torch, tmp):
     val_batches = min(3, math.ceil(n_val / H65_BATCH))
     test_batches = min(3, math.ceil(n_test / H65_BATCH))
     eval_batches = epochs * val_batches + val_batches + test_batches
-    run_dir = os.path.join(tmp, "logs", "chip_smoke_h65")
-    argv = vit65k_hyena_flags() + [f"--data_dir={tmp}/data", f"--split_csv_path={tmp}/split.csv",
-                                   "--device=cuda", "--debug", f"--num_epochs={epochs}",
-                                   f"--log_dir={tmp}/logs", "--run_name=chip_smoke_h65"]
+    run = f"chip_smoke_{name}"
+    run_dir = os.path.join(tmp, "logs", run)
+    argv = flags + [f"--data_dir={tmp}/data", f"--split_csv_path={tmp}/split.csv",
+                    "--device=cuda", "--debug", f"--num_epochs={epochs}", f"--log_dir={tmp}/logs",
+                    f"--run_name={run}"]
     check("--train_model=True" in argv and "--ViT.patch_size" in argv
-          and not any(a.startswith("--Swin.") for a in argv), "the vit65k_hyena flags changed")
+          and not any(a.startswith("--Swin.") for a in argv), f"the {name} flags changed")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = all_kernels()
@@ -1873,13 +2086,10 @@ def phase_h65_slice(torch, tmp):
     launches = {kernel.source: kernel.launches for kernel in kernels}
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"run_torch.main returned {rc}")
-    forward = steps + eval_batches
-    check_launches(kernels, launches, {1: VIT_LAYERS * forward, 3: VIT_LAYERS * steps,
-                                       12: VIT_LAYERS * (forward + steps), 13: VIT_LAYERS * steps},
-                   f"the vit65k_hyena train slice ({steps} train steps, {eval_batches} eval "
-                   f"batches)")
-    for name in ("model_last_epoch", "model_epoch_0", "model_best_checkpoint"):
-        path = os.path.join(run_dir, "models", name)
+    check_launches(kernels, launches, expected(steps + eval_batches, steps),
+                   f"the {name} train slice ({steps} train steps, {eval_batches} eval batches)")
+    for ckpt in ("model_last_epoch", "model_epoch_0", "model_best_checkpoint"):
+        path = os.path.join(run_dir, "models", ckpt)
         check(os.path.exists(os.path.join(path, "state.pt")), f"{path} missing")
     meta = yaml.safe_load(open(os.path.join(run_dir, "models", "model_last_epoch", "meta.yaml")))
     check(meta["step"] == steps and meta["epoch"] == epochs - 1,
@@ -1899,7 +2109,7 @@ def phase_h65_slice(torch, tmp):
         metrics[split] = m
     train_images = sum(int(n) for _, _, n, _ in trained)
     train_seconds = sum(float(sec) for _, _, _, sec in trained)
-    print(f"phase 26 vit65k_hyena train slice: run_torch.main vit65k_hyena training on the card "
+    print(f"phase {phase} {name} train slice: run_torch.main {name} training on the card "
           f"in {wall:.1f} s; {steps} train steps over {epochs} epochs, {train_images} images in "
           f"{train_seconds:.3f} s = {train_images / train_seconds:.3f} images/s (first steps "
           f"and loading included); train losses {losses}; peak memory {peak / 2**30:.2f} GiB; "
@@ -1909,32 +2119,29 @@ def phase_h65_slice(torch, tmp):
         kernel.launches = 0
     rc = run_torch.main(["--inference_only=True", f"--inference_dir={run_dir}",
                          f"--inference_log_dir={tmp}/logs",
-                         "--inference_run_name=chip_smoke_h65_inference"])
+                         f"--inference_run_name={run}_inference"])
     check(rc == 0, f"inference-only run returned {rc}")
     inference = {kernel.source: kernel.launches for kernel in kernels}
-    batches = val_batches + test_batches
-    check_launches(kernels, inference, {1: VIT_LAYERS * batches, 12: VIT_LAYERS * batches},
-                   "the vit65k_hyena inference-only run")
-    path = os.path.join(tmp, "logs", "chip_smoke_h65_inference", "test_metrics.txt")
+    check_launches(kernels, inference, expected(val_batches + test_batches, 0),
+                   f"the {name} inference-only run")
+    path = os.path.join(tmp, "logs", f"{run}_inference", "test_metrics.txt")
     check(os.path.exists(path), f"{path} missing")
     test = {k: float(v) for k, v in (ln.split(": ") for ln in open(path).read().split("\n") if ln)}
     check(test == metrics["test"], f"inference-only test metrics {test} != {metrics['test']}")
-    print(f"phase 26 inference-only: reloaded {run_dir}/models/model_best_checkpoint; test "
+    print(f"phase {phase} inference-only: reloaded {run_dir}/models/model_best_checkpoint; test "
           f"{test} (the training run's own); launches {inference}", flush=True)
     return launches
 
 
-def phase_h65_grads(torch, dev, seed=27):
-    """One train step's gradients of the full-width vit65k_hyena model
-    (ViT-small, patch 4, Hyena, mean-pool ViTLinear) on one 256x512 image:
-    8,192 tokens, K6's lowest length, so every block's long conv takes K6 on
-    the card (its plain version on the host). Weights and image from one
-    seed, on the card against the host, fp32 and bf16, per parameter
-    (max|err| / max|reference|), as phase 23 holds vit16k: fp32 within
-    MODEL_GRAD_TOL; bf16 (AMP) against the card's fp32 gradients, at most
-    BF16_GRAD_RATIO times the host's distance plus H65_BF16_GRAD_FLOOR. On
-    the card the K6 conv runs 12 times forward and 12 in the backward, dk
-    12 times, per gradient."""
+def phase_long_vit_grads(torch, dev, flags, size, phase, name, path_kernels, floor):
+    """One train step's gradients of a full-width 65,536-token ViT config
+    (ViT-small, patch 4, batch 1) on one image cut to size (H, W), so that
+    its long kernels still run. Weights and image from the seed ``phase``, on the card
+    against the host, fp32 and bf16, per parameter (max|err| /
+    max|reference|), as phase 23 holds vit16k: fp32 within MODEL_GRAD_TOL;
+    bf16 (AMP) against the card's fp32 gradients, at most BF16_GRAD_RATIO
+    times the host's distance plus floor. path_kernels: {index in
+    all_kernels(): launches per gradient on the card}."""
     from torch.func import functional_call
 
     from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
@@ -1942,29 +2149,31 @@ def phase_h65_grads(torch, dev, seed=27):
     from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
     from long_context_biomedical_imaging_tpu_torch.trainer import amp_params
 
-    argv = ([a for a in vit65k_hyena_flags() if a != "--use_amp"]
-            + ["--height=256", "--width=512", f"--seed={seed}"])
-    x = torch.randn(H65_BATCH, 1, 256, 512, 1, generator=torch.Generator().manual_seed(seed))
+    height, width = size
+    argv = ([a for a in flags if a != "--use_amp"]
+            + [f"--height={height}", f"--width={width}", f"--seed={phase}"])
+    x = torch.randn(H65_BATCH, 1, height, width, 1,
+                    generator=torch.Generator().manual_seed(phase))
     y = torch.arange(H65_BATCH) % 2
-    k6 = all_kernels()[12:]
+    kernels = [all_kernels()[i] for i in path_kernels]
 
     def grads(model, amp, device):
         model.to(device).zero_grad(set_to_none=True)
-        before = [k.launches for k in k6]
+        before = [k.launches for k in kernels]
         out = functional_call(model, amp_params(model, amp), (x.to(device),)).float()
         cross_entropy_loss(out, y.to(device)).backward()
-        ran = [k.launches - b for k, b in zip(k6, before)]
-        check(ran == ([2 * VIT_LAYERS, VIT_LAYERS] if device != "cpu" else [0, 0]),
-              f"K6 launches {ran} on {device}")
+        ran = [k.launches - b for k, b in zip(kernels, before)]
+        want = list(path_kernels.values()) if device != "cpu" else [0] * len(kernels)
+        check(ran == want, f"{name} long-kernel launches {ran} on {device}, expected {want}")
         return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
 
     def errors(got, ref, dname):
         errs = {}
-        for name, g in got.items():
-            check(bool(torch.isfinite(g).all()), f"{dname}: gradient of {name} not finite")
-            check(g.abs().max().item() > 0, f"{dname}: gradient of {name} is all zero")
-            errs[name] = ((g - ref[name]).abs().max().item()
-                          / max(ref[name].abs().max().item(), 1e-30))
+        for pname, g in got.items():
+            check(bool(torch.isfinite(g).all()), f"{dname}: gradient of {pname} not finite")
+            check(g.abs().max().item() > 0, f"{dname}: gradient of {pname} is all zero")
+            errs[pname] = ((g - ref[pname]).abs().max().item()
+                           / max(ref[pname].abs().max().item(), 1e-30))
         return errs
 
     model = build_model(check_args(parse_config(argv)))
@@ -1974,36 +2183,36 @@ def phase_h65_grads(torch, dev, seed=27):
     host16 = grads(amp_model, True, "cpu")
     card32 = grads(model, False, dev)
     card16 = grads(amp_model, True, dev)
+    tokens = height * width // 16
     e32 = errors(card32, host32, "float32")
     at = max(e32, key=e32.get)
-    print(f"phase 27 vit65k_hyena model gradients: full-width ViT-small Hyena + ViTLinear, batch "
-          f"{H65_BATCH} of 256x512 (8,192 tokens), float32, seed {seed}: {len(card32)} "
-          f"parameters, every card gradient finite and non-zero; card vs host worst max|err| / "
-          f"max|host grad| {e32[at]:.3e} ({at})", flush=True)
+    print(f"phase {phase} {name} model gradients: full-width ViT-small + ViTLinear, batch "
+          f"{H65_BATCH} of {height}x{width} ({tokens:,} tokens), float32, seed {phase}: "
+          f"{len(card32)} parameters, every card gradient finite and non-zero; card vs host "
+          f"worst max|err| / max|host grad| {e32[at]:.3e} ({at})", flush=True)
     check(e32[at] <= MODEL_GRAD_TOL["float32"],
-          f"float32 vit65k_hyena model gradients: {at} off by {e32[at]} of its max")
+          f"float32 {name} model gradients: {at} off by {e32[at]} of its max")
     card_e = errors(card16, card32, "bfloat16")
     host_e = errors(host16, card32, "bfloat16 host")
-    limit = {k: BF16_GRAD_RATIO * host_e[k] + H65_BF16_GRAD_FLOOR for k in card_e}
+    limit = {k: BF16_GRAD_RATIO * host_e[k] + floor for k in card_e}
     tight = max(card_e, key=lambda k: card_e[k] / limit[k])
     ratio = max(card_e, key=lambda k: card_e[k] / max(host_e[k], 1e-30))
     worst_card, worst_host = max(card_e, key=card_e.get), max(host_e, key=host_e.get)
-    print(f"phase 27 vit65k_hyena model gradients, bfloat16: every card gradient finite and "
+    print(f"phase {phase} {name} model gradients, bfloat16: every card gradient finite and "
           f"non-zero; max|err| / max|fp32 card grad|, worst: card {card_e[worst_card]:.3e} "
           f"({worst_card}), host {host_e[worst_host]:.3e} ({worst_host}); per parameter, nearest "
           f"its limit {tight}: card {card_e[tight]:.3e}, host {host_e[tight]:.3e}, limit "
           f"{limit[tight]:.3e}; largest card/host ratio {ratio}: {card_e[ratio]:.3e} / "
           f"{host_e[ratio]:.3e}", flush=True)
     check(card_e[tight] <= limit[tight],
-          f"bfloat16 vit65k_hyena model gradients: the card strays {card_e[tight]} from fp32 at "
-          f"{tight}, more than {BF16_GRAD_RATIO} x the host's {host_e[tight]} + "
-          f"{H65_BF16_GRAD_FLOOR}")
+          f"bfloat16 {name} model gradients: the card strays {card_e[tight]} from fp32 at "
+          f"{tight}, more than {BF16_GRAD_RATIO} x the host's {host_e[tight]} + {floor}")
     return e32, card_e, host_e
 
 
-def phase_h65_throughput(torch, dev):
-    """The vit65k_hyena train step and eval forward at batch 1 on
-    1024x1024x1, bf16."""
+def phase_long_vit_throughput(torch, dev, flags, phase, name):
+    """The train step and eval forward of a 65,536-token ViT config at batch
+    1 on 1024x1024x1, bf16, weights and data from the seed ``phase``."""
     from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
     from long_context_biomedical_imaging_tpu_torch.metrics.device import make_train_metric_fn
     from long_context_biomedical_imaging_tpu_torch.models import build_model
@@ -2012,9 +2221,9 @@ def phase_h65_throughput(torch, dev):
     from long_context_biomedical_imaging_tpu_torch.trainer import (amp_params, make_eval_step,
                                                                    make_train_step)
 
-    cfg = check_args(parse_config(vit65k_hyena_flags()))
+    cfg = check_args(parse_config(flags))
     model = build_model(cfg).to(dev)
-    gen = torch.Generator().manual_seed(28)
+    gen = torch.Generator().manual_seed(phase)
     x = torch.randn(H65_BATCH, 1, 1024, 1024, 1, generator=gen).to(dev)
     y = (torch.arange(H65_BATCH) % 2).to(dev)
     step = make_eval_step(model.eval(), cross_entropy_loss)
@@ -2023,11 +2232,11 @@ def phase_h65_throughput(torch, dev):
     eval_ms = median_ms(torch, lambda: step(amp_params(model, True), x, y, H65_BATCH), warmup=2,
                         reps=5)
     eval_peak = torch.cuda.max_memory_allocated()
-    print(f"phase 28 vit65k_hyena eval forward, batch {H65_BATCH} of 1024x1024, bf16: "
+    print(f"phase {phase} {name} eval forward, batch {H65_BATCH} of 1024x1024, bf16: "
           f"{eval_ms:.2f} ms/batch = {H65_BATCH * 1000 / eval_ms:.3f} images/s (median of 5); "
           f"peak memory {eval_peak / 2**30:.2f} GiB", flush=True)
     profile_step(torch, lambda: step(amp_params(model, True), x, y, H65_BATCH),
-                 "phase 28 vit65k_hyena eval profile")
+                 f"phase {phase} {name} eval profile")
 
     model.train()
     optim = OptimManager(cfg, num_train_samples=1000)
@@ -2039,10 +2248,10 @@ def phase_h65_throughput(torch, dev):
     torch.cuda.reset_peak_memory_stats()
     ms = median_ms(torch, lambda: train([(x, y)], lr, H65_BATCH), warmup=2, reps=5)
     peak = torch.cuda.max_memory_allocated()
-    print(f"phase 28 vit65k_hyena train step (forward, backward, Adam), batch {H65_BATCH} of "
+    print(f"phase {phase} {name} train step (forward, backward, Adam), batch {H65_BATCH} of "
           f"1024x1024, bf16: {ms:.2f} ms/step = {H65_BATCH * 1000 / ms:.3f} images/s (median of "
           f"5 after 2 warm-ups); peak memory {peak / 2**30:.2f} GiB", flush=True)
-    profile_step(torch, lambda: train([(x, y)], lr, H65_BATCH), "phase 28 vit65k_hyena profile")
+    profile_step(torch, lambda: train([(x, y)], lr, H65_BATCH), f"phase {phase} {name} profile")
     return ms, eval_ms
 
 
@@ -2060,7 +2269,7 @@ def profile_step(torch, fn, label):
               and not e.key.startswith(("_HyenaWindowMixer", "_FusedLnMlpResidual",
                                         "_HyenaChunkedMixer", "_ToeplitzConv",
                                         "_ChunkToeplitz", "_MambaWindowMixer",
-                                        "_FlashAttention", "_SpectralConv"))]
+                                        "_FlashAttention", "_SpectralConv", "_LongScan"))]
     total = sum(getattr(e, attr) for e in events)
     if total:
         top = sorted(events, key=lambda e: -getattr(e, attr))[:20]
@@ -2096,6 +2305,35 @@ def k6_bounds():
             "dk": bound(0, (2 * b * d + d) * fft, 2 * 2 * b * d * length + 4 * d * length)}
 
 
+def k7_bounds():
+    """K7 per call at the vit65k_mamba shape, {"fwd_zero" | "fwd_y" |
+    "carry_bwd" | "bwd": (ms, bound_by)}. Yardstick: the scan's fp32
+    operations over 67 TFLOP/s, counted per (token, channel, state), an exp
+    as one: the forward from zero carries 6 (exp, d A, a h + b, the d u B
+    product, the decay product), seeded with y 7 (a h + b, C . h instead of
+    the product); the carry backward 5 (exp, d A, dh + C g, a dh); the
+    backward's function 20 (the h recompute 5; dh, its products with h_prev,
+    B, d u and A, dA, dC, a dh 15); plus softplus (4) per (token, channel),
+    and the backward's sigmoid and du, ddelta (6). Bytes: the fp32 inputs
+    read once and outputs written once: the forward from zero carries u,
+    delta, B and the carries out, seeded u, delta, B, C, the carries in and
+    y (the seeded pass writes no carries: nothing reads them); the carry
+    backward delta, g, C, dh0;
+    the backward u, delta, g, B, C, h0, dht, du, ddelta, dB, dC, dA."""
+    from long_context_biomedical_imaging_tpu_torch.ops.selective_scan_long import SEG
+
+    b, length, d = K7_SHAPES[0]
+    n = K7_N
+    tokens, cells = b * length, b * length * d * n
+    rows = b * -(-length // SEG)
+    seq, state, carry = 4 * tokens * d, 4 * tokens * n, 4 * rows * n * d
+    return {"fwd_zero": bound(0, 6 * cells + 4 * tokens * d, 2 * seq + state + 2 * carry),
+            "fwd_y": bound(0, 7 * cells + 4 * tokens * d, 3 * seq + 2 * state + carry),
+            "carry_bwd": bound(0, 5 * cells + 4 * tokens * d, 2 * seq + state + carry),
+            "bwd": bound(0, 20 * cells + 10 * tokens * d,
+                         5 * seq + 4 * state + 2 * carry + 4 * n * d)}
+
+
 def kernel_bounds():
     """Per kernel: (bound ms of one train step of its main path, bound_by),
     from the main path's bf16 shapes: ptx for K1 and K2 (T tokens, C
@@ -2103,7 +2341,8 @@ def kernel_bounds():
     K1 bwd 22TC^2 plus three times those; K2 fwd 16NC^2, bwd 40NC^2), emb
     for K3 (the Toeplitz products 2 * BW * C * chunk^2 * n(n+1)/2), vessel
     for K4 (its stages 0-2), vit16k for K5 (12 layers), vit65k_hyena for K6
-    (12 layers, the conv twice in each, forward and du; ``k6_bounds``)."""
+    (12 layers, the conv twice in each, forward and du; ``k6_bounds``),
+    vit65k_mamba for K7 (12 layers, the forward twice in each; ``k7_bounds``)."""
     out = {}
 
     def add(name, depth, b):
@@ -2163,6 +2402,11 @@ def kernel_bounds():
     k6 = k6_bounds()
     add("spectral_conv", 2 * VIT_LAYERS, k6["conv"])
     add("spectral_conv_dk", VIT_LAYERS, k6["dk"])
+    k7 = k7_bounds()
+    add("long_scan_fwd", VIT_LAYERS, k7["fwd_zero"])
+    add("long_scan_fwd", VIT_LAYERS, k7["fwd_y"])
+    add("long_scan_carry_bwd", VIT_LAYERS, k7["carry_bwd"])
+    add("long_scan_bwd", VIT_LAYERS, k7["bwd"])
     return {name: (ms, max(votes, key=votes.get)) for name, (ms, votes) in out.items()}
 
 
@@ -2219,27 +2463,47 @@ def run():
         shutil.rmtree(tmp, ignore_errors=True)
     phase_vit_grads(torch, dev)
     phase_vit_throughput(torch, dev)
-    from long_context_biomedical_imaging_tpu_torch.ops import spectral_conv
+    from long_context_biomedical_imaging_tpu_torch.ops import selective_scan_long, spectral_conv
 
     k6 = phase_k6(torch, spectral_conv, dev)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_h65_")
     try:
-        h65_launches = phase_h65_slice(torch, tmp)
+        h65_launches = phase_long_vit_slice(
+            torch, tmp, vit65k_hyena_flags(), "vit65k_hyena", 26,
+            lambda forward, steps: {1: VIT_LAYERS * forward, 3: VIT_LAYERS * steps,
+                                    12: VIT_LAYERS * (forward + steps), 13: VIT_LAYERS * steps})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_h65_grads(torch, dev)
-    phase_h65_throughput(torch, dev)
+    phase_long_vit_grads(torch, dev, vit65k_hyena_flags(), (256, 512), 27, "vit65k_hyena",
+                         {12: 2 * VIT_LAYERS, 13: VIT_LAYERS}, H65_BF16_GRAD_FLOOR)
+    phase_long_vit_throughput(torch, dev, vit65k_hyena_flags(), 28, "vit65k_hyena")
+    k7 = phase_k7(torch, selective_scan_long, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_m65_")
+    try:
+        m65_launches = phase_long_vit_slice(
+            torch, tmp, vit65k_mamba_flags(), "vit65k_mamba", 30,
+            lambda forward, steps: {1: VIT_LAYERS * forward, 3: VIT_LAYERS * steps,
+                                    14: 2 * VIT_LAYERS * forward, 15: VIT_LAYERS * steps,
+                                    16: VIT_LAYERS * steps})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_long_vit_grads(torch, dev, vit65k_mamba_flags(), (128, 256), 31, "vit65k_mamba",
+                         {14: 2 * VIT_LAYERS, 15: VIT_LAYERS, 16: VIT_LAYERS},
+                         M65_BF16_GRAD_FLOOR)
+    phase_long_vit_throughput(torch, dev, vit65k_mamba_flags(), 32, "vit65k_mamba")
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "long_context_biomedical_imaging_tpu")
                   for m in sys.modules), "JAX was imported")
 
     # per kernel, in its main path's configuration (bf16 under AMP, the
     # folded LN): launches in that path's train slice (ptx for K1 and K2, emb
-    # for K3, vessel for K4, vit16k for K5, vit65k_hyena for K6), worst error
-    # over the stage shapes (the backward: over every gradient), and the time
-    # of one train step (each stage's time x its depth), with its bound;
-    # library_ms is the time of torch's scaled_dot_product_attention for K5
-    # (forward; its backward shared between dq and dkv) and null for K1-K4
-    # and K6, which no single PyTorch call computes
+    # for K3, vessel for K4, vit16k for K5, vit65k_hyena for K6, vit65k_mamba
+    # for K7), worst error over the stage shapes (the backward: over every
+    # gradient; K7: against its pass's plain version, fp32 as on the path),
+    # and the time of one train step (each stage's time x its depth), with
+    # its bound; library_ms is the time of torch's
+    # scaled_dot_product_attention for K5 (forward; its backward shared
+    # between dq and dkv) and null for K1-K4, K6 and K7, which no single
+    # PyTorch call computes
     bounds = kernel_bounds()
     depths = [d for _, _, d in STAGES]
     emb_depths = [d for _, _, d in EMB_K3_STAGES]
@@ -2281,6 +2545,13 @@ def run():
             ("spectral_conv", spectral_conv.SPECTRAL_CONV, "conv", "spectral_conv.py:158"),
             ("spectral_conv_dk", spectral_conv.SPECTRAL_CONV_DK, "dk", "spectral_conv.py:183")):
         rows.append((label, kernel, [k6[key]], [VIT_LAYERS], h65_launches, tpu + replaces, None))
+    # K7: the fwd row's ms is both forward calls of each layer
+    for label, kernel, key, line in (
+            ("long_scan_fwd", selective_scan_long.LONG_SCAN_FWD, "fwd", 253),
+            ("long_scan_carry_bwd", selective_scan_long.LONG_SCAN_CARRY_BWD, "carry", 289),
+            ("long_scan_bwd", selective_scan_long.LONG_SCAN_BWD, "bwd", 320)):
+        rows.append((label, kernel, [k7[key]], [VIT_LAYERS], m65_launches,
+                     f"{tpu}selective_scan_long.py:{line}", None))
     kernels = [{
         "name": label, "route": "cuda", "source": f"{PACKAGE}/csrc/{kernel.source}",
         "replaces": replaces, "launches": path_launches[kernel.source],

@@ -4,9 +4,9 @@ Counterpart of the JAX package's ``models/model_base.py``. ``build_model``
 returns ``decoder(encoder(x))`` on channels-last (B, T, H, W, C) input, with
 parameters initialised from an explicit ``torch.Generator``. The port builds
 Swin (Hyena or Mamba mixer) with SwinLinear for classification or UperNet2D
-for segmentation, and the ViT (softmax attention or Hyena) with ViTLinear,
-which reads the cls token after attention and mean-pools the tokens after
-Hyena;
+for segmentation, and the ViT (softmax attention, Hyena or Mamba) with
+ViTLinear, which reads the cls token after attention and mean-pools the
+tokens after Hyena or Mamba;
 :func:`check_ported` raises NotImplementedError for everything else, naming
 the slice that ports it. UperNet's BatchNorm layers train on batch
 statistics in ``model.train()`` and use their running statistics in
@@ -44,10 +44,6 @@ def check_ported(config) -> None:
             f"task {config.task_type}: enhance comes with the micro slice "
             "(ROADMAP.md queue 1)")
     if config.encoder_name == "ViT":
-        if config.ViT.use_mamba:
-            raise NotImplementedError(
-                "ViT with the Mamba mixer: it comes with the ViT-mamba slice (kernel K7, "
-                "ROADMAP.md queue 1)")
         if config.decoder_name != "ViTLinear":
             raise NotImplementedError(
                 f"{config.decoder_name} on the ViT encoder: the port's ViT runs with "

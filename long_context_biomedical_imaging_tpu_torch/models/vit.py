@@ -1,4 +1,5 @@
-"""ViT backbone with a full-sequence token mixer: softmax attention or Hyena.
+"""ViT backbone with a full-sequence token mixer: softmax attention, Hyena or
+Mamba.
 
 Counterpart of the JAX package's ``models/vit.py`` (ref:
 model/models/backbone_vit.py:45-397): channels-last input (B, T, H, W, C),
@@ -6,9 +7,11 @@ pre-LN blocks x += Mixer(LN(x)); x += MLP(LN(x)), the second half in K2
 (``LNMLPResidual``) on (B*L, C) rows. The attention goes through
 ``ops.multi_head_attention`` (K5 from 1024 tokens); the Hyena mixer is the
 ``HyenaOperator`` over the whole sequence, whose long convolution takes K6
-(``ops.spectral_conv``) at 8192 <= L <= 131072 with L a power of two. Returns
-the JAX package's hidden-state list [input, h1..hN, final norm] (N + 2
-tensors).
+(``ops.spectral_conv``) at 8192 <= L <= 131072 with L a power of two; the
+Mamba mixer is the ``MambaVisionMixer`` (d_state 8, 3-tap conv, expand 1)
+over the whole sequence, whose scan takes K7 (``ops.selective_scan_long``)
+from 2048 tokens. Returns the JAX package's hidden-state list [input,
+h1..hN, final norm] (N + 2 tensors).
 
 Contract kept from the JAX package:
   * size presets small (384/1536/12/6), base (768/3072/12/12), custom;
@@ -16,8 +19,7 @@ Contract kept from the JAX package:
     zero-init cls token prepended to the tokens; Hyena (and Mamba): neither;
   * output_feature_channels = [hidden] * (num_layers + 1).
 
-Not ported here: the Mamba mixer (K7, the ViT-mamba slice), which raises
-NotImplementedError, and the sequence-parallel padding of the token axis (the
+Not ported here: the sequence-parallel padding of the token axis (the
 sequence-parallel slice).
 """
 
@@ -31,6 +33,7 @@ from torch import nn
 from ..ops.attention import multi_head_attention
 from .hyena import HyenaOperator
 from .layers import FlaxLayerNorm, LNMLPResidual, PatchEmbeddingBlock, TorchDense
+from .mamba import MambaVisionMixer
 
 HYENA_L_MAX = 66000  # ref: backbone_vit.py:172
 
@@ -39,27 +42,28 @@ class SABlock(nn.Module):
     """Token mixer. Softmax multi-head attention: qkv (C -> 3C, no bias, as
     every ViT of the JAX package builds it) split as (B, L, 3, heads,
     head_dim), the out projection C -> C. With ``use_hyena`` the Hyena
-    operator over the whole sequence instead, as the submodule ``hyena``."""
+    operator over the whole sequence instead, as the submodule ``hyena``;
+    with ``use_mamba`` the Mamba mixer, as the submodule ``mamba``."""
 
     def __init__(self, hidden_size: int, num_heads: int, use_hyena: bool = False,
                  use_mamba: bool = False):
         super().__init__()
-        if use_mamba:
-            raise NotImplementedError(
-                "ViT with the Mamba mixer is not ported yet: it comes with the ViT-mamba "
-                "slice and its long-scan kernel K7 (ROADMAP.md queue 1)")
         self.num_heads = num_heads
-        if use_hyena:
-            self.hyena = HyenaOperator(d_model=hidden_size, l_max=HYENA_L_MAX, filter_order=64,
-                                       num_heads=num_heads, short_filter_order=5)
+        self.hyena = (HyenaOperator(d_model=hidden_size, l_max=HYENA_L_MAX, filter_order=64,
+                                    num_heads=num_heads, short_filter_order=5)
+                      if use_hyena else None)
+        self.mamba = (MambaVisionMixer(hidden_size, d_state=8, d_conv=3, expand=1)
+                      if use_mamba else None)
+        if use_hyena or use_mamba:
             return
-        self.hyena = None
         self.qkv = TorchDense(hidden_size, 3 * hidden_size, use_bias=False)
         self.proj = TorchDense(hidden_size, hidden_size)
 
     def forward(self, x):
         if self.hyena is not None:
             return self.hyena(x)
+        if self.mamba is not None:
+            return self.mamba(x)
         b, l, c = x.shape
         qkv = self.qkv(x).reshape(b, l, 3, self.num_heads, c // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)                      # each (b, h, l, hd)

@@ -1,0 +1,308 @@
+"""Long-sequence selective scan (K7): the full-sequence Mamba scan of the ViT
+mixer at L >= 2048 tokens, forward and backward.
+
+Counterpart of ``long_context_biomedical_imaging_tpu/ops/selective_scan_long.py``
+(``selective_scan_long`` and its custom VJP). The sequence is cut into
+segments of SEG = 64 tokens, each segment of each batch row a *row*. The
+recurrence h_t = a_t h_{t-1} + b_t is linear in the carried state, so the
+segments' order factors out:
+
+  forward   h_last(s, H) = h_last(s, 0) + P_s H,   P_s = prod_t a_t over s
+  backward  dh_start(s, T) = dh_start(s, 0) + P_s T
+
+Each direction is (1) one pass over all rows at once from zero carries,
+giving each segment's boundary values, (2) a log-depth scan over the
+segments' (P_s, boundary) pairs in torch ops, the stitch, and (3) one pass
+seeded with the true carries, giving the outputs. The forward runs the
+forward kernel twice (from zero carries, writing the carries out; then
+seeded, writing y alone); the backward
+runs the carry kernel (dh at each segment's start from a zero tail), the
+reverse stitch, and the backward kernel (du, ddelta, dB, dC and dA, the
+h history recomputed from each segment's true start carry).
+
+On CUDA tensors each pass launches its hand-written kernel
+(:func:`long_scan_fwd`, :func:`long_scan_carry_bwd`, :func:`long_scan_bwd`:
+``csrc/selective_scan_long.cu``, ``selective_scan_long_carry_bwd.cu``,
+``selective_scan_long_bwd.cu``), which raises on what it does not take; on
+CPU tensors it runs its plain PyTorch version (``long_scan_*_plain``), so the
+CPU runs the same passes and stitches, as the JAX package runs its kernels in
+interpret mode there.
+:func:`selective_scan_long_plain`, the chunked scan of ``ops.selective_scan``,
+computes the same function by another algorithm: it is the yardstick the
+kernels are held against on the card.
+
+Precision: everything is fp32 (u, delta, B and C are cast at the boundary,
+as the JAX package casts them); the kernels compute exp(delta A) as
+exp2(delta A log2 e) and softplus as max(v, 0) + log1p(exp(-|v|)) (JAX's
+``logaddexp(v, 0)``), the plain versions ``torch.exp`` and ``F.softplus``:
+both agree within fp32 round-off. The kernels take d_state 8 only, the
+MambaVisionMixer's (every model of the repo builds it so).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .cuda_build import CudaKernel, check_cuda_operand, ptr, slot_count, stream_handle
+from .selective_scan import affine_scan, selective_scan_chunked
+
+SEG = 64                     # tokens per segment row (the TPU kernel's)
+LONG_SCAN_MIN_LEN = 2048     # the gate of the JAX package (long_scan_supported)
+LONG_SCAN_MAX_ND = 8192
+LONG_SCAN_STATE = 8          # the kernels' d_state
+
+LONG_SCAN_FWD = CudaKernel(
+    "selective_scan_long.cu", "lcbi_long_scan_fwd",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+LONG_SCAN_CARRY_BWD = CudaKernel(
+    "selective_scan_long_carry_bwd.cu", "lcbi_long_scan_carry_bwd",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+LONG_SCAN_BWD = CudaKernel(
+    "selective_scan_long_bwd.cu", "lcbi_long_scan_bwd",
+    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def long_scan_supported(length: int, n: int, d: int) -> bool:
+    """The JAX package's gate of the long-sequence kernel: L >= 2048 and
+    n * d <= 8192."""
+    return length >= LONG_SCAN_MIN_LEN and n * d <= LONG_SCAN_MAX_ND
+
+
+# ---------------------------------------------------------------------------
+# Segments and the stitch
+# ---------------------------------------------------------------------------
+
+def _segment(x):
+    """(b, L, k) -> (b * nseg, SEG, k), the tail zero-padded; and nseg."""
+    b, length, k = x.shape
+    pad = (-length) % SEG
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    return x.reshape(-1, SEG, k), (length + pad) // SEG
+
+
+def _unsegment(x, b, length):
+    """(b * nseg, SEG, k) -> (b, L, k)."""
+    return x.reshape(b, -1, x.shape[-1])[:, :length]
+
+
+def _valid(b, length, device):
+    """(rows, SEG) bool: which steps of each row are real tokens."""
+    nseg = -(-length // SEG)
+    return (torch.arange(nseg * SEG, device=device) < length).reshape(1, nseg, SEG).expand(
+        b, nseg, SEG).reshape(b * nseg, SEG)
+
+
+def _stitch_fwd(hl, ap, b, nseg):
+    """Each segment's zero-carry final state hl and decay product ap (rows,
+    N, D) -> the true initial carries: hstart[s] = ap[s-1] hstart[s-1] +
+    hl[s-1] within each batch row, hstart[0] = 0."""
+    shape = hl.shape
+    _, h_in = affine_scan(ap.reshape(b, nseg, -1), hl.reshape(b, nseg, -1), dim=1)
+    return F.pad(h_in[:, :-1], (0, 0, 1, 0)).reshape(shape)
+
+
+def _stitch_bwd(dh0, ap, b, nseg):
+    """Each segment's dh at its start from a zero tail, dh0 (rows, N, D), ->
+    the true cotangent of each segment's final state: dh_tail[s] = dh0[s+1]
+    + ap[s+1] dh_tail[s+1] within each batch row, the last one 0."""
+    shape = dh0.shape
+    _, t_in = affine_scan(ap.reshape(b, nseg, -1), dh0.reshape(b, nseg, -1), dim=1,
+                          reverse=True)
+    return F.pad(t_in[:, 1:], (0, 0, 0, 1)).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# The three passes: plain versions (CPU) and kernels (CUDA)
+# ---------------------------------------------------------------------------
+
+def _scan_rows_plain(u, delta, at, B, C, h0, emit_y):
+    """One pass over every segment row from the carries h0 (rows, N, D; None
+    for zeros): y (b, L, D), None without ``emit_y``; each row's final state
+    and decay product (rows, N, D), all fp32. Steps past L are the identity."""
+    b, length, _ = u.shape
+    us, _ = _segment(u)
+    ds, _ = _segment(delta)
+    bs, _ = _segment(B)
+    cs, _ = _segment(C)
+    valid = _valid(b, length, u.device)
+    h = torch.zeros(us.shape[0], *at.shape, device=u.device) if h0 is None else h0
+    p = torch.ones_like(h)
+    ys = []
+    for t in range(SEG):
+        d = F.softplus(ds[:, t])
+        a = torch.where(valid[:, t, None, None], torch.exp(d[:, None, :] * at), 1.0)
+        h = a * h + (d * us[:, t])[:, None, :] * bs[:, t, :, None]
+        p = p * a
+        if emit_y:
+            ys.append((h * cs[:, t, :, None]).sum(dim=1))
+    return (_unsegment(torch.stack(ys, dim=1), b, length) if emit_y else None), h, p
+
+
+def long_scan_fwd_plain(u, delta, at, B, C, h0=None, emit_y=True):
+    """One pass over every segment row from the carries h0 (rows, N, D; None
+    for zeros): with ``emit_y`` (y (b, L, D), None, None), else (None, hl,
+    ap), each row's final state and decay product (rows, N, D); all fp32.
+    u, delta (b, L, D), delta before softplus; at = A^T (N, D); B, C (b, L,
+    N). Steps past L are the identity."""
+    y, hl, ap = _scan_rows_plain(u, delta, at, B, C, h0, emit_y)
+    return (y, None, None) if emit_y else (None, hl, ap)
+
+
+def long_scan_carry_bwd_plain(delta, at, C, g):
+    """Each row's dh at its start from a zero tail (rows, N, D): the reverse
+    chain dh_{t-1} = a_t (dh_t + C_t g_t) over the row."""
+    ds, _ = _segment(delta)
+    cs, _ = _segment(C)
+    gs, _ = _segment(g)
+    dh = torch.zeros(ds.shape[0], *at.shape, device=delta.device)
+    for t in reversed(range(SEG)):
+        a = torch.exp(F.softplus(ds[:, t])[:, None, :] * at)
+        dh = a * (dh + cs[:, t, :, None] * gs[:, t, None, :])
+    return dh
+
+
+def long_scan_bwd_plain(u, delta, at, B, C, g, h0, dht):
+    """(du, ddelta, dat, dB, dC) of the seeded pass for the cotangents g of y
+    and dht of each row's final state: the VJP of the pass's (y, hl)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (u, delta, at, B, C)]
+        y, hl, _ = _scan_rows_plain(*leaves, h0, True)
+        return torch.autograd.grad((y, hl), leaves, (g, dht))
+
+
+def _check(at, seqs, states, carries=()):
+    """Raise unless the kernels take these operands: at (8, D); seqs
+    {name: (b, L, D)}, states {name: (b, L, 8)}, carries {name: (rows, 8,
+    D)}; all contiguous fp32 tensors on one CUDA device. Returns (b, L, D)."""
+    n = at.shape[0]
+    if n != LONG_SCAN_STATE:
+        raise ValueError(f"the long-scan kernels take d_state {LONG_SCAN_STATE}, got {n}")
+    first = next(iter(seqs.values()))
+    if not first.is_cuda:
+        raise ValueError(f"the long-scan kernels take CUDA tensors, got {first.device}")
+    if first.dim() != 3:
+        raise ValueError(f"the sequences must be (b, L, D), got {tuple(first.shape)}")
+    b, length, d = first.shape
+    if b * length * max(d, n) >= 2**31:
+        raise ValueError(f"the long-scan kernels need b * L * D < 2^31, got {tuple(first.shape)}")
+    rows = b * -(-length // SEG)
+    for group, shape in ((seqs, (b, length, d)), (states, (b, length, n)), ({"at": at}, (n, d)),
+                         (dict(carries), (rows, n, d))):
+        for name, t in group.items():
+            check_cuda_operand(name, t, first.device, torch.float32, shape)
+    return b, length, d
+
+
+def _carries(u, d):
+    return torch.empty(u.shape[0] * -(-u.shape[1] // SEG), LONG_SCAN_STATE, d,
+                       device=u.device, dtype=torch.float32)
+
+
+def long_scan_fwd(u, delta, at, B, C, h0=None, emit_y=True):
+    """The K7 forward kernel (``csrc/selective_scan_long.cu``):
+    :func:`long_scan_fwd_plain` on CUDA tensors."""
+    b, length, d = _check(at, {"u": u, "delta": delta}, {"B": B, "C": C},
+                          {} if h0 is None else {"h0": h0})
+    if emit_y:
+        y, hl, ap = torch.empty_like(u), None, None
+    else:
+        y, hl, ap = None, _carries(u, d), _carries(u, d)
+    LONG_SCAN_FWD(ptr(u), ptr(delta), ptr(at), ptr(B), ptr(C), ptr(h0), ptr(y), ptr(hl), ptr(ap),
+                  b, length, d, LONG_SCAN_STATE, stream_handle(u.device))
+    return y, hl, ap
+
+
+def long_scan_carry_bwd(delta, at, C, g):
+    """The K7 carry-backward kernel (``csrc/selective_scan_long_carry_bwd.cu``):
+    :func:`long_scan_carry_bwd_plain` on CUDA tensors."""
+    b, length, d = _check(at, {"delta": delta, "g": g}, {"C": C})
+    dh0 = _carries(delta, d)
+    LONG_SCAN_CARRY_BWD(ptr(delta), ptr(at), ptr(C), ptr(g), ptr(dh0), b, length, d,
+                        LONG_SCAN_STATE, stream_handle(delta.device))
+    return dh0
+
+
+def long_scan_bwd(u, delta, at, B, C, g, h0, dht):
+    """The K7 backward kernel (``csrc/selective_scan_long_bwd.cu``):
+    :func:`long_scan_bwd_plain` on CUDA tensors. Its blocks sum dA over their
+    rows into their own fp32 slots, summed in a fixed order at the end."""
+    b, length, d = _check(at, {"u": u, "delta": delta, "g": g}, {"B": B, "C": C},
+                          {"h0": h0, "dht": dht})
+    du, dd = torch.empty_like(u), torch.empty_like(u)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    n_slots = slot_count(LONG_SCAN_STATE * d, u.device)
+    slots = torch.empty(n_slots, LONG_SCAN_STATE * d, device=u.device, dtype=torch.float32)
+    dat = torch.empty_like(at)
+    LONG_SCAN_BWD(ptr(u), ptr(delta), ptr(at), ptr(B), ptr(C), ptr(g), ptr(h0), ptr(dht),
+                  ptr(du), ptr(dd), ptr(dB), ptr(dC), ptr(slots), ptr(dat), b, length, d,
+                  LONG_SCAN_STATE, n_slots, stream_handle(u.device))
+    return du, dd, dat, dB, dC
+
+
+def _passes(u):
+    """The three passes for u's device: the kernels on CUDA, the plain
+    versions on the CPU."""
+    if u.is_cuda:
+        return long_scan_fwd, long_scan_carry_bwd, long_scan_bwd
+    return long_scan_fwd_plain, long_scan_carry_bwd_plain, long_scan_bwd_plain
+
+
+class _LongScan(torch.autograd.Function):
+    """y of the scan (no D skip; delta before softplus, its bias added) on
+    fp32 (b, L, D) operands. Forward: the zero-carry pass, the stitch, the
+    seeded pass (JAX ``_fwd_impl``). Backward: the carry pass, the reverse
+    stitch, the backward pass (JAX ``_long_bwd_rule``)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, at, B, C):
+        fwd, _, _ = _passes(u)
+        b, length, _ = u.shape
+        nseg = -(-length // SEG)
+        _, hl, ap = fwd(u, delta, at, B, C, None, emit_y=False)
+        hstart = _stitch_fwd(hl, ap, b, nseg)
+        y, _, _ = fwd(u, delta, at, B, C, hstart)
+        ctx.save_for_backward(u, delta, at, B, C, hstart, ap)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        u, delta, at, B, C, hstart, ap = ctx.saved_tensors
+        _, carry_bwd, bwd = _passes(u)
+        g = g.float().contiguous()
+        b, length, _ = u.shape
+        dh0 = carry_bwd(delta, at, C, g)
+        dht = _stitch_bwd(dh0, ap, b, -(-length // SEG))
+        return bwd(u, delta, at, B, C, g, hstart, dht)
+
+
+def selective_scan_long(u, delta, A, B, C, D=None, delta_bias=None, delta_softplus=True):
+    """Channel-minor long-sequence selective scan through K7: u, delta (b,
+    L, d); A (d, N); B, C (b, L, N); D and delta_bias (d,) or None. Returns
+    (b, L, d) in u.dtype, differentiable in every argument. delta_bias and
+    the D skip stay outside the autograd Function (as in the JAX package's
+    ``_long_core``), so autograd carries their gradients."""
+    if not delta_softplus:
+        raise ValueError("the long-scan kernels apply softplus to delta")
+    if u.device.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"no long scan for device {u.device}")
+    u32 = u.float().contiguous()
+    d32 = delta.float()
+    if delta_bias is not None:
+        d32 = d32 + delta_bias.float()
+    y = _LongScan.apply(u32, d32.contiguous(), A.float().t().contiguous(),
+                        B.float().contiguous(), C.float().contiguous())
+    if D is not None:
+        y = y + u32 * D.float()
+    return y.to(u.dtype)
+
+
+def selective_scan_long_plain(u, delta, A, B, C, D=None, delta_bias=None, delta_softplus=True):
+    """K7's plain version: the same function as :func:`selective_scan_long`
+    (same arguments and layout) by the chunked scan of ``ops.selective_scan``."""
+    y = selective_scan_chunked(u.transpose(1, 2), delta.transpose(1, 2), A, B.transpose(1, 2),
+                               C.transpose(1, 2), D, delta_bias, delta_softplus)
+    return y.transpose(1, 2)

@@ -4,9 +4,11 @@ path does not reach (ragged row tiles, V = 1/24/64, C = 16/768; for K3
 ragged window groups and chunks of 64), K3 also at the emb stage shapes, K5
 (flash attention) at ragged sequence lengths, head dims 32, 64 and 128 and at
 the vit16k shape, K6 (the spectral long conv) at the vit65k_hyena shape, the
-odd batch at its floor and its ceiling, and whole models whose every
-parameter gets a gradient on the card (a ViT-hyena also against the host),
-and the Swin checkpointing's memory. Marked ``cuda``;
+odd batch at its floor and its ceiling, K7 (the long-sequence scan) at the
+vit65k_mamba shape, a ragged length and the gate's widest channels, and
+whole models whose every parameter gets a gradient on the card (a ViT-hyena
+and a ViT-mamba also against the host), and the Swin checkpointing's
+memory. Marked ``cuda``;
 without a card every test skips. This file imports neither JAX nor flax, so that it runs where
 only PyTorch is installed:
 
@@ -22,6 +24,7 @@ from long_context_biomedical_imaging_tpu_torch.ops import flash_attention as tfa
 from long_context_biomedical_imaging_tpu_torch.ops import fused_mlp as tmlp
 from long_context_biomedical_imaging_tpu_torch.ops import hyena_window as thw
 from long_context_biomedical_imaging_tpu_torch.ops import mamba_window as tmw
+from long_context_biomedical_imaging_tpu_torch.ops import selective_scan_long as tsl
 from long_context_biomedical_imaging_tpu_torch.ops import spectral_conv as tsc
 
 
@@ -875,3 +878,161 @@ def test_swin_checkpointing_lowers_peak_memory(cuda_device):
     for name, g in grads[0].items():
         err = (g - grads[1][name]).abs().max().item()
         assert err <= 1e-6 * g.abs().max().item(), (name, err)
+
+
+# K7's shapes (b, L, D), N = 8: the vit65k_mamba call (batch 1 duplicated), a
+# ragged length with an odd batch (the carries stay within their batch row),
+# the gate's widest channels (N * D = 8192)
+K7_SHAPES = [(2, 65536, 192), (3, 2113, 40), (1, 4096, 1024)]
+K7_NAMES = ("y", "du", "ddelta", "dA", "dB", "dC", "dD", "ddelta_bias")
+
+
+def _k7_args(gen, shape, dtype, device):
+    """u, delta, A, B, C, D, delta_bias and a cotangent g of one K7 case:
+    A = -(1..8) per channel times exp(0.3 N(0, 1)), as A_log's init plus
+    noise; u, delta and g in dtype, the rest fp32."""
+    b, length, d = shape
+    a = -torch.arange(1, 9.0) * torch.exp(0.3 * torch.randn(d, 8, generator=gen))
+    args = [torch.randn(shape, generator=gen), torch.randn(shape, generator=gen), a,
+            torch.randn(b, length, 8, generator=gen), torch.randn(b, length, 8, generator=gen),
+            torch.randn(d, generator=gen), torch.randn(d, generator=gen),
+            torch.randn(shape, generator=gen)]
+    return [t.to(device, dtype if i in (0, 1, 3, 4, 7) else torch.float32)
+            for i, t in enumerate(args)]
+
+
+def _k7_vjp(fn, args):
+    """fn(*args[:7]) and its gradients for the cotangent args[7]."""
+    leaves = [t.detach().requires_grad_(True) for t in args[:7]]
+    y = fn(*leaves)
+    return [y.detach()] + list(torch.autograd.grad(y, leaves, args[7]))
+
+
+def _check_k7(got, ref, dtype):
+    # of each output's max|plain|. fp32: the kernels' exp2 and softplus forms
+    # and the chunked scan's log-depth association, the sums over 131,072
+    # tokens of dA, dD and ddelta_bias in another order; bf16: the output and
+    # the inputs' gradients are rounded once to bf16 on both sides
+    tol = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 3e-2)}[dtype]
+    for i, (name, a, r) in enumerate(zip(K7_NAMES, got, ref)):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        a, r = a.float(), r.float()
+        err = (a - r).abs().max().item()
+        assert torch.isfinite(a).all() and err <= tol[i > 0] * r.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K7_SHAPES)
+def test_long_scan_kernels_match_plain(cuda_device, dtype, shape):
+    """selective_scan_long on the card (K7: the forward kernel twice, the
+    carry kernel and the backward kernel, with the stitches) against its
+    plain version (the chunked scan) on the same inputs: y and the gradients
+    of u, delta, A, B, C, D and delta_bias."""
+    args = _k7_args(torch.Generator().manual_seed(shape[1]), shape, dtype, cuda_device)
+    kernels = (tsl.LONG_SCAN_FWD, tsl.LONG_SCAN_CARRY_BWD, tsl.LONG_SCAN_BWD)
+    before = [k.launches for k in kernels]
+    got = _k7_vjp(tsl.selective_scan_long, args)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 1, 1]
+    _check_k7(got, _k7_vjp(tsl.selective_scan_long_plain, args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K7_SHAPES)
+def test_long_scan_passes_match_plain(cuda_device, shape):
+    """Each K7 kernel against its pass's plain version on the same fp32
+    inputs: the forward pass from zero carries (hl, ap) and seeded (y), the
+    carry backward (dh0), the backward (du, ddelta, dat, dB, dC), within
+    1e-4 of each output's max (exp2 and softplus forms, dat's sum order)."""
+    u, delta, a, bm, cm, _, _, g = _k7_args(torch.Generator().manual_seed(7), shape,
+                                            torch.float32, cuda_device)
+    at = a.t().contiguous()
+    rows = shape[0] * -(-shape[1] // tsl.SEG)
+    h0 = torch.randn(rows, 8, shape[2], device=cuda_device)
+    dht = torch.randn(rows, 8, shape[2], device=cuda_device)
+    pairs = [(tsl.long_scan_fwd(u, delta, at, bm, cm, emit_y=False)[1:],
+              tsl.long_scan_fwd_plain(u, delta, at, bm, cm, emit_y=False)[1:]),
+             (tsl.long_scan_fwd(u, delta, at, bm, cm, h0)[:1],
+              tsl.long_scan_fwd_plain(u, delta, at, bm, cm, h0)[:1]),
+             ((tsl.long_scan_carry_bwd(delta, at, cm, g),),
+              (tsl.long_scan_carry_bwd_plain(delta, at, cm, g),)),
+             (tsl.long_scan_bwd(u, delta, at, bm, cm, g, h0, dht),
+              tsl.long_scan_bwd_plain(u, delta, at, bm, cm, g, h0, dht))]
+    torch.cuda.synchronize()
+    for i, (got, ref) in enumerate(pairs):
+        for j, (x, r) in enumerate(zip(got, ref)):
+            err = (x - r).abs().max().item()
+            assert torch.isfinite(x).all() and err <= 1e-4 * r.abs().max().item(), (i, j, err)
+
+
+@pytest.mark.cuda
+def test_long_scan_kernels_are_deterministic_and_refuse(cuda_device):
+    """Two launches of each K7 kernel give the same bits (the backward sums
+    dB, dC over the channels and dA over the rows in a fixed order); the
+    wrappers refuse a CPU tensor, d_state 4, fp16 and a non-contiguous
+    tensor."""
+    u, delta, a, bm, cm, _, _, g = _k7_args(torch.Generator().manual_seed(8), (3, 2113, 40),
+                                            torch.float32, cuda_device)
+    at = a.t().contiguous()
+    _, hl, ap = tsl.long_scan_fwd(u, delta, at, bm, cm, emit_y=False)
+    runs = [[tsl.long_scan_fwd(u, delta, at, bm, cm, hl)[0],
+             tsl.long_scan_carry_bwd(delta, at, cm, g),
+             *tsl.long_scan_bwd(u, delta, at, bm, cm, g, hl, ap)] for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsl.long_scan_fwd(u.cpu(), delta.cpu(), at.cpu(), bm.cpu(), cm.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        tsl.long_scan_bwd(u.cpu(), delta.cpu(), at.cpu(), bm.cpu(), cm.cpu(), g.cpu(), hl.cpu(),
+                          ap.cpu())
+    with pytest.raises(ValueError, match="d_state 8"):
+        tsl.long_scan_fwd(u, delta, at[:4].contiguous(), bm[..., :4].contiguous(),
+                          cm[..., :4].contiguous())
+    with pytest.raises(ValueError, match="d_state 8"):
+        tsl.selective_scan_long(u, delta, a[:, :4], bm[..., :4], cm[..., :4])
+    with pytest.raises(TypeError):
+        tsl.long_scan_carry_bwd(delta.half(), at, cm, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsl.long_scan_fwd(u.transpose(0, 1).contiguous().transpose(0, 1), delta, at, bm, cm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [False, True])
+def test_vit_mamba_gradients_on_the_card_match_the_host(cuda_device, amp):
+    """A ViT-mamba (hidden 32, 2 heads, 2 layers, MLP 64) on 128x256 images
+    with patch 4: 2,048 tokens, K7's floor. One train step on the card
+    launches the K7 forward twice per block, the carry and backward kernels
+    once; every parameter's gradient is finite and non-zero and, in fp32,
+    within 1e-4 of its max of the host's (K7's plain passes), in bf16 within
+    1e-1 (bf16 roundings compounded over the blocks)."""
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import amp_params
+
+    argv = ["--task_type=class", "--encoder_name=ViT", "--decoder_name=ViTLinear",
+            "--height=128", "--width=256", "--no_in_channel=1", "--no_out_channel=2",
+            "--seed=3", "--ViT.size=custom", "--ViT.hidden_size=32", "--ViT.mlp_dim=64",
+            "--ViT.num_layers=2", "--ViT.num_heads=2", "--ViT.patch_size", "4",
+            "--ViT.use_mamba=True"] + (["--use_amp"] if amp else [])
+    model = build_model(check_args(parse_config(argv)))
+    x = torch.randn(1, 1, 128, 256, 1, generator=torch.Generator().manual_seed(0))
+    y = torch.tensor([1])
+    kernels = (tsl.LONG_SCAN_FWD, tsl.LONG_SCAN_CARRY_BWD, tsl.LONG_SCAN_BWD)
+    grads = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        model.to(dev).zero_grad(set_to_none=True)
+        before = [k.launches for k in kernels]
+        out = torch.func.functional_call(model, amp_params(model, amp), (x.to(dev),))
+        cross_entropy_loss(out.float(), y.to(dev)).backward()
+        torch.cuda.synchronize()
+        ran = [k.launches - b for k, b in zip(kernels, before)]
+        assert ran == ([4, 2, 2] if dev.type == "cuda" else [0, 0, 0]), (dev, ran)
+        grads[dev.type] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    tol = 1e-1 if amp else 1e-4
+    for name, g in grads["cuda"].items():
+        ref = grads["cpu"][name]
+        assert torch.isfinite(g).all() and g.abs().max() > 0, name
+        assert (g - ref).abs().max().item() <= tol * ref.abs().max().item(), name

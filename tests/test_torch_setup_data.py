@@ -163,13 +163,12 @@ _EVAL = ["--train_model=False", "--device=cpu", "--task_type=class",
     ["--train_model=True", "--optim_type=lbfgs"],
     ["--model_parallel=2"],
     ["--encoder_name=ViT", "--decoder_name=UperNet2D", "--task_type=seg"],
-    ["--encoder_name=ViT", "--decoder_name=ViTLinear", "--ViT.use_mamba=True"],
     ["--Swin.use_hyena=False"],
     ["--task_type=seg", "--decoder_name=UperNet3D", "--time=16"],
     ["--task_type=enhance", "--decoder_name=SwinUNETR", "--loss_func=MSE"],
     ["--ddp"],
-], ids=["train_timer", "train_nadam", "train_lbfgs", "model_parallel", "vit", "mamba",
-        "attention", "seg_head", "enhance_head", "ddp"])
+], ids=["train_timer", "train_nadam", "train_lbfgs", "model_parallel", "vit", "attention",
+        "seg_head", "enhance_head", "ddp"])
 def test_unported_surfaces_raise(tmp_path, extra):
     """Each surface the port does not run yet raises NotImplementedError
     before the run directory is made."""
@@ -212,6 +211,32 @@ def test_vit_hyena_sets_up(tmp_path, train):
     assert model.encoder.cls_token is None
     assert model.encoder.patch_embedding.position_embeddings is None
     assert not model.decoder.use_cls_token
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_vit_mamba_sets_up(tmp_path, train):
+    """The ViT-mamba surface (--encoder_name=ViT --decoder_name=ViTLinear
+    --ViT.use_mamba=True), refused until the ViT-mamba slice, sets up a run,
+    evaluation and training; the model holds the Mamba mixer (d_state 8,
+    3-tap conv, expand 1) in each block, no position embedding and no cls
+    token, and its head mean-pools a forward's tokens."""
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.models.mamba import MambaVisionMixer
+
+    extra = ["--encoder_name=ViT", "--decoder_name=ViTLinear", "--ViT.use_mamba=True",
+             "--ViT.size=custom", "--ViT.hidden_size=32", "--ViT.mlp_dim=64",
+             "--ViT.num_layers=1", "--ViT.num_heads=2", "--height=32", "--width=32"]
+    cfg = parse_config_and_setup_run(_EVAL + extra + [f"--train_model={train}",
+                                                      f"--log_dir={tmp_path}", "--run_name=r"])
+    assert os.path.isdir(os.path.join(cfg.log_dir_run, "models"))
+    model = build_model(cfg)
+    mixer = model.encoder.block_0.attn.mamba
+    assert isinstance(mixer, MambaVisionMixer) and model.encoder.block_0.attn.hyena is None
+    assert (mixer.d_state, mixer.d_conv, mixer.expand) == (8, 3, 1)
+    assert model.encoder.cls_token is None
+    assert model.encoder.patch_embedding.position_embeddings is None
+    assert not model.decoder.use_cls_token
+    assert model(torch.zeros(1, 1, 32, 32, 1)).shape == (1, 2)
 
 
 @pytest.mark.parametrize("extra", [
