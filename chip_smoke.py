@@ -4,7 +4,7 @@
 
 Phases, each printing one line of numbers (or a few):
   1. device: the card, as nvidia-smi reports its name and power limit;
-  2. build: the seventeen hand-written kernels from csrc/ with nvcc, in parallel
+  2. build: the twenty hand-written kernels from csrc/ with nvcc, in parallel
      (one nvcc per source), with their build seconds and ptxas
      register/spill lines;
   3. K1, the fused Hyena window mixer, against its plain PyTorch version at
@@ -134,6 +134,29 @@ Phases, each printing one line of numbers (or a few):
      parameter;
  32. vit65k_mamba throughput: the train step and eval forward at batch 1 on
      1024x1024 in bf16, steady state, with peak memory and one-step
+     profiles;
+ 33. K8, the Swin window attention of the ptx_attn path: the forward, the
+     backward and the weight-gradient kernels against the plain version and
+     its VJP at the four ptx_attn stage shapes (batch 4: 65,536 .. 1,024
+     windows of 16 tokens, C = 96 .. 768), at 64-token windows and at a
+     window count no tile divides, with and without the shifted windows'
+     region ids, fp32 and bf16; two launches bitwise equal; the
+     relative-position table's gradient through the gather; the refusals
+     (a CPU tensor, a head dim of 16); then the times of the kernels and the
+     plain version at the stage shapes in bf16;
+ 34. ptx_attn train slice: run_torch.main trains ptx_attn (--debug, 2
+     epochs) on synthetic 1024x1024x1 images with the flags of
+     projects/run_ptx.sh and the CLI's default mixer, window attention
+     (--Swin.use_hyena False --Swin.use_mamba False), saves and reloads
+     checkpoints, evaluates; checks that K8 forward and K2 forward ran 12
+     times per forward batch, K8 backward, K8 weight gradients and K2
+     backward 12 times per train step, K1 and K3-K7 never; then
+     --inference_only, which must reproduce the test metrics;
+ 35. ptx_attn model gradients: one train step's gradients of the full-width
+     model on 256x256 images at batch 2 (every stage's odd blocks shift), on
+     the card against the host, fp32 and bf16, per parameter;
+ 36. ptx_attn throughput: the train step and eval forward at batch 4 on
+     1024x1024 in bf16, steady state, with peak memory and one-step
      profiles.
 Then one JSON line with the kernels' numbers, and last the result line.
 Every time is on this card, with its name and power limit printed in phase 1.
@@ -176,6 +199,13 @@ def emb_flags() -> list[str]:
 
 def vessel_flags() -> list[str]:
     return project_flags("run_vessel.sh")
+
+
+def ptx_attn_flags() -> list[str]:
+    """ptx_attn: the flags of projects/run_ptx.sh with the CLI's default
+    mixer, window attention (--Swin.use_hyena False --Swin.use_mamba False,
+    which override the script's own mixer flags)."""
+    return ptx_flags() + ["--Swin.use_hyena", "False", "--Swin.use_mamba", "False"]
 
 
 def _vit_flags(patch: int, batch: int, mixer: str) -> list[str]:
@@ -303,6 +333,20 @@ K7_PASS_TOL = 1e-4
 # phase 31, bf16: each parameter's card error may exceed BF16_GRAD_RATIO x the
 # host's by this much of its max
 M65_BF16_GRAD_FLOOR = 2e-2
+# ptx_attn at batch 4: each stage's K8 call, (BW windows of 16 tokens, C, token
+# grid, depth); the odd blocks carry the stage's (nW, 16) region ids
+ATTN_STAGES = [(BATCH * (grid // 4) ** 2, c, grid, depth) for c, grid, depth in STAGES]
+ATTN_BLOCKS = sum(d for _, _, _, d in ATTN_STAGES)
+# phase 33, K8's other shapes (BW, V, C, token grid or None): 64-token windows
+# (the 2D window 8 of vessel and cmr) with their region ids, and a window
+# count that no 64-row tile divides (random region ids, 7 rows)
+K8_EXTRA = [(4 * 144, 64, 96, 96), (1001, 16, 192, None)]
+# phase 35, bf16: each parameter's card error may exceed BF16_GRAD_RATIO x the
+# host's by this much of its max
+ATTN_BF16_GRAD_FLOOR = 2e-2
+# phase 35 holds the gradients at this batch of 256x256 images: token grids
+# 128 .. 16, so every stage's odd blocks shift
+ATTN_GRAD_BATCH = 2
 # the card's peaks for the bounds (H100 SXM data sheet, dense): bf16 tensor
 # cores, fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -363,11 +407,12 @@ def phase_device(torch):
 
 def all_kernels():
     """K1 fwd, K2 fwd, K1 bwd, K2 bwd, K3 fwd, K3 bwd, K3 dM, K4 fwd, K4 bwd,
-    K5 fwd, K5 dq, K5 dkv, K6 conv, K6 dk, K7 fwd, K7 carry bwd, K7 bwd."""
+    K5 fwd, K5 dq, K5 dkv, K6 conv, K6 dk, K7 fwd, K7 carry bwd, K7 bwd, K8
+    fwd, K8 bwd, K8 weight gradients."""
     from long_context_biomedical_imaging_tpu_torch.ops import (flash_attention, fused_mlp,
                                                                hyena_window, mamba_window,
                                                                selective_scan_long,
-                                                               spectral_conv)
+                                                               spectral_conv, window_attention)
 
     return (hyena_window.HYENA_WINDOW_FWD, fused_mlp.FUSED_LN_MLP_FWD,
             hyena_window.HYENA_WINDOW_BWD, fused_mlp.FUSED_LN_MLP_BWD,
@@ -376,7 +421,9 @@ def all_kernels():
             flash_attention.FLASH_FWD, flash_attention.FLASH_BWD_DQ,
             flash_attention.FLASH_BWD_DKV, spectral_conv.SPECTRAL_CONV,
             spectral_conv.SPECTRAL_CONV_DK, selective_scan_long.LONG_SCAN_FWD,
-            selective_scan_long.LONG_SCAN_CARRY_BWD, selective_scan_long.LONG_SCAN_BWD)
+            selective_scan_long.LONG_SCAN_CARRY_BWD, selective_scan_long.LONG_SCAN_BWD,
+            window_attention.WINDOW_ATTENTION_FWD, window_attention.WINDOW_ATTENTION_BWD,
+            window_attention.WINDOW_ATTENTION_WGRAD)
 
 
 def check_launches(kernels, launches, expected, where):
@@ -2051,29 +2098,188 @@ def phase_k7(torch, ssl, dev):
             "bwd": (worst["bwd"], k_bwd, (1 - share) * p_bwd)}
 
 
-def phase_long_vit_slice(torch, tmp, flags, name, phase, expected):
-    """run_torch.main trains a 65,536-token ViT at batch 1 on the card (the
-    vit65k_hyena or vit65k_mamba path), then an inference-only run reloads
-    its best checkpoint. expected(forward batches, train steps) gives each
-    kernel's launch count by its index in all_kernels()."""
+def _k8_case(torch, gen, bw, v, c, grid, dev):
+    """Operands of one K8 case, drawn as the model initialises them (the
+    weights U(+-1/sqrt(C)), the biases small, the table trunc_normal(0.02)
+    gathered, here iid at 0.5 to make the bias matter), x and the cotangent
+    iid; region ids of the shifted windows of a grid x grid token grid, or
+    random ids in 7 rows when grid is None."""
+    from long_context_biomedical_imaging_tpu_torch.ops.window import compute_shift_regions
+
+    heads = c // 32
+
+    def mk(shape, scale):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    args = [mk((bw, v, c), 1.0), mk((c, 3 * c), c ** -0.5), mk((3 * c,), 0.1),
+            mk((c, c), c ** -0.5), mk((c,), 0.1), mk((heads, v, v), 0.5)]
+    if grid is None:
+        rid = torch.randint(0, 4, (7, v), generator=gen, dtype=torch.int32).to(dev)
+    else:
+        w = int(round(v ** 0.5))
+        rid = compute_shift_regions((1, grid, grid), (1, w, w), (0, w // 2, w // 2)).to(dev)
+    check(bw % rid.shape[0] == 0, f"{bw} windows, {rid.shape[0]} region rows")
+    return args, rid, mk((bw, v, c), 1.0), heads
+
+
+def phase_k8(torch, wa, dev):
+    """K8 forward, backward and weight-gradient kernels against the plain
+    version and its VJP at the four ptx_attn stage shapes (batch 4, 16-token
+    windows, C = 96 .. 768), at 64-token windows and at a window count no
+    tile divides, each with and without region ids, fp32 and bf16; two
+    launches bitwise equal; the relative-position table's gradient through
+    the gather; the refusals; then the times of the kernels and the plain
+    version at the stage shapes in bf16 with region ids (the odd blocks'
+    call). Returns {"fwd" | "bwd" | "wgrad": [(worst bf16 abs err over the
+    cases, kernel_ms, plain_ms) per stage]}; the plain VJP's time is split
+    between bwd and wgrad as their bounds split the backward's work."""
+    from long_context_biomedical_imaging_tpu_torch.models.swin import WindowAttention
+
+    gen = torch.Generator().manual_seed(33)
+    scale = 32 ** -0.5
+    worst = {"fwd": 0.0, "bwd": 0.0, "wgrad": 0.0}
+    cases = [(bw, 16, c, grid) for bw, c, grid, _ in ATTN_STAGES] + K8_EXTRA
+    for bw, v, c, grid in cases:
+        base, rid_c, do_c, heads = _k8_case(torch, gen, bw, v, c, grid, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x, wq, bq, wo, bo, rel = ([base[0].to(dtype), base[1].to(dtype), base[2],
+                                       base[3].to(dtype)] + base[4:])
+            do = do_c.to(dtype)
+            for rid in (rid_c, None):
+                args = (x, wq, bq, wo, bo, rel, heads, rid, -100.0, scale)
+                with torch.no_grad():
+                    out = wa.window_attention_fwd(*args)
+                    torch.cuda.synchronize()
+                    ref = wa.window_attention_plain(*args)
+                    err, mag, ok = compare(torch, out, ref, dname)
+                del out, ref
+                check(ok, f"K8 fwd disagrees with its plain version at BW={bw} V={v} C={c} "
+                          f"{dname} rid={rid is not None}: {err} > {TOL[dname]} * {mag}")
+                got = wa.window_attention_bwd(do, *args)
+                torch.cuda.synchronize()
+                refs = wa.window_attention_bwd_plain(do, *args)
+                gerr, grel, gok = compare_grads(torch, got, refs, dname)
+                werr = compare_grads(torch, (got[1], got[3]), (refs[1], refs[3]), dname)[0]
+                berr = compare_grads(torch, got[:1] + got[2:3] + got[4:],
+                                     refs[:1] + refs[2:3] + refs[4:], dname)[0]
+                del got, refs
+                check(gok, f"K8 bwd disagrees with its plain VJP at BW={bw} V={v} C={c} "
+                           f"{dname} rid={rid is not None}: {grel} > {GRAD_TOL[dname]}")
+                print(f"phase 33 K8 BW={bw} V={v} C={c} {dname} rid={rid is not None}: fwd "
+                      f"max_abs_err={err:.3e} max|out|={mag:.3e}; every gradient max_abs_err="
+                      f"{gerr:.3e} max_rel_err={grel:.3e} ok", flush=True)
+                if dtype == torch.bfloat16:
+                    worst["fwd"] = max(worst["fwd"], err)
+                    worst["bwd"] = max(worst["bwd"], berr)
+                    worst["wgrad"] = max(worst["wgrad"], werr)
+        del base, do_c, x, wq, bq, wo, bo, rel, do
+        torch.cuda.empty_cache()
+
+    # bitwise repeatability, the table's gradient through the gather, refusals
+    bw1, c1, grid1, _ = ATTN_STAGES[1]
+    base, rid, do, heads = _k8_case(torch, gen, bw1, 16, c1, grid1, dev)
+    args = (base[0].bfloat16(), base[1].bfloat16(), base[2], base[3].bfloat16(), base[4],
+            base[5], heads, rid, -100.0, scale)
+    runs = [(wa.window_attention_fwd(*args), *wa.window_attention_bwd(do.bfloat16(), *args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), "K8 launches are not bitwise repeatable")
+    del runs
+    module = WindowAttention(384, 12, window_size=(1, 4, 4))
+    module.init_params(gen)
+    module.to(dev)
+    x = torch.randn(ATTN_STAGES[2][0], 16, 384, generator=gen).to(dev)
+    rid = _k8_case(torch, gen, ATTN_STAGES[2][0], 16, 384, ATTN_STAGES[2][2], dev)[1]
+    g = torch.randn(x.shape, generator=gen).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        table = module.relative_position_bias_table
+        table.grad = None
+        params = {k: p.to(dtype) for k, p in module.named_parameters()}
+        out = torch.func.functional_call(module, params, (x.to(dtype), rid))
+        out.backward(g.to(dtype))
+        card = table.grad.clone()
+        table.grad = None
+        params = {k: p.to(dtype) for k, p in module.named_parameters()}
+        rel = params["relative_position_bias_table"][module._index.to(dev)]
+        rel = rel.reshape(16, 16, 12).permute(2, 0, 1)
+        ref = wa.window_attention_plain(x.to(dtype), params["qkv_kernel"], params["qkv_bias_p"],
+                                        params["proj_kernel"], params["proj_bias"], rel, 12, rid)
+        ref.backward(g.to(dtype))
+        terr, trel, tok = compare_grads(torch, (card,), (table.grad,), dname)
+        check(tok, f"K8 table gradient through the gather, {dname}: {trel} > {GRAD_TOL[dname]}")
+        print(f"phase 33 K8 table gradient through the gather, BW={x.shape[0]} C=384 {dname}: "
+              f"max_abs_err={terr:.3e} max_rel_err={trel:.3e} ok", flush=True)
+    refusals = 0
+    for bad in (lambda: wa.window_attention_fwd(*[a.cpu() if torch.is_tensor(a) else a
+                                                  for a in args]),
+                lambda: wa.window_attention_fwd(*args[:6], 12, *args[7:])):
+        try:
+            bad()
+        except ValueError:
+            refusals += 1
+    check(refusals == 2, "K8 took a CPU tensor or a head dim other than 32")
+    print("phase 33 K8: two launches bitwise equal; a CPU tensor and D = 16 refused", flush=True)
+    del base, args, module, x, g
+    torch.cuda.empty_cache()
+
+    bounds = k8_bounds()
+    results = {"fwd": [], "bwd": [], "wgrad": []}
+    for (bw, c, grid, _), b in zip(ATTN_STAGES, bounds):
+        base, rid, do, heads = _k8_case(torch, gen, bw, 16, c, grid, dev)
+        args = (base[0].bfloat16(), base[1].bfloat16(), base[2], base[3].bfloat16(), base[4],
+                base[5], heads, rid, -100.0, scale)
+        do = do.bfloat16()
+        with torch.no_grad():
+            f_ms = median_ms(torch, lambda: wa.window_attention_fwd(*args), warmup=1, reps=5)
+            pf_ms = median_ms(torch, lambda: wa.window_attention_plain(*args), warmup=1, reps=3)
+        streams = wa.window_attention_bwd_streams(do, *args)
+        b_ms = median_ms(torch, lambda: wa.window_attention_bwd_streams(do, *args), warmup=1,
+                         reps=5)
+        w_ms = median_ms(torch, lambda: wa.window_attention_wgrad(args[0], streams[1],
+                                                                 streams[2], do),
+                         warmup=1, reps=5)
+        pb_ms = median_ms(torch, lambda: wa.window_attention_bwd_plain(do, *args), warmup=1,
+                          reps=3)
+        share = b["bwd"][0] / (b["bwd"][0] + b["wgrad"][0])
+        results["fwd"].append((worst["fwd"], f_ms, pf_ms))
+        results["bwd"].append((worst["bwd"], b_ms, share * pb_ms))
+        results["wgrad"].append((worst["wgrad"], w_ms, (1 - share) * pb_ms))
+        print(f"phase 33 K8 times BW={bw} V=16 C={c} bf16 rid: fwd {f_ms:.3f} ms (bound "
+              f"{b['fwd'][0]:.3f}, plain {pf_ms:.3f}); bwd {b_ms:.3f} ms (bound "
+              f"{b['bwd'][0]:.3f}); wgrad {w_ms:.3f} ms (bound {b['wgrad'][0]:.3f}); plain VJP "
+              f"{pb_ms:.3f} ms", flush=True)
+        del base, args, do, streams
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_config_slice(torch, tmp, flags, name, phase, expected, batch=H65_BATCH,
+                       subjects=(3, 2, 2)):
+    """run_torch.main trains a configuration at the given batch size on
+    synthetic 1024x1024x1 images on the card (the vit65k_hyena, vit65k_mamba
+    or ptx_attn path; subjects: train, val and test images), then an
+    inference-only run reloads its best checkpoint. expected(forward
+    batches, train steps) gives each kernel's launch count by its index in
+    all_kernels()."""
     import numpy as np
     import yaml
 
     import run_torch
 
-    n_train, n_val, n_test, epochs = 3, 2, 2, 2
+    (n_train, n_val, n_test), epochs = subjects, 2
     write_dataset(tmp, (1024, 1024), n_train, n_val, n_test)
-    steps = epochs * min(3, math.ceil(n_train / H65_BATCH))      # --debug: 3 per epoch
-    val_batches = min(3, math.ceil(n_val / H65_BATCH))
-    test_batches = min(3, math.ceil(n_test / H65_BATCH))
+    steps = epochs * min(3, math.ceil(n_train / batch))      # --debug: 3 per epoch
+    val_batches = min(3, math.ceil(n_val / batch))
+    test_batches = min(3, math.ceil(n_test / batch))
     eval_batches = epochs * val_batches + val_batches + test_batches
     run = f"chip_smoke_{name}"
     run_dir = os.path.join(tmp, "logs", run)
     argv = flags + [f"--data_dir={tmp}/data", f"--split_csv_path={tmp}/split.csv",
                     "--device=cuda", "--debug", f"--num_epochs={epochs}", f"--log_dir={tmp}/logs",
                     f"--run_name={run}"]
-    check("--train_model=True" in argv and "--ViT.patch_size" in argv
-          and not any(a.startswith("--Swin.") for a in argv), f"the {name} flags changed")
+    check("--train_model=True" in argv, f"the {name} flags no longer train")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = all_kernels()
@@ -2133,10 +2339,18 @@ def phase_long_vit_slice(torch, tmp, flags, name, phase, expected):
     return launches
 
 
-def phase_long_vit_grads(torch, dev, flags, size, phase, name, path_kernels, floor):
-    """One train step's gradients of a full-width 65,536-token ViT config
-    (ViT-small, patch 4, batch 1) on one image cut to size (H, W), so that
-    its long kernels still run. Weights and image from the seed ``phase``, on the card
+def long_vit_label(height, width):
+    """phase_config_grads' label for the 65,536-token ViT configurations."""
+    return (f"full-width ViT-small + ViTLinear, batch {H65_BATCH} of {height}x{width} "
+            f"({height * width // 16:,} tokens)")
+
+
+def phase_config_grads(torch, dev, flags, size, phase, name, path_kernels, floor, label,
+                       batch=H65_BATCH):
+    """One train step's gradients of a full-width configuration at the given
+    batch size on images cut to size (H, W), so that its kernels still run
+    (label describes the model and its input). Weights and images from the
+    seed ``phase``, on the card
     against the host, fp32 and bf16, per parameter (max|err| /
     max|reference|), as phase 23 holds vit16k: fp32 within MODEL_GRAD_TOL;
     bf16 (AMP) against the card's fp32 gradients, at most BF16_GRAD_RATIO
@@ -2152,9 +2366,8 @@ def phase_long_vit_grads(torch, dev, flags, size, phase, name, path_kernels, flo
     height, width = size
     argv = ([a for a in flags if a != "--use_amp"]
             + [f"--height={height}", f"--width={width}", f"--seed={phase}"])
-    x = torch.randn(H65_BATCH, 1, height, width, 1,
-                    generator=torch.Generator().manual_seed(phase))
-    y = torch.arange(H65_BATCH) % 2
+    x = torch.randn(batch, 1, height, width, 1, generator=torch.Generator().manual_seed(phase))
+    y = torch.arange(batch) % 2
     kernels = [all_kernels()[i] for i in path_kernels]
 
     def grads(model, amp, device):
@@ -2164,7 +2377,7 @@ def phase_long_vit_grads(torch, dev, flags, size, phase, name, path_kernels, flo
         cross_entropy_loss(out, y.to(device)).backward()
         ran = [k.launches - b for k, b in zip(kernels, before)]
         want = list(path_kernels.values()) if device != "cpu" else [0] * len(kernels)
-        check(ran == want, f"{name} long-kernel launches {ran} on {device}, expected {want}")
+        check(ran == want, f"{name} kernel launches {ran} on {device}, expected {want}")
         return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
 
     def errors(got, ref, dname):
@@ -2183,11 +2396,9 @@ def phase_long_vit_grads(torch, dev, flags, size, phase, name, path_kernels, flo
     host16 = grads(amp_model, True, "cpu")
     card32 = grads(model, False, dev)
     card16 = grads(amp_model, True, dev)
-    tokens = height * width // 16
     e32 = errors(card32, host32, "float32")
     at = max(e32, key=e32.get)
-    print(f"phase {phase} {name} model gradients: full-width ViT-small + ViTLinear, batch "
-          f"{H65_BATCH} of {height}x{width} ({tokens:,} tokens), float32, seed {phase}: "
+    print(f"phase {phase} {name} model gradients: {label}, float32, seed {phase}: "
           f"{len(card32)} parameters, every card gradient finite and non-zero; card vs host "
           f"worst max|err| / max|host grad| {e32[at]:.3e} ({at})", flush=True)
     check(e32[at] <= MODEL_GRAD_TOL["float32"],
@@ -2210,9 +2421,9 @@ def phase_long_vit_grads(torch, dev, flags, size, phase, name, path_kernels, flo
     return e32, card_e, host_e
 
 
-def phase_long_vit_throughput(torch, dev, flags, phase, name):
-    """The train step and eval forward of a 65,536-token ViT config at batch
-    1 on 1024x1024x1, bf16, weights and data from the seed ``phase``."""
+def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH):
+    """The train step and eval forward of a configuration at the given batch
+    size on 1024x1024x1, bf16, weights and data from the seed ``phase``."""
     from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
     from long_context_biomedical_imaging_tpu_torch.metrics.device import make_train_metric_fn
     from long_context_biomedical_imaging_tpu_torch.models import build_model
@@ -2224,18 +2435,18 @@ def phase_long_vit_throughput(torch, dev, flags, phase, name):
     cfg = check_args(parse_config(flags))
     model = build_model(cfg).to(dev)
     gen = torch.Generator().manual_seed(phase)
-    x = torch.randn(H65_BATCH, 1, 1024, 1024, 1, generator=gen).to(dev)
-    y = (torch.arange(H65_BATCH) % 2).to(dev)
+    x = torch.randn(batch, 1, 1024, 1024, 1, generator=gen).to(dev)
+    y = (torch.arange(batch) % 2).to(dev)
     step = make_eval_step(model.eval(), cross_entropy_loss)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eval_ms = median_ms(torch, lambda: step(amp_params(model, True), x, y, H65_BATCH), warmup=2,
+    eval_ms = median_ms(torch, lambda: step(amp_params(model, True), x, y, batch), warmup=2,
                         reps=5)
     eval_peak = torch.cuda.max_memory_allocated()
-    print(f"phase {phase} {name} eval forward, batch {H65_BATCH} of 1024x1024, bf16: "
-          f"{eval_ms:.2f} ms/batch = {H65_BATCH * 1000 / eval_ms:.3f} images/s (median of 5); "
+    print(f"phase {phase} {name} eval forward, batch {batch} of 1024x1024, bf16: "
+          f"{eval_ms:.2f} ms/batch = {batch * 1000 / eval_ms:.3f} images/s (median of 5); "
           f"peak memory {eval_peak / 2**30:.2f} GiB", flush=True)
-    profile_step(torch, lambda: step(amp_params(model, True), x, y, H65_BATCH),
+    profile_step(torch, lambda: step(amp_params(model, True), x, y, batch),
                  f"phase {phase} {name} eval profile")
 
     model.train()
@@ -2246,12 +2457,12 @@ def phase_long_vit_throughput(torch, dev, flags, phase, name):
     lr = cfg.optim.lr
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = median_ms(torch, lambda: train([(x, y)], lr, H65_BATCH), warmup=2, reps=5)
+    ms = median_ms(torch, lambda: train([(x, y)], lr, batch), warmup=2, reps=5)
     peak = torch.cuda.max_memory_allocated()
-    print(f"phase {phase} {name} train step (forward, backward, Adam), batch {H65_BATCH} of "
-          f"1024x1024, bf16: {ms:.2f} ms/step = {H65_BATCH * 1000 / ms:.3f} images/s (median of "
+    print(f"phase {phase} {name} train step (forward, backward, Adam), batch {batch} of "
+          f"1024x1024, bf16: {ms:.2f} ms/step = {batch * 1000 / ms:.3f} images/s (median of "
           f"5 after 2 warm-ups); peak memory {peak / 2**30:.2f} GiB", flush=True)
-    profile_step(torch, lambda: train([(x, y)], lr, H65_BATCH), f"phase {phase} {name} profile")
+    profile_step(torch, lambda: train([(x, y)], lr, batch), f"phase {phase} {name} profile")
     return ms, eval_ms
 
 
@@ -2269,7 +2480,8 @@ def profile_step(torch, fn, label):
               and not e.key.startswith(("_HyenaWindowMixer", "_FusedLnMlpResidual",
                                         "_HyenaChunkedMixer", "_ToeplitzConv",
                                         "_ChunkToeplitz", "_MambaWindowMixer",
-                                        "_FlashAttention", "_SpectralConv", "_LongScan"))]
+                                        "_FlashAttention", "_SpectralConv", "_LongScan",
+                                        "_WindowAttention", "_TableGather"))]
     total = sum(getattr(e, attr) for e in events)
     if total:
         top = sorted(events, key=lambda e: -getattr(e, attr))[:20]
@@ -2334,6 +2546,31 @@ def k7_bounds():
                          5 * seq + 4 * state + 2 * carry + 4 * n * d)}
 
 
+def k8_bounds():
+    """K8 per call at each ptx_attn stage in bf16 (T = BW * 16 tokens, C
+    channels, H = C / 32 heads, V = 16), [{"fwd" | "bwd" | "wgrad": (ms,
+    bound_by)} per stage]. Products on the tensor cores: the forward's qkv
+    and out projections 8TC^2 and its scores and p v 4TVC; the backward's
+    qkv recompute 6TC^2, do 2TC^2, dx 6TC^2 and its six window products
+    12TVC; the weight gradients x^T dqkv and o^T dout 8TC^2. fp32: about 6
+    operations per score (bias, mask, max, exp2, sum, divide) forward, 12
+    backward (recompute, delta, ds, the bias sums). Bytes, each read or
+    written once: the forward x, out (bf16) and the weights; the backward x,
+    dout, dx, dqkv, o (bf16), the weights and the fp32 bias, rel and region
+    id gradients and inputs; the weight gradients x, dqkv, o, dout (bf16) and
+    dWqkv, dWout in fp32."""
+    out = []
+    for bw, c, grid, _ in ATTN_STAGES:
+        v, t, heads = 16, bw * 16, c // 32
+        scores, small = t * v * heads, 4 * (4 * c + 2 * heads * v * v) + 4 * (grid // 4) ** 2 * v
+        w = 2 * 4 * c * c
+        out.append({"fwd": bound(8 * t * c * c + 4 * t * v * c, 6 * scores, 4 * t * c + w + small),
+                    "bwd": bound(14 * t * c * c + 12 * t * v * c, 12 * scores,
+                                 14 * t * c + w + 2 * small),
+                    "wgrad": bound(8 * t * c * c, 0, 12 * t * c + 4 * 4 * c * c)})
+    return out
+
+
 def kernel_bounds():
     """Per kernel: (bound ms of one train step of its main path, bound_by),
     from the main path's bf16 shapes: ptx for K1 and K2 (T tokens, C
@@ -2342,7 +2579,8 @@ def kernel_bounds():
     for K3 (the Toeplitz products 2 * BW * C * chunk^2 * n(n+1)/2), vessel
     for K4 (its stages 0-2), vit16k for K5 (12 layers), vit65k_hyena for K6
     (12 layers, the conv twice in each, forward and du; ``k6_bounds``),
-    vit65k_mamba for K7 (12 layers, the forward twice in each; ``k7_bounds``)."""
+    vit65k_mamba for K7 (12 layers, the forward twice in each; ``k7_bounds``),
+    ptx_attn for K8 (its four stages; ``k8_bounds``)."""
     out = {}
 
     def add(name, depth, b):
@@ -2402,6 +2640,9 @@ def kernel_bounds():
     k6 = k6_bounds()
     add("spectral_conv", 2 * VIT_LAYERS, k6["conv"])
     add("spectral_conv_dk", VIT_LAYERS, k6["dk"])
+    for b, (_, _, _, depth) in zip(k8_bounds(), ATTN_STAGES):
+        for key in ("fwd", "bwd", "wgrad"):
+            add(f"window_attention_{key}", depth, b[key])
     k7 = k7_bounds()
     add("long_scan_fwd", VIT_LAYERS, k7["fwd_zero"])
     add("long_scan_fwd", VIT_LAYERS, k7["fwd_y"])
@@ -2468,41 +2709,60 @@ def run():
     k6 = phase_k6(torch, spectral_conv, dev)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_h65_")
     try:
-        h65_launches = phase_long_vit_slice(
+        h65_launches = phase_config_slice(
             torch, tmp, vit65k_hyena_flags(), "vit65k_hyena", 26,
             lambda forward, steps: {1: VIT_LAYERS * forward, 3: VIT_LAYERS * steps,
                                     12: VIT_LAYERS * (forward + steps), 13: VIT_LAYERS * steps})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_long_vit_grads(torch, dev, vit65k_hyena_flags(), (256, 512), 27, "vit65k_hyena",
-                         {12: 2 * VIT_LAYERS, 13: VIT_LAYERS}, H65_BF16_GRAD_FLOOR)
-    phase_long_vit_throughput(torch, dev, vit65k_hyena_flags(), 28, "vit65k_hyena")
+    phase_config_grads(torch, dev, vit65k_hyena_flags(), (256, 512), 27, "vit65k_hyena",
+                       {12: 2 * VIT_LAYERS, 13: VIT_LAYERS}, H65_BF16_GRAD_FLOOR,
+                       long_vit_label(256, 512))
+    phase_config_throughput(torch, dev, vit65k_hyena_flags(), 28, "vit65k_hyena")
     k7 = phase_k7(torch, selective_scan_long, dev)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_m65_")
     try:
-        m65_launches = phase_long_vit_slice(
+        m65_launches = phase_config_slice(
             torch, tmp, vit65k_mamba_flags(), "vit65k_mamba", 30,
             lambda forward, steps: {1: VIT_LAYERS * forward, 3: VIT_LAYERS * steps,
                                     14: 2 * VIT_LAYERS * forward, 15: VIT_LAYERS * steps,
                                     16: VIT_LAYERS * steps})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_long_vit_grads(torch, dev, vit65k_mamba_flags(), (128, 256), 31, "vit65k_mamba",
-                         {14: 2 * VIT_LAYERS, 15: VIT_LAYERS, 16: VIT_LAYERS},
-                         M65_BF16_GRAD_FLOOR)
-    phase_long_vit_throughput(torch, dev, vit65k_mamba_flags(), 32, "vit65k_mamba")
+    phase_config_grads(torch, dev, vit65k_mamba_flags(), (128, 256), 31, "vit65k_mamba",
+                       {14: 2 * VIT_LAYERS, 15: VIT_LAYERS, 16: VIT_LAYERS},
+                       M65_BF16_GRAD_FLOOR, long_vit_label(128, 256))
+    phase_config_throughput(torch, dev, vit65k_mamba_flags(), 32, "vit65k_mamba")
+    from long_context_biomedical_imaging_tpu_torch.ops import window_attention
+
+    k8 = phase_k8(torch, window_attention, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_attn_")
+    try:
+        attn_launches = phase_config_slice(
+            torch, tmp, ptx_attn_flags(), "ptx_attn", 34,
+            lambda forward, steps: {1: ATTN_BLOCKS * forward, 3: ATTN_BLOCKS * steps,
+                                    17: ATTN_BLOCKS * forward, 18: ATTN_BLOCKS * steps,
+                                    19: ATTN_BLOCKS * steps},
+            batch=BATCH, subjects=(12, 6, 6))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_config_grads(torch, dev, ptx_attn_flags(), (256, 256), 35, "ptx_attn",
+                       {17: ATTN_BLOCKS, 18: ATTN_BLOCKS, 19: ATTN_BLOCKS}, ATTN_BF16_GRAD_FLOOR,
+                       f"full-width Swin-tiny + SwinLinear (window attention), batch "
+                       f"{ATTN_GRAD_BATCH} of 256x256", batch=ATTN_GRAD_BATCH)
+    phase_config_throughput(torch, dev, ptx_attn_flags(), 36, "ptx_attn", batch=BATCH)
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "long_context_biomedical_imaging_tpu")
                   for m in sys.modules), "JAX was imported")
 
     # per kernel, in its main path's configuration (bf16 under AMP, the
     # folded LN): launches in that path's train slice (ptx for K1 and K2, emb
     # for K3, vessel for K4, vit16k for K5, vit65k_hyena for K6, vit65k_mamba
-    # for K7), worst error over the stage shapes (the backward: over every
+    # for K7, ptx_attn for K8), worst error over the stage shapes (the backward: over every
     # gradient; K7: against its pass's plain version, fp32 as on the path),
     # and the time of one train step (each stage's time x its depth), with
     # its bound; library_ms is the time of torch's
     # scaled_dot_product_attention for K5 (forward; its backward shared
-    # between dq and dkv) and null for K1-K4, K6 and K7, which no single
+    # between dq and dkv) and null for K1-K4 and K6-K8, which no single
     # PyTorch call computes
     bounds = kernel_bounds()
     depths = [d for _, _, d in STAGES]
@@ -2552,6 +2812,15 @@ def run():
             ("long_scan_bwd", selective_scan_long.LONG_SCAN_BWD, "bwd", 320)):
         rows.append((label, kernel, [k7[key]], [VIT_LAYERS], m65_launches,
                      f"{tpu}selective_scan_long.py:{line}", None))
+    # K8: the weight-gradient kernel computes the part of the TPU backward
+    # kernel's work that sums dWqkv and dWout
+    attn_depths = [d for _, _, _, d in ATTN_STAGES]
+    for label, kernel, key, line in (
+            ("window_attention_fwd", window_attention.WINDOW_ATTENTION_FWD, "fwd", 259),
+            ("window_attention_bwd", window_attention.WINDOW_ATTENTION_BWD, "bwd", 277),
+            ("window_attention_wgrad", window_attention.WINDOW_ATTENTION_WGRAD, "wgrad", 277)):
+        rows.append((label, kernel, k8[key], attn_depths, attn_launches,
+                     f"{tpu}window_attention.py:{line}", None))
     kernels = [{
         "name": label, "route": "cuda", "source": f"{PACKAGE}/csrc/{kernel.source}",
         "replaces": replaces, "launches": path_launches[kernel.source],

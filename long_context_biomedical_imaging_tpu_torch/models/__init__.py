@@ -4,7 +4,8 @@ from .layers import (FlaxLayerNorm, LayerNormAmp, LNMLPResidual, PatchEmbed,
                      PatchEmbeddingBlock, TorchDense, extract_patches, init_weights,
                      parameterless_layer_norm)
 from .model_base import EncoderDecoderModel, build_model
-from .swin import BasicLayer, PatchMergingV2, SwinBackbone, SwinTransformerBlock, build_swin
+from .swin import (BasicLayer, PatchMergingV2, SwinBackbone, SwinTransformerBlock,
+                   WindowAttention, build_swin)
 from .vit import SABlock, TransformerBlock, ViTBackbone, build_vit, vit_size_presets
 
 __all__ = [
@@ -12,6 +13,6 @@ __all__ = [
     "LayerNormAmp", "LNMLPResidual", "PatchEmbed", "PatchEmbeddingBlock", "TorchDense",
     "extract_patches", "init_weights", "parameterless_layer_norm", "EncoderDecoderModel",
     "build_model", "BasicLayer", "PatchMergingV2", "SwinBackbone", "SwinTransformerBlock",
-    "build_swin",
+    "WindowAttention", "build_swin",
     "SABlock", "TransformerBlock", "ViTBackbone", "build_vit", "vit_size_presets",
 ]

@@ -3,8 +3,8 @@
 Counterpart of the JAX package's ``models/model_base.py``. ``build_model``
 returns ``decoder(encoder(x))`` on channels-last (B, T, H, W, C) input, with
 parameters initialised from an explicit ``torch.Generator``. The port builds
-Swin (Hyena or Mamba mixer) with SwinLinear for classification or UperNet2D
-for segmentation, and the ViT (softmax attention, Hyena or Mamba) with
+Swin (window attention, Hyena or Mamba mixer) with SwinLinear for
+classification or UperNet2D for segmentation, and the ViT (softmax attention, Hyena or Mamba) with
 ViTLinear, which reads the cls token after attention and mean-pools the
 tokens after Hyena or Mamba;
 :func:`check_ported` raises NotImplementedError for everything else, naming
@@ -54,10 +54,6 @@ def check_ported(config) -> None:
     if config.decoder_name == "UperNet2D" and config.time != 1:
         raise NotImplementedError(
             "UperNet2D on 3D input: the 3D head comes with the abct slice (ROADMAP.md queue 1)")
-    if not (config.Swin.use_hyena or config.Swin.use_mamba):
-        raise NotImplementedError(
-            "Swin window attention is not ported: it comes with the Swin "
-            "attention slice (ROADMAP.md queue 1)")
 
 
 class EncoderDecoderModel(nn.Module):

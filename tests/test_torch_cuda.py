@@ -5,7 +5,9 @@ ragged window groups and chunks of 64), K3 also at the emb stage shapes, K5
 (flash attention) at ragged sequence lengths, head dims 32, 64 and 128 and at
 the vit16k shape, K6 (the spectral long conv) at the vit65k_hyena shape, the
 odd batch at its floor and its ceiling, K7 (the long-sequence scan) at the
-vit65k_mamba shape, a ragged length and the gate's widest channels, and
+vit65k_mamba shape, a ragged length and the gate's widest channels, K8
+(Swin window attention) at the ptx_attn stage shapes, V = 64 and a ragged
+tile, and
 whole models whose every parameter gets a gradient on the card (a ViT-hyena
 and a ViT-mamba also against the host), and the Swin checkpointing's
 memory. Marked ``cuda``;
@@ -26,6 +28,7 @@ from long_context_biomedical_imaging_tpu_torch.ops import hyena_window as thw
 from long_context_biomedical_imaging_tpu_torch.ops import mamba_window as tmw
 from long_context_biomedical_imaging_tpu_torch.ops import selective_scan_long as tsl
 from long_context_biomedical_imaging_tpu_torch.ops import spectral_conv as tsc
+from long_context_biomedical_imaging_tpu_torch.ops import window_attention as twa
 
 
 @pytest.fixture
@@ -1030,6 +1033,137 @@ def test_vit_mamba_gradients_on_the_card_match_the_host(cuda_device, amp):
         torch.cuda.synchronize()
         ran = [k.launches - b for k, b in zip(kernels, before)]
         assert ran == ([4, 2, 2] if dev.type == "cuda" else [0, 0, 0]), (dev, ran)
+        grads[dev.type] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    tol = 1e-1 if amp else 1e-4
+    for name, g in grads["cuda"].items():
+        ref = grads["cpu"][name]
+        assert torch.isfinite(g).all() and g.abs().max() > 0, name
+        assert (g - ref).abs().max().item() <= tol * ref.abs().max().item(), name
+
+
+# ---------------------------------------------------------------------------
+# K8: Swin window attention
+# ---------------------------------------------------------------------------
+
+def _k8_args(gen, bw, v, c, dtype, dev, nw=None):
+    """x, wqkv, bqkv, wout, bout, rel, rid, do of one K8 case (heads of 32):
+    rid with a few regions per window, as the shifted windows have."""
+    heads = c // 32
+    t = [_randn(gen, (bw, v, c), 1.0), _randn(gen, (c, 3 * c), c ** -0.5),
+         _randn(gen, (3 * c,), 0.1), _randn(gen, (c, c), c ** -0.5), _randn(gen, (c,), 0.1),
+         _randn(gen, (heads, v, v), 0.5), _randn(gen, (bw, v, c), 1.0)]
+    x, wq, bq, wo, bo, rel, do = (a.to(dev) for a in t)
+    rid = None
+    if nw is not None:
+        rid = torch.randint(0, 4, (nw, v), generator=gen, dtype=torch.int32).to(dev)
+    return x.to(dtype), wq.to(dtype), bq, wo.to(dtype), bo, rel, rid, do.to(dtype), heads
+
+
+# (BW, V, C, nW): the four ptx_attn stages at batch 1 (C = 96 .. 768, 16-token
+# windows of shifted blocks), 64-token windows, a window count no tile divides
+K8_CASES = [(16384, 16, 96, 16384), (4096, 16, 192, 4096), (1024, 16, 384, 256),
+            (256, 16, 768, 64), (300, 64, 96, 100), (37, 16, 64, None), (5, 64, 128, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,v,c,nw", K8_CASES)
+def test_window_attention_kernels_match_plain(cuda_device, dtype, bw, v, c, nw):
+    """K8 forward and all six gradients (backward and weight-gradient
+    kernels) against the plain version and its VJP on the same inputs: the
+    output within _tol of max|out|, each gradient within 1e-3 (fp32: sums
+    over up to 2^18 tokens in another order) or 3e-2 (bf16: the kernels
+    round the products' operands where the TPU kernel does, the plain VJP
+    where autograd does) of its max."""
+    x, wq, bq, wo, bo, rel, rid, do, heads = _k8_args(torch.Generator().manual_seed(bw + v),
+                                                      bw, v, c, dtype, cuda_device, nw)
+    scale = 32 ** -0.5
+    out = twa.window_attention_fwd(x, wq, bq, wo, bo, rel, heads, rid, -100.0, scale)
+    grads = twa.window_attention_bwd(do, x, wq, bq, wo, bo, rel, heads, rid, -100.0, scale)
+    torch.cuda.synchronize()
+    ref = twa.window_attention_plain(x, wq, bq, wo, bo, rel, heads, rid, -100.0, scale)
+    refs = twa.window_attention_bwd_plain(do, x, wq, bq, wo, bo, rel, heads, rid, -100.0, scale)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(out).all() and err <= _tol(dtype) * ref.float().abs().max().item()
+    gtol = 1e-3 if dtype == torch.float32 else 3e-2
+    for name, g, r in zip(("dx", "dwqkv", "dbqkv", "dwout", "dbout", "drel"), grads, refs):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        err = (g.float() - r.float()).abs().max().item()
+        assert torch.isfinite(g).all() and err <= gtol * r.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_window_attention_kernels_are_deterministic_and_refuse(cuda_device):
+    """Two launches of each K8 kernel give the same bits (the bias and rel
+    gradients sum in per-block slots, the weight gradients in split-K
+    partials, both reduced in a fixed order); the Function launches the
+    forward once per call and the backward and weight-gradient kernels once
+    per gradient; the wrappers refuse a CPU tensor, a head dim other than
+    32, windows of 8 or 128 tokens, fp16 and a non-contiguous tensor."""
+    x, wq, bq, wo, bo, rel, rid, do, heads = _k8_args(
+        torch.Generator().manual_seed(9), 1000, 16, 192, torch.bfloat16, cuda_device, 250)
+    args = (x, wq, bq, wo, bo, rel, heads, rid, -100.0, 32 ** -0.5)
+    runs = [(twa.window_attention_fwd(*args), *twa.window_attention_bwd(do, *args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    kernels = (twa.WINDOW_ATTENTION_FWD, twa.WINDOW_ATTENTION_BWD, twa.WINDOW_ATTENTION_WGRAD)
+    before = [k.launches for k in kernels]
+    leaf = x.detach().requires_grad_()
+    twa.windowed_attention_proj(leaf, wq, bq, wo, bo, rel, heads, rid).backward(do)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError, match="CUDA"):
+        twa.window_attention_fwd(*cpu)
+    with pytest.raises(ValueError, match="CUDA"):
+        twa.window_attention_bwd(do.cpu(), *cpu)
+    with pytest.raises(ValueError, match="head dim of 32"):
+        twa.window_attention_fwd(x, wq, bq, wo, bo, rel[:3].repeat(2, 1, 1)[:12], 12, rid)
+    for v in (8, 128):
+        xv = torch.zeros(8, v, 64, device=cuda_device, dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            twa.window_attention_fwd(xv, wq[:64, :192].contiguous(), bq[:192], wo[:64, :64]
+                                     .contiguous(), bo[:64], rel[:2, :1, :1].expand(2, v, v)
+                                     .contiguous(), 2)
+    with pytest.raises(TypeError):
+        twa.window_attention_fwd(x.half(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        twa.window_attention_fwd(x.transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [False, True])
+def test_swin_attention_gradients_on_the_card_match_the_host(cuda_device, amp):
+    """A Swin-attention model (embed 32, heads 1/2, depths 2/2, window 4,
+    64x64 images at batch 2, both stages shifted): one train step on the
+    card launches K8 forward, backward and weight-gradient 4 times each;
+    every parameter's gradient is finite and non-zero and, in fp32, within
+    1e-4 of its max of the host's (K8's plain version), in bf16 within 1e-1
+    (bf16 roundings compounded over the blocks)."""
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import amp_params
+
+    argv = ["--task_type=class", "--encoder_name=Swin", "--decoder_name=SwinLinear",
+            "--height=64", "--width=64", "--no_out_channel=2", "--seed=3",
+            "--Swin.size=custom", "--Swin.embed_dim=32", "--Swin.depths", "2", "2",
+            "--Swin.num_heads", "1", "2", "--Swin.patch_size", "2", "--Swin.window_size", "4",
+            "--Swin.use_hyena", "False"] + (["--use_amp"] if amp else [])
+    model = build_model(check_args(parse_config(argv)))
+    x = torch.randn(2, 1, 64, 64, 1, generator=torch.Generator().manual_seed(0))
+    y = torch.tensor([0, 1])
+    kernels = (twa.WINDOW_ATTENTION_FWD, twa.WINDOW_ATTENTION_BWD, twa.WINDOW_ATTENTION_WGRAD)
+    grads = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        model.to(dev).zero_grad(set_to_none=True)
+        before = [k.launches for k in kernels]
+        out = torch.func.functional_call(model, amp_params(model, amp), (x.to(dev),))
+        cross_entropy_loss(out.float(), y.to(dev)).backward()
+        torch.cuda.synchronize()
+        ran = [k.launches - b for k, b in zip(kernels, before)]
+        assert ran == ([4, 4, 4] if dev.type == "cuda" else [0, 0, 0]), (dev, ran)
         grads[dev.type] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
     tol = 1e-1 if amp else 1e-4
     for name, g in grads["cuda"].items():

@@ -163,11 +163,10 @@ _EVAL = ["--train_model=False", "--device=cpu", "--task_type=class",
     ["--train_model=True", "--optim_type=lbfgs"],
     ["--model_parallel=2"],
     ["--encoder_name=ViT", "--decoder_name=UperNet2D", "--task_type=seg"],
-    ["--Swin.use_hyena=False"],
     ["--task_type=seg", "--decoder_name=UperNet3D", "--time=16"],
     ["--task_type=enhance", "--decoder_name=SwinUNETR", "--loss_func=MSE"],
     ["--ddp"],
-], ids=["train_timer", "train_nadam", "train_lbfgs", "model_parallel", "vit", "attention",
+], ids=["train_timer", "train_nadam", "train_lbfgs", "model_parallel", "vit",
         "seg_head", "enhance_head", "ddp"])
 def test_unported_surfaces_raise(tmp_path, extra):
     """Each surface the port does not run yet raises NotImplementedError
@@ -257,6 +256,37 @@ def test_vessel_surfaces_set_up(tmp_path, extra):
     attn = WindowAttention(32, 2, bool(cfg.Swin.use_hyena), bool(cfg.Swin.use_mamba))
     assert attn.mixer_name == ("hyena" if cfg.Swin.use_hyena else "mamba")
     assert not hasattr(attn, "mamba" if cfg.Swin.use_hyena else "hyena")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--Swin.use_hyena=False"],
+    ["--Swin.use_hyena=False", "--train_model=True"],
+    ["--Swin.use_hyena=False", "--task_type=seg", "--decoder_name=UperNet2D"],
+], ids=["eval", "train", "seg"])
+def test_swin_attention_sets_up(tmp_path, extra):
+    """Swin with window attention, the CLI's default mixer (refused until the
+    Swin attention slice), sets up a run for evaluation, training and
+    segmentation; every block holds the attention parameters under the JAX
+    names, odd blocks shift by half the window, and a forward runs."""
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+
+    cfg = parse_config_and_setup_run(_EVAL + extra + ["--height=32", "--width=32",
+                                                      "--Swin.size=custom", "--Swin.embed_dim=32",
+                                                      "--Swin.depths", "2", "1", "1", "1",
+                                                      "--Swin.num_heads", "1", "1", "1", "1",
+                                                      "--Swin.window_size", "4",
+                                                      f"--log_dir={tmp_path}", "--run_name=r"])
+    assert os.path.isdir(os.path.join(cfg.log_dir_run, "models"))
+    model = build_model(cfg)
+    layer = model.encoder.layer_0
+    names = {n for n, _ in layer.block_1.attn.named_parameters()}
+    assert names == {"relative_position_bias_table", "qkv_kernel", "qkv_bias_p", "proj_kernel",
+                     "proj_bias"}
+    assert layer.block_0.shift_size == (0, 0, 0) and layer.block_1.shift_size == (0, 2, 2)
+    assert layer.block_1.attn.relative_position_bias_table.shape == (49, 1)
+    with torch.no_grad():
+        out = model(torch.zeros(1, 1, 32, 32, 1))
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("extra", [["--with_timer"], ["--optim_type=nadam"],
