@@ -4,7 +4,7 @@
 
 Phases, each printing one line of numbers (or a few):
   1. device: the card, as nvidia-smi reports its name and power limit;
-  2. build: the twenty hand-written kernels from csrc/ with nvcc, in parallel
+  2. build: the twenty-two hand-written kernels from csrc/ with nvcc, in parallel
      (one nvcc per source), with their build seconds and ptxas
      register/spill lines;
   3. K1, the fused Hyena window mixer, against its plain PyTorch version at
@@ -157,7 +157,37 @@ Phases, each printing one line of numbers (or a few):
      the card against the host, fp32 and bf16, per parameter;
  36. ptx_attn throughput: the train step and eval forward at batch 4 on
      1024x1024 in bf16, steady state, with peak memory and one-step
-     profiles.
+     profiles;
+ 37. K9, the windowed selective scan of the micro_w7 path: the forward and
+     backward kernels through selective_scan_window (y and the gradients of
+     all seven inputs) against its plain version (selective_scan_cm) and its
+     VJP at micro_w7's two K9 stage shapes (batch 4: 21,904 and 5,476 7x7
+     windows, d 48 and 96), at 3x3 windows (L = 9) at a window count no tile
+     divides, at L = 64 with d = 130 and d = 1024 (N d = 8192), fp32 and
+     bf16; two launches bitwise equal; each kernel against its plain pass;
+     the refusals (a CPU tensor, L > 64, N d > 8192); then the times of the
+     kernels and the plain version at the two stage shapes;
+ 38. micro_w7 train slice: run_torch.main trains micro_w7 (--debug, 2
+     epochs) on synthetic 1024x1024x1 enhancement pairs with the flags of
+     projects/run_micro.sh and --Swin.window_size 7 (Swin-tiny + Mamba +
+     UperNet2D, CombinationEnhance), saves and reloads checkpoints,
+     evaluates loss, SSIM and PSNR; checks that K9 forward ran as the gate
+     routes each forward batch (stages 0-1 at batch 4: 4 blocks) and K9
+     backward as it routes each train step, K2 12 times per forward batch
+     and per train step, K1 and K3-K8 never; then --inference_only, which
+     must reproduce the test metrics;
+ 39. micro_w7 model gradients: one train step's gradients of the
+     full-width micro_w7 model under CombinationEnhance on 512x512 images at
+     batch 4 (stage 0 reaches K9 by the gate itself: 5,476 windows), dropout
+     off, on the card against the host, fp32 and bf16, per parameter, as
+     phase 19 holds vessel;
+ 40. micro_w7 throughput: the train step and eval forward at batch 4 on
+     1024x1024 in bf16, steady state, with peak memory and one-step
+     profiles;
+ 41. micro as shipped: run_torch.main with projects/run_micro.sh's own flags
+     (window 4) trains one step and evaluates at 1024x1024; checks that K4
+     ran in all 12 blocks (16-token windows) and K9 never, and prints its
+     step and eval times.
 Then one JSON line with the kernels' numbers, and last the result line.
 Every time is on this card, with its name and power limit printed in phase 1.
 It imports neither JAX nor the JAX package, and fails (exit code != 0, no
@@ -199,6 +229,16 @@ def emb_flags() -> list[str]:
 
 def vessel_flags() -> list[str]:
     return project_flags("run_vessel.sh")
+
+
+def micro_flags() -> list[str]:
+    return project_flags("run_micro.sh")
+
+
+def micro_w7_flags() -> list[str]:
+    """micro_w7: the flags of projects/run_micro.sh with 7x7 windows (the
+    Swin Transformer's published window; 49 tokens, K9's route)."""
+    return micro_flags() + ["--Swin.window_size", "7"]
 
 
 def ptx_attn_flags() -> list[str]:
@@ -347,6 +387,16 @@ ATTN_BF16_GRAD_FLOOR = 2e-2
 # phase 35 holds the gradients at this batch of 256x256 images: token grids
 # 128 .. 16, so every stage's odd blocks shift
 ATTN_GRAD_BATCH = 2
+# micro_w7 at batch 4: each stage's Swin grid padded to a multiple of 7, (C,
+# padded token grid, depth); the Mamba mixer's d_half is C / 2
+MICRO_STAGES = [(c, -(-grid // 7) * 7, depth) for c, grid, depth in STAGES]
+# phase 37, K9's shapes (BW, L, d) beyond the two stage shapes: 3x3 windows at
+# a window count no tile divides, the longest window at an odd width, the
+# gate's widest channels (N d = 8192)
+K9_EXTRA = [(3001, 9, 40), (2049, 64, 130), (257, 64, 1024)]
+K9_N = 8
+# phase 39 holds the micro_w7 gradients at this batch of 512x512 images
+MICRO_GRAD_BATCH = 4
 # the card's peaks for the bounds (H100 SXM data sheet, dense): bf16 tensor
 # cores, fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -408,10 +458,11 @@ def phase_device(torch):
 def all_kernels():
     """K1 fwd, K2 fwd, K1 bwd, K2 bwd, K3 fwd, K3 bwd, K3 dM, K4 fwd, K4 bwd,
     K5 fwd, K5 dq, K5 dkv, K6 conv, K6 dk, K7 fwd, K7 carry bwd, K7 bwd, K8
-    fwd, K8 bwd, K8 weight gradients."""
+    fwd, K8 bwd, K8 weight gradients, K9 fwd, K9 bwd."""
     from long_context_biomedical_imaging_tpu_torch.ops import (flash_attention, fused_mlp,
                                                                hyena_window, mamba_window,
                                                                selective_scan_long,
+                                                               selective_scan_window,
                                                                spectral_conv, window_attention)
 
     return (hyena_window.HYENA_WINDOW_FWD, fused_mlp.FUSED_LN_MLP_FWD,
@@ -423,7 +474,8 @@ def all_kernels():
             spectral_conv.SPECTRAL_CONV_DK, selective_scan_long.LONG_SCAN_FWD,
             selective_scan_long.LONG_SCAN_CARRY_BWD, selective_scan_long.LONG_SCAN_BWD,
             window_attention.WINDOW_ATTENTION_FWD, window_attention.WINDOW_ATTENTION_BWD,
-            window_attention.WINDOW_ATTENTION_WGRAD)
+            window_attention.WINDOW_ATTENTION_WGRAD, selective_scan_window.WINDOW_SCAN_FWD,
+            selective_scan_window.WINDOW_SCAN_BWD)
 
 
 def check_launches(kernels, launches, expected, where):
@@ -523,13 +575,15 @@ def phase_k2(torch, fused_mlp, dev):
     return results
 
 
-def write_dataset(root, shape, n_train=4, n_val=6, n_test=6, seed=0, masks=False):
+def write_dataset(root, shape, n_train=4, n_val=6, n_test=6, seed=0, masks=False,
+                  targets=False):
     """Synthetic data laid out as tests/test_e2e.py makes it, plus a split
     CSV: per-subject <id>/<id>_input.npy float32 images (H x W [x C]) or
     volumes (H x W x D) of ``shape`` and x_metadata.csv with alternating
     labels of the 2 classes; with ``masks``, also <id>/<id>_output.npy, an
     H x W mask of the 2 classes (class 1 where the first channel exceeds
-    0.5, so that a model can learn it)."""
+    0.5, so that a model can learn it); with ``targets``, an enhancement
+    target <id>/<id>_output.npy of ``shape``, the input less some noise."""
     import numpy as np
     import pandas as pd
 
@@ -543,6 +597,9 @@ def write_dataset(root, shape, n_train=4, n_val=6, n_test=6, seed=0, masks=False
         if masks:
             np.save(os.path.join(root, "data", sid, f"{sid}_output.npy"),
                     (image.reshape(shape[0], shape[1], -1)[..., 0] > 0.5).astype(np.float32))
+        if targets:
+            noise = rng.standard_normal(shape, dtype=np.float32)
+            np.save(os.path.join(root, "data", sid, f"{sid}_output.npy"), image - 0.3 * noise)
     pd.DataFrame({"SubjectID": ids, "Label": [i % 2 for i in range(len(ids))]}).to_csv(
         os.path.join(root, "data", "x_metadata.csv"), index=False)
     pd.DataFrame({"SubjectID": ids, "Split": splits}).to_csv(
@@ -1345,13 +1402,18 @@ def _no_dropout(model):
     return model
 
 
-def phase_vessel_grads(torch, dev, seed=20):
+def phase_vessel_grads(torch, dev, seed=20, flags=None, channels=3, enhance=False, phase=19,
+                       name="vessel", path_kernels=None):
     """One train step's gradients of the full-width vessel model on 512x512x3
     images at batch 4 (windows of 64 tokens: K4 at stages 0-1, 4096 and 1024
     windows; the composed scan at stages 2-3, 256 and 64 windows), BatchNorm
     on batch statistics and dropout off, weights and images from one seed: on
     the card (kernels) against the host (plain versions), fp32 and bf16.
-    Errors are per parameter, max|err| / max|reference|.
+    Errors are per parameter, max|err| / max|reference|. Another UperNet2D
+    configuration runs the same check with its ``flags``, its images'
+    ``channels`` and, with ``enhance``, enhancement targets and
+    CombinationEnhance (micro_w7, phase 39); path_kernels: {index in
+    all_kernels(): launches per gradient on the card}.
 
     fp32: every parameter within VESSEL_GRAD_TOL, and every encoder
     parameter (where K4 runs) within VESSEL_ENCODER_GRAD_TOL. This model's
@@ -1378,31 +1440,42 @@ def phase_vessel_grads(torch, dev, seed=20):
     host against the card's fp32."""
     from torch.func import functional_call
 
-    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.losses import get_loss_func
     from long_context_biomedical_imaging_tpu_torch.models import build_model
     from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
     from long_context_biomedical_imaging_tpu_torch.trainer import amp_params
 
-    argv = ([a for a in vessel_flags() if a != "--use_amp"]
+    argv = ([a for a in (flags or vessel_flags()) if a != "--use_amp"]
             + ["--height=512", "--width=512", f"--seed={seed}"])
-    x = torch.randn(BATCH, 1, 512, 512, 3, generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(BATCH, 1, 512, 512, channels, generator=gen)
     x = (x * torch.tensor([0.5, 1.0, 1.5, 2.0]).view(BATCH, 1, 1, 1, 1)
          + torch.tensor([-1.0, -0.3, 0.3, 1.0]).view(BATCH, 1, 1, 1, 1))
-    y = (x[..., 0] > 0.5).long()
+    if enhance:
+        y = x - 0.3 * torch.randn(x.shape, generator=gen)
+    else:
+        y = (x[..., 0] > 0.5).long()
+    loss_func = get_loss_func(check_args(parse_config(argv)).loss_func)
+    kernels = [all_kernels()[i] for i in (path_kernels or {})]
 
     def grads(model, amp, device):
         model.to(device).train().zero_grad(set_to_none=True)
+        before = [k.launches for k in kernels]
         out = functional_call(model, amp_params(model, amp), (x.to(device),)).float()
-        cross_entropy_loss(out, y.to(device)).backward()
+        loss_func(out, y.to(device)).backward()
+        ran = [k.launches - b for k, b in zip(kernels, before)]
+        want = list(path_kernels.values()) if path_kernels and device != "cpu" else [0] * len(
+            kernels)
+        check(ran == want, f"{name} kernel launches {ran} on {device}, expected {want}")
         return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
 
     def errors(got, ref, dname):
         errs = {}
-        for name, g in got.items():
-            check(bool(torch.isfinite(g).all()), f"{dname}: gradient of {name} not finite")
-            check(g.abs().max().item() > 0, f"{dname}: gradient of {name} is all zero")
-            errs[name] = ((g - ref[name]).abs().max().item()
-                          / max(ref[name].abs().max().item(), 1e-30))
+        for pname, g in got.items():
+            check(bool(torch.isfinite(g).all()), f"{dname}: gradient of {pname} not finite")
+            check(g.abs().max().item() > 0, f"{dname}: gradient of {pname} is all zero")
+            errs[pname] = ((g - ref[pname]).abs().max().item()
+                           / max(ref[pname].abs().max().item(), 1e-30))
         return errs
 
     def worst(errs, prefix=""):
@@ -1419,26 +1492,27 @@ def phase_vessel_grads(torch, dev, seed=20):
     e32 = errors(card32, host32, "float32")
     err, at = worst(e32)
     enc, enc_at = worst(e32, "encoder.")
-    print(f"phase 19 vessel model gradients: full-width vessel Swin-tiny + Mamba + UperNet2D, "
-          f"batch {BATCH} of 512x512x3, float32, seed {seed}: {len(card32)} parameters, every "
-          f"card gradient finite and non-zero; card vs host worst max|err| / max|host grad| "
-          f"{err:.3e} ({at}), encoder {enc:.3e} ({enc_at})", flush=True)
-    check(err <= VESSEL_GRAD_TOL, f"float32 vessel model gradients: {at} off by {err} of its max")
+    print(f"phase {phase} {name} model gradients: full-width {name} Swin-tiny + Mamba + "
+          f"UperNet2D, batch {BATCH} of 512x512x{channels}, float32, seed {seed}: {len(card32)} "
+          f"parameters, every card gradient finite and non-zero; card vs host worst max|err| / "
+          f"max|host grad| {err:.3e} ({at}), encoder {enc:.3e} ({enc_at})", flush=True)
+    check(err <= VESSEL_GRAD_TOL, f"float32 {name} model gradients: {at} off by {err} of its max")
     check(enc <= VESSEL_ENCODER_GRAD_TOL,
-          f"float32 vessel encoder gradients: {enc_at} off by {enc} of its max")
+          f"float32 {name} encoder gradients: {enc_at} off by {enc} of its max")
     card_e = errors(card16, card32, "bfloat16")
     host_e = errors(host16, card32, "bfloat16 host")
     limit = {k: BF16_GRAD_RATIO * host_e[k] + VESSEL_BF16_GRAD_FLOOR for k in card_e}
     tight = max(card_e, key=lambda k: card_e[k] / limit[k])
     ratio = max(card_e, key=lambda k: card_e[k] / max(host_e[k], 1e-30))
-    print(f"phase 19 vessel model gradients, bfloat16: every card gradient finite and non-zero; "
+    print(f"phase {phase} {name} model gradients, bfloat16: every card gradient finite and "
+          f"non-zero; "
           f"max|err| / max|fp32 card grad|, worst: card {worst(card_e)[0]:.3e} "
           f"({worst(card_e)[1]}), host {worst(host_e)[0]:.3e} ({worst(host_e)[1]}); per "
           f"parameter, nearest its limit {tight}: card {card_e[tight]:.3e}, host "
           f"{host_e[tight]:.3e}, limit {limit[tight]:.3e}; largest card/host ratio {ratio}: "
           f"{card_e[ratio]:.3e} / {host_e[ratio]:.3e}", flush=True)
     check(card_e[tight] <= limit[tight],
-          f"bfloat16 vessel model gradients: the card strays {card_e[tight]} from fp32 at "
+          f"bfloat16 {name} model gradients: the card strays {card_e[tight]} from fp32 at "
           f"{tight}, more than {BF16_GRAD_RATIO} x the host's {host_e[tight]} + "
           f"{VESSEL_BF16_GRAD_FLOOR}")
     return e32, card_e, host_e
@@ -2255,21 +2329,154 @@ def phase_k8(torch, wa, dev):
     return results
 
 
+def micro_k9_shapes(batch, height=1024):
+    """(BW, L, d, depth) of each micro_w7 stage whose Mamba call the gate
+    routes to K9, for a batch of images of height x height: the gate of the
+    port's models/mamba.py, the JAX package's."""
+    from long_context_biomedical_imaging_tpu_torch.models.mamba import _window_scan_supported
+
+    out = []
+    for c, grid, depth in STAGES:
+        g = -(-(grid * height // 1024) // 7) * 7
+        bw = batch * (g // 7) ** 2
+        if _window_scan_supported(49, K9_N, c // 2, batch=bw):
+            out.append((bw, 49, c // 2, depth))
+    return out
+
+
+def phase_k9(torch, ssw, dev):
+    """K9, the windowed scan of the micro_w7 path. selective_scan_window on
+    the card (one forward and one backward launch) against its plain version
+    (selective_scan_cm) and its VJP at micro_w7's K9 stage shapes and
+    K9_EXTRA, fp32 and bf16: y and the gradients of u, delta, A, B, C, D and
+    delta_bias at K7_TOL (dA, dD and ddelta_bias sum over up to a million
+    tokens), two runs bitwise equal. Then each kernel against its plain
+    pass on the same fp32 operands, the refusals, and the times at the stage
+    shapes with bf16 inputs (the kernels on the fp32 operands the path casts
+    them to). Returns {"fwd" | "bwd": [(max abs err of the kernel against
+    its plain pass, fp32, kernel ms, plain ms) per stage]}: the plain fwd is
+    the plain version's forward, the plain bwd its VJP less its forward."""
+    gen = torch.Generator().manual_seed(37)
+    kernels = (ssw.WINDOW_SCAN_FWD, ssw.WINDOW_SCAN_BWD)
+    names = ("y", "du", "ddelta", "dA", "dB", "dC", "dD", "ddelta_bias")
+    stages = [(bw, length, d) for bw, length, d, _ in micro_k9_shapes(BATCH)]
+    check(stages == [(21904, 49, 48), (5476, 49, 96)], f"micro_w7's K9 stages {stages}")
+    for shape in stages + K9_EXTRA:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            args = _k7_inputs(torch, gen, shape, dtype, dev)
+            before = [k.launches for k in kernels]
+            got = _k7_vjp(torch, ssw.selective_scan_window, args)
+            again = _k7_vjp(torch, ssw.selective_scan_window, args)
+            torch.cuda.synchronize()
+            ran = [k.launches - b for k, b in zip(kernels, before)]
+            check(ran == [2, 2], f"K9 {shape} {dname}: launches {ran}, expected [2, 2]")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K9 {shape} {dname}: two runs gave different bits")
+            ref = _k7_vjp(torch, ssw.selective_scan_window_plain, args)
+            errs, ok = {}, True
+            for i, (name, a, r) in enumerate(zip(names, got, ref)):
+                ok = ok and a.dtype == r.dtype and a.shape == r.shape
+                a, r = a.float(), r.float()
+                errs[name] = (a - r).abs().max().item()
+                ok = (ok and bool(torch.isfinite(a).all().item())
+                      and errs[name] <= K7_TOL[dname][i > 0] * r.abs().max().item())
+            print(f"phase 37 K9 BW,L,d={shape} {dname}: max_abs_err "
+                  + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                  + " (max|y| {:.3e}, max|dA| {:.3e}); two runs bitwise equal".format(
+                      ref[0].float().abs().max().item(), ref[3].abs().max().item())
+                  + (" ok" if ok else " MISMATCH"), flush=True)
+            check(ok, f"K9 disagrees with its plain version at {shape} {dname}: {errs}")
+            del args, got, again, ref
+            torch.cuda.empty_cache()
+
+    worst = []
+    for shape in stages + K9_EXTRA:
+        u, delta, a, bm, cm, _, _, g = _k7_inputs(torch, gen, shape, torch.float32, dev)
+        at = a.t().contiguous()
+        pairs = {"fwd": ([ssw.window_scan_fwd(u, delta, at, bm, cm)],
+                         [ssw.window_scan_fwd_plain(u, delta, at, bm, cm)]),
+                 "bwd": (ssw.window_scan_bwd(u, delta, at, bm, cm, g),
+                         ssw.window_scan_bwd_plain(u, delta, at, bm, cm, g))}
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for key, (got, ref) in pairs.items():
+            e = [(x - r).abs().max().item() for x, r in zip(got, ref)]
+            ok = ok and all(bool(torch.isfinite(x).all().item())
+                            and v <= K7_PASS_TOL * r.abs().max().item()
+                            for x, r, v in zip(got, ref, e))
+            errs[key] = max(e)
+        print(f"phase 37 K9 kernels against their plain passes, BW,L,d={shape} float32: "
+              f"max_abs_err fwd (y) {errs['fwd']:.3e}, bwd (du, ddelta, dat, dB, dC) "
+              f"{errs['bwd']:.3e}" + (" ok" if ok else " MISMATCH"), flush=True)
+        check(ok, f"a K9 kernel disagrees with its plain pass at {shape}: {errs}")
+        if shape in stages:
+            worst.append(errs)
+        del u, delta, a, bm, cm, g, at, pairs
+        torch.cuda.empty_cache()
+
+    u, delta, a, bm, cm, _, _, g = _k7_inputs(torch, gen, (3001, 49, 96), torch.float32, dev)
+    wide = torch.zeros(4, 49, 1040, device=dev)
+    long_seq, long_bc = torch.zeros(4, 65, 96, device=dev), torch.zeros(4, 65, K9_N, device=dev)
+    for fn, what in ((lambda: ssw.window_scan_fwd(u.cpu(), delta.cpu(), a.t().contiguous().cpu(),
+                                                  bm.cpu(), cm.cpu()), "a CPU tensor"),
+                     (lambda: ssw.selective_scan_window(long_seq, long_seq, a, long_bc, long_bc),
+                      "L = 65"),
+                     (lambda: ssw.window_scan_fwd(wide, wide, torch.zeros(K9_N, 1040, device=dev),
+                                                  bm[:4], cm[:4]), "N d = 8320")):
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise SmokeFailure(f"K9 took {what}")
+    print("phase 37 K9 refusals: a CPU tensor, L = 65, N d = 8320: refused", flush=True)
+    del u, delta, a, bm, cm, g, wide, long_seq, long_bc
+
+    out = {"fwd": [], "bwd": []}
+    for (bw, length, d), errs in zip(stages, worst):
+        args = _k7_inputs(torch, gen, (bw, length, d), torch.bfloat16, dev)
+        u, delta, a, bm, cm, dskip, dbias, g = args
+        u32, d32, at = u.float(), (delta.float() + dbias).contiguous(), a.t().contiguous()
+        b32, c32, g32 = bm.float(), cm.float(), g.float()
+        k_fwd = median_ms(torch, lambda: ssw.window_scan_fwd(u32, d32, at, b32, c32))
+        k_bwd = median_ms(torch, lambda: ssw.window_scan_bwd(u32, d32, at, b32, c32, g32))
+        with torch.no_grad():
+            p_fwd = median_ms(torch, lambda: ssw.selective_scan_window_plain(*args[:7]),
+                              warmup=1, reps=5)
+        p_vjp = median_ms(torch, lambda: _k7_vjp(torch, ssw.selective_scan_window_plain, args),
+                          warmup=1, reps=5)
+        op_ms = median_ms(torch, lambda: _k7_vjp(torch, ssw.selective_scan_window, args))
+        bounds = k9_bounds()[stages.index((bw, length, d))]
+        print(f"phase 37 K9 times at BW,L,d={(bw, length, d)}, N={K9_N}, bf16 inputs, fp32 "
+              f"operands, ms per call: kernel fwd {k_fwd:.3f}, bwd {k_bwd:.3f}; the whole op "
+              f"(casts, kernels, D skip) forward and backward {op_ms:.3f}; plain "
+              f"(selective_scan_cm) fwd {p_fwd:.3f}, VJP {p_vjp:.3f}; bounds fwd "
+              f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}), bwd {bounds['bwd'][0]:.4f} "
+              f"({bounds['bwd'][1]})", flush=True)
+        out["fwd"].append((errs["fwd"], k_fwd, p_fwd))
+        out["bwd"].append((errs["bwd"], k_bwd, max(p_vjp - p_fwd, 0.0)))
+        del args, u, delta, a, bm, cm, dskip, dbias, g, u32, d32, at, b32, c32, g32
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_config_slice(torch, tmp, flags, name, phase, expected, batch=H65_BATCH,
-                       subjects=(3, 2, 2)):
+                       subjects=(3, 2, 2), enhance=False):
     """run_torch.main trains a configuration at the given batch size on
-    synthetic 1024x1024x1 images on the card (the vit65k_hyena, vit65k_mamba
-    or ptx_attn path; subjects: train, val and test images), then an
-    inference-only run reloads its best checkpoint. expected(forward
-    batches, train steps) gives each kernel's launch count by its index in
-    all_kernels()."""
+    synthetic 1024x1024x1 images on the card (the vit65k_hyena, vit65k_mamba,
+    ptx_attn or micro_w7 path; subjects: train, val and test images;
+    ``enhance``: enhancement pairs and loss, SSIM and PSNR, else labels and
+    the classification metrics), then an inference-only run reloads its best
+    checkpoint. expected(forward batches, train steps) gives each kernel's
+    launch count by its index in all_kernels()."""
     import numpy as np
     import yaml
 
     import run_torch
 
     (n_train, n_val, n_test), epochs = subjects, 2
-    write_dataset(tmp, (1024, 1024), n_train, n_val, n_test)
+    write_dataset(tmp, (1024, 1024), n_train, n_val, n_test, targets=enhance)
+    metric_names = {"loss", "ssim", "psnr"} if enhance else {"loss", "acc_1", "auroc", "f1"}
     steps = epochs * min(3, math.ceil(n_train / batch))      # --debug: 3 per epoch
     val_batches = min(3, math.ceil(n_val / batch))
     test_batches = min(3, math.ceil(n_test / batch))
@@ -2310,7 +2517,7 @@ def phase_config_slice(torch, tmp, flags, name, phase, expected, batch=H65_BATCH
         path = os.path.join(run_dir, f"{split}_metrics.txt")
         check(os.path.exists(path), f"{path} missing")
         m = {k: float(v) for k, v in (ln.split(": ") for ln in open(path).read().split("\n") if ln)}
-        check(set(m) == {"loss", "acc_1", "auroc", "f1"} and np.isfinite(m["loss"]),
+        check(set(m) == metric_names and all(np.isfinite(list(m.values()))),
               f"{split} metrics {m}")
         metrics[split] = m
     train_images = sum(int(n) for _, _, n, _ in trained)
@@ -2337,6 +2544,53 @@ def phase_config_slice(torch, tmp, flags, name, phase, expected, batch=H65_BATCH
     print(f"phase {phase} inference-only: reloaded {run_dir}/models/model_best_checkpoint; test "
           f"{test} (the training run's own); launches {inference}", flush=True)
     return launches
+
+
+def phase_micro_shipped(torch, tmp):
+    """micro as projects/run_micro.sh ships it (window 4: 16-token windows):
+    run_torch.main trains one step at batch 4 on synthetic 1024x1024x1
+    enhancement pairs and evaluates; K4 in all 12 blocks of every forward
+    batch and train step, K9 never. Returns (train seconds of the step, eval
+    ms per batch), from run.log (the first step and batch, so with their
+    one-time costs)."""
+    import numpy as np
+
+    import run_torch
+
+    write_dataset(tmp, (1024, 1024), BATCH, BATCH, BATCH, targets=True)
+    run_dir = os.path.join(tmp, "logs", "chip_smoke_micro")
+    argv = micro_flags() + [f"--data_dir={tmp}/data", f"--split_csv_path={tmp}/split.csv",
+                            "--device=cuda", "--num_epochs=1", f"--log_dir={tmp}/logs",
+                            "--run_name=chip_smoke_micro"]
+    check("--Swin.window_size" in argv and argv[argv.index("--Swin.window_size") + 1] == "4",
+          "projects/run_micro.sh no longer ships window 4")
+    kernels = all_kernels()
+    for kernel in kernels:
+        kernel.launches = 0
+    rc = run_torch.main(argv)
+    torch.cuda.synchronize()
+    check(rc == 0, f"run_torch.main returned {rc}")
+    launches = {kernel.source: kernel.launches for kernel in kernels}
+    log = open(os.path.join(run_dir, "run.log")).read()
+    trained = re.findall(r"epoch 0 train: (\d+) steps, (\d+) samples in ([\d.]+) s", log)
+    timed = re.findall(r"(\w+) forward: (\d+) batches of (\d+) in ([\d.]+) s", log)
+    check(len(trained) == 1 and trained[0][0] == "1", f"train lines {trained}")
+    batches = sum(int(b) for _, b, _, _ in timed)
+    check_launches(kernels, launches, {1: 12 * (1 + batches), 3: 12, 7: 12 * (1 + batches),
+                                       8: 12}, "the shipped micro run")
+    m = {k: float(v) for k, v in (ln.split(": ") for ln in
+                                  open(os.path.join(run_dir, "test_metrics.txt")).read()
+                                  .split("\n") if ln)}
+    check(set(m) == {"loss", "ssim", "psnr"} and all(np.isfinite(list(m.values()))),
+          f"test metrics {m}")
+    step_s = float(trained[0][2])
+    eval_ms = 1e3 * sum(float(sec) for *_, sec in timed) / batches
+    print(f"phase 41 micro as shipped (window 4): run_torch.main trained 1 step of batch "
+          f"{BATCH} in {step_s:.3f} s and evaluated {batches} batches at {eval_ms:.2f} ms each "
+          f"(first step and batches, from run.log); K4 fwd in 12 blocks of each of "
+          f"{1 + batches} forward batches, K4 bwd in 12, K9 never; test {m}; launches "
+          f"{launches}", flush=True)
+    return step_s, eval_ms
 
 
 def long_vit_label(height, width):
@@ -2423,8 +2677,10 @@ def phase_config_grads(torch, dev, flags, size, phase, name, path_kernels, floor
 
 def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH):
     """The train step and eval forward of a configuration at the given batch
-    size on 1024x1024x1, bf16, weights and data from the seed ``phase``."""
-    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    size on 1024x1024x1, bf16, weights and data from the seed ``phase``; the
+    configuration's own loss on labels of 2 classes, or on enhancement
+    targets for an enhance task."""
+    from long_context_biomedical_imaging_tpu_torch.losses import get_loss_func
     from long_context_biomedical_imaging_tpu_torch.metrics.device import make_train_metric_fn
     from long_context_biomedical_imaging_tpu_torch.models import build_model
     from long_context_biomedical_imaging_tpu_torch.optim import OptimManager
@@ -2434,10 +2690,15 @@ def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH):
 
     cfg = check_args(parse_config(flags))
     model = build_model(cfg).to(dev)
+    loss_func = get_loss_func(cfg.loss_func)
     gen = torch.Generator().manual_seed(phase)
-    x = torch.randn(batch, 1, 1024, 1024, 1, generator=gen).to(dev)
-    y = (torch.arange(batch) % 2).to(dev)
-    step = make_eval_step(model.eval(), cross_entropy_loss)
+    x = torch.randn(batch, 1, 1024, 1024, 1, generator=gen)
+    if cfg.task_type == "enhance":
+        y = (x - 0.3 * torch.randn(x.shape, generator=gen)).to(dev)
+    else:
+        y = (torch.arange(batch) % 2).to(dev)
+    x = x.to(dev)
+    step = make_eval_step(model.eval(), loss_func)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eval_ms = median_ms(torch, lambda: step(amp_params(model, True), x, y, batch), warmup=2,
@@ -2453,7 +2714,7 @@ def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH):
     optim = OptimManager(cfg, num_train_samples=1000)
     optim.build(model.parameters())
     _, metrics_fn = make_train_metric_fn(cfg)
-    train = make_train_step(model, cross_entropy_loss, optim, use_amp=True, metrics_fn=metrics_fn)
+    train = make_train_step(model, loss_func, optim, use_amp=True, metrics_fn=metrics_fn)
     lr = cfg.optim.lr
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2467,9 +2728,10 @@ def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH):
 
 
 def profile_step(torch, fn, label):
-    """Device time of one call by event name, from torch.profiler, without
-    the autograd Functions' own ranges (the profiler attributes the
-    ctypes-launched kernels to them as well)."""
+    """Device time of one call by kernel, from torch.profiler: the CUDA
+    kernel events alone. A CPU event (an aten op, an autograd Function's
+    range) carries the device time of the kernels it launched as well, so
+    counting it too would count those kernels twice."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2477,11 +2739,7 @@ def profile_step(torch, fn, label):
         torch.cuda.synchronize()
     attr = "self_device_time_total"
     events = [e for e in prof.key_averages() if getattr(e, attr, 0) > 0
-              and not e.key.startswith(("_HyenaWindowMixer", "_FusedLnMlpResidual",
-                                        "_HyenaChunkedMixer", "_ToeplitzConv",
-                                        "_ChunkToeplitz", "_MambaWindowMixer",
-                                        "_FlashAttention", "_SpectralConv", "_LongScan",
-                                        "_WindowAttention", "_TableGather"))]
+              and e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(getattr(e, attr) for e in events)
     if total:
         top = sorted(events, key=lambda e: -getattr(e, attr))[:20]
@@ -2571,6 +2829,27 @@ def k8_bounds():
     return out
 
 
+def k9_bounds():
+    """K9 per call at micro_w7's K9 stages (batch 4, 49-token windows),
+    [{"fwd" | "bwd": (ms, bound_by)} per stage]. Yardstick: the scan's fp32
+    operations over 67 TFLOP/s, counted per (token, channel, state), an exp
+    as one: the forward 7 (exp, d A, a h + b with the d u B product, C . h),
+    the backward's function 20 (the h recompute 5; dh, its products with
+    h_prev, B, d u and A, dA, dC, a dh 15); plus softplus (4) per (token,
+    channel) forward, and softplus, sigmoid, du and ddelta (10) backward.
+    Bytes: the fp32 operands read once and outputs written once: the
+    forward u, delta, y and B, C; the backward u, delta, g, du, ddelta and B,
+    C, dB, dC; A^T (and dA)."""
+    out = []
+    for bw, length, d, _ in micro_k9_shapes(BATCH):
+        tokens = bw * length
+        cells = tokens * d * K9_N
+        seq, state, at = 4 * tokens * d, 4 * tokens * K9_N, 4 * K9_N * d
+        out.append({"fwd": bound(0, 7 * cells + 4 * tokens * d, 3 * seq + 2 * state + at),
+                    "bwd": bound(0, 20 * cells + 10 * tokens * d, 5 * seq + 4 * state + 2 * at)})
+    return out
+
+
 def kernel_bounds():
     """Per kernel: (bound ms of one train step of its main path, bound_by),
     from the main path's bf16 shapes: ptx for K1 and K2 (T tokens, C
@@ -2580,7 +2859,8 @@ def kernel_bounds():
     for K4 (its stages 0-2), vit16k for K5 (12 layers), vit65k_hyena for K6
     (12 layers, the conv twice in each, forward and du; ``k6_bounds``),
     vit65k_mamba for K7 (12 layers, the forward twice in each; ``k7_bounds``),
-    ptx_attn for K8 (its four stages; ``k8_bounds``)."""
+    ptx_attn for K8 (its four stages; ``k8_bounds``), micro_w7 for K9 (its
+    stages 0-1; ``k9_bounds``)."""
     out = {}
 
     def add(name, depth, b):
@@ -2648,6 +2928,9 @@ def kernel_bounds():
     add("long_scan_fwd", VIT_LAYERS, k7["fwd_y"])
     add("long_scan_carry_bwd", VIT_LAYERS, k7["carry_bwd"])
     add("long_scan_bwd", VIT_LAYERS, k7["bwd"])
+    for b, (*_, depth) in zip(k9_bounds(), micro_k9_shapes(BATCH)):
+        add("window_scan_fwd", depth, b["fwd"])
+        add("window_scan_bwd", depth, b["bwd"])
     return {name: (ms, max(votes, key=votes.get)) for name, (ms, votes) in out.items()}
 
 
@@ -2751,19 +3034,44 @@ def run():
                        f"full-width Swin-tiny + SwinLinear (window attention), batch "
                        f"{ATTN_GRAD_BATCH} of 256x256", batch=ATTN_GRAD_BATCH)
     phase_config_throughput(torch, dev, ptx_attn_flags(), 36, "ptx_attn", batch=BATCH)
+    from long_context_biomedical_imaging_tpu_torch.ops import selective_scan_window
+
+    k9 = phase_k9(torch, selective_scan_window, dev)
+    # every loader batch is padded to BATCH, so each forward batch runs K9 in
+    # the blocks whose call the gate gives it at that batch (stages 0-1)
+    k9_blocks = sum(depth for *_, depth in micro_k9_shapes(BATCH))
+    check(k9_blocks == 4, f"micro_w7 routes {k9_blocks} blocks to K9 at batch {BATCH}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_micro_w7_")
+    try:
+        micro_launches = phase_config_slice(
+            torch, tmp, micro_w7_flags(), "micro_w7", 38,
+            lambda forward, steps: {1: 12 * forward, 3: 12 * steps, 20: k9_blocks * forward,
+                                    21: k9_blocks * steps},
+            batch=BATCH, subjects=(8, 4, 4), enhance=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    grad_k9 = sum(depth for *_, depth in micro_k9_shapes(MICRO_GRAD_BATCH, height=512))
+    phase_vessel_grads(torch, dev, seed=39, flags=micro_w7_flags(), channels=1, enhance=True,
+                       phase=39, name="micro_w7", path_kernels={20: grad_k9, 21: grad_k9})
+    phase_config_throughput(torch, dev, micro_w7_flags(), 40, "micro_w7", batch=BATCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_micro_")
+    try:
+        phase_micro_shipped(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "long_context_biomedical_imaging_tpu")
                   for m in sys.modules), "JAX was imported")
 
     # per kernel, in its main path's configuration (bf16 under AMP, the
     # folded LN): launches in that path's train slice (ptx for K1 and K2, emb
     # for K3, vessel for K4, vit16k for K5, vit65k_hyena for K6, vit65k_mamba
-    # for K7, ptx_attn for K8), worst error over the stage shapes (the backward: over every
-    # gradient; K7: against its pass's plain version, fp32 as on the path),
-    # and the time of one train step (each stage's time x its depth), with
-    # its bound; library_ms is the time of torch's
-    # scaled_dot_product_attention for K5 (forward; its backward shared
-    # between dq and dkv) and null for K1-K4 and K6-K8, which no single
-    # PyTorch call computes
+    # for K7, ptx_attn for K8, micro_w7 for K9), worst error over the stage
+    # shapes (the backward: over every gradient; K7 and K9: against their
+    # passes' plain versions, fp32 as on the path), and the time of one train
+    # step (each stage's time x its depth), with its bound; library_ms is the
+    # time of torch's scaled_dot_product_attention for K5 (forward; its
+    # backward shared between dq and dkv) and null for K1-K4 and K6-K9, which
+    # no single PyTorch call computes
     bounds = kernel_bounds()
     depths = [d for _, _, d in STAGES]
     emb_depths = [d for _, _, d in EMB_K3_STAGES]
@@ -2821,6 +3129,13 @@ def run():
             ("window_attention_wgrad", window_attention.WINDOW_ATTENTION_WGRAD, "wgrad", 277)):
         rows.append((label, kernel, k8[key], attn_depths, attn_launches,
                      f"{tpu}window_attention.py:{line}", None))
+    # K9: micro_w7's stages 0-1
+    micro_depths = [depth for *_, depth in micro_k9_shapes(BATCH)]
+    for label, kernel, key, line in (
+            ("window_scan_fwd", selective_scan_window.WINDOW_SCAN_FWD, "fwd", 188),
+            ("window_scan_bwd", selective_scan_window.WINDOW_SCAN_BWD, "bwd", 323)):
+        rows.append((label, kernel, k9[key], micro_depths, micro_launches,
+                     f"{tpu}selective_scan_pallas.py:{line}", None))
     kernels = [{
         "name": label, "route": "cuda", "source": f"{PACKAGE}/csrc/{kernel.source}",
         "replaces": replaces, "launches": path_launches[kernel.source],

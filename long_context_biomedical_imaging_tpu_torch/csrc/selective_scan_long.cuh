@@ -1,7 +1,9 @@
 // Long-sequence selective scan (K7), shared device code of its three kernels
 // (selective_scan_long.cu, selective_scan_long_carry_bwd.cu,
-// selective_scan_long_bwd.cu). Per batch row of u, delta (b, L, D) and B, C
-// (b, L, N), all fp32, with A^T = at (N, D) and delta before softplus:
+// selective_scan_long_bwd.cu); the windowed scan K9 (selective_scan_window.cu,
+// selective_scan_window_bwd.cu) shares its step, softplus, sigmoid and warp
+// sum. Per batch row of u, delta (b, L, D) and B, C (b, L, N), all fp32,
+// with A^T = at (N, D) and delta before softplus:
 //     d_t = softplus(delta_t);  h_t = exp(d_t A) h_{t-1} + d_t u_t B_t;  y_t = C_t . h_t
 // The sequence is cut into segments of kScanSeg tokens; segment s of batch
 // row i is row i * nseg + s, and its carries (a state per row) are (rows, N,
@@ -63,6 +65,30 @@ __device__ __forceinline__ ScanRow scan_row(const ScanGeom& g, int row) {
 // Stage the row's (len, N) values of x (B or C) in s (kScanSeg x N).
 __device__ __forceinline__ void stage_row(float* s, const float* __restrict__ x, ScanRow r) {
   for (int i = threadIdx.x; i < r.len * kScanN; i += blockDim.x) s[i] = x[r.tok0 * kScanN + i];
+}
+
+// h <- exp(dt A) h + dt u B over the N states (a2 = A log2 e).
+__device__ __forceinline__ void scan_step(float* h, const float* a2, float dt, float du,
+                                          const float* Bt) {
+#pragma unroll
+  for (int n = 0; n < kScanN; ++n) h[n] = fmaf(exp2f(dt * a2[n]), h[n], du * Bt[n]);
+}
+
+// Sum of each of the 16 values v over the warp's 32 lanes: after it, v[0] of
+// lanes 2k and 2k + 1 holds the sum of value k. Each level swaps half of the
+// values still held with the partner lane, in a fixed order.
+__device__ __forceinline__ void warp_sum16(float* v, int lane) {
+#pragma unroll
+  for (int half = 8, bit = 16; half >= 1; half /= 2, bit /= 2) {
+    const bool up = lane & bit;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = up ? v[i] : v[i + half];
+      const float keep = up ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+    }
+  }
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
 }
 
 }  // namespace lcbi

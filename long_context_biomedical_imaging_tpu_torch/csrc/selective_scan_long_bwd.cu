@@ -47,30 +47,6 @@ __host__ __device__ inline size_t bwd_smem_floats(int T) {
          (size_t)(kStretches + kStretch) * kScanN * T;
 }
 
-// h <- exp(dt A) h + dt u B over the N states (a2 = A log2 e).
-__device__ __forceinline__ void scan_step(float* h, const float* a2, float dt, float du,
-                                          const float* Bt) {
-#pragma unroll
-  for (int n = 0; n < kScanN; ++n) h[n] = fmaf(exp2f(dt * a2[n]), h[n], du * Bt[n]);
-}
-
-// Sum of each of the 16 values v over the warp's 32 lanes: after it, v[0] of
-// lanes 2k and 2k + 1 holds the sum of value k. Each level swaps half of the
-// values still held with the partner lane, in a fixed order.
-__device__ __forceinline__ void warp_sum16(float* v, int lane) {
-#pragma unroll
-  for (int half = 8, bit = 16; half >= 1; half /= 2, bit /= 2) {
-    const bool up = lane & bit;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = up ? v[i] : v[i + half];
-      const float keep = up ? v[i + half] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
-    }
-  }
-  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
-}
-
 __global__ void __launch_bounds__(kScanMaxGroup)
 long_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__ delta,
                      const float* __restrict__ at, const float* __restrict__ Bm,

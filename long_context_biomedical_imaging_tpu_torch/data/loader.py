@@ -9,8 +9,10 @@ copies each batch into pinned host memory, and the consumer uploads it with
 A ragged last batch is padded with repeats of its first row up to the batch
 size (one shape for every step); ``n_valid`` says how many rows are real.
 Batch-size-1 batches are duplicated as in the reference (BatchNorm heads need
-two rows). Images stay float32 and labels int64. Shuffling draws the JAX
-package's order: ``np.random.default_rng(seed * 100003 + epoch)``.
+two rows). Images stay float32; integer labels (class ids, masks) become
+int64 and float targets (enhancement images) pass through as float32, never
+cast to an integer type. Shuffling draws the JAX package's order:
+``np.random.default_rng(seed * 100003 + epoch)``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 
 class BatchLoader:
     """Yields (images, labels, ids, n_valid): images (B, T, H, W, C) float32
-    and labels int64 on ``device``, ids a list, n_valid an int."""
+    and labels (int64 ids or float32 images) on ``device``, ids a list,
+    n_valid an int."""
 
     def __init__(self, dataset, batch_size: int, device: torch.device,
                  shuffle: bool = False, seed: int = 0, num_workers: int = 4,
@@ -67,7 +70,9 @@ class BatchLoader:
             images = np.concatenate([images, images[:1].repeat(reps, axis=0)])
             labels = np.concatenate([labels, labels[:1].repeat(reps, axis=0)])
         images = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32))
-        labels = torch.from_numpy(np.ascontiguousarray(labels).astype(np.int64))
+        labels = np.ascontiguousarray(labels)
+        labels = torch.from_numpy(labels.astype(np.float32 if labels.dtype.kind == "f"
+                                                else np.int64))
         if self.device.type == "cuda":
             images, labels = images.pin_memory(), labels.pin_memory()
         return images, labels, ids, n_valid

@@ -1,13 +1,21 @@
 """Loss registry (ref: loss/loss_base.py:15-32).
 
 Counterpart of the JAX package's ``losses/loss_base.py``. Cross-entropy is
-``F.cross_entropy`` on fp32 logits. MSE and the combined enhancement loss come
-with the micro slice.
+``F.cross_entropy`` on fp32 logits; MSE and the combined enhancement loss are
+``losses/enhancement_losses.py``'s. Every loss takes ``reduction``: "mean"
+over the batch, or "none", one value per sample or position.
+
+Loss functions take channels-last model outputs and targets:
+  * class:   outputs (B, num_classes) logits, targets (B,) int labels
+  * seg:     outputs (B, T, H, W, C) logits, targets (B, T, H, W) int masks
+  * enhance: outputs/targets (B, T, H, W, C) float images
 """
 
 from __future__ import annotations
 
 import torch.nn.functional as F
+
+from .enhancement_losses import combined_enhance_loss, mse_loss
 
 
 def cross_entropy_loss(outputs, targets, reduction: str = "mean"):
@@ -21,10 +29,11 @@ def cross_entropy_loss(outputs, targets, reduction: str = "mean"):
 
 
 def get_loss_func(name: str):
-    """'CrossEntropy' (ref: loss_base.py:15-32); the others are not ported."""
+    """'CrossEntropy' | 'MSE' | 'CombinationEnhance' (ref: loss_base.py:15-32)."""
     if name == "CrossEntropy":
         return cross_entropy_loss
-    if name in ("MSE", "CombinationEnhance"):
-        raise NotImplementedError(
-            f"{name} comes with the micro slice (ROADMAP.md queue 1)")
+    if name == "MSE":
+        return mse_loss
+    if name == "CombinationEnhance":
+        return combined_enhance_loss
     raise NotImplementedError(f"Unknown loss function: {name}")

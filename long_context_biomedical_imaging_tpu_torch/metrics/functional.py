@@ -1,7 +1,9 @@
 """Metric functions matching torchmetrics semantics (host-side numpy).
 
 A copy of the JAX package's ``metrics/functional.py`` (numpy only), so that both packages
-produce identical host-side data.
+produce identical host-side data; SSIM filters with its separable gaussian one
+axis at a time (the same reflect-padded result to float64 round-off, a
+fraction of the work on megapixel images).
 
 Reimplements the metric set selected by the reference
 (ref: metrics/metrics_utils.py:10-28): Accuracy(top1, micro), AUROC(macro),
@@ -21,7 +23,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
-from scipy.ndimage import convolve
+from scipy.ndimage import convolve1d
 
 
 # --------------------------------------------------------------------------- #
@@ -144,16 +146,12 @@ def ssim(preds: np.ndarray, target: np.ndarray, data_range: float | None = None,
     c2 = (0.03 * data_range) ** 2
     spatial = preds.ndim - 2
     g1 = _gaussian_kernel_1d(kernel_size, sigma)
-    kernel = g1
-    for _ in range(spatial - 1):
-        kernel = np.multiply.outer(kernel, g1)
 
     def filt(img):
-        out = np.empty_like(img)
-        for n in range(img.shape[0]):
-            for c in range(img.shape[1]):
-                out[n, c] = convolve(img[n, c], kernel, mode="reflect")
-        return out
+        # the outer product of g1 over the spatial axes, one axis at a time
+        for axis in range(2, img.ndim):
+            img = convolve1d(img, g1, axis=axis, mode="reflect")
+        return img
 
     mu_x = filt(preds)
     mu_y = filt(target)

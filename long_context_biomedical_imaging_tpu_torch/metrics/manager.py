@@ -1,12 +1,11 @@
 """Metric manager (ref: metrics/metrics_base.py:23-438).
 
-Counterpart of the JAX package's ``metrics/manager.py`` for classification
-and segmentation: AverageMeter batch averaging of the device-side
-train stats, exact eval metrics, prediction ``.npy`` dumps, optional wandb
-logging, and the checkpoint policy: the last and periodic checkpoints at
-each train epoch's end and the best-on-val-loss checkpoint after each val
-eval. One process, so no cross-process reduction. The enhance metrics come
-with the micro slice.
+Counterpart of the JAX package's ``metrics/manager.py`` for
+classification, segmentation and enhancement: AverageMeter batch averaging
+of the device-side train stats, exact eval metrics, prediction ``.npy``
+dumps, optional wandb logging, and the checkpoint policy: the last and
+periodic checkpoints at each train epoch's end and the best-on-val-loss
+checkpoint after each val eval. One process, so no cross-process reduction.
 """
 
 from __future__ import annotations
@@ -43,6 +42,7 @@ class AverageMeter:
 TASK_METRICS = {
     "class": (("loss", "auroc"), ("loss", "acc_1", "auroc", "f1")),
     "seg": (("loss", "f1"), ("loss", "f1")),
+    "enhance": (("loss", "ssim", "psnr"), ("loss", "ssim", "psnr")),
 }
 
 
@@ -56,9 +56,6 @@ class MetricManager:
 
     def setup_metrics(self):
         task = self.config.task_type
-        if task not in TASK_METRICS:
-            raise NotImplementedError(
-                f"{task} metrics come with the micro slice (ROADMAP.md queue 1)")
         train_names, eval_names = TASK_METRICS[task]
         self.train_metrics = {n: AverageMeter() for n in train_names}
         self.eval_metrics = {n: AverageMeter() for n in eval_names}
@@ -76,10 +73,18 @@ class MetricManager:
     def _postprocess(self, output: np.ndarray, labels: np.ndarray):
         """Class logits -> (positive-class probability or softmax, labels);
         segmentation logits (B, T, H, W, C) -> (argmax over the classes,
-        labels), each flattened per sample (ref: metrics_base.py:156-170)."""
-        if self.config.task_type == "seg":
+        labels), each flattened per sample; enhancement images (B, T, H, W,
+        C) -> (B, C, [T,] H, W), time squeezed in 2D (ref:
+        metrics_base.py:156-170)."""
+        task = self.config.task_type
+        if task == "seg":
             hard = output.argmax(axis=-1)
             return hard.reshape(hard.shape[0], -1), labels.reshape(labels.shape[0], -1)
+        if task == "enhance":
+            out, lab = np.moveaxis(output, -1, 1), np.moveaxis(labels, -1, 1)
+            if lab.shape[2] == 1:
+                out, lab = out[:, :, 0], lab[:, :, 0]
+            return out, lab
         e = np.exp(output - output.max(axis=1, keepdims=True))
         probs = e / e.sum(axis=1, keepdims=True)
         return (probs[:, -1] if self.binary else probs), labels
@@ -92,6 +97,10 @@ class MetricManager:
         if name == "f1":
             return F.f1_score(preds, labels, self.binary, self.config.no_out_channel,
                               samplewise=self.samplewise)
+        if name == "psnr":
+            return F.psnr(preds, labels)
+        if name == "ssim":
+            return F.ssim(preds, labels)
         raise NotImplementedError(name)
 
     # -- train hooks -----------------------------------------------------------
@@ -146,7 +155,8 @@ class MetricManager:
     def on_eval_step_end(self, loss, output, labels, ids, save_samples=False,
                          split="val"):
         """output: (n_valid, classes) or (n_valid, T, H, W, classes) fp32
-        logits; labels: (n_valid,) or (n_valid, T, H, W)."""
+        logits, or (n_valid, T, H, W, C) images; labels: (n_valid,), (n_valid,
+        T, H, W) or (n_valid, T, H, W, C)."""
         output = np.asarray(output)
         labels = np.asarray(labels)
         preds, labels_m = self._postprocess(output, labels)
@@ -165,6 +175,7 @@ class MetricManager:
             for b_pred, b_out, b_id in zip(preds, output, ids):
                 if self.config.task_type == "seg":
                     b_pred = b_pred.reshape(b_out.shape[:-1])   # (T, H, W) class ids
+                # enhance: b_pred is the (C, [T,] H, W) image
                 np.save(os.path.join(save_path, f"{b_id}_output.npy"),
                         np.asarray(b_pred, dtype=np.float32))
 

@@ -9,17 +9,20 @@ Behaviour kept from the reference, as the JAX package keeps it:
     ``delta_bias``: delta = softplus(W dt + 2 b);
   * A_log and D share the optimizer's single parameter group.
 
-Routing, as the JAX package routes it (without its sequence-parallel scan
-and the windowed scan K9, whose slices come later): windows of 16 to 64
-tokens (V % 8 == 0) in calls of at least 1024 windows go through the fused
-K4 mixer (``ops.mamba_window``), every other call through the composed path
-in the stream dtype (in_proj, the 'same' depthwise conv, SiLU, x_proj,
-dt_proj, the scan and out_proj). The composed path's scan is
-``selective_scan_cm`` up to 1024 tokens, the long-sequence scan K7
-(``ops.selective_scan_long``: its kernels on the card, their plain versions
-on the CPU) where its gate holds (L >= 2048, N * d <= 8192: the ViT's
-full-sequence mixing), and the chunked scan otherwise (1024 < L < 2048,
-``selective_scan_long_plain``), the JAX package's own route there.
+Routing, as the JAX package routes it (without its sequence-parallel scan,
+whose slice comes last): windows of 16 to 64 tokens (V % 8 == 0) in calls
+of at least 1024 windows go through the fused K4 mixer
+(``ops.mamba_window``), every other call through the composed path in the
+stream dtype (in_proj, the 'same' depthwise conv, SiLU, x_proj, dt_proj, the
+scan and out_proj). The composed path's scan, in the JAX package's order, is
+the windowed scan K9 (``ops.selective_scan_window``) where its gate holds (L
+<= 64, N * d <= 8192, at least 2048 windows: Swin windows K4 does not take,
+such as 7x7), ``selective_scan_cm`` up to 1024 tokens, the long-sequence scan
+K7 (``ops.selective_scan_long``) where its gate holds (L >= 2048, N * d <=
+8192: the ViT's full-sequence mixing), and the chunked scan otherwise (1024
+< L < 2048, ``selective_scan_long_plain``), the JAX package's own route
+there. K7 and K9 launch their kernels on the card and run their plain
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -36,13 +39,15 @@ from ..ops.mamba_window import mamba_window_mixer, mamba_window_supported
 from ..ops.selective_scan import selective_scan_cm
 from ..ops.selective_scan_long import (long_scan_supported, selective_scan_long,
                                        selective_scan_long_plain)
+from ..ops.selective_scan_window import selective_scan_window, window_scan_supported
 from .layers import uniform_fan_in_
 
 MAMBA_WINDOW_MIN_CALL = 1024    # windows per call from which K4 runs (JAX gate)
 SCAN_CM_MAX_LEN = 1024          # the sequential scan's longest call (JAX route)
 
-# module-level alias so that tests can spy on this module's gate alone
+# module-level aliases so that tests can spy on or force this module's gates alone
 _long_scan_supported = long_scan_supported
+_window_scan_supported = window_scan_supported
 
 
 class MambaVisionMixer(nn.Module):
@@ -120,7 +125,9 @@ class MambaVisionMixer(nn.Module):
         dt = x_dbl[..., :r] @ self.dt_proj_kernel + self.dt_proj_bias
         bm, cm = x_dbl[..., r:r + n], x_dbl[..., r + n:]
         # dt_proj's bias is added twice on purpose (the reference's quirk)
-        if length <= SCAN_CM_MAX_LEN:
+        if _window_scan_supported(length, n, d_half, batch=b):
+            y = selective_scan_window(x, dt, A, bm, cm, self.D, delta_bias=self.dt_proj_bias)
+        elif length <= SCAN_CM_MAX_LEN:
             y = selective_scan_cm(x, dt, A, bm, cm, self.D, delta_bias=self.dt_proj_bias)
         elif _long_scan_supported(length, n, d_half):
             y = selective_scan_long(x, dt, A, bm, cm, self.D, delta_bias=self.dt_proj_bias)

@@ -4,13 +4,13 @@ Counterpart of the JAX package's ``models/model_base.py``. ``build_model``
 returns ``decoder(encoder(x))`` on channels-last (B, T, H, W, C) input, with
 parameters initialised from an explicit ``torch.Generator``. The port builds
 Swin (window attention, Hyena or Mamba mixer) with SwinLinear for
-classification or UperNet2D for segmentation, and the ViT (softmax attention, Hyena or Mamba) with
-ViTLinear, which reads the cls token after attention and mean-pools the
-tokens after Hyena or Mamba;
+classification or UperNet2D for segmentation and enhancement, and the ViT
+(softmax attention, Hyena or Mamba) with ViTLinear, which reads the cls token
+after attention and mean-pools the tokens after Hyena or Mamba;
 :func:`check_ported` raises NotImplementedError for everything else, naming
-the slice that ports it. UperNet's BatchNorm layers train on batch
-statistics in ``model.train()`` and use their running statistics in
-``model.eval()``, as the JAX step's ``use_running_average``.
+the slice that ports it. UperNet's BatchNorm layers train on batch statistics
+in ``model.train()`` and use their running statistics in ``model.eval()``, as
+the JAX step's ``use_running_average``.
 """
 
 from __future__ import annotations
@@ -39,10 +39,10 @@ def check_ported(config) -> None:
             raise NotImplementedError(
                 f"{name} is not ported yet: it comes with {_LATER[name]} "
                 "(ROADMAP.md queue 1)")
-    if config.task_type not in ("class", "seg"):
+    if config.task_type == "enhance" and config.decoder_name != "UperNet2D":
         raise NotImplementedError(
-            f"task {config.task_type}: enhance comes with the micro slice "
-            "(ROADMAP.md queue 1)")
+            f"enhance with {config.decoder_name}: the port's enhancement head is UperNet2D "
+            "(the UNETR heads slice brings SwinUNETR and ViTUNETR, ROADMAP.md queue 1)")
     if config.encoder_name == "ViT":
         if config.decoder_name != "ViTLinear":
             raise NotImplementedError(

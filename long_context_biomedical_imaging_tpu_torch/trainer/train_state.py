@@ -96,7 +96,8 @@ def make_eval_step(model: torch.nn.Module, loss_func: Callable):
     ``params`` comes from :func:`amp_params`. The loss averages per-sample
     losses over the valid rows, so padding never distorts it; a sample's
     loss is the mean over its whole target (every pixel of a segmentation
-    mask), as the JAX step maps the loss over the samples."""
+    mask; an enhancement loss over that sample alone, its non-finite terms
+    zeroed per sample), as the JAX step maps the loss over the samples."""
 
     @torch.no_grad()
     def eval_step(params, images, labels, n_valid=None):

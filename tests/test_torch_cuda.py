@@ -7,8 +7,8 @@ the vit16k shape, K6 (the spectral long conv) at the vit65k_hyena shape, the
 odd batch at its floor and its ceiling, K7 (the long-sequence scan) at the
 vit65k_mamba shape, a ragged length and the gate's widest channels, K8
 (Swin window attention) at the ptx_attn stage shapes, V = 64 and a ragged
-tile, and
-whole models whose every parameter gets a gradient on the card (a ViT-hyena
+tile, K9 (the windowed scan) at the micro_w7 stage shapes and odd windows,
+and whole models whose every parameter gets a gradient on the card (a ViT-hyena
 and a ViT-mamba also against the host), and the Swin checkpointing's
 memory. Marked ``cuda``;
 without a card every test skips. This file imports neither JAX nor flax, so that it runs where
@@ -27,6 +27,7 @@ from long_context_biomedical_imaging_tpu_torch.ops import fused_mlp as tmlp
 from long_context_biomedical_imaging_tpu_torch.ops import hyena_window as thw
 from long_context_biomedical_imaging_tpu_torch.ops import mamba_window as tmw
 from long_context_biomedical_imaging_tpu_torch.ops import selective_scan_long as tsl
+from long_context_biomedical_imaging_tpu_torch.ops import selective_scan_window as tsw
 from long_context_biomedical_imaging_tpu_torch.ops import spectral_conv as tsc
 from long_context_biomedical_imaging_tpu_torch.ops import window_attention as twa
 
@@ -1170,3 +1171,118 @@ def test_swin_attention_gradients_on_the_card_match_the_host(cuda_device, amp):
         ref = grads["cpu"][name]
         assert torch.isfinite(g).all() and g.abs().max() > 0, name
         assert (g - ref).abs().max().item() <= tol * ref.abs().max().item(), name
+
+
+# K9 (BW, L, d): micro_w7's two stage shapes at batch 4 (7x7 windows of 49
+# tokens, d_half 48 and 96), 3x3 windows at a count no tile divides, the
+# gate's longest and widest window (N d = 8192)
+K9_SHAPES = [(21904, 49, 48), (5476, 49, 96), (3001, 9, 40), (257, 64, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K9_SHAPES)
+def test_window_scan_kernels_match_plain(cuda_device, dtype, shape):
+    """selective_scan_window on the card (K9: one forward and one backward
+    launch) against its plain version (selective_scan_cm) on the same
+    inputs: y and the gradients of u, delta, A, B, C, D and delta_bias, at
+    K7's tolerances (dA, dD and ddelta_bias sum over up to a million
+    tokens)."""
+    args = _k7_args(torch.Generator().manual_seed(shape[1]), shape, dtype, cuda_device)
+    kernels = (tsw.WINDOW_SCAN_FWD, tsw.WINDOW_SCAN_BWD)
+    before = [k.launches for k in kernels]
+    got = _k7_vjp(tsw.selective_scan_window, args)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1]
+    _check_k7(got, _k7_vjp(tsw.selective_scan_window_plain, args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softplus", [True, False])
+@pytest.mark.parametrize("shape", K9_SHAPES[1:3])
+def test_window_scan_passes_match_plain(cuda_device, shape, softplus):
+    """Each K9 kernel against its plain pass on the same fp32 inputs, with
+    and without softplus: the forward (y) and the backward (du, ddelta, dat,
+    dB, dC), within 1e-4 of each output's max (exp2 and softplus forms,
+    dat's sum order)."""
+    u, delta, a, bm, cm, _, _, g = _k7_args(torch.Generator().manual_seed(9), shape,
+                                            torch.float32, cuda_device)
+    at = a.t().contiguous()
+    if not softplus:
+        delta = torch.nn.functional.softplus(delta)
+    pairs = [((tsw.window_scan_fwd(u, delta, at, bm, cm, softplus),),
+              (tsw.window_scan_fwd_plain(u, delta, at, bm, cm, softplus),)),
+             (tsw.window_scan_bwd(u, delta, at, bm, cm, g, softplus),
+              tsw.window_scan_bwd_plain(u, delta, at, bm, cm, g, softplus))]
+    torch.cuda.synchronize()
+    for i, (got, ref) in enumerate(pairs):
+        for j, (x, r) in enumerate(zip(got, ref)):
+            err = (x - r).abs().max().item()
+            assert torch.isfinite(x).all() and err <= 1e-4 * r.abs().max().item(), (i, j, err)
+
+
+@pytest.mark.cuda
+def test_window_scan_kernels_are_deterministic_and_refuse(cuda_device):
+    """Two launches of each K9 kernel give the same bits (the backward sums
+    dB, dC over the channels and dA over the windows in a fixed order); the
+    wrappers refuse a CPU tensor, L > 64, N d > 8192 and d_state 4, each
+    with a ValueError naming the limit."""
+    u, delta, a, bm, cm, _, _, g = _k7_args(torch.Generator().manual_seed(10), (3001, 49, 96),
+                                            torch.float32, cuda_device)
+    at = a.t().contiguous()
+    runs = [[tsw.window_scan_fwd(u, delta, at, bm, cm),
+             *tsw.window_scan_bwd(u, delta, at, bm, cm, g)] for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsw.window_scan_fwd(u.cpu(), delta.cpu(), at.cpu(), bm.cpu(), cm.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        tsw.window_scan_bwd(u.cpu(), delta.cpu(), at.cpu(), bm.cpu(), cm.cpu(), g.cpu())
+    long_seq = torch.zeros(4, 65, 96, device=cuda_device)
+    long_bc = torch.zeros(4, 65, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="L <= 64"):
+        tsw.window_scan_fwd(long_seq, long_seq, at, long_bc, long_bc)
+    with pytest.raises(ValueError, match="L <= 64"):
+        tsw.selective_scan_window(long_seq, long_seq, a, long_bc, long_bc)
+    wide = torch.zeros(4, 49, 1040, device=cuda_device)
+    with pytest.raises(ValueError, match="8192"):
+        tsw.window_scan_fwd(wide, wide, torch.zeros(8, 1040, device=cuda_device), bm[:4],
+                            cm[:4])
+    with pytest.raises(ValueError, match="d_state 8"):
+        tsw.window_scan_fwd(u, delta, at[:4].contiguous(), bm[..., :4].contiguous(),
+                            cm[..., :4].contiguous())
+
+
+@pytest.mark.cuda
+def test_mamba_mixer_takes_k9_on_the_card(cuda_device):
+    """The Mamba mixer on 2048 windows of 49 tokens (JAX's K9 route) launches
+    K9's forward and backward on the card and never the sequential scan;
+    its output matches the host's (plain versions) within 1e-4 of max and
+    every parameter's gradient within 1e-3 (sums over 100,352 tokens in
+    another order)."""
+    from long_context_biomedical_imaging_tpu_torch.models import mamba as tmamba
+
+    mixer = tmamba.MambaVisionMixer(96, d_state=8, d_conv=3, expand=1)
+    mixer.init_params(torch.Generator().manual_seed(0))
+    x = torch.randn(2048, 49, 96, generator=torch.Generator().manual_seed(1))
+    results = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        mixer.to(dev).zero_grad(set_to_none=True)
+        before = (tsw.WINDOW_SCAN_FWD.launches, tsw.WINDOW_SCAN_BWD.launches)
+        real, used = tmamba.selective_scan_cm, []
+        tmamba.selective_scan_cm = lambda *a, **k: used.append(1) or real(*a, **k)
+        try:
+            out = mixer(x.to(dev))
+            out.square().mean().backward()
+        finally:
+            tmamba.selective_scan_cm = real
+        torch.cuda.synchronize()
+        ran = (tsw.WINDOW_SCAN_FWD.launches - before[0], tsw.WINDOW_SCAN_BWD.launches - before[1])
+        assert not used and ran == ((1, 1) if dev.type == "cuda" else (0, 0)), (dev, ran)
+        results[dev.type] = [out.detach().cpu()] + [p.grad.detach().cpu()
+                                                    for p in mixer.parameters()]
+    for i, (got, ref) in enumerate(zip(results["cuda"], results["cpu"])):
+        assert torch.isfinite(got).all() and got.abs().max() > 0, i
+        tol = 1e-4 if i == 0 else 1e-3
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item(), i
