@@ -4,9 +4,9 @@
 
 Phases, each printing one line of numbers (or a few):
   1. device: the card, as nvidia-smi reports its name and power limit;
-  2. build: the twenty-two hand-written kernels from csrc/ with nvcc, in parallel
-     (one nvcc per source), with their build seconds and ptxas
-     register/spill lines;
+  2. build: the hand-written kernels from csrc/ with nvcc, in parallel (one
+     nvcc per source: twenty-two sources behind twenty-four entry points, K2'
+     sharing K2's), with their build seconds and ptxas register/spill lines;
   3. K1, the fused Hyena window mixer, against its plain PyTorch version at
      the four ptx stage shapes (V = 16), fp32 and bf16, with and without the
      folded pre-LN;
@@ -187,7 +187,38 @@ Phases, each printing one line of numbers (or a few):
  41. micro as shipped: run_torch.main with projects/run_micro.sh's own flags
      (window 4) trains one step and evaluates at 1024x1024; checks that K4
      ran in all 12 blocks (16-token windows) and K9 never, and prints its
-     step and eval times.
+     step and eval times;
+ 42. K8 at every window class: the forward, backward and weight-gradient
+     kernels against the plain version and its VJP at V = 16 and 64 (the
+     whole-window path) and 49, 256, 343 and 512 (the general path), with
+     and without region ids, and at emb_attn's four stage shapes (batch 4:
+     4,096 / 512 / 64 windows of 8x8x8 and 16 of 4x8x8, C = 96 .. 768) with
+     their region ids, the plain version on at most 1,024 windows at a time,
+     fp32 and bf16; two launches bitwise equal; V = 513 takes the plain
+     version with no K8 launch; a CPU tensor, V = 0 and a head dim of 48
+     refused; then the times of the kernels on each whole stage shape and of
+     the plain version over the same windows in slices;
+ 43. emb_attn train slice: run_torch.main trains emb_attn (--debug, 2
+     epochs) on synthetic 256x256x64 volumes with the flags of
+     projects/run_emb.sh and the CLI's default mixer, window attention
+     (--Swin.use_hyena False --Swin.use_mamba False), saves and reloads
+     checkpoints, evaluates; checks that K8 forward and K2 forward ran 12
+     times per forward batch, K8 backward, K8 weight gradients and K2
+     backward 12 times per train step, K1, K3-K7, K9 and K2' never; then
+     --inference_only, which must reproduce the test metrics;
+ 44. emb_attn model gradients: one train step's gradients of the
+     full-width model on 64x64x32 volumes at batch 2 (stages 0-1 in shifted
+     8x8x8 windows, stages 2-3 in windows shrunk to the grid), on the card
+     against the host, fp32 and bf16, per parameter, as phase 35;
+ 45. emb_attn throughput: the train step and eval forward at batch 4 on
+     256x256x64 in bf16, steady state, with peak memory and one-step
+     profiles;
+ 46. K2', the MLP without LN or residual, behind MLPBlock (eval, its kernel
+     path) at ViT-small widths on 32,770 rows (vit16k's tokens at batch 2):
+     forward and every gradient against fused_mlp_plain and its VJP, fp32
+     and bf16, one launch of each K2' kernel per pass and none of K2's, two
+     launches bitwise equal, and the times of the kernels and the plain
+     version.
 Then one JSON line with the kernels' numbers, and last the result line.
 Every time is on this card, with its name and power limit printed in phase 1.
 It imports neither JAX nor the JAX package, and fails (exit code != 0, no
@@ -246,6 +277,12 @@ def ptx_attn_flags() -> list[str]:
     mixer, window attention (--Swin.use_hyena False --Swin.use_mamba False,
     which override the script's own mixer flags)."""
     return ptx_flags() + ["--Swin.use_hyena", "False", "--Swin.use_mamba", "False"]
+
+
+def emb_attn_flags() -> list[str]:
+    """emb_attn: the flags of projects/run_emb.sh with the CLI's default
+    mixer, window attention (3D Swin-tiny, 8x8x8 windows)."""
+    return emb_flags() + ["--Swin.use_hyena", "False", "--Swin.use_mamba", "False"]
 
 
 def _vit_flags(patch: int, batch: int, mixer: str) -> list[str]:
@@ -397,6 +434,23 @@ K9_EXTRA = [(3001, 9, 40), (2049, 64, 130), (257, 64, 1024)]
 K9_N = 8
 # phase 39 holds the micro_w7 gradients at this batch of 512x512 images
 MICRO_GRAD_BATCH = 4
+# emb_attn's (T, H, W) volume
+EMB_VOLUME = (64, 256, 256)
+# phase 42, K8's window classes beyond emb_attn's stages (BW, V, C, region ids):
+# the whole-window path's 16 and 64 tokens, a 7x7 window, 7x7x7, 4x8x8 and
+# 8x8x8 windows at the stage widths, random region ids in 4 rows
+K8_CLASSES = [(256, 16, 96, True), (64, 64, 192, True), (300, 49, 96, True),
+              (24, 343, 192, True), (32, 256, 768, True), (16, 512, 384, True)]
+# phase 42 holds the plain version at emb_attn's stages on at most this many
+# windows at a time: its fp32 scores and their VJP at stage 0 (4,096 windows
+# of 512 tokens, 3 heads) would take 12.9 GB each
+K8_PLAIN_WINDOWS = 1024
+# phase 44 holds the emb_attn gradients at this (T, H, W): token grids
+# 16x32x32 .. 2x4x4, so stages 0-1 run 512-token windows (shifted) and
+# stages 2-3 windows shrunk to the grid (256 and 32 tokens)
+EMB_ATTN_GRAD_VOLUME = (32, 64, 64)
+# phase 46, K2' at ViT-small widths on vit16k's tokens at batch 2 (N, C, H)
+K2P_SHAPE = (VIT_BATCH * VIT_L, 384, 1536)
 # the card's peaks for the bounds (H100 SXM data sheet, dense): bf16 tensor
 # cores, fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -458,7 +512,9 @@ def phase_device(torch):
 def all_kernels():
     """K1 fwd, K2 fwd, K1 bwd, K2 bwd, K3 fwd, K3 bwd, K3 dM, K4 fwd, K4 bwd,
     K5 fwd, K5 dq, K5 dkv, K6 conv, K6 dk, K7 fwd, K7 carry bwd, K7 bwd, K8
-    fwd, K8 bwd, K8 weight gradients, K9 fwd, K9 bwd."""
+    fwd, K8 bwd, K8 weight gradients, K9 fwd, K9 bwd, K2' fwd, K2' bwd (K2'
+    shares K2's sources, behind its own entry points: runs key launches by
+    the entry point's symbol)."""
     from long_context_biomedical_imaging_tpu_torch.ops import (flash_attention, fused_mlp,
                                                                hyena_window, mamba_window,
                                                                selective_scan_long,
@@ -475,7 +531,8 @@ def all_kernels():
             selective_scan_long.LONG_SCAN_CARRY_BWD, selective_scan_long.LONG_SCAN_BWD,
             window_attention.WINDOW_ATTENTION_FWD, window_attention.WINDOW_ATTENTION_BWD,
             window_attention.WINDOW_ATTENTION_WGRAD, selective_scan_window.WINDOW_SCAN_FWD,
-            selective_scan_window.WINDOW_SCAN_BWD)
+            selective_scan_window.WINDOW_SCAN_BWD, fused_mlp.FUSED_MLP_FWD,
+            fused_mlp.FUSED_MLP_BWD)
 
 
 def check_launches(kernels, launches, expected, where):
@@ -483,19 +540,22 @@ def check_launches(kernels, launches, expected, where):
     where the run's path does not reach it)."""
     for i, kernel in enumerate(kernels):
         want = expected.get(i, 0)
-        check(launches[kernel.source] == want,
-              f"{kernel.source} launched {launches[kernel.source]} times in {where}, "
+        check(launches[kernel.symbol] == want,
+              f"{kernel.symbol} launched {launches[kernel.symbol]} times in {where}, "
               f"expected {want}")
 
 
 def phase_build():
-    """Build every kernel library at once: one nvcc process per source."""
+    """Build every kernel library at once: one nvcc process per source (an
+    entry point whose source another kernel builds loads that library)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    kernels = all_kernels()
+    kernels = list({k.source: k for k in reversed(all_kernels())}.values())[::-1]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         seconds = list(pool.map(lambda k: k.load(), kernels))
+    for kernel in all_kernels():
+        kernel.load()
     for kernel, sec in zip(kernels, seconds):
         usage = [line.strip() for line in kernel.build_log.splitlines()
                  if "registers" in line or "spill" in line]
@@ -626,7 +686,7 @@ def phase_slice(torch, fused_mlp, hyena_window, tmp):
     rc = run_torch.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kernel.source: kernel.launches for kernel in kernels}
+    launches = {kernel.symbol: kernel.launches for kernel in kernels}
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"run_torch.main returned {rc}")
 
@@ -832,7 +892,7 @@ def phase_train_slice(torch, fused_mlp, hyena_window, tmp):
     rc = run_torch.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kernel.source: kernel.launches for kernel in kernels}
+    launches = {kernel.symbol: kernel.launches for kernel in kernels}
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"run_torch.main returned {rc}")
 
@@ -1060,7 +1120,7 @@ def phase_emb_slice(torch, fused_mlp, hyena_window, tmp):
     rc = run_torch.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kernel.source: kernel.launches for kernel in kernels}
+    launches = {kernel.symbol: kernel.launches for kernel in kernels}
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"run_torch.main returned {rc}")
     forward = steps + eval_batches
@@ -1100,7 +1160,7 @@ def phase_emb_slice(torch, fused_mlp, hyena_window, tmp):
                          f"--inference_log_dir={tmp}/logs",
                          "--inference_run_name=chip_smoke_emb_inference"])
     check(rc == 0, f"inference-only run returned {rc}")
-    inference = {kernel.source: kernel.launches for kernel in kernels}
+    inference = {kernel.symbol: kernel.launches for kernel in kernels}
     batches = val_batches + test_batches
     check_launches(kernels, inference, {1: 12 * batches, 4: 4 * batches},
                    "the emb inference-only run")
@@ -1329,7 +1389,7 @@ def phase_vessel_slice(torch, tmp):
     rc = run_torch.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kernel.source: kernel.launches for kernel in kernels}
+    launches = {kernel.symbol: kernel.launches for kernel in kernels}
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"run_torch.main returned {rc}")
     forward = steps + eval_batches
@@ -1370,7 +1430,7 @@ def phase_vessel_slice(torch, tmp):
                          f"--inference_log_dir={tmp}/logs",
                          "--inference_run_name=chip_smoke_vessel_inference"])
     check(rc == 0, f"inference-only run returned {rc}")
-    inference = {kernel.source: kernel.launches for kernel in kernels}
+    inference = {kernel.symbol: kernel.launches for kernel in kernels}
     batches = val_batches + test_batches
     check_launches(kernels, inference, {1: 12 * batches, 7: k4 * batches},
                    "the vessel inference-only run")
@@ -1745,7 +1805,7 @@ def phase_vit_slice(torch, tmp):
     rc = run_torch.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kernel.source: kernel.launches for kernel in kernels}
+    launches = {kernel.symbol: kernel.launches for kernel in kernels}
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"run_torch.main returned {rc}")
     forward = steps + eval_batches
@@ -1786,7 +1846,7 @@ def phase_vit_slice(torch, tmp):
                          f"--inference_log_dir={tmp}/logs",
                          "--inference_run_name=chip_smoke_vit_inference"])
     check(rc == 0, f"inference-only run returned {rc}")
-    inference = {kernel.source: kernel.launches for kernel in kernels}
+    inference = {kernel.symbol: kernel.launches for kernel in kernels}
     batches = val_batches + test_batches
     check_launches(kernels, inference, {1: VIT_LAYERS * batches, 9: VIT_LAYERS * batches},
                    "the vit16k inference-only run")
@@ -2172,12 +2232,12 @@ def phase_k7(torch, ssl, dev):
             "bwd": (worst["bwd"], k_bwd, (1 - share) * p_bwd)}
 
 
-def _k8_case(torch, gen, bw, v, c, grid, dev):
+def _k8_case(torch, gen, bw, v, c, grid, dev, rid_rows=7):
     """Operands of one K8 case, drawn as the model initialises them (the
     weights U(+-1/sqrt(C)), the biases small, the table trunc_normal(0.02)
     gathered, here iid at 0.5 to make the bias matter), x and the cotangent
     iid; region ids of the shifted windows of a grid x grid token grid, or
-    random ids in 7 rows when grid is None."""
+    random ids in rid_rows rows when grid is None."""
     from long_context_biomedical_imaging_tpu_torch.ops.window import compute_shift_regions
 
     heads = c // 32
@@ -2188,7 +2248,7 @@ def _k8_case(torch, gen, bw, v, c, grid, dev):
     args = [mk((bw, v, c), 1.0), mk((c, 3 * c), c ** -0.5), mk((3 * c,), 0.1),
             mk((c, c), c ** -0.5), mk((c,), 0.1), mk((heads, v, v), 0.5)]
     if grid is None:
-        rid = torch.randint(0, 4, (7, v), generator=gen, dtype=torch.int32).to(dev)
+        rid = torch.randint(0, 4, (rid_rows, v), generator=gen, dtype=torch.int32).to(dev)
     else:
         w = int(round(v ** 0.5))
         rid = compute_shift_regions((1, grid, grid), (1, w, w), (0, w // 2, w // 2)).to(dev)
@@ -2222,27 +2282,9 @@ def phase_k8(torch, wa, dev):
             do = do_c.to(dtype)
             for rid in (rid_c, None):
                 args = (x, wq, bq, wo, bo, rel, heads, rid, -100.0, scale)
-                with torch.no_grad():
-                    out = wa.window_attention_fwd(*args)
-                    torch.cuda.synchronize()
-                    ref = wa.window_attention_plain(*args)
-                    err, mag, ok = compare(torch, out, ref, dname)
-                del out, ref
-                check(ok, f"K8 fwd disagrees with its plain version at BW={bw} V={v} C={c} "
-                          f"{dname} rid={rid is not None}: {err} > {TOL[dname]} * {mag}")
-                got = wa.window_attention_bwd(do, *args)
-                torch.cuda.synchronize()
-                refs = wa.window_attention_bwd_plain(do, *args)
-                gerr, grel, gok = compare_grads(torch, got, refs, dname)
-                werr = compare_grads(torch, (got[1], got[3]), (refs[1], refs[3]), dname)[0]
-                berr = compare_grads(torch, got[:1] + got[2:3] + got[4:],
-                                     refs[:1] + refs[2:3] + refs[4:], dname)[0]
-                del got, refs
-                check(gok, f"K8 bwd disagrees with its plain VJP at BW={bw} V={v} C={c} "
-                           f"{dname} rid={rid is not None}: {grel} > {GRAD_TOL[dname]}")
-                print(f"phase 33 K8 BW={bw} V={v} C={c} {dname} rid={rid is not None}: fwd "
-                      f"max_abs_err={err:.3e} max|out|={mag:.3e}; every gradient max_abs_err="
-                      f"{gerr:.3e} max_rel_err={grel:.3e} ok", flush=True)
+                err, berr, werr = _k8_hold(torch, wa, args, do, bw, dname,
+                                           f"BW={bw} V={v} C={c} {dname} rid={rid is not None}",
+                                           33)
                 if dtype == torch.bfloat16:
                     worst["fwd"] = max(worst["fwd"], err)
                     worst["bwd"] = max(worst["bwd"], berr)
@@ -2329,6 +2371,223 @@ def phase_k8(torch, wa, dev):
     return results
 
 
+def _k8_hold(torch, wa, args_full, do_full, n_plain, dname, label, phase):
+    """One K8 case, kernels against the plain version and its VJP on the
+    first n_plain windows of the operands: (fwd abs err, bwd abs err over
+    dx and the bias and table gradients, wgrad abs err over dWqkv and dWout),
+    after the checks."""
+    x, *rest = args_full
+    args = (x[:n_plain], *rest)
+    do = do_full[:n_plain]
+    with torch.no_grad():
+        out = wa.window_attention_fwd(*args)
+        torch.cuda.synchronize()
+        ref = wa.window_attention_plain(*args)
+        err, mag, ok = compare(torch, out, ref, dname)
+    del out, ref
+    check(ok, f"K8 fwd disagrees with its plain version at {label}: {err} > {TOL[dname]} * {mag}")
+    got = wa.window_attention_bwd(do, *args)
+    torch.cuda.synchronize()
+    refs = wa.window_attention_bwd_plain(do, *args)
+    gerr, grel, gok = compare_grads(torch, got, refs, dname)
+    werr = compare_grads(torch, (got[1], got[3]), (refs[1], refs[3]), dname)[0]
+    berr = compare_grads(torch, got[:1] + got[2:3] + got[4:], refs[:1] + refs[2:3] + refs[4:],
+                         dname)[0]
+    del got, refs
+    torch.cuda.empty_cache()
+    check(gok, f"K8 bwd disagrees with its plain VJP at {label}: {grel} > {GRAD_TOL[dname]}")
+    print(f"phase {phase} K8 {label}: fwd max_abs_err={err:.3e} max|out|={mag:.3e}; every "
+          f"gradient max_abs_err={gerr:.3e} max_rel_err={grel:.3e} ok", flush=True)
+    return err, berr, werr
+
+
+def phase_k8_general(torch, wa, dev):
+    """K8 at every window class: the forward, backward and weight-gradient
+    kernels against the plain version and its VJP at V = 16 and 64 (the
+    whole-window path) and 49, 256, 343 and 512 (the general path), with and
+    without region ids, and at emb_attn's four stage shapes (batch 4) with
+    their region ids, the plain version on at most K8_PLAIN_WINDOWS windows
+    (stage 0: one volume's 1,024 of its 4,096); fp32 and bf16. Two launches
+    bitwise equal; V = 513 takes the plain version with no K8 launch; a CPU
+    tensor, V = 0 and a head dim of 48 are refused. Then the times of the
+    kernels on each whole stage shape and of the plain version over the
+    same windows in slices, bf16 with region ids (the odd blocks' call).
+    Returns {"fwd" | "bwd" | "wgrad": [(worst bf16 abs err over the stage
+    cases, kernel_ms, plain_ms) per stage]}; the plain VJP's time is split
+    between bwd and wgrad as their bounds split the backward's work."""
+    gen = torch.Generator().manual_seed(42)
+    scale = 32 ** -0.5
+
+    def operands(bw, v, c, rid_rows=1):
+        base, rid, do, heads = _k8_case(torch, gen, bw, v, c, None, dev, rid_rows)
+        return base, do, heads, rid
+
+    def typed(base, heads, rid, dtype):
+        x, wq, bq, wo, bo, rel = base
+        return (x.to(dtype), wq.to(dtype), bq, wo.to(dtype), bo, rel, heads, rid, -100.0, scale)
+
+    for bw, v, c, with_rid in K8_CLASSES:
+        base, do, heads, rid_c = operands(bw, v, c, 4)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for rid in ((rid_c, None) if with_rid else (None,)):
+                _k8_hold(torch, wa, typed(base, heads, rid, dtype), do.to(dtype), bw, dname,
+                         f"BW={bw} V={v} C={c} {dname} rid={rid is not None}", 42)
+        del base, do
+
+    stages = emb_attn_stages()
+    worst = [{"fwd": 0.0, "bwd": 0.0, "wgrad": 0.0} for _ in stages]
+    for i, (bw, v, c, rid, *_) in enumerate(stages):
+        base, do, heads, _ = operands(bw, v, c)
+        rid = None if rid is None else rid.to(dev)
+        n_plain = min(bw, K8_PLAIN_WINDOWS)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            errs = _k8_hold(torch, wa, typed(base, heads, rid, dtype), do.to(dtype), n_plain,
+                            dname, f"emb_attn stage {i} BW={bw} (plain on {n_plain}) V={v} "
+                                   f"C={c} {dname} rid={rid is not None}", 42)
+            if dtype == torch.bfloat16:
+                worst[i] = dict(zip(("fwd", "bwd", "wgrad"), errs))
+        del base, do
+        torch.cuda.empty_cache()
+
+    # bitwise repeatability, the V > 512 route, refusals
+    bw, v, c, rid, *_ = stages[1]
+    base, do, heads, _ = operands(bw, v, c)
+    args = typed(base, heads, rid.to(dev), torch.bfloat16)
+    runs = [(wa.window_attention_fwd(*args), *wa.window_attention_bwd(do.bfloat16(), *args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "K8's general path is not bitwise repeatable")
+    del runs, base, do, args
+    kernels = (wa.WINDOW_ATTENTION_FWD, wa.WINDOW_ATTENTION_BWD, wa.WINDOW_ATTENTION_WGRAD)
+    base, do, heads, _ = operands(2, wa.MAX_TOKENS + 1, 64)
+    leaf = base[0].clone().requires_grad_()
+    before = [k.launches for k in kernels]
+    out = wa.windowed_attention_proj(leaf, *base[1:], heads)
+    out.backward(do)
+    torch.cuda.synchronize()
+    check([k.launches for k in kernels] == before, "V = 513 launched a K8 kernel")
+    with torch.no_grad():
+        ref = wa.window_attention_plain(base[0], *base[1:], heads, None, -100.0, scale)
+    check(torch.equal(out.detach(), ref), "V = 513 did not take the plain version")
+    refusals = 0
+    small, _, _, _ = operands(4, 16, 96)
+    for bad in (lambda: wa.window_attention_fwd(*[t.cpu() for t in small], 3),
+                lambda: wa.window_attention_fwd(small[0][:, :0].contiguous(), *small[1:5],
+                                                small[5][:, :0, :0].contiguous(), 3),
+                lambda: wa.window_attention_fwd(*small, 2)):
+        try:
+            bad()
+        except ValueError:
+            refusals += 1
+    check(refusals == 3, "K8 took a CPU tensor, V = 0 or a head dim of 48")
+    print("phase 42 K8: two launches of the general path bitwise equal; V = 513 took the plain "
+          "version with no K8 launch; a CPU tensor, V = 0 and D = 48 refused", flush=True)
+    del base, do, leaf, out, ref
+    torch.cuda.empty_cache()
+
+    bounds = emb_attn_k8_bounds()
+    results = {"fwd": [], "bwd": [], "wgrad": []}
+    for i, ((bw, v, c, rid, *_), b) in enumerate(zip(stages, bounds)):
+        base, do, heads, _ = operands(bw, v, c)
+        args = typed(base, heads, None if rid is None else rid.to(dev), torch.bfloat16)
+        do = do.bfloat16()
+        n_plain = min(bw, K8_PLAIN_WINDOWS)
+        parts = [(args[0][j:j + n_plain], *args[1:]) for j in range(0, bw, n_plain)]
+        dparts = [do[j:j + n_plain] for j in range(0, bw, n_plain)]
+        with torch.no_grad():
+            f_ms = median_ms(torch, lambda: wa.window_attention_fwd(*args), warmup=1, reps=3)
+            pf_ms = median_ms(torch, lambda: [wa.window_attention_plain(*a) for a in parts],
+                              warmup=1, reps=3)
+        streams = wa.window_attention_bwd_streams(do, *args)
+        b_ms = median_ms(torch, lambda: wa.window_attention_bwd_streams(do, *args), warmup=1,
+                         reps=3)
+        w_ms = median_ms(torch, lambda: wa.window_attention_wgrad(args[0], streams[1],
+                                                                 streams[2], do),
+                         warmup=1, reps=3)
+        del streams
+        pb_ms = median_ms(torch, lambda: [wa.window_attention_bwd_plain(g, *a)
+                                          for g, a in zip(dparts, parts)], warmup=1, reps=3)
+        share = b["bwd"][0] / (b["bwd"][0] + b["wgrad"][0])
+        results["fwd"].append((worst[i]["fwd"], f_ms, pf_ms))
+        results["bwd"].append((worst[i]["bwd"], b_ms, share * pb_ms))
+        results["wgrad"].append((worst[i]["wgrad"], w_ms, (1 - share) * pb_ms))
+        print(f"phase 42 K8 times emb_attn stage {i} BW={bw} V={v} C={c} bf16 rid="
+              f"{rid is not None}: fwd {f_ms:.3f} ms (bound {b['fwd'][0]:.3f}, plain "
+              f"{pf_ms:.3f} in {len(parts)} slice(s)); bwd {b_ms:.3f} ms (bound "
+              f"{b['bwd'][0]:.3f}); wgrad {w_ms:.3f} ms (bound {b['wgrad'][0]:.3f}); plain VJP "
+              f"{pb_ms:.3f} ms in {len(parts)} slice(s)", flush=True)
+        del base, args, do, parts, dparts
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_k2_prime(torch, fm, dev):
+    """K2', the MLP without LN or residual, behind MLPBlock (eval, so its
+    kernel path) at ViT-small widths on vit16k's tokens at batch 2
+    (K2P_SHAPE): the forward and the gradients of x and the four parameters
+    on the card against fused_mlp_plain and its VJP, fp32 and bf16; each K2'
+    kernel launched once per pass and no K2 kernel; two launches bitwise
+    equal; then the times of the kernels and the plain version in bf16.
+    Returns ({"fwd" | "bwd": (worst bf16 abs err, ms, plain ms) per call},
+    the phase's launches by symbol)."""
+    from long_context_biomedical_imaging_tpu_torch.models import MLPBlock, init_weights
+
+    n, c, h = K2P_SHAPE
+    gen = torch.Generator().manual_seed(46)
+    block = init_weights(MLPBlock(c, h), gen).to(dev).eval()
+    params = [block.fc1_kernel, block.fc1_bias, block.fc2_kernel, block.fc2_bias]
+    x32 = torch.randn(n, c, generator=gen).to(dev)
+    do32 = torch.randn(n, c, generator=gen).to(dev)
+    kernels = all_kernels()
+    for kernel in kernels:
+        kernel.launches = 0
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        block.zero_grad(set_to_none=True)
+        x = x32.to(dtype, copy=True).requires_grad_()
+        out = block(x)
+        out.backward(do32.to(dtype))
+        torch.cuda.synchronize()
+        plain = [p.detach() for p in params]
+        with torch.no_grad():
+            ref = fm.fused_mlp_plain(x.detach(), *plain)
+        err, mag, ok = compare(torch, out.detach(), ref, dname)
+        check(ok, f"K2' fwd disagrees with its plain version, {dname}: {err} > {TOL[dname]} * "
+                  f"{mag}")
+        refs = fm.fused_mlp_bwd_plain(do32.to(dtype), x.detach(), *plain)
+        gerr, grel, gok = compare_grads(torch, [x.grad] + [p.grad for p in params], refs, dname)
+        check(gok, f"K2' bwd disagrees with its plain VJP, {dname}: {grel} > {GRAD_TOL[dname]}")
+        worst[dname] = (err, gerr)
+        print(f"phase 46 K2' MLPBlock N={n} C={c} H={h} {dname}: fwd max_abs_err={err:.3e} "
+              f"max|out|={mag:.3e}; every gradient max_abs_err={gerr:.3e} max_rel_err="
+              f"{grel:.3e} ok", flush=True)
+        del x, out, ref, refs
+    launches = {kernel.symbol: kernel.launches for kernel in kernels}
+    check_launches(kernels, launches, {22: 2, 23: 2}, "the K2' phase (MLPBlock, fp32 and bf16)")
+    x, do = x32.bfloat16(), do32.bfloat16()
+    w = [params[0].detach().bfloat16(), params[1].detach(), params[2].detach().bfloat16(),
+         params[3].detach()]
+    runs = [(fm.fused_mlp_fwd(x, *w), *fm.fused_mlp_bwd(do, x, *w)) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), "K2' launches are not bitwise repeatable")
+    del runs
+    with torch.no_grad():
+        f_ms = median_ms(torch, lambda: fm.fused_mlp_fwd(x, *w), warmup=2, reps=7)
+        pf_ms = median_ms(torch, lambda: fm.fused_mlp_plain(x, *w), warmup=1, reps=5)
+    b_ms = median_ms(torch, lambda: fm.fused_mlp_bwd(do, x, *w), warmup=2, reps=7)
+    pb_ms = median_ms(torch, lambda: fm.fused_mlp_bwd_plain(do, x, *w), warmup=1, reps=5)
+    b = k2p_bounds()
+    print(f"phase 46 K2' times N={n} C={c} H={h} bf16: fwd {f_ms:.3f} ms (bound "
+          f"{b['fwd'][0]:.3f}, plain {pf_ms:.3f}); bwd {b_ms:.3f} ms (bound {b['bwd'][0]:.3f}, "
+          f"plain VJP {pb_ms:.3f}); two launches bitwise equal", flush=True)
+    return ({"fwd": (worst["bfloat16"][0], f_ms, pf_ms),
+             "bwd": (worst["bfloat16"][1], b_ms, pb_ms)}, launches)
+
+
 def micro_k9_shapes(batch, height=1024):
     """(BW, L, d, depth) of each micro_w7 stage whose Mamba call the gate
     routes to K9, for a batch of images of height x height: the gate of the
@@ -2341,6 +2600,27 @@ def micro_k9_shapes(batch, height=1024):
         bw = batch * (g // 7) ** 2
         if _window_scan_supported(49, K9_N, c // 2, batch=bw):
             out.append((bw, 49, c // 2, depth))
+    return out
+
+
+def emb_attn_stages(batch=BATCH, volume=EMB_VOLUME):
+    """Each emb_attn stage's K8 call at the given batch and (T, H, W) volume,
+    from the port's own stage grids (models/swin.py stage_grids) and window
+    shrink (ops/window.py get_window_size): [(BW windows, V tokens, C, the
+    odd blocks' (nW, V) region ids or None, depth, token grid, window)]."""
+    from long_context_biomedical_imaging_tpu_torch.models.swin import stage_grids
+    from long_context_biomedical_imaging_tpu_torch.ops.window import (compute_shift_regions,
+                                                                      get_window_size)
+
+    window = (8, 8, 8)
+    grids = stage_grids(tuple(n // 2 for n in volume), len(STAGES), 3)
+    out = []
+    for grid, (c, _, depth) in zip(grids, STAGES):
+        win, shift = get_window_size(grid, window, tuple(w // 2 for w in window))
+        dims = tuple(-(-n // w) * w for n, w in zip(grid, win))
+        n_win = math.prod(d // w for d, w in zip(dims, win))
+        rid = compute_shift_regions(dims, win, shift) if any(shift) else None
+        out.append((batch * n_win, math.prod(win), c, rid, depth, grid, win))
     return out
 
 
@@ -2461,10 +2741,11 @@ def phase_k9(torch, ssw, dev):
 
 
 def phase_config_slice(torch, tmp, flags, name, phase, expected, batch=H65_BATCH,
-                       subjects=(3, 2, 2), enhance=False):
+                       subjects=(3, 2, 2), enhance=False, shape=(1024, 1024)):
     """run_torch.main trains a configuration at the given batch size on
-    synthetic 1024x1024x1 images on the card (the vit65k_hyena, vit65k_mamba,
-    ptx_attn or micro_w7 path; subjects: train, val and test images;
+    synthetic images (or volumes) of the stored ``shape`` on the card (the
+    vit65k_hyena, vit65k_mamba, ptx_attn, micro_w7 or emb_attn path;
+    subjects: train, val and test images;
     ``enhance``: enhancement pairs and loss, SSIM and PSNR, else labels and
     the classification metrics), then an inference-only run reloads its best
     checkpoint. expected(forward batches, train steps) gives each kernel's
@@ -2475,7 +2756,7 @@ def phase_config_slice(torch, tmp, flags, name, phase, expected, batch=H65_BATCH
     import run_torch
 
     (n_train, n_val, n_test), epochs = subjects, 2
-    write_dataset(tmp, (1024, 1024), n_train, n_val, n_test, targets=enhance)
+    write_dataset(tmp, shape, n_train, n_val, n_test, targets=enhance)
     metric_names = {"loss", "ssim", "psnr"} if enhance else {"loss", "acc_1", "auroc", "f1"}
     steps = epochs * min(3, math.ceil(n_train / batch))      # --debug: 3 per epoch
     val_batches = min(3, math.ceil(n_val / batch))
@@ -2496,7 +2777,7 @@ def phase_config_slice(torch, tmp, flags, name, phase, expected, batch=H65_BATCH
     rc = run_torch.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kernel.source: kernel.launches for kernel in kernels}
+    launches = {kernel.symbol: kernel.launches for kernel in kernels}
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"run_torch.main returned {rc}")
     check_launches(kernels, launches, expected(steps + eval_batches, steps),
@@ -2534,7 +2815,7 @@ def phase_config_slice(torch, tmp, flags, name, phase, expected, batch=H65_BATCH
                          f"--inference_log_dir={tmp}/logs",
                          f"--inference_run_name={run}_inference"])
     check(rc == 0, f"inference-only run returned {rc}")
-    inference = {kernel.source: kernel.launches for kernel in kernels}
+    inference = {kernel.symbol: kernel.launches for kernel in kernels}
     check_launches(kernels, inference, expected(val_batches + test_batches, 0),
                    f"the {name} inference-only run")
     path = os.path.join(tmp, "logs", f"{run}_inference", "test_metrics.txt")
@@ -2570,7 +2851,7 @@ def phase_micro_shipped(torch, tmp):
     rc = run_torch.main(argv)
     torch.cuda.synchronize()
     check(rc == 0, f"run_torch.main returned {rc}")
-    launches = {kernel.source: kernel.launches for kernel in kernels}
+    launches = {kernel.symbol: kernel.launches for kernel in kernels}
     log = open(os.path.join(run_dir, "run.log")).read()
     trained = re.findall(r"epoch 0 train: (\d+) steps, (\d+) samples in ([\d.]+) s", log)
     timed = re.findall(r"(\w+) forward: (\d+) batches of (\d+) in ([\d.]+) s", log)
@@ -2600,9 +2881,10 @@ def long_vit_label(height, width):
 
 
 def phase_config_grads(torch, dev, flags, size, phase, name, path_kernels, floor, label,
-                       batch=H65_BATCH):
+                       batch=H65_BATCH, time_=1):
     """One train step's gradients of a full-width configuration at the given
-    batch size on images cut to size (H, W), so that its kernels still run
+    batch size on images cut to size (H, W) (volumes of time_ slices in
+    3D), so that its kernels still run
     (label describes the model and its input). Weights and images from the
     seed ``phase``, on the card
     against the host, fp32 and bf16, per parameter (max|err| /
@@ -2619,8 +2901,9 @@ def phase_config_grads(torch, dev, flags, size, phase, name, path_kernels, floor
 
     height, width = size
     argv = ([a for a in flags if a != "--use_amp"]
-            + [f"--height={height}", f"--width={width}", f"--seed={phase}"])
-    x = torch.randn(batch, 1, height, width, 1, generator=torch.Generator().manual_seed(phase))
+            + [f"--height={height}", f"--width={width}", f"--time={time_}", f"--seed={phase}"])
+    x = torch.randn(batch, time_, height, width, 1,
+                    generator=torch.Generator().manual_seed(phase))
     y = torch.arange(batch) % 2
     kernels = [all_kernels()[i] for i in path_kernels]
 
@@ -2675,11 +2958,12 @@ def phase_config_grads(torch, dev, flags, size, phase, name, path_kernels, floor
     return e32, card_e, host_e
 
 
-def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH):
+def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH,
+                            volume=(1, 1024, 1024)):
     """The train step and eval forward of a configuration at the given batch
-    size on 1024x1024x1, bf16, weights and data from the seed ``phase``; the
-    configuration's own loss on labels of 2 classes, or on enhancement
-    targets for an enhance task."""
+    size on (T, H, W) ``volume`` inputs of one channel, bf16, weights and data
+    from the seed ``phase``; the configuration's own loss on labels of 2
+    classes, or on enhancement targets for an enhance task."""
     from long_context_biomedical_imaging_tpu_torch.losses import get_loss_func
     from long_context_biomedical_imaging_tpu_torch.metrics.device import make_train_metric_fn
     from long_context_biomedical_imaging_tpu_torch.models import build_model
@@ -2692,7 +2976,8 @@ def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH):
     model = build_model(cfg).to(dev)
     loss_func = get_loss_func(cfg.loss_func)
     gen = torch.Generator().manual_seed(phase)
-    x = torch.randn(batch, 1, 1024, 1024, 1, generator=gen)
+    x = torch.randn(batch, *volume, 1, generator=gen)
+    size = "x".join(str(n) for n in volume[1:] + volume[:1] if n > 1)
     if cfg.task_type == "enhance":
         y = (x - 0.3 * torch.randn(x.shape, generator=gen)).to(dev)
     else:
@@ -2704,7 +2989,7 @@ def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH):
     eval_ms = median_ms(torch, lambda: step(amp_params(model, True), x, y, batch), warmup=2,
                         reps=5)
     eval_peak = torch.cuda.max_memory_allocated()
-    print(f"phase {phase} {name} eval forward, batch {batch} of 1024x1024, bf16: "
+    print(f"phase {phase} {name} eval forward, batch {batch} of {size}, bf16: "
           f"{eval_ms:.2f} ms/batch = {batch * 1000 / eval_ms:.3f} images/s (median of 5); "
           f"peak memory {eval_peak / 2**30:.2f} GiB", flush=True)
     profile_step(torch, lambda: step(amp_params(model, True), x, y, batch),
@@ -2721,7 +3006,7 @@ def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH):
     ms = median_ms(torch, lambda: train([(x, y)], lr, batch), warmup=2, reps=5)
     peak = torch.cuda.max_memory_allocated()
     print(f"phase {phase} {name} train step (forward, backward, Adam), batch {batch} of "
-          f"1024x1024, bf16: {ms:.2f} ms/step = {batch * 1000 / ms:.3f} images/s (median of "
+          f"{size}, bf16: {ms:.2f} ms/step = {batch * 1000 / ms:.3f} images/s (median of "
           f"5 after 2 warm-ups); peak memory {peak / 2**30:.2f} GiB", flush=True)
     profile_step(torch, lambda: train([(x, y)], lr, batch), f"phase {phase} {name} profile")
     return ms, eval_ms
@@ -2804,10 +3089,11 @@ def k7_bounds():
                          5 * seq + 4 * state + 2 * carry + 4 * n * d)}
 
 
-def k8_bounds():
-    """K8 per call at each ptx_attn stage in bf16 (T = BW * 16 tokens, C
-    channels, H = C / 32 heads, V = 16), [{"fwd" | "bwd" | "wgrad": (ms,
-    bound_by)} per stage]. Products on the tensor cores: the forward's qkv
+def k8_bounds(cases=None):
+    """K8 per call at each stage in bf16, [{"fwd" | "bwd" | "wgrad": (ms,
+    bound_by)} per case]; cases (BW windows, V tokens, C, rows of region
+    ids), ptx_attn's stages when None (T = BW * V tokens, H = C / 32 heads).
+    Products on the tensor cores: the forward's qkv
     and out projections 8TC^2 and its scores and p v 4TVC; the backward's
     qkv recompute 6TC^2, do 2TC^2, dx 6TC^2 and its six window products
     12TVC; the weight gradients x^T dqkv and o^T dout 8TC^2. fp32: about 6
@@ -2817,16 +3103,37 @@ def k8_bounds():
     dout, dx, dqkv, o (bf16), the weights and the fp32 bias, rel and region
     id gradients and inputs; the weight gradients x, dqkv, o, dout (bf16) and
     dWqkv, dWout in fp32."""
+    if cases is None:
+        cases = [(bw, 16, c, (grid // 4) ** 2) for bw, c, grid, _ in ATTN_STAGES]
     out = []
-    for bw, c, grid, _ in ATTN_STAGES:
-        v, t, heads = 16, bw * 16, c // 32
-        scores, small = t * v * heads, 4 * (4 * c + 2 * heads * v * v) + 4 * (grid // 4) ** 2 * v
+    for bw, v, c, rid_rows in cases:
+        t, heads = bw * v, c // 32
+        scores, small = t * v * heads, 4 * (4 * c + 2 * heads * v * v) + 4 * rid_rows * v
         w = 2 * 4 * c * c
         out.append({"fwd": bound(8 * t * c * c + 4 * t * v * c, 6 * scores, 4 * t * c + w + small),
                     "bwd": bound(14 * t * c * c + 12 * t * v * c, 12 * scores,
                                  14 * t * c + w + 2 * small),
                     "wgrad": bound(8 * t * c * c, 0, 12 * t * c + 4 * 4 * c * c)})
     return out
+
+
+def emb_attn_k8_bounds():
+    """K8 per call at each emb_attn stage (batch 4), as k8_bounds; the odd
+    blocks' region ids counted."""
+    return k8_bounds([(bw, v, c, 0 if rid is None else rid.shape[0])
+                      for bw, v, c, rid, *_ in emb_attn_stages()])
+
+
+def k2p_bounds():
+    """K2' per call at K2P_SHAPE in bf16, {"fwd" | "bwd": (ms, bound_by)}:
+    the forward's two products 4NCH, the backward's five (the hidden
+    recomputed, dh, dW2, dW1, dx) 10NCH on the tensor cores; bytes x and the
+    output (bf16) and the weights, the backward's x, dout, dx (bf16), the
+    weights and their fp32 gradients."""
+    n, c, h = K2P_SHAPE
+    w = 2 * 2 * c * h
+    return {"fwd": bound(4 * n * c * h, 0, 4 * n * c + w + 4 * (c + h)),
+            "bwd": bound(10 * n * c * h, 0, 6 * n * c + w + 4 * (2 * c * h + c + h))}
 
 
 def k9_bounds():
@@ -2859,8 +3166,10 @@ def kernel_bounds():
     for K4 (its stages 0-2), vit16k for K5 (12 layers), vit65k_hyena for K6
     (12 layers, the conv twice in each, forward and du; ``k6_bounds``),
     vit65k_mamba for K7 (12 layers, the forward twice in each; ``k7_bounds``),
-    ptx_attn for K8 (its four stages; ``k8_bounds``), micro_w7 for K9 (its
-    stages 0-1; ``k9_bounds``)."""
+    ptx_attn for K8 (its four stages; ``k8_bounds``) and emb_attn for K8's
+    rows at its stages (``emb_attn_k8_bounds``), micro_w7 for K9 (its stages
+    0-1; ``k9_bounds``); K2' per call at K2P_SHAPE (``k2p_bounds``), which no
+    train path runs."""
     out = {}
 
     def add(name, depth, b):
@@ -2931,6 +3240,12 @@ def kernel_bounds():
     for b, (*_, depth) in zip(k9_bounds(), micro_k9_shapes(BATCH)):
         add("window_scan_fwd", depth, b["fwd"])
         add("window_scan_bwd", depth, b["bwd"])
+    for b, (*_, depth, _, _) in zip(emb_attn_k8_bounds(), emb_attn_stages()):
+        for key in ("fwd", "bwd", "wgrad"):
+            add(f"window_attention_{key}_emb_attn", depth, b[key])
+    k2p = k2p_bounds()
+    add("fused_mlp_fwd", 1, k2p["fwd"])
+    add("fused_mlp_bwd", 1, k2p["bwd"])
     return {name: (ms, max(votes, key=votes.get)) for name, (ms, votes) in out.items()}
 
 
@@ -3059,19 +3374,40 @@ def run():
         phase_micro_shipped(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    k8g = phase_k8_general(torch, window_attention, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_emb_attn_")
+    try:
+        emb_attn_launches = phase_config_slice(
+            torch, tmp, emb_attn_flags(), "emb_attn", 43,
+            lambda forward, steps: {1: ATTN_BLOCKS * forward, 3: ATTN_BLOCKS * steps,
+                                    17: ATTN_BLOCKS * forward, 18: ATTN_BLOCKS * steps,
+                                    19: ATTN_BLOCKS * steps},
+            batch=BATCH, subjects=(8, 4, 4), shape=EMB_VOLUME[1:] + EMB_VOLUME[:1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gt, gh, gw = EMB_ATTN_GRAD_VOLUME
+    phase_config_grads(torch, dev, emb_attn_flags(), (gh, gw), 44, "emb_attn",
+                       {17: ATTN_BLOCKS, 18: ATTN_BLOCKS, 19: ATTN_BLOCKS}, ATTN_BF16_GRAD_FLOOR,
+                       f"full-width 3D Swin-tiny + SwinLinear (window attention), batch "
+                       f"{ATTN_GRAD_BATCH} of {gh}x{gw}x{gt}", batch=ATTN_GRAD_BATCH, time_=gt)
+    phase_config_throughput(torch, dev, emb_attn_flags(), 45, "emb_attn", batch=BATCH,
+                            volume=EMB_VOLUME)
+    k2p, k2p_launches = phase_k2_prime(torch, fused_mlp, dev)
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "long_context_biomedical_imaging_tpu")
                   for m in sys.modules), "JAX was imported")
 
     # per kernel, in its main path's configuration (bf16 under AMP, the
     # folded LN): launches in that path's train slice (ptx for K1 and K2, emb
     # for K3, vessel for K4, vit16k for K5, vit65k_hyena for K6, vit65k_mamba
-    # for K7, ptx_attn for K8, micro_w7 for K9), worst error over the stage
-    # shapes (the backward: over every gradient; K7 and K9: against their
-    # passes' plain versions, fp32 as on the path), and the time of one train
-    # step (each stage's time x its depth), with its bound; library_ms is the
-    # time of torch's scaled_dot_product_attention for K5 (forward; its
-    # backward shared between dq and dkv) and null for K1-K4 and K6-K9, which
-    # no single PyTorch call computes
+    # for K7, ptx_attn for K8 and emb_attn for K8's _emb_attn rows, micro_w7
+    # for K9), worst error over the stage shapes (the backward: over every
+    # gradient; K7 and K9: against their passes' plain versions, fp32 as on
+    # the path), and the time of one train step (each stage's time x its
+    # depth), with its bound; K2', which no path runs, per call with phase
+    # 46's launches; library_ms is the time of torch's
+    # scaled_dot_product_attention for K5 (forward; its backward shared
+    # between dq and dkv) and null for K1-K4, K2' and K6-K9, which no single
+    # PyTorch call computes
     bounds = kernel_bounds()
     depths = [d for _, _, d in STAGES]
     emb_depths = [d for _, _, d in EMB_K3_STAGES]
@@ -3136,9 +3472,24 @@ def run():
             ("window_scan_bwd", selective_scan_window.WINDOW_SCAN_BWD, "bwd", 323)):
         rows.append((label, kernel, k9[key], micro_depths, micro_launches,
                      f"{tpu}selective_scan_pallas.py:{line}", None))
+    # K8 again at emb_attn's stages (512- and 256-token windows, the general
+    # path), with emb_attn's launches
+    emb_attn_depths = [depth for *_, depth, _, _ in emb_attn_stages()]
+    for label, kernel, key, line in (
+            ("window_attention_fwd", window_attention.WINDOW_ATTENTION_FWD, "fwd", 259),
+            ("window_attention_bwd", window_attention.WINDOW_ATTENTION_BWD, "bwd", 277),
+            ("window_attention_wgrad", window_attention.WINDOW_ATTENTION_WGRAD, "wgrad", 277)):
+        rows.append((f"{label}_emb_attn", kernel, k8g[key], emb_attn_depths, emb_attn_launches,
+                     f"{tpu}window_attention.py:{line}", None))
+    # K2': no train path runs it; its launches are phase 46's, its times per
+    # call at K2P_SHAPE
+    for label, kernel, key, line in (("fused_mlp_fwd", fused_mlp.FUSED_MLP_FWD, "fwd", 280),
+                                     ("fused_mlp_bwd", fused_mlp.FUSED_MLP_BWD, "bwd", 308)):
+        rows.append((label, kernel, [k2p[key]], [1], k2p_launches, f"{tpu}fused_mlp.py:{line}",
+                     None))
     kernels = [{
         "name": label, "route": "cuda", "source": f"{PACKAGE}/csrc/{kernel.source}",
-        "replaces": replaces, "launches": path_launches[kernel.source],
+        "replaces": replaces, "launches": path_launches[kernel.symbol],
         "max_abs_err": max(r[0] for r in res),
         "ms": sum(d * r[1] for d, r in zip(dep, res)),
         "plain_ms": sum(d * r[2] for d, r in zip(dep, res)),

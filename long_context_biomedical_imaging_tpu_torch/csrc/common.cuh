@@ -172,11 +172,13 @@ inline int max_dynamic_smem() {
 
 // A backward kernel runs a persistent grid of G blocks; block g walks a
 // contiguous range of row tiles and accumulates its weight gradients into its
-// own fp32 slot, slots + g * P. This second kernel sums the G slots in a fixed
-// order, so the result is the same from run to run. out: (P,) fp32.
+// own fp32 slot, slots + g * P. This second kernel sums the first n floats of
+// the G slots in a fixed order, so the result is the same from run to run.
+// out: (n,) fp32.
 __global__ void __launch_bounds__(kThreads)
-reduce_slots_kernel(const float* __restrict__ slots, int G, size_t P, float* __restrict__ out) {
-  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < P;
+reduce_slots_kernel(const float* __restrict__ slots, int G, size_t P, size_t n,
+                    float* __restrict__ out) {
+  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n;
        e += (size_t)gridDim.x * kThreads) {
     float s = 0.f;
     for (int g = 0; g < G; ++g) s += slots[(size_t)g * P + e];
@@ -201,13 +203,19 @@ int persistent_blocks(Kernel kernel, size_t smem_bytes, long long tiles, int max
   return (int)g;
 }
 
-// Reduce the G slots of P floats into out on the stream; returns the launch's
-// error code.
-inline int launch_reduce(const float* slots, int G, size_t P, float* out, cudaStream_t stream) {
-  size_t blocks = (P + kThreads - 1) / kThreads;
+// Reduce the first n floats of the G slots of P floats into out on the
+// stream; returns the launch's error code.
+inline int launch_reduce(const float* slots, int G, size_t P, size_t n, float* out,
+                         cudaStream_t stream) {
+  size_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 1024) blocks = 1024;
-  reduce_slots_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(slots, G, P, out);
+  reduce_slots_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(slots, G, P, n, out);
   return (int)cudaGetLastError();
+}
+
+// Reduce the G slots of P floats, whole.
+inline int launch_reduce(const float* slots, int G, size_t P, float* out, cudaStream_t stream) {
+  return launch_reduce(slots, G, P, P, out, stream);
 }
 
 }  // namespace lcbi

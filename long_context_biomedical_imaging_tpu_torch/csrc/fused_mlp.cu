@@ -1,8 +1,11 @@
 // Fused pre-LN transformer MLP with residual, forward:
 //     out = x + GELU(LN(x) @ w1 + b1) @ w2 + b2
+// and, with the template argument LN false, the plain MLP (K2'):
+//     out = GELU(x @ w1 + b1) @ w2 + b2
 //
-// Replaces the TPU kernel long_context_biomedical_imaging_tpu/ops/fused_mlp.py
-// _make_ln_fwd_kernel (launched by _ln_fwd_call, entry fused_ln_mlp_residual).
+// Replaces the TPU kernels long_context_biomedical_imaging_tpu/ops/fused_mlp.py
+// _make_ln_fwd_kernel (launched by _ln_fwd_call, entry fused_ln_mlp_residual)
+// and, as K2', _make_fwd_kernel (launched by _fwd, entry fused_mlp).
 //
 // What bounds it on the H100: 16*N*C^2 FLOPs against 4*N*C bytes of x in and
 // out (bf16), so at C = 96..768 it is compute-bound on the tensor cores once
@@ -50,7 +53,7 @@ template <> __device__ __forceinline__ float gelu<__nv_bfloat16>(float u) {
   return 0.5f * u * (1.f + tanhf(inner));
 }
 
-template <typename T>
+template <typename T, bool LN>
 __global__ void __launch_bounds__(kThreads)
 fused_ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         const float* __restrict__ ln_b, const T* __restrict__ w1,
@@ -68,7 +71,7 @@ fused_ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   const int rows = min(bm, N - (int)r0);
   const T* xt = x + r0 * C;
 
-  layernorm_rows(xt, rows, bm, C, ln_g, ln_b, 1, ys, L.lds);
+  layernorm_rows(xt, rows, bm, C, ln_g, ln_b, LN ? 1 : 0, ys, L.lds);
   for (int i = threadIdx.x; i < bm * L.ldacc; i += kThreads) acc[i] = 0.f;
   __syncthreads();
 
@@ -89,12 +92,12 @@ fused_ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   T* ot = out + r0 * C;
   for (int i = threadIdx.x; i < rows * C; i += kThreads) {
     const int r = i / C, c = i % C;
-    const float v = acc[(size_t)r * L.ldacc + c] + b2[c] + to_f32(xt[i]);
+    const float v = acc[(size_t)r * L.ldacc + c] + b2[c] + (LN ? to_f32(xt[i]) : 0.f);
     ot[i] = from_f32<T>(v);
   }
 }
 
-template <typename T>
+template <typename T, bool LN>
 int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1, const void* b1,
            const void* w2, const void* b2, void* out, int N, int C, int H, cudaStream_t stream) {
   const int limit = max_dynamic_smem();
@@ -102,11 +105,11 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1, co
   while (bm > 16 && mlp_layout(bm, C, sizeof(T)).bytes > (size_t)limit) bm /= 2;
   const size_t bytes = mlp_layout(bm, C, sizeof(T)).bytes;
   if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(fused_ln_mlp_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(fused_ln_mlp_fwd_kernel<T, LN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((N + bm - 1) / bm);
-  fused_ln_mlp_fwd_kernel<T><<<grid, kThreads, bytes, stream>>>(
+  fused_ln_mlp_fwd_kernel<T, LN><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
       static_cast<const T*>(w1), static_cast<const float*>(b1), static_cast<const T*>(w2),
       static_cast<const float*>(b2), static_cast<T*>(out), N, C, H, bm);
@@ -126,6 +129,20 @@ extern "C" int lcbi_fused_ln_mlp_fwd(const void* x, const void* ln_g, const void
   if (N <= 0 || C % 16 != 0 || H % lcbi::kHiddenChunk != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return lcbi::launch<__nv_bfloat16>(x, ln_g, ln_b, w1, b1, w2, b2, out, N, C, H, s);
-  return lcbi::launch<float>(x, ln_g, ln_b, w1, b1, w2, b2, out, N, C, H, s);
+    return lcbi::launch<__nv_bfloat16, true>(x, ln_g, ln_b, w1, b1, w2, b2, out, N, C, H, s);
+  return lcbi::launch<float, true>(x, ln_g, ln_b, w1, b1, w2, b2, out, N, C, H, s);
+}
+
+// K2', the MLP without LayerNorm or residual: out = GELU(x @ w1 + b1) @ w2 +
+// b2. Operands as lcbi_fused_ln_mlp_fwd without ln_g and ln_b.
+extern "C" int lcbi_fused_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
+                                  const void* b2, void* out, int N, int C, int H, int is_bf16,
+                                  void* stream) {
+  (void)cudaGetLastError();
+  if (N <= 0 || C % 16 != 0 || H % lcbi::kHiddenChunk != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return lcbi::launch<__nv_bfloat16, false>(x, nullptr, nullptr, w1, b1, w2, b2, out, N, C, H,
+                                              s);
+  return lcbi::launch<float, false>(x, nullptr, nullptr, w1, b1, w2, b2, out, N, C, H, s);
 }

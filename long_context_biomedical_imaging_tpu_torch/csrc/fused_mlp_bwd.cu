@@ -1,10 +1,14 @@
 // Fused pre-LN transformer MLP with residual, backward:
 //     out = x + GELU(LN(x) @ w1 + b1) @ w2 + b2
 //     -> dx, d ln_g, d ln_b, dw1, db1, dw2, db2 given do = d out
+// and, with the template argument LN false, the plain MLP's (K2'):
+//     out = GELU(x @ w1 + b1) @ w2 + b2  ->  dx, dw1, db1, dw2, db2
 //
-// Replaces the TPU kernel long_context_biomedical_imaging_tpu/ops/fused_mlp.py
+// Replaces the TPU kernels long_context_biomedical_imaging_tpu/ops/fused_mlp.py
 // _make_ln_bwd_kernel (launched by _ln_bwd_call, the custom VJP of
-// fused_ln_mlp_residual).
+// fused_ln_mlp_residual) and, as K2', _make_bwd_kernel (launched by _bwd,
+// the custom VJP of fused_mlp). Without LN, y is x itself, dx = dy and
+// there are no LayerNorm gradients; everything else is the same code.
 //
 // What bounds it on the H100: five products (u, dh, dw2, dw1, dy), 40*N*C^2
 // FLOPs against 6*N*C bytes of x, do in and dx out (bf16), plus the weight
@@ -77,7 +81,7 @@ struct MlpSlots {
   int dw2, db1, db2, dg, dbln;
 };
 
-template <typename T>
+template <typename T, bool LN>
 __global__ void __launch_bounds__(kThreads)
 fused_ln_mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         const float* __restrict__ ln_b, const T* __restrict__ w1,
@@ -113,7 +117,7 @@ fused_ln_mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     const T* xt = x + r0 * C;
     const T* dot = dout + r0 * C;
 
-    layernorm_rows(xt, rows, bm, C, ln_g, ln_b, 1, ys, L.lds, mus, rstds);
+    layernorm_rows(xt, rows, bm, C, ln_g, ln_b, LN ? 1 : 0, ys, L.lds, mus, rstds);
     for (int i = threadIdx.x; i < bm * C; i += kThreads) {
       const int r = i / C, c = i % C;
       dos[(size_t)r * L.lds + c] = r < rows ? dot[(size_t)r * C + c] : from_f32<T>(0.f);
@@ -149,11 +153,16 @@ fused_ln_mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
       __syncthreads();
     }
 
-    // LayerNorm backward per row (one warp per row), plus the residual
+    // LayerNorm backward per row (one warp per row), plus the residual;
+    // without LN, dx = dy
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const float inv = 1.f / (float)C;
     T* dxt = dx + r0 * C;
-    for (int r = warp; r < rows; r += kWarps) {
+    if (!LN) {
+      for (int i = threadIdx.x; i < rows * C; i += kThreads)
+        dxt[i] = from_f32<T>(dy[(size_t)(i / C) * L.lddy + i % C]);
+    }
+    for (int r = warp; LN && r < rows; r += kWarps) {
       const float mu = mus[r], rstd = rstds[r];
       float s1 = 0.f, s2 = 0.f;
       for (int c = lane; c < C; c += 32) {
@@ -175,24 +184,28 @@ fused_ln_mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
         dxt[(size_t)r * C + c] = from_f32<T>(v);
       }
     }
-    // column sums over the tile's rows: d ln_g, d ln_b, db2
+    // column sums over the tile's rows: d ln_g, d ln_b (with LN), db2
     for (int c = threadIdx.x; c < C; c += kThreads) {
       float sg = 0.f, sb = 0.f, so = 0.f;
       for (int r = 0; r < rows; ++r) {
-        const float d = dy[(size_t)r * L.lddy + c];
-        sg += d * (to_f32(xt[(size_t)r * C + c]) - mus[r]) * rstds[r];
-        sb += d;
+        if (LN) {
+          const float d = dy[(size_t)r * L.lddy + c];
+          sg += d * (to_f32(xt[(size_t)r * C + c]) - mus[r]) * rstds[r];
+          sb += d;
+        }
         so += to_f32(dos[(size_t)r * L.lds + c]);
       }
-      s_dg[c] = (first ? 0.f : s_dg[c]) + sg;
-      s_dbln[c] = (first ? 0.f : s_dbln[c]) + sb;
+      if (LN) {
+        s_dg[c] = (first ? 0.f : s_dg[c]) + sg;
+        s_dbln[c] = (first ? 0.f : s_dbln[c]) + sb;
+      }
       s_db2[c] = (first ? 0.f : s_db2[c]) + so;
     }
     __syncthreads();
   }
 }
 
-template <typename T>
+template <typename T, bool LN>
 int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* w1, const void* b1,
                const void* w2, const void* dout, void* dx, float* slots, float* out, size_t P,
                MlpSlots off, int max_slots, int N, int C, int H, cudaStream_t stream) {
@@ -201,13 +214,13 @@ int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* w1
   while (bm > 16 && mlp_bwd_layout(bm, C, sizeof(T)).bytes > (size_t)limit) bm /= 2;
   const size_t bytes = mlp_bwd_layout(bm, C, sizeof(T)).bytes;
   if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(fused_ln_mlp_bwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(fused_ln_mlp_bwd_kernel<T, LN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (N + bm - 1) / bm;
-  const int G = persistent_blocks(fused_ln_mlp_bwd_kernel<T>, bytes, tiles, max_slots);
+  const int G = persistent_blocks(fused_ln_mlp_bwd_kernel<T, LN>, bytes, tiles, max_slots);
   if (G <= 0) return (int)cudaErrorInvalidValue;
-  fused_ln_mlp_bwd_kernel<T><<<G, kThreads, bytes, stream>>>(
+  fused_ln_mlp_bwd_kernel<T, LN><<<G, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
       static_cast<const T*>(w1), static_cast<const float*>(b1), static_cast<const T*>(w2),
       static_cast<const T*>(dout), static_cast<T*>(dx), slots, P, off, N, C, H, bm, tiles);
@@ -238,8 +251,29 @@ extern "C" int lcbi_fused_ln_mlp_bwd(const void* x, const void* ln_g, const void
   float* sl = static_cast<float*>(slots);
   float* o = static_cast<float*>(out);
   if (is_bf16)
-    return lcbi::launch_bwd<__nv_bfloat16>(x, ln_g, ln_b, w1, b1, w2, dout, dx, sl, o, (size_t)P,
-                                           off, max_slots, N, C, H, s);
-  return lcbi::launch_bwd<float>(x, ln_g, ln_b, w1, b1, w2, dout, dx, sl, o, (size_t)P, off,
-                                 max_slots, N, C, H, s);
+    return lcbi::launch_bwd<__nv_bfloat16, true>(x, ln_g, ln_b, w1, b1, w2, dout, dx, sl, o,
+                                                 (size_t)P, off, max_slots, N, C, H, s);
+  return lcbi::launch_bwd<float, true>(x, ln_g, ln_b, w1, b1, w2, dout, dx, sl, o, (size_t)P,
+                                       off, max_slots, N, C, H, s);
+}
+
+// K2', the backward of the MLP without LayerNorm or residual: dx, and in
+// the slots dw1 (C, H) at 0, dw2 (H, C) at off_dw2, db1 (H) and db2 (C).
+// Operands as lcbi_fused_ln_mlp_bwd without ln_g, ln_b and their slots.
+extern "C" int lcbi_fused_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
+                                  const void* dout, void* dx, void* slots, void* out, int N,
+                                  int C, int H, int is_bf16, int max_slots, long long P,
+                                  int off_dw2, int off_db1, int off_db2, void* stream) {
+  (void)cudaGetLastError();
+  if (N <= 0 || C % 16 != 0 || H % lcbi::kBwdChunk != 0 || max_slots < 1 || P % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const lcbi::MlpSlots off{off_dw2, off_db1, off_db2, 0, 0};
+  float* sl = static_cast<float*>(slots);
+  float* o = static_cast<float*>(out);
+  if (is_bf16)
+    return lcbi::launch_bwd<__nv_bfloat16, false>(x, nullptr, nullptr, w1, b1, w2, dout, dx, sl,
+                                                  o, (size_t)P, off, max_slots, N, C, H, s);
+  return lcbi::launch_bwd<float, false>(x, nullptr, nullptr, w1, b1, w2, dout, dx, sl, o,
+                                        (size_t)P, off, max_slots, N, C, H, s);
 }

@@ -21,6 +21,13 @@
 // T, to a global (BW V, C) scratch; after the head loop the out projection
 // reads the tile's o rows back in 128-column chunks. The scratch keeps the
 // fp32 sum over heads out of shared memory, which at C = 768 would not fit.
+//
+// Windows of other sizes up to 512 tokens take the general path
+// (window_attention.cuh): the q | k | v projection into device memory in T
+// (q scale log2(e) rounded once, as above), the row kernel per (window,
+// head, 64 query rows) on full score rows, and the out projection of o.
+// The projections then cost a write and a read of the (T, 3C) stream, and
+// each query tile stages its window's k and v again (from L2).
 #include "window_attention.cuh"
 
 namespace lcbi {
@@ -104,6 +111,22 @@ window_attention_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
 }
 
 template <typename T>
+int launch_fwd_general(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+                       const float* bout, const float* rel, const int* rid, void* obuf,
+                       void* qkv, void* out, int BW, int V, int C, int H, int nW, float scale2,
+                       float mask2, cudaStream_t stream) {
+  const int N = BW * V;
+  int err = launch_proj<T>(x, C, wqkv, 3 * C, false, bqkv, qkv, 3 * C, N, 3 * C, C, C, scale2,
+                           -1, stream);
+  if (err != 0) return err;
+  int blocks = 0;
+  err = launch_rows<T, false>(qkv, 3 * C, rel, rid, nullptr, nullptr, obuf, nullptr, nullptr,
+                              nullptr, 1, BW, V, C, H, nW, 1.f, mask2, &blocks, stream);
+  if (err != 0) return err;
+  return launch_proj<T>(obuf, C, wout, C, false, bout, out, C, N, C, C, 0, 1.f, -1, stream);
+}
+
+template <typename T>
 int launch_fwd(const void* x, const void* wqkv, const float* bqkv, const void* wout,
                const float* bout, const float* rel, const int* rid, void* obuf, void* out, int BW,
                int V, int C, int H, int nW, float scale2, float mask2, cudaStream_t stream) {
@@ -123,15 +146,17 @@ int launch_fwd(const void* x, const void* wqkv, const float* bqkv, const void* w
 }  // namespace lcbi
 
 // x, out, obuf: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); obuf is
-// scratch. wqkv (C, 3C), wout (C, C) in T; bqkv (3C,), bout (C,), rel (H, V, V)
-// fp32; rid (nW, V) int32 or NULL (then nW is ignored). C = 32 H, V in {16,
-// 32, 48, 64}, all pointers 32-byte aligned. scale2 = scale log2(e), mask2 =
-// mask_value log2(e). Returns cudaGetLastError() of the launch.
+// scratch, and so is qkv (BW V, 3C) in T, which only the general path uses
+// (NULL otherwise). wqkv (C, 3C), wout (C, C) in T; bqkv (3C,), bout (C,), rel
+// (H, V, V) fp32; rid (nW, V) int32 or NULL (then nW is ignored). C = 32 H,
+// 1 <= V <= 512 (V = 16, 32, 48, 64: the whole-window path; the rest the
+// general path), all pointers 32-byte aligned. scale2 = scale log2(e), mask2
+// = mask_value log2(e). Returns cudaGetLastError() of the launches.
 extern "C" int lcbi_window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
                                          const void* wout, const void* bout, const void* rel,
-                                         const void* rid, void* obuf, void* out, int BW, int V,
-                                         int C, int H, int nW, float scale2, float mask2,
-                                         int is_bf16, void* stream) {
+                                         const void* rid, void* obuf, void* qkv, void* out,
+                                         int BW, int V, int C, int H, int nW, float scale2,
+                                         float mask2, int is_bf16, void* stream) {
   (void)cudaGetLastError();
   if (!lcbi::attn_shape_ok(BW, V, C, H) || (rid != nullptr && (nW <= 0 || BW % nW != 0)) ||
       (long long)BW * V * 3 * C >= (1LL << 31))
@@ -141,6 +166,14 @@ extern "C" int lcbi_window_attention_fwd(const void* x, const void* wqkv, const 
   const float* b1 = static_cast<const float*>(bout);
   const float* r = static_cast<const float*>(rel);
   const int* ids = static_cast<const int*>(rid);
+  if (!lcbi::whole_window_path(V)) {
+    if (qkv == nullptr) return (int)cudaErrorInvalidValue;
+    if (is_bf16)
+      return lcbi::launch_fwd_general<__nv_bfloat16>(x, wqkv, b3, wout, b1, r, ids, obuf, qkv,
+                                                     out, BW, V, C, H, nW, scale2, mask2, s);
+    return lcbi::launch_fwd_general<float>(x, wqkv, b3, wout, b1, r, ids, obuf, qkv, out, BW, V,
+                                           C, H, nW, scale2, mask2, s);
+  }
   if (is_bf16)
     return lcbi::launch_fwd<__nv_bfloat16>(x, wqkv, b3, wout, b1, r, ids, obuf, out, BW, V, C, H,
                                            nW, scale2, mask2, s);

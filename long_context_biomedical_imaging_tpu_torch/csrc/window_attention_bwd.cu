@@ -23,11 +23,22 @@
 // weight gradients would need megabyte slots per block at C = 768, so this
 // kernel writes dqkv and o in T instead, and the split-K kernel of
 // window_attention_wgrad.cu contracts them.
+//
+// Windows of other sizes up to 512 tokens take the general path
+// (window_attention.cuh). Its backward is six launches: the q | k | v
+// projection recomputed into device memory (q scale log2(e), k, v and the
+// unscaled q, all in T) and do = dout Wout^T per head (T); the row kernel
+// on full score rows, which writes o, dq and each row's (max, sum, delta);
+// the key-tile kernel below, which recomputes p and ds from those statistics
+// for one tile of kKeyTile keys at a time and sums dk, dv over every query
+// row of a window and drel over the windows of its range; dx = dqkv Wqkv^T;
+// and the fixed-order sums of the blocks' slots. drel, H V^2 floats, does
+// not fit a block's shared memory whole at V = 512 (3 MB at 3 heads), so
+// each block keeps the columns of its key tile (V x 32 floats) for all its
+// windows, and the q, do rows of each window are read once per key tile.
 #include "window_attention.cuh"
 
 namespace lcbi {
-
-constexpr int kLdG = kHeadDim + 4;  // the head's fp32 o product
 
 struct BwdLayout {
   int lds, ldp;
@@ -198,6 +209,220 @@ window_attention_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
   }
 }
 
+constexpr int kKeyTile = 32;   // keys of a key-tile block
+constexpr int kQRows = 64;     // query rows per step of a key-tile block
+constexpr int kLdSt = kQRows + 4;
+constexpr int kLdPt = kQRows + 8;
+constexpr int kLdDr = kKeyTile + 4;
+
+struct KvLayout {
+  size_t off_k, off_v, off_q, off_qu, off_do, off_s, off_dp, off_p, off_ds, off_dk, off_dv, off_st,
+      bytes;
+};
+
+// drel's columns of the key tile for every query row (V x 32 fp32) first,
+// then the k, v tile, the q, unscaled q and do rows of a step, the
+// transposed scores and dp (fp32) and p, ds (T) of a step, the fp32 dk, dv
+// sums and the step's row statistics.
+__host__ __device__ inline KvLayout kv_layout(int V, int elem) {
+  KvLayout L;
+  const size_t kv = align128((size_t)kKeyTile * kLdT * elem);
+  const size_t q = align128((size_t)kQRows * kLdT * elem);
+  const size_t st = align128((size_t)kKeyTile * kLdSt * 4);
+  const size_t pt = align128((size_t)kKeyTile * kLdPt * elem);
+  const size_t acc = align128((size_t)kKeyTile * kLdG * 4);
+  L.off_k = align128((size_t)round_up16(V) * kLdDr * 4);
+  L.off_v = L.off_k + kv;
+  L.off_q = L.off_v + kv;
+  L.off_qu = L.off_q + q;
+  L.off_do = L.off_qu + q;
+  L.off_s = L.off_do + q;
+  L.off_dp = L.off_s + st;
+  L.off_p = L.off_dp + st;
+  L.off_ds = L.off_p + pt;
+  L.off_dk = L.off_ds + pt;
+  L.off_dv = L.off_dk + acc;
+  L.off_st = L.off_dv + acc;
+  L.bytes = L.off_st + align128((size_t)3 * kQRows * 4);
+  return L;
+}
+
+// Block (kt, h, g): keys [kt 32, kt 32 + 32) of head h in the windows [BW g
+// / G, BW (g + 1) / G). For each window it walks the query rows in steps of
+// kQRows: s^T = k q^T, p^T = exp2(s^T + rel^T log2(e) + mask - max) / sum
+// from the row kernel's statistics, dp^T = v do^T, ds^T = p^T (dp^T -
+// delta); dv += p^T do, dk += ds^T qu (unscaled q), and drel's tile += ds.
+// It writes dk scale and dv in T to dqkv (columns C + h D and 2C + h D), the
+// column sums of dk scale and dv over its keys and windows to ksums[g nkt +
+// kt] ([dbk | dbv], 2C floats, the head's columns), and the drel tile to
+// rows [0, V) and columns of its keys in kslots[g] (H V V floats). qkvu: q
+// scale log2(e) | k | v | q per token row (ld 4C); dO: do per head (ld C).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+window_attention_keys_kernel(const T* __restrict__ qkvu, const T* __restrict__ dO,
+                             const float* __restrict__ rel, const int* __restrict__ rid,
+                             const float* __restrict__ stats, T* __restrict__ dqkv,
+                             float* __restrict__ kslots, float* __restrict__ ksums, int BW,
+                             int V, int C, int H, int nW, float scale, float mask2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const KvLayout L = kv_layout(V, sizeof(T));
+  float* Dr = reinterpret_cast<float*>(smem);
+  T* Kt = reinterpret_cast<T*>(smem + L.off_k);
+  T* Vt = reinterpret_cast<T*>(smem + L.off_v);
+  T* Q2 = reinterpret_cast<T*>(smem + L.off_q);
+  T* QU = reinterpret_cast<T*>(smem + L.off_qu);
+  T* DOt = reinterpret_cast<T*>(smem + L.off_do);
+  float* St = reinterpret_cast<float*>(smem + L.off_s);
+  float* DPt = reinterpret_cast<float*>(smem + L.off_dp);
+  T* Pt = reinterpret_cast<T*>(smem + L.off_p);
+  T* DSt = reinterpret_cast<T*>(smem + L.off_ds);
+  float* DKA = reinterpret_cast<float*>(smem + L.off_dk);
+  float* DVA = reinterpret_cast<float*>(smem + L.off_dv);
+  float* Mst = reinterpret_cast<float*>(smem + L.off_st);
+  float* Lst = Mst + kQRows;
+  float* Dst = Lst + kQRows;
+
+  const int kt = blockIdx.x, h = blockIdx.y, g = blockIdx.z, G = gridDim.z;
+  const int nkt = gridDim.x;
+  const int j0 = kt * kKeyTile, keys = min(kKeyTile, V - j0);
+  const long long w_begin = (long long)BW * g / G, w_end = (long long)BW * (g + 1) / G;
+  const size_t ld = (size_t)4 * C;
+  const size_t plane = (size_t)BW * H * V;
+  const int nq = (V + kQRows - 1) / kQRows;
+  for (int e = threadIdx.x; e < V * kLdDr; e += kThreads) Dr[e] = 0.f;
+  float colsum = 0.f;   // thread t < 2D: column t of [dk | dv] over the block's keys
+
+  for (long long w = w_begin; w < w_end; ++w) {
+    const size_t row0 = (size_t)w * V;
+    const T* base = qkvu + row0 * ld;
+    const int* rr = rid == nullptr ? nullptr : rid + (size_t)(w % nW) * V;
+    const size_t srow = ((size_t)w * H + h) * V;
+    load_head_rows(Kt, base + (size_t)j0 * ld, ld, C + h * kHeadDim, keys, kKeyTile);
+    load_head_rows(Vt, base + (size_t)j0 * ld, ld, 2 * C + h * kHeadDim, keys, kKeyTile);
+    for (int qs = 0; qs < nq; ++qs) {
+      const int i0 = qs * kQRows, rows = min(kQRows, V - i0);
+      load_head_rows(Q2, base + (size_t)i0 * ld, ld, h * kHeadDim, rows, kQRows);
+      load_head_rows(QU, base + (size_t)i0 * ld, ld, 3 * C + h * kHeadDim, rows, kQRows);
+      load_head_rows(DOt, dO + (row0 + i0) * C, C, h * kHeadDim, rows, kQRows);
+      for (int r = threadIdx.x; r < kQRows; r += kThreads) {
+        Mst[r] = r < rows ? stats[srow + i0 + r] : 0.f;
+        Lst[r] = r < rows ? stats[plane + srow + i0 + r] : 1.f;
+        Dst[r] = r < rows ? stats[2 * plane + srow + i0 + r] : 0.f;
+      }
+      __syncthreads();
+      gemm<false, true>(St, kLdSt, Kt, kLdT, Q2, kLdT, kKeyTile, kQRows, kHeadDim, false);
+      gemm<false, true>(DPt, kLdSt, Vt, kLdT, DOt, kLdT, kKeyTile, kQRows, kHeadDim, false);
+      __syncthreads();
+      for (int e = threadIdx.x; e < kKeyTile * kQRows; e += kThreads) {
+        const int jj = e % kKeyTile, r = e / kKeyTile;
+        const int i = i0 + r, j = j0 + jj;
+        float p = 0.f, ds = 0.f;
+        if (jj < keys && r < rows) {
+          float s = St[jj * kLdSt + r] + rel[((size_t)h * V + i) * V + j] * kLog2e;
+          if (rr != nullptr) s += rr[i] != rr[j] ? mask2 : 0.f;
+          p = exp2f(s - Mst[r]) / Lst[r];
+          ds = p * (DPt[jj * kLdSt + r] - Dst[r]);
+          Dr[i * kLdDr + jj] += ds;
+        }
+        Pt[jj * kLdPt + r] = from_f32<T>(p);
+        DSt[jj * kLdPt + r] = from_f32<T>(ds);
+      }
+      __syncthreads();
+      gemm<false, false>(DVA, kLdG, Pt, kLdPt, DOt, kLdT, kKeyTile, kHeadDim, kQRows, qs > 0);
+      gemm<false, false>(DKA, kLdG, DSt, kLdPt, QU, kLdT, kKeyTile, kHeadDim, kQRows, qs > 0);
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < keys * kHeadDim; e += kThreads) {
+      const int jj = e / kHeadDim, d = e % kHeadDim;
+      T* drow = dqkv + (row0 + j0 + jj) * 3 * C + h * kHeadDim + d;
+      drow[C] = from_f32<T>(DKA[jj * kLdG + d] * scale);
+      drow[2 * C] = from_f32<T>(DVA[jj * kLdG + d]);
+    }
+    if (threadIdx.x < 2 * kHeadDim) {
+      const int d = threadIdx.x % kHeadDim;
+      const float* A = threadIdx.x < kHeadDim ? DKA : DVA;
+      const float mul = threadIdx.x < kHeadDim ? scale : 1.f;
+      for (int jj = 0; jj < keys; ++jj) colsum += A[jj * kLdG + d] * mul;
+    }
+    __syncthreads();
+  }
+  float* drel = kslots + (size_t)g * H * V * V + (size_t)h * V * V;
+  for (int e = threadIdx.x; e < V * keys; e += kThreads) {
+    const int i = e / keys, jj = e % keys;
+    drel[(size_t)i * V + j0 + jj] = Dr[i * kLdDr + jj];
+  }
+  if (threadIdx.x < 2 * kHeadDim) {
+    const int part = threadIdx.x / kHeadDim, d = threadIdx.x % kHeadDim;
+    ksums[((size_t)g * nkt + kt) * 2 * C + part * C + h * kHeadDim + d] = colsum;
+  }
+}
+
+// Window ranges of the key-tile grid: enough that its nkt H blocks per range
+// fill the card's resident blocks four times over, at most max_gw and BW.
+template <typename T>
+int key_ranges(int BW, int V, int H, int max_gw) {
+  const size_t bytes = kv_layout(V, sizeof(T)).bytes;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_attention_keys_kernel<T>,
+                                                    kThreads, bytes) != cudaSuccess)
+    return 0;
+  const long long per_range = (long long)((V + kKeyTile - 1) / kKeyTile) * H;
+  long long g = (4LL * sms * (per_sm > 0 ? per_sm : 1) + per_range - 1) / per_range;
+  if (g < 1) g = 1;
+  if (g > BW) g = BW;
+  if (g > max_gw) g = max_gw;
+  return (int)g;
+}
+
+// The general path's backward (see the top of this file). red receives
+// [dbqkv (3C) | dbout (C) | drel (H V V)] as the whole-window path's.
+template <typename T>
+int launch_bwd_general(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+                       const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
+                       void* o, float* slots, float* red, void* qkvu, void* dob, float* stats,
+                       float* kslots, float* ksums, int BW, int V, int C, int H, int nW,
+                       float scale, float scale2, float mask2, int max_slots, int max_gw,
+                       cudaStream_t stream) {
+  const int N = BW * V;
+  int err = launch_proj<T>(x, C, wqkv, 3 * C, false, bqkv, qkvu, 4 * C, N, 3 * C, C, C, scale2,
+                           3 * C, stream);
+  if (err != 0) return err;
+  err = launch_proj<T>(dout, C, wout, C, true, nullptr, dob, C, N, C, C, 0, 1.f, -1, stream);
+  if (err != 0) return err;
+  int G1 = 0;
+  err = launch_rows<T, true>(qkvu, 4 * C, rel, rid, dob, dout, o, dqkv, stats, slots, max_slots,
+                             BW, V, C, H, nW, scale, mask2, &G1, stream);
+  if (err != 0) return err;
+  const size_t bytes = kv_layout(V, sizeof(T)).bytes;
+  if (bytes > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
+  cudaError_t cerr = cudaFuncSetAttribute(window_attention_keys_kernel<T>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const int nkt = (V + kKeyTile - 1) / kKeyTile;
+  const int Gw = key_ranges<T>(BW, V, H, max_gw);
+  if (Gw <= 0) return (int)cudaErrorInvalidValue;
+  window_attention_keys_kernel<T><<<dim3((unsigned)nkt, (unsigned)H, (unsigned)Gw), kThreads,
+                                    bytes, stream>>>(
+      static_cast<const T*>(qkvu), static_cast<const T*>(dob), rel, rid, stats,
+      static_cast<T*>(dqkv), kslots, ksums, BW, V, C, H, nW, scale, mask2);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return (int)cerr;
+  err = launch_proj<T>(dqkv, 3 * C, wqkv, 3 * C, true, nullptr, dx, C, N, C, 3 * C, 0, 1.f, -1,
+                       stream);
+  if (err != 0) return err;
+  // red: dbq from the row slots' [0, C), dbk | dbv from the key sums, dbout
+  // from the row slots' [C, 2C), drel from the key slots
+  if ((err = launch_reduce(slots, G1, 2 * C, C, red, stream)) != 0) return err;
+  if ((err = launch_reduce(ksums, Gw * nkt, 2 * C, 2 * C, red + C, stream)) != 0)
+    return err;
+  if ((err = launch_reduce(slots + C, G1, 2 * C, C, red + 3 * C, stream)) != 0)
+    return err;
+  return launch_reduce(kslots, Gw, (size_t)H * V * V, (size_t)H * V * V, red + 4 * C,
+                               stream);
+}
+
 template <typename T>
 int launch_bwd(const void* x, const void* wqkv, const float* bqkv, const void* wout,
                const float* rel, const int* rid, const void* dout, void* dx, void* dqkv, void* o,
@@ -225,18 +450,26 @@ int launch_bwd(const void* x, const void* wqkv, const float* bqkv, const void* w
 
 // x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); dqkv (BW V,
 // 3C) and o (BW V, C) in T, written; wqkv (C, 3C), wout (C, C) in T; bqkv (3C,),
-// rel (H, V, V) fp32; rid (nW, V) int32 or NULL. slots: max_slots x (4C + H V V)
-// fp32 scratch; red (4C + H V V) fp32 receives [dbqkv | dbout | drel]. Shapes
-// as lcbi_window_attention_fwd. Returns cudaGetLastError() of the launches.
+// rel (H, V, V) fp32; rid (nW, V) int32 or NULL. red (4C + H V V) fp32
+// receives [dbqkv | dbout | drel]. Whole-window path (V = 16, 32, 48, 64):
+// slots max_slots x (4C + H V V) fp32 scratch; the general path's scratch
+// pointers may be NULL. General path (every other V up to 512): slots
+// max_slots x 2C fp32; qkvu (BW V, 4C) and dob (BW V, C) in T; stats 3 BW H V
+// fp32; kslots max_gw x H V V and ksums max_gw ceil(V / 32) x 2C fp32.
+// Shapes as lcbi_window_attention_fwd. Returns cudaGetLastError() of the
+// launches.
 extern "C" int lcbi_window_attention_bwd(const void* x, const void* wqkv, const void* bqkv,
                                          const void* wout, const void* rel, const void* rid,
                                          const void* dout, void* dx, void* dqkv, void* o,
-                                         void* slots, void* red, int BW, int V, int C, int H,
-                                         int nW, float scale, float scale2, float mask2,
-                                         int max_slots, int is_bf16, void* stream) {
+                                         void* slots, void* red, void* qkvu, void* dob,
+                                         void* stats, void* kslots, void* ksums, int BW, int V,
+                                         int C, int H, int nW, float scale, float scale2,
+                                         float mask2, int max_slots, int max_gw, int is_bf16,
+                                         void* stream) {
   (void)cudaGetLastError();
+  const bool whole = lcbi::whole_window_path(V);
   if (!lcbi::attn_shape_ok(BW, V, C, H) || (rid != nullptr && (nW <= 0 || BW % nW != 0)) ||
-      (long long)BW * V * 3 * C >= (1LL << 31) || max_slots < 1)
+      (long long)BW * V * (whole ? 3 : 4) * C >= (1LL << 31) || max_slots < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b3 = static_cast<const float*>(bqkv);
@@ -244,9 +477,37 @@ extern "C" int lcbi_window_attention_bwd(const void* x, const void* wqkv, const 
   const int* ids = static_cast<const int*>(rid);
   float* sl = static_cast<float*>(slots);
   float* rd = static_cast<float*>(red);
+  if (!whole) {
+    if (qkvu == nullptr || dob == nullptr || stats == nullptr || kslots == nullptr ||
+        ksums == nullptr || max_gw < 1)
+      return (int)cudaErrorInvalidValue;
+    float* st = static_cast<float*>(stats);
+    float* ks = static_cast<float*>(kslots);
+    float* ku = static_cast<float*>(ksums);
+    if (is_bf16)
+      return lcbi::launch_bwd_general<__nv_bfloat16>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o,
+                                                     sl, rd, qkvu, dob, st, ks, ku, BW, V, C, H,
+                                                     nW, scale, scale2, mask2, max_slots, max_gw,
+                                                     s);
+    return lcbi::launch_bwd_general<float>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o, sl, rd,
+                                           qkvu, dob, st, ks, ku, BW, V, C, H, nW, scale, scale2,
+                                           mask2, max_slots, max_gw, s);
+  }
   if (is_bf16)
     return lcbi::launch_bwd<__nv_bfloat16>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o, sl, rd,
                                            BW, V, C, H, nW, scale, scale2, mask2, max_slots, s);
   return lcbi::launch_bwd<float>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o, sl, rd, BW, V, C,
                                  H, nW, scale, scale2, mask2, max_slots, s);
+}
+
+// The number of window ranges (rows of kslots) that the general backward's
+// key-tile grid runs for these shapes, given at most max_gw, and in
+// *key_tiles its key tiles per window (ksums has ranges x key_tiles rows); 0
+// on a device query error. Launches nothing.
+extern "C" int lcbi_window_attention_key_ranges(int BW, int V, int H, int max_gw, int is_bf16,
+                                                int* key_tiles) {
+  if (BW < 1 || V < 1 || V > lcbi::kMaxTokens || H < 1 || max_gw < 1) return 0;
+  *key_tiles = (V + lcbi::kKeyTile - 1) / lcbi::kKeyTile;
+  return is_bf16 ? lcbi::key_ranges<__nv_bfloat16>(BW, V, H, max_gw)
+                 : lcbi::key_ranges<float>(BW, V, H, max_gw);
 }

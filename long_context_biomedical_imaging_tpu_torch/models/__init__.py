@@ -1,6 +1,6 @@
 from .class_heads import SwinLinear, ViTLinear
 from .hyena import HyenaFilter, HyenaOperator
-from .layers import (FlaxLayerNorm, LayerNormAmp, LNMLPResidual, PatchEmbed,
+from .layers import (FlaxLayerNorm, LayerNormAmp, LNMLPResidual, MLPBlock, PatchEmbed,
                      PatchEmbeddingBlock, TorchDense, extract_patches, init_weights,
                      parameterless_layer_norm)
 from .model_base import EncoderDecoderModel, build_model
@@ -10,7 +10,7 @@ from .vit import SABlock, TransformerBlock, ViTBackbone, build_vit, vit_size_pre
 
 __all__ = [
     "SwinLinear", "ViTLinear", "HyenaFilter", "HyenaOperator", "FlaxLayerNorm",
-    "LayerNormAmp", "LNMLPResidual", "PatchEmbed", "PatchEmbeddingBlock", "TorchDense",
+    "LayerNormAmp", "LNMLPResidual", "MLPBlock", "PatchEmbed", "PatchEmbeddingBlock", "TorchDense",
     "extract_patches", "init_weights", "parameterless_layer_norm", "EncoderDecoderModel",
     "build_model", "BasicLayer", "PatchMergingV2", "SwinBackbone", "SwinTransformerBlock",
     "WindowAttention", "build_swin",

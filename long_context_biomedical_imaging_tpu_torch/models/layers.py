@@ -1,4 +1,4 @@
-"""Shared model blocks: Dense, patch embeddings, fused LN+MLP, LayerNorms.
+"""Shared model blocks: Dense, patch embeddings, the MLPs, LayerNorms.
 
 Counterpart of the JAX package's ``models/layers.py``. Parameters keep the
 JAX names and layouts (Dense kernels are (in, out)), so a JAX parameter tree
@@ -18,7 +18,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.fused_mlp import fused_ln_mlp_residual
+from ..ops.fused_mlp import fused_ln_mlp_residual, fused_mlp
 
 
 def uniform_fan_in_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -144,6 +144,48 @@ class PatchEmbeddingBlock(PatchEmbed):
         if self.position_embeddings is None:
             return x
         return x + self.position_embeddings.to(x.dtype)
+
+
+class MLPBlock(nn.Module):
+    """Transformer MLP: Dense -> GELU -> dropout -> Dense -> dropout (MONAI's
+    MLPBlock), with the JAX package's parameters fc1_kernel (C, H), fc1_bias,
+    fc2_kernel (H, C), fc2_bias and their torch nn.Linear initialisation.
+    With ``dropout_rate`` 0 or in eval mode it runs K2' (``ops.fused_mlp``),
+    as the JAX package runs its fused kernel; otherwise the composed path:
+    Linear, exact GELU, dropout, Linear, dropout, with keep masks drawn from
+    the ``generator`` the caller passes (the JAX package's from its dropout
+    rng: the two draw different masks). x: (..., C)."""
+
+    def __init__(self, hidden_size: int, mlp_dim: int, dropout_rate: float = 0.0):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.fc1_kernel = nn.Parameter(torch.empty(hidden_size, mlp_dim))
+        self.fc1_bias = nn.Parameter(torch.empty(mlp_dim))
+        self.fc2_kernel = nn.Parameter(torch.empty(mlp_dim, hidden_size))
+        self.fc2_bias = nn.Parameter(torch.empty(hidden_size))
+
+    def init_params(self, gen):
+        hidden, mlp_dim = self.fc1_kernel.shape
+        uniform_fan_in_(self.fc1_kernel, hidden, gen)
+        uniform_fan_in_(self.fc1_bias, hidden, gen)
+        uniform_fan_in_(self.fc2_kernel, mlp_dim, gen)
+        uniform_fan_in_(self.fc2_bias, mlp_dim, gen)
+
+    def _dropout(self, h, generator):
+        keep = 1.0 - self.dropout_rate
+        mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+        return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        if self.dropout_rate == 0.0 or not self.training:
+            return fused_mlp(x, self.fc1_kernel, self.fc1_bias, self.fc2_kernel, self.fc2_bias)
+        if generator is None:
+            raise ValueError("MLPBlock draws its dropout masks from an explicit generator")
+        c = x.shape[-1]
+        h = x.reshape(-1, c) @ self.fc1_kernel.to(x.dtype) + self.fc1_bias.to(x.dtype)
+        h = self._dropout(nn.functional.gelu(h), generator)
+        out = h @ self.fc2_kernel.to(x.dtype) + self.fc2_bias.to(x.dtype)
+        return self._dropout(out, generator).reshape(x.shape)
 
 
 class LNMLPResidual(nn.Module):

@@ -64,20 +64,34 @@ HYENA_L_MAX = 66000  # ref: backbone_swin.py:317
 
 class _TableGather(torch.autograd.Function):
     """rel = table[index] for a flat index: an exact gather forward; the
-    backward sums each table row's cotangents by a fixed one-hot product,
-    (T, V*V) @ (V*V, H), in fp32, so it is the same from run to run (the
-    scatter-add of ``index_select``'s backward uses atomics on CUDA)."""
+    backward sums each table row's cotangents in fp32 over its positions,
+    listed in ``positions`` (T, n) in ascending order and padded with V*V, a
+    zero row: a gather and a sum over a fixed axis, the same from run to run
+    (the scatter-add of ``index_select``'s backward uses atomics on CUDA)."""
 
     @staticmethod
-    def forward(ctx, table, index, onehot_t):
-        ctx.save_for_backward(onehot_t)
+    def forward(ctx, table, index, positions):
+        ctx.save_for_backward(positions)
         ctx.dtype = table.dtype
         return table[index]
 
     @staticmethod
     def backward(ctx, grad):
-        (onehot_t,) = ctx.saved_tensors
-        return (onehot_t @ grad.float()).to(ctx.dtype), None, None
+        (positions,) = ctx.saved_tensors
+        padded = torch.cat([grad.float(), grad.new_zeros(1, grad.shape[1], dtype=torch.float32)])
+        return padded[positions].sum(dim=1).to(ctx.dtype), None, None
+
+
+def table_positions(index: np.ndarray, rows: int) -> np.ndarray:
+    """(rows, n) int64: the positions of each table row in the flat index, in
+    ascending order, padded with len(index); n the most any row has."""
+    order = np.argsort(index, kind="stable")
+    counts = np.bincount(index, minlength=rows)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    positions = np.full((rows, max(int(counts.max()), 1)), index.size, np.int64)
+    rank = np.arange(index.size) - starts[index[order]]
+    positions[index[order], rank] = order
+    return positions
 
 
 class WindowAttention(nn.Module):
@@ -115,10 +129,8 @@ class WindowAttention(nn.Module):
         self.proj_bias = nn.Parameter(torch.empty(dim))
         index = relative_position_index(self.window_size).reshape(-1).long()
         self._index = index
-        onehot = np.zeros((self.relative_position_bias_table.shape[0], index.numel()),
-                          np.float32)
-        onehot[index.numpy(), np.arange(index.numel())] = 1.0
-        self._onehot_t = torch.from_numpy(onehot)
+        self._positions = torch.from_numpy(table_positions(
+            index.numpy(), self.relative_position_bias_table.shape[0]))
         self._on_device = {}
 
     def init_params(self, gen):
@@ -138,10 +150,10 @@ class WindowAttention(nn.Module):
         key = str(table.device)
         if key not in self._on_device:
             self._on_device[key] = (self._index.to(table.device),
-                                    self._onehot_t.to(table.device))
-        index, onehot_t = self._on_device[key]
+                                    self._positions.to(table.device))
+        index, positions = self._on_device[key]
         v = int(np.prod(self.window_size))
-        rel = _TableGather.apply(table, index, onehot_t)
+        rel = _TableGather.apply(table, index, positions)
         return rel.reshape(v, v, self.num_heads).permute(2, 0, 1)
 
     def forward(self, x, rid=None, ln_params=None):

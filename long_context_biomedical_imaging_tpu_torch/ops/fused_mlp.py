@@ -1,11 +1,14 @@
-"""Fused pre-LN transformer MLP with residual: x + MLP(LayerNorm(x)).
+"""Fused transformer MLPs: x + MLP(LayerNorm(x)) (K2) and MLP(x) (K2').
 
 Counterpart of ``long_context_biomedical_imaging_tpu/ops/fused_mlp.py``
-(``fused_ln_mlp_residual`` and its custom VJP). On a CUDA tensor the wrapper
-launches the hand-written kernels ``csrc/fused_mlp.cu`` (forward) and
-``csrc/fused_mlp_bwd.cu`` (backward, which recomputes the hidden from x); on a
-CPU tensor it runs :func:`fused_ln_mlp_residual_plain` and its vector-Jacobian
-product :func:`fused_ln_mlp_residual_bwd_plain`.
+(``fused_ln_mlp_residual`` and ``fused_mlp``, each with its custom VJP). On
+a CUDA tensor the wrappers launch the hand-written kernels
+``csrc/fused_mlp.cu`` (forward) and ``csrc/fused_mlp_bwd.cu`` (backward,
+which recomputes the hidden from x); K2' is the same kernels with the
+LayerNorm and the residual switched off by a template argument, behind their
+own C entry points and launch counters. On a CPU tensor they run
+:func:`fused_ln_mlp_residual_plain` / :func:`fused_mlp_plain` and their
+vector-Jacobian products.
 
 Precision, shared by kernel and plain version and taken from the TPU kernel:
 LayerNorm statistics and everything between the two products in fp32; both
@@ -36,6 +39,13 @@ FUSED_LN_MLP_FWD = CudaKernel(
 FUSED_LN_MLP_BWD = CudaKernel(
     "fused_mlp_bwd.cu", "lcbi_fused_ln_mlp_bwd",
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+    + [ctypes.c_void_p])
+FUSED_MLP_FWD = CudaKernel(
+    "fused_mlp.cu", "lcbi_fused_mlp_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p])
+FUSED_MLP_BWD = CudaKernel(
+    "fused_mlp_bwd.cu", "lcbi_fused_mlp_bwd",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
     + [ctypes.c_void_p])
 
 
@@ -169,4 +179,120 @@ def fused_ln_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2):
     c = x.shape[-1]
     out = _FusedLnMlpResidual.apply(x.reshape(-1, c), ln_scale.float(), ln_bias.float(),
                                     w1, b1.float(), w2, b2.float())
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# K2': the MLP without LayerNorm or residual (the JAX package's MLPBlock path)
+# ---------------------------------------------------------------------------
+
+def fused_mlp_plain(x, w1, b1, w2, b2):
+    """GELU(x @ w1 + b1) @ w2 + b2 in plain PyTorch, in K2''s precision: both
+    products take operands rounded to x.dtype and sum in fp32, the biases add
+    in fp32, GELU in the form of x.dtype (tanh for bf16, erf for fp32), the
+    output rounded once. x: (..., C); w1: (C, H); w2: (H, C)."""
+    dt = x.dtype
+    c = x.shape[-1]
+    h = gelu(matmul_rounded(x.reshape(-1, c), w1, dt) + b1.float(), dt)
+    out = matmul_rounded(h, w2, dt) + b2.float()
+    return out.to(dt).reshape(x.shape)
+
+
+def fused_mlp_bwd_plain(do, x, w1, b1, w2, b2):
+    """The vector-Jacobian product of :func:`fused_mlp_plain` for ``do``, by
+    ``torch.func.vjp``: (dx, dw1, db1, dw2, db2), each in its input's dtype."""
+    _, vjp = torch.func.vjp(fused_mlp_plain, x, w1, b1, w2, b2)
+    return vjp(do)
+
+
+def _check_mlp_operands(x2, w1, b1, w2, b2):
+    n, c = x2.shape
+    hidden = w1.shape[-1]
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused MLP kernel takes fp32 or bf16, got {x2.dtype}")
+    if n == 0 or c % 16 or hidden % 64 or x2.numel() >= 2**31:
+        raise ValueError(f"fused MLP kernel needs 0 < N*C < 2^31, C % 16 == 0 and H % 64 == 0; "
+                         f"got N={n}, C={c}, H={hidden}")
+    if not x2.is_cuda:
+        raise ValueError(f"fused MLP kernels take CUDA tensors, got x on {x2.device}")
+    dev = x2.device
+    check_cuda_operand("x", x2, dev, x2.dtype, (n, c))
+    check_cuda_operand("w1", w1, dev, x2.dtype, (c, hidden))
+    check_cuda_operand("w2", w2, dev, x2.dtype, (hidden, c))
+    check_cuda_operand("b1", b1, dev, torch.float32, (hidden,))
+    check_cuda_operand("b2", b2, dev, torch.float32, (c,))
+
+
+def fused_mlp_fwd(x2, w1, b1, w2, b2):
+    """The K2' forward kernel on CUDA: x2 (N, C) and w1, w2 in x2.dtype, b1,
+    b2 fp32; the output of :func:`fused_mlp_plain`."""
+    _check_mlp_operands(x2, w1, b1, w2, b2)
+    n, c = x2.shape
+    out = torch.empty_like(x2)
+    FUSED_MLP_FWD(ptr(x2), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(out), n, c, w1.shape[1],
+                  int(x2.dtype == torch.bfloat16), stream_handle(x2.device))
+    return out
+
+
+def fused_mlp_bwd(do, x2, w1, b1, w2, b2):
+    """The K2' backward kernel on CUDA (operands as :func:`fused_mlp_fwd`):
+    (dx in x2.dtype, dw1, db1, dw2, db2 in fp32), summed over the rows in
+    K2's fixed order."""
+    _check_mlp_operands(x2, w1, b1, w2, b2)
+    n, c = x2.shape
+    hidden = w1.shape[1]
+    check_cuda_operand("do", do, x2.device, x2.dtype, (n, c))
+    layout, size = slot_layout([("dw1", c * hidden), ("dw2", hidden * c), ("db1", hidden),
+                                ("db2", c)])
+    slots = torch.empty(slot_count(size, x2.device), size, device=x2.device,
+                        dtype=torch.float32)
+    red = torch.empty(size, device=x2.device, dtype=torch.float32)
+    dx = torch.empty_like(x2)
+    FUSED_MLP_BWD(ptr(x2), ptr(w1), ptr(b1), ptr(w2), ptr(do), ptr(dx), ptr(slots), ptr(red), n,
+                  c, hidden, int(x2.dtype == torch.bfloat16), slots.shape[0], size,
+                  layout["dw2"], layout["db1"], layout["db2"], stream_handle(x2.device))
+
+    def grad(name, shape):
+        return red[layout[name]:layout[name] + math.prod(shape)].view(shape)
+
+    return (dx, grad("dw1", (c, hidden)), grad("db1", (hidden,)), grad("dw2", (hidden, c)),
+            grad("db2", (c,)))
+
+
+class _FusedMlp(torch.autograd.Function):
+    """MLP(x) on (N, C) rows with fp32 biases and weights of any float dtype
+    (rounded to x.dtype for the kernels, their gradients returned in their
+    own dtype, as the JAX package's). The forward saves only its inputs; the
+    backward recomputes the hidden, in the kernel on CUDA and through the
+    plain VJP on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2):
+        ctx.save_for_backward(x2, w1, b1, w2, b2)
+        if x2.is_cuda:
+            return fused_mlp_fwd(x2, w1.to(x2.dtype).contiguous(), b1, w2.to(x2.dtype)
+                                 .contiguous(), b2)
+        return fused_mlp_plain(x2, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, do):
+        x2, w1, b1, w2, b2 = ctx.saved_tensors
+        if not do.is_cuda:
+            return fused_mlp_bwd_plain(do, x2, w1, b1, w2, b2)
+        dx, dw1, db1, dw2, db2 = fused_mlp_bwd(do.contiguous(), x2, w1.to(x2.dtype).contiguous(),
+                                               b1, w2.to(x2.dtype).contiguous(), b2)
+        return dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2
+
+
+def fused_mlp(x, w1, b1, w2, b2):
+    """GELU(x @ w1 + b1) @ w2 + b2 with the hidden kept on chip (K2').
+
+    x: (..., C) fp32 or bf16; w1: (C, H); b1: (H,); w2: (H, C); b2: (C,).
+    Returns x.shape in x.dtype, differentiable in every argument. A CUDA
+    tensor goes through the K2' kernels (or raises); a CPU tensor through
+    the plain versions. The biases enter as fp32, cast here."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"no fused MLP for device {x.device}")
+    c = x.shape[-1]
+    out = _FusedMlp.apply(x.reshape(-1, c).contiguous(), w1, b1.float(), w2, b2.float())
     return out.reshape(x.shape)

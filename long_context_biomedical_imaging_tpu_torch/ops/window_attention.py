@@ -16,7 +16,7 @@ dWout = o^T dout, split-K partials summed in a fixed order). On a CPU tensor
 it runs :func:`window_attention_plain` and the VJP of that,
 :func:`window_attention_bwd_plain`. Windows of more than ``MAX_TOKENS`` take
 the plain version on every device, as the JAX package takes its XLA path
-there.
+there: that is the JAX package's route, not a fallback.
 
 Precision, shared by the kernels and the plain version and taken from the TPU
 kernel: the projections take operands rounded to ``x.dtype`` (bf16 under AMP)
@@ -34,11 +34,14 @@ matrix product. A CUDA block attends within each window directly and reads
 window w's region ids from row w % nW of the (nW, V) table, which is the JAX
 package's ``jnp.tile`` of the table over the batch.
 
-The kernels take windows of 16, 32, 48 or 64 tokens (2D windows 4x4 to 8x8)
-and head dim 32, the head dim of every Swin preset. Larger windows up to
-``MAX_TOKENS`` (3D windows) and windows that are not a multiple of 16 tokens
-(shrunk windows) raise NotImplementedError on CUDA (ROADMAP.md queue 2);
-another head dim raises ValueError.
+The kernels take every window of 1 to ``MAX_TOKENS`` tokens, as the TPU
+kernel does, at head dim 32, the head dim of every Swin preset; another head
+dim raises ValueError. Windows of 16, 32, 48 or 64 tokens (2D windows 4x4 to
+8x8) take the whole-window path, a block per tile of whole windows; every
+other V (3D windows of up to 8x8x8, shrunk and ragged windows such as 7x7)
+takes the general path, which writes q, k, v (and in the backward do and
+each query row's softmax statistics) to device memory in scratch that the
+wrappers allocate (``csrc/window_attention.cuh``).
 """
 
 from __future__ import annotations
@@ -48,22 +51,23 @@ import math
 
 import torch
 
-from .cuda_build import CudaKernel, check_cuda_operand, ptr, slot_count, stream_handle
+from .cuda_build import (SLOT_BYTES_BUDGET, CudaKernel, check_cuda_operand, ptr, slot_count,
+                         stream_handle)
 from .fused_mlp import matmul_rounded
 
 LOG2E = math.log2(math.e)
 MAX_TOKENS = 512          # the JAX package's single-block ceiling; larger windows: plain
 KERNEL_HEAD_DIM = 32
-KERNEL_TOKENS = (16, 32, 48, 64)
+WHOLE_WINDOW_TOKENS = (16, 32, 48, 64)   # the whole-window path; other V: the general path
 
 WINDOW_ATTENTION_FWD = CudaKernel(
     "window_attention.cu", "lcbi_window_attention_fwd",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
     + [ctypes.c_int, ctypes.c_void_p])
 WINDOW_ATTENTION_BWD = CudaKernel(
     "window_attention_bwd.cu", "lcbi_window_attention_bwd",
-    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 WINDOW_ATTENTION_WGRAD = CudaKernel(
     "window_attention_wgrad.cu", "lcbi_window_attention_wgrad",
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -115,12 +119,13 @@ def _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads):
     if heads <= 0 or c != heads * KERNEL_HEAD_DIM:
         raise ValueError(f"K8 kernels take a head dim of {KERNEL_HEAD_DIM} (C = 32 H, every "
                          f"Swin preset), got C={c} with {heads} heads")
-    if v not in KERNEL_TOKENS:
-        raise NotImplementedError(
-            f"K8 kernels take windows of {KERNEL_TOKENS} tokens, got V={v}: larger windows up "
-            f"to {MAX_TOKENS} tokens and shrunk windows are ROADMAP.md queue 2")
-    if bw == 0 or bw * v * 3 * c >= 2**31:
-        raise ValueError(f"K8 kernels take 0 < BW*V*3C < 2^31, got BW={bw}, V={v}, C={c}")
+    if not 1 <= v <= MAX_TOKENS:
+        raise ValueError(f"K8 kernels take windows of 1 to {MAX_TOKENS} tokens, got V={v} (a "
+                         f"larger window takes the plain version, as in the JAX package)")
+    width = 3 * c if v in WHOLE_WINDOW_TOKENS else 4 * c   # the widest stream each path writes
+    if bw == 0 or bw * v * width >= 2**31:
+        raise ValueError(f"K8 kernels take 0 < BW*V*{width // c}C < 2^31, got BW={bw}, V={v}, "
+                         f"C={c}")
     if not x.is_cuda:
         raise ValueError(f"K8 kernels take CUDA tensors, got x on {x.device}")
     dev = x.device
@@ -150,9 +155,12 @@ def window_attention_fwd(x, wqkv, bqkv, wout, bout, rel, heads: int, rid=None,
     bw, v, c, nw = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads)
     out = torch.empty_like(x)
     obuf = torch.empty_like(x)       # each head's o, read back by the out projection
+    qkv = (None if v in WHOLE_WINDOW_TOKENS
+           else torch.empty(bw * v, 3 * c, device=x.device, dtype=x.dtype))
     WINDOW_ATTENTION_FWD(ptr(x), ptr(wqkv), ptr(bqkv), ptr(wout), ptr(bout), ptr(rel), ptr(rid),
-                         ptr(obuf), ptr(out), bw, v, c, heads, nw, *_scales(scale, mask_value),
-                         int(x.dtype == torch.bfloat16), stream_handle(x.device))
+                         ptr(obuf), ptr(qkv), ptr(out), bw, v, c, heads, nw,
+                         *_scales(scale, mask_value), int(x.dtype == torch.bfloat16),
+                         stream_handle(x.device))
     return out
 
 
@@ -164,16 +172,38 @@ def window_attention_bwd_streams(do, x, wqkv, bqkv, wout, bout, rel, heads: int,
     bw, v, c, nw = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads)
     check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
     n, dev = bw * v, x.device
-    size = 4 * c + heads * v * v
-    n_slots = slot_count(size, dev)
-    slots = torch.empty(n_slots, size, device=dev, dtype=torch.float32)
-    red = torch.empty(size, device=dev, dtype=torch.float32)
+    red = torch.empty(4 * c + heads * v * v, device=dev, dtype=torch.float32)
     dx = torch.empty_like(x)
     dqkv = torch.empty(n, 3 * c, device=dev, dtype=x.dtype)
     o = torch.empty(n, c, device=dev, dtype=x.dtype)
+    qkvu = dob = stats = kslots = ksums = None
+    max_gw = 1
+    if v in WHOLE_WINDOW_TOKENS:
+        size = red.numel()
+    else:
+        # the general path: the row kernel's slots hold its dq and dout column
+        # sums; the key-tile kernel's, drel over a range of windows (kslots)
+        # and its dk and dv column sums (ksums)
+        size = 2 * c
+        qkvu = torch.empty(n, 4 * c, device=dev, dtype=x.dtype)
+        dob = torch.empty(n, c, device=dev, dtype=x.dtype)
+        stats = torch.empty(3 * bw * heads * v, device=dev, dtype=torch.float32)
+        budget = max(1, SLOT_BYTES_BUDGET // (4 * heads * v * v))
+        key_tiles = ctypes.c_int(0)
+        max_gw = WINDOW_ATTENTION_BWD.query(
+            "lcbi_window_attention_key_ranges", [ctypes.c_int] * 5 + [ctypes.c_void_p],
+            ctypes.c_int, bw, v, heads, budget, int(x.dtype == torch.bfloat16),
+            ctypes.cast(ctypes.byref(key_tiles), ctypes.c_void_p))
+        if max_gw < 1:
+            raise RuntimeError("lcbi_window_attention_key_ranges: device query failed")
+        kslots = torch.empty(max_gw, heads * v * v, device=dev, dtype=torch.float32)
+        ksums = torch.empty(max_gw * key_tiles.value, 2 * c, device=dev, dtype=torch.float32)
+    n_slots = slot_count(size, dev)
+    slots = torch.empty(n_slots, size, device=dev, dtype=torch.float32)
     WINDOW_ATTENTION_BWD(ptr(x), ptr(wqkv), ptr(bqkv), ptr(wout), ptr(rel), ptr(rid), ptr(do),
-                         ptr(dx), ptr(dqkv), ptr(o), ptr(slots), ptr(red), bw, v, c, heads, nw,
-                         ctypes.c_float(scale), *_scales(scale, mask_value), n_slots,
+                         ptr(dx), ptr(dqkv), ptr(o), ptr(slots), ptr(red), ptr(qkvu), ptr(dob),
+                         ptr(stats), ptr(kslots), ptr(ksums), bw, v, c, heads, nw,
+                         ctypes.c_float(scale), *_scales(scale, mask_value), n_slots, max_gw,
                          int(x.dtype == torch.bfloat16), stream_handle(dev))
     return dx, dqkv, o, red[:3 * c], red[3 * c:4 * c], red[4 * c:].view(heads, v, v)
 

@@ -2,7 +2,9 @@
 
 The port's modules keep the JAX parameter names and layouts (Dense kernels
 stay (in, out), in_proj stays (C, 3C) with head-major [x1 | x2 | v] blocks),
-so conversion is a flatten and a few renames, with no transposes:
+so conversion is a flatten and a few renames, with no transposes (leaves
+declared on a module itself, as MLPBlock's and LNMLPResidual's
+``fc1_kernel`` .. ``fc2_bias``, keep their names):
 
   * flax's inner ``Dense_0`` scope of a Dense wrapper is dropped
     (``.../linears_in/Dense_0/kernel`` -> ``...linears_in.kernel``);

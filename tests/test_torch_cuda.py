@@ -7,12 +7,14 @@ the vit16k shape, K6 (the spectral long conv) at the vit65k_hyena shape, the
 odd batch at its floor and its ceiling, K7 (the long-sequence scan) at the
 vit65k_mamba shape, a ragged length and the gate's widest channels, K8
 (Swin window attention) at the ptx_attn stage shapes, V = 64 and a ragged
-tile, K9 (the windowed scan) at the micro_w7 stage shapes and odd windows,
-and whole models whose every parameter gets a gradient on the card (a ViT-hyena
-and a ViT-mamba also against the host), and the Swin checkpointing's
-memory. Marked ``cuda``;
-without a card every test skips. This file imports neither JAX nor flax, so that it runs where
-only PyTorch is installed:
+tile and, on its general path, at V = 49, 256, 343 and 512 (emb_attn's
+stage shapes at batch 1 among them), K2' (the MLP without LN or residual,
+behind MLPBlock) at ViT-small widths, K9 (the windowed scan) at the
+micro_w7 stage shapes and odd windows, and whole models whose every
+parameter gets a gradient on the card (a ViT-hyena and a ViT-mamba also
+against the host), and the Swin checkpointing's memory. Marked ``cuda``;
+without a card every test skips. This file imports neither JAX nor flax,
+so that it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 
@@ -154,6 +156,45 @@ def test_fused_ln_mlp_backward_kernel_matches_plain(cuda_device, dtype, n, c):
     plain = tmlp.fused_ln_mlp_residual_bwd_plain(do, *args)
     _check_grads([t.grad for t in leaves], plain, dtype,
                  ("x", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(37, 16), (32770, 384)])
+def test_fused_mlp_kernels_match_plain(cuda_device, dtype, n, c):
+    """K2' (the MLP without LN or residual) through MLPBlock in eval mode:
+    the forward and the gradients of x and the four fp32 parameters against
+    fused_mlp_plain and its VJP (32,770 rows at C = 384, H = 1536: vit16k's
+    tokens at batch 2, ViT-small's widths); one launch of each K2' kernel and
+    none of K2's; two launches bitwise equal."""
+    from long_context_biomedical_imaging_tpu_torch.models import MLPBlock
+
+    gen = torch.Generator().manual_seed(n + c)
+    block = MLPBlock(c, 4 * c).eval()
+    for p in block.parameters():
+        p.data = _randn(gen, p.shape, c ** -0.5)
+    block.to(cuda_device)
+    x = _randn(gen, (n, c), 1.0).to(cuda_device, dtype)
+    do = _randn(gen, (n, c), 1.0).to(cuda_device, dtype)
+    counts = (tmlp.FUSED_MLP_FWD, tmlp.FUSED_MLP_BWD, tmlp.FUSED_LN_MLP_FWD,
+              tmlp.FUSED_LN_MLP_BWD)
+    before = [k.launches for k in counts]
+    leaf = x.clone().requires_grad_(True)
+    out = block(leaf)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counts, before)] == [1, 1, 0, 0]
+    params = [block.fc1_kernel, block.fc1_bias, block.fc2_kernel, block.fc2_bias]
+    ref = tmlp.fused_mlp_plain(x, *[p.detach() for p in params])
+    err = (out.float() - ref.float()).abs().max().item()
+    assert out.dtype == dtype and err <= _tol(dtype) * ref.float().abs().max().item()
+    plain = tmlp.fused_mlp_bwd_plain(do, x, *[p.detach() for p in params])
+    _check_grads([leaf.grad] + [p.grad for p in params], plain, dtype,
+                 ("x", "w1", "b1", "w2", "b2"))
+    w = [p.detach().to(dtype) if p.dim() == 2 else p.detach() for p in params]
+    runs = [(tmlp.fused_mlp_fwd(x, *w), *tmlp.fused_mlp_bwd(do, x, *w)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.cuda
@@ -1061,9 +1102,14 @@ def _k8_args(gen, bw, v, c, dtype, dev, nw=None):
 
 
 # (BW, V, C, nW): the four ptx_attn stages at batch 1 (C = 96 .. 768, 16-token
-# windows of shifted blocks), 64-token windows, a window count no tile divides
+# windows of shifted blocks), 64-token windows, a window count no tile divides;
+# the general path: 7x7 windows, emb_attn's stage 3 (4x8x8 = 256 tokens, C =
+# 768) and stage 2 (8x8x8 = 512, C = 384) at batch 1, 7x7x7 windows, 512
+# tokens at C = 96 with region ids
 K8_CASES = [(16384, 16, 96, 16384), (4096, 16, 192, 4096), (1024, 16, 384, 256),
-            (256, 16, 768, 64), (300, 64, 96, 100), (37, 16, 64, None), (5, 64, 128, None)]
+            (256, 16, 768, 64), (300, 64, 96, 100), (37, 16, 64, None), (5, 64, 128, None),
+            (48, 49, 96, 12), (4, 256, 768, 4), (16, 512, 384, 16), (5, 343, 64, None),
+            (8, 512, 96, 4)]
 
 
 @pytest.mark.cuda
@@ -1099,21 +1145,24 @@ def test_window_attention_kernels_are_deterministic_and_refuse(cuda_device):
     gradients sum in per-block slots, the weight gradients in split-K
     partials, both reduced in a fixed order); the Function launches the
     forward once per call and the backward and weight-gradient kernels once
-    per gradient; the wrappers refuse a CPU tensor, a head dim other than
-    32, windows of 8 or 128 tokens, fp16 and a non-contiguous tensor."""
-    x, wq, bq, wo, bo, rel, rid, do, heads = _k8_args(
-        torch.Generator().manual_seed(9), 1000, 16, 192, torch.bfloat16, cuda_device, 250)
-    args = (x, wq, bq, wo, bo, rel, heads, rid, -100.0, 32 ** -0.5)
-    runs = [(twa.window_attention_fwd(*args), *twa.window_attention_bwd(do, *args))
-            for _ in range(2)]
-    torch.cuda.synchronize()
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    per gradient, on both paths (V = 16 and 343); the wrappers refuse a CPU
+    tensor, a head dim other than 32, windows of 0 or 513 tokens (a larger
+    window takes the plain version before the kernels), fp16 and a
+    non-contiguous tensor, and take windows of 8 and 128 tokens."""
     kernels = (twa.WINDOW_ATTENTION_FWD, twa.WINDOW_ATTENTION_BWD, twa.WINDOW_ATTENTION_WGRAD)
-    before = [k.launches for k in kernels]
-    leaf = x.detach().requires_grad_()
-    twa.windowed_attention_proj(leaf, wq, bq, wo, bo, rel, heads, rid).backward(do)
-    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+    for bw, v, nw in ((30, 343, 10), (1000, 16, 250)):
+        x, wq, bq, wo, bo, rel, rid, do, heads = _k8_args(
+            torch.Generator().manual_seed(9), bw, v, 192, torch.bfloat16, cuda_device, nw)
+        args = (x, wq, bq, wo, bo, rel, heads, rid, -100.0, 32 ** -0.5)
+        runs = [(twa.window_attention_fwd(*args), *twa.window_attention_bwd(do, *args))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), v
+        before = [k.launches for k in kernels]
+        leaf = x.detach().requires_grad_()
+        twa.windowed_attention_proj(leaf, wq, bq, wo, bo, rel, heads, rid).backward(do)
+        assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
     cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
     with pytest.raises(ValueError, match="CUDA"):
         twa.window_attention_fwd(*cpu)
@@ -1121,12 +1170,16 @@ def test_window_attention_kernels_are_deterministic_and_refuse(cuda_device):
         twa.window_attention_bwd(do.cpu(), *cpu)
     with pytest.raises(ValueError, match="head dim of 32"):
         twa.window_attention_fwd(x, wq, bq, wo, bo, rel[:3].repeat(2, 1, 1)[:12], 12, rid)
-    for v in (8, 128):
+    for v in (0, 8, 128, twa.MAX_TOKENS + 1):
         xv = torch.zeros(8, v, 64, device=cuda_device, dtype=torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            twa.window_attention_fwd(xv, wq[:64, :192].contiguous(), bq[:192], wo[:64, :64]
-                                     .contiguous(), bo[:64], rel[:2, :1, :1].expand(2, v, v)
-                                     .contiguous(), 2)
+        call = lambda: twa.window_attention_fwd(  # noqa: E731
+            xv, wq[:64, :192].contiguous(), bq[:192], wo[:64, :64].contiguous(), bo[:64],
+            torch.zeros(2, v, v, device=cuda_device), 2)
+        if v in (0, twa.MAX_TOKENS + 1):
+            with pytest.raises(ValueError, match="windows of 1 to 512"):
+                call()
+        else:
+            assert torch.isfinite(call()).all()
     with pytest.raises(TypeError):
         twa.window_attention_fwd(x.half(), *args[1:])
     with pytest.raises(ValueError, match="contiguous"):

@@ -7,7 +7,8 @@ the CPU.
   Function, its plain passes on CPU tensors) and all six gradients against
   JAX's, whose Pallas kernel runs in interpret mode, with and without region
   ids, at V = 16 and 64, fp32 and bf16; one V > 512 call on JAX's XLA route;
-  the kernel wrappers' refusals.
+  the kernel wrappers' refusals (the general path's windows are held in
+  ``tests/test_torch_emb_attn.py``).
 * A tiny Swin-attention model from converted JAX parameters (embed 64, heads
   2/4 so D = 32, depths 2/2, patch 2, window 4 on 32x32: both stages shift):
   hidden states, SwinLinear logits and one train step's gradients.
@@ -205,8 +206,10 @@ def test_window_attention_function_runs_its_plain_passes_on_cpu():
 
 def test_window_attention_kernel_wrappers_refuse():
     """The kernel wrappers raise rather than fall back: a head dim other
-    than 32 (ValueError), windows the kernels do not take (V = 8, 128:
-    NotImplementedError naming ROADMAP.md), a CPU tensor (ValueError)."""
+    than 32 (ValueError), windows outside 1 to MAX_TOKENS tokens (V = 0 and
+    513, ValueError: a larger window takes the plain version before the
+    kernels, as in the JAX package), a CPU tensor (ValueError) at every
+    window the kernels take (V = 8, 16, 128 among them), fp16 (TypeError)."""
     def call(bw, v, c, heads, dtype=torch.float32):
         args, _, _ = _attn_inputs(np.random.default_rng(0), bw, v, c, heads, None)
         t = [torch.from_numpy(a) for a in args]
@@ -215,11 +218,12 @@ def test_window_attention_kernel_wrappers_refuse():
 
     with pytest.raises(ValueError, match="head dim of 32"):
         call(2, 16, 64, 4)
-    for v in (8, 128):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for v in (0, twa.MAX_TOKENS + 1):
+        with pytest.raises(ValueError, match="windows of 1 to 512"):
             call(2, v, 64, 2)
-    with pytest.raises(ValueError, match="CUDA"):
-        call(2, 16, 64, 2)
+    for v in (8, 16, 128):
+        with pytest.raises(ValueError, match="CUDA"):
+            call(2, v, 64, 2)
     with pytest.raises(TypeError):
         call(2, 16, 64, 2, torch.float16)
 
