@@ -72,11 +72,12 @@ Phases, each printing one line of numbers (or a few):
      profile;
  21. K5, the flash attention of the vit16k path: forward, dq and dk/dv
      against the plain version and its VJP at ragged lengths (1, 63, 65,
-     1025 tokens), at head dims 32 and 128 (1,025 tokens) and at the vit16k
-     shape (12 head-batches of 16,385 tokens, D = 64; the plain version on 4
-     of them), fp32 and bf16, two launches bitwise equal; then the times of
-     the kernels, the plain version and torch's scaled_dot_product_attention
-     at vit16k in bf16;
+     1025 tokens), at head dims 8, 16, 32, 48, 128 and 256 (1,025 tokens)
+     and at the vit16k shape (12 head-batches of 16,385 tokens, D = 64; the
+     plain version on 4 of them), fp32 and bf16, two launches bitwise equal;
+     then the times of the kernels, the plain version and torch's
+     scaled_dot_product_attention at vit16k in bf16, per call beside each
+     kernel's bound;
  22. vit16k train slice: run_torch.main trains vit16k (--debug, 2 epochs)
      on synthetic 1024x1024x1 images with the flags of projects/run_ptx.sh
      for the ViT-small encoder (patch 8, attention), ViTLinear and batch 2,
@@ -142,7 +143,7 @@ Phases, each printing one line of numbers (or a few):
      window count no tile divides, with and without the shifted windows'
      region ids, fp32 and bf16; two launches bitwise equal; the
      relative-position table's gradient through the gather; the refusals
-     (a CPU tensor, a head dim of 16); then the times of the kernels and the
+     (a CPU tensor, a head dim of 96); then the times of the kernels and the
      plain version at the stage shapes in bf16;
  34. ptx_attn train slice: run_torch.main trains ptx_attn (--debug, 2
      epochs) on synthetic 1024x1024x1 images with the flags of
@@ -195,9 +196,10 @@ Phases, each printing one line of numbers (or a few):
      4,096 / 512 / 64 windows of 8x8x8 and 16 of 4x8x8, C = 96 .. 768) with
      their region ids, the plain version on at most 1,024 windows at a time,
      fp32 and bf16; two launches bitwise equal; V = 513 takes the plain
-     version with no K8 launch; a CPU tensor, V = 0 and a head dim of 48
-     refused; then the times of the kernels on each whole stage shape and of
-     the plain version over the same windows in slices;
+     version with no K8 launch; a head dim of 48 taken and held against the
+     plain version; a CPU tensor and V = 0 refused; then the times of the
+     kernels on each whole stage shape and of the plain version over the
+     same windows in slices;
  43. emb_attn train slice: run_torch.main trains emb_attn (--debug, 2
      epochs) on synthetic 256x256x64 volumes with the flags of
      projects/run_emb.sh and the CLI's default mixer, window attention
@@ -218,7 +220,16 @@ Phases, each printing one line of numbers (or a few):
      forward and every gradient against fused_mlp_plain and its VJP, fp32
      and bf16, one launch of each K2' kernel per pass and none of K2's, two
      launches bitwise equal, and the times of the kernels and the plain
-     version.
+     version;
+ 47. widths: projects/run_ptx.sh's flags with --Swin.size unetr (embed 48,
+     heads 3/6/12/24: C = 48 at stage 0, a head dim of 16) and each mixer
+     (attention, Hyena, Mamba), and with --Swin.size custom --Swin.embed_dim
+     24 and the default mixer (C = 24 .. 192, a head dim of 8, K2 at C = 24
+     with a hidden width of 96): one full-width train step each at batch 4
+     on 1024x1024 in bf16 on the card, whose launch counts show K8, K1 or
+     K4 and K2 in every block the gates send to them; then the gradients of
+     one train step on 256x256 images at batch 2, card against host, fp32
+     and bf16, per parameter, as phase 35.
 Then one JSON line with the kernels' numbers, and last the result line.
 Every time is on this card, with its name and power limit printed in phase 1.
 It imports neither JAX nor the JAX package, and fails (exit code != 0, no
@@ -377,8 +388,8 @@ K5_PLAIN_SLICE = 2
 # host's by this much of its max
 VIT_BF16_GRAD_FLOOR = 2e-2
 # phase 21, K5 at the other head dims (BH, L, D): 1,025 tokens, ragged at
-# either tile edge (64 rows at D = 32, 32 at D = 128)
-K5_HEAD_DIMS = [(2, 1025, 32), (2, 1025, 128)]
+# every tile edge; 8 and 48 run on 16- and 64-wide tiles, zero past D
+K5_HEAD_DIMS = [(2, 1025, d) for d in (8, 16, 32, 48, 128, 256)]
 # vit65k_hyena at batch 1: 1024x1024 in 4x4 patches, no cls token; the Hyena
 # long conv of each of ViT-small's 12 layers on (1, 384, 65536)
 H65_BATCH, H65_L, H65_D = 1, 65536, 384
@@ -451,6 +462,19 @@ K8_PLAIN_WINDOWS = 1024
 EMB_ATTN_GRAD_VOLUME = (32, 64, 64)
 # phase 46, K2' at ViT-small widths on vit16k's tokens at batch 2 (N, C, H)
 K2P_SHAPE = (VIT_BATCH * VIT_L, 384, 1536)
+# phase 47: the size presets whose widths are not multiples of the kernels'
+# tiles (C = 48 or 24, head dims 16 or 8), each a full-width model on
+# projects/run_ptx.sh's flags: (name, size flags, mixer);
+# unetr's preset depths are 2/2/2/2 (8 blocks), custom's the CLI's 2/2/6/2
+WIDTH_CONFIGS = [("unetr_attention", ["--Swin.size", "unetr"], "attention"),
+                 ("unetr_hyena", ["--Swin.size", "unetr"], "hyena"),
+                 ("unetr_mamba", ["--Swin.size", "unetr"], "mamba"),
+                 ("custom24_attention", ["--Swin.size", "custom", "--Swin.embed_dim", "24"],
+                  "attention")]
+# phase 47's gradients: batch 2 of 256x256 (token grids 128 .. 16: every
+# stage runs 16-token windows; Mamba's K4 gate, 1,024 windows, passes at
+# stage 0 alone), bf16 floor as phase 35's
+WIDTH_GRAD_SIZE, WIDTH_GRAD_BATCH, WIDTH_BF16_GRAD_FLOOR = (256, 256), 2, 2e-2
 # the card's peaks for the bounds (H100 SXM data sheet, dense): bf16 tensor
 # cores, fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -1637,8 +1661,8 @@ def _k5_errors(torch, got, ref, dname, names, floor=0.0):
 
 def phase_k5(torch, fa, dev):
     """K5 forward, dq and dk/dv against the plain version and its VJP, fp32
-    and bf16: at ragged lengths (K5_RAGGED) and head dims 32 and 128
-    (K5_HEAD_DIMS), and at the vit16k shape (12,
+    and bf16: at ragged lengths (K5_RAGGED) and the head dims of
+    K5_HEAD_DIMS, and at the vit16k shape (12,
     16385, 64) on every head-batch, for iid inputs and for inputs whose lone
     last key takes most queries' weight, with the plain version on
     head-batches 0-1 and 10-11; there two launches of each kernel must give
@@ -1769,10 +1793,14 @@ def _k5_times(torch, fa, args, d, o, lse, scale):
         F.scaled_dot_product_attention(*leaves), leaves, db), warmup=1, reps=5)
     del out, leaves
     torch.cuda.empty_cache()
+    per_call = {k: kernel_bounds()[f"flash_attention_{k}"][0] / VIT_LAYERS
+                for k in ("fwd", "dq", "dkv")}
     print(f"phase 21 K5 times at BH={VIT_BH} L={VIT_L} D=64 bf16, ms per call: kernel "
-          f"fwd {k_fwd:.3f}, dq {k_dq:.3f}, dkv {k_dkv:.3f}; plain fwd {p_fwd:.3f}, plain "
-          f"VJP {p_bwd:.3f}; SDPA fwd {s_fwd:.3f}, bwd {s_bwd:.3f}, fwd+bwd "
-          f"{s_both:.3f}", flush=True)
+          f"fwd {k_fwd:.3f}, dq {k_dq:.3f}, dkv {k_dkv:.3f} (bwd {k_dq + k_dkv:.3f}); bound "
+          f"fwd {per_call['fwd']:.3f}, dq {per_call['dq']:.3f}, dkv {per_call['dkv']:.3f}; SDPA "
+          f"fwd {s_fwd:.3f}, bwd {s_bwd:.3f}, fwd+bwd {s_both:.3f}; kernel / SDPA fwd "
+          f"{k_fwd / s_fwd:.2f}x, bwd {(k_dq + k_dkv) / s_bwd:.2f}x; plain fwd {p_fwd:.3f}, "
+          f"plain VJP {p_bwd:.3f}", flush=True)
     return k_fwd, k_dq, k_dkv, p_fwd, p_bwd, s_fwd, s_bwd
 
 
@@ -2232,15 +2260,16 @@ def phase_k7(torch, ssl, dev):
             "bwd": (worst["bwd"], k_bwd, (1 - share) * p_bwd)}
 
 
-def _k8_case(torch, gen, bw, v, c, grid, dev, rid_rows=7):
-    """Operands of one K8 case, drawn as the model initialises them (the
-    weights U(+-1/sqrt(C)), the biases small, the table trunc_normal(0.02)
-    gathered, here iid at 0.5 to make the bias matter), x and the cotangent
-    iid; region ids of the shifted windows of a grid x grid token grid, or
-    random ids in rid_rows rows when grid is None."""
+def _k8_case(torch, gen, bw, v, c, grid, dev, rid_rows=7, heads=None):
+    """Operands of one K8 case with C / 32 heads unless heads is given, drawn
+    as the model initialises them (the weights U(+-1/sqrt(C)), the biases
+    small, the table trunc_normal(0.02) gathered, here iid at 0.5 to make the
+    bias matter), x and the cotangent iid; region ids of the shifted windows
+    of a grid x grid token grid, or random ids in rid_rows rows when grid is
+    None."""
     from long_context_biomedical_imaging_tpu_torch.ops.window import compute_shift_regions
 
-    heads = c // 32
+    heads = c // 32 if heads is None else heads
 
     def mk(shape, scale):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
@@ -2330,13 +2359,13 @@ def phase_k8(torch, wa, dev):
     refusals = 0
     for bad in (lambda: wa.window_attention_fwd(*[a.cpu() if torch.is_tensor(a) else a
                                                   for a in args]),
-                lambda: wa.window_attention_fwd(*args[:6], 12, *args[7:])):
+                lambda: wa.window_attention_fwd(*args[:6], 2, *args[7:])):
         try:
             bad()
         except ValueError:
             refusals += 1
-    check(refusals == 2, "K8 took a CPU tensor or a head dim other than 32")
-    print("phase 33 K8: two launches bitwise equal; a CPU tensor and D = 16 refused", flush=True)
+    check(refusals == 2, "K8 took a CPU tensor or a head dim past 64")
+    print("phase 33 K8: two launches bitwise equal; a CPU tensor and D = 96 refused", flush=True)
     del base, args, module, x, g
     torch.cuda.empty_cache()
 
@@ -2408,8 +2437,9 @@ def phase_k8_general(torch, wa, dev):
     without region ids, and at emb_attn's four stage shapes (batch 4) with
     their region ids, the plain version on at most K8_PLAIN_WINDOWS windows
     (stage 0: one volume's 1,024 of its 4,096); fp32 and bf16. Two launches
-    bitwise equal; V = 513 takes the plain version with no K8 launch; a CPU
-    tensor, V = 0 and a head dim of 48 are refused. Then the times of the
+    bitwise equal; V = 513 takes the plain version with no K8 launch; a head
+    dim of 48 is taken and held against the plain version; a CPU tensor and
+    V = 0 are refused. Then the times of the
     kernels on each whole stage shape and of the plain version over the
     same windows in slices, bf16 with region ids (the odd blocks' call).
     Returns {"fwd" | "bwd" | "wgrad": [(worst bf16 abs err over the stage
@@ -2473,18 +2503,26 @@ def phase_k8_general(torch, wa, dev):
         ref = wa.window_attention_plain(base[0], *base[1:], heads, None, -100.0, scale)
     check(torch.equal(out.detach(), ref), "V = 513 did not take the plain version")
     refusals = 0
-    small, _, _, _ = operands(4, 16, 96)
+    small, small_do, _, _ = operands(4, 16, 96)
     for bad in (lambda: wa.window_attention_fwd(*[t.cpu() for t in small], 3),
                 lambda: wa.window_attention_fwd(small[0][:, :0].contiguous(), *small[1:5],
-                                                small[5][:, :0, :0].contiguous(), 3),
-                lambda: wa.window_attention_fwd(*small, 2)):
+                                                small[5][:, :0, :0].contiguous(), 3)):
         try:
             bad()
         except ValueError:
             refusals += 1
-    check(refusals == 3, "K8 took a CPU tensor, V = 0 or a head dim of 48")
+    check(refusals == 2, "K8 took a CPU tensor or V = 0")
+    # a head dim of 48 (2 heads at C = 96): the general path on 64-wide tiles
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        x, wq, bq, wo, bo, rel = small
+        args48 = (x.to(dtype), wq.to(dtype), bq, wo.to(dtype), bo, rel[:2].contiguous(), 2, None,
+                  -100.0, 48 ** -0.5)
+        _k8_hold(torch, wa, args48, small_do.to(dtype), 4, dname,
+                 f"BW=4 V=16 C=96 D=48 {dname} rid=False", 42)
     print("phase 42 K8: two launches of the general path bitwise equal; V = 513 took the plain "
-          "version with no K8 launch; a CPU tensor, V = 0 and D = 48 refused", flush=True)
+          "version with no K8 launch; D = 48 taken and held against the plain version; a CPU "
+          "tensor and V = 0 refused", flush=True)
     del base, do, leaf, out, ref
     torch.cuda.empty_cache()
 
@@ -3012,6 +3050,201 @@ def phase_config_throughput(torch, dev, flags, phase, name, batch=H65_BATCH,
     return ms, eval_ms
 
 
+def width_flags(size_flags, mixer):
+    """projects/run_ptx.sh's flags with a size preset and a mixer."""
+    return ptx_flags() + size_flags + ["--Swin.use_hyena", str(mixer == "hyena"),
+                                       "--Swin.use_mamba", str(mixer == "mamba")]
+
+
+def width_launches(mixer, blocks, k4_blocks):
+    """{index in all_kernels(): launches} of one train step (one forward, one
+    backward) of a Swin with the given mixer in every one of its blocks: K2
+    forward and backward in each block, the mixer's kernels in each block
+    (K4 in the k4_blocks whose window count passes its gate)."""
+    mixer_kernels = {"attention": {17: blocks, 18: blocks, 19: blocks},
+                     "hyena": {0: blocks, 2: blocks},
+                     "mamba": {7: k4_blocks, 8: k4_blocks}}[mixer]
+    return {1: blocks, 3: blocks, **mixer_kernels}
+
+
+def _hold_repeat(torch, label, run, plain, dname):
+    """run() and plain() each give (out, *grads) of one kernel case: the
+    output within TOL and every gradient within GRAD_TOL of the plain
+    version's, and in bf16 a second run() bitwise equal to the first."""
+    got = run()
+    torch.cuda.synchronize()
+    refs = plain()
+    err, mag, ok = compare(torch, got[0], refs[0], dname)
+    check(ok, f"{label}: output {err} > {TOL[dname]} * {mag}")
+    gerr, grel, gok = compare_grads(torch, got[1:], refs[1:], dname)
+    check(gok, f"{label}: a gradient {grel} > {GRAD_TOL[dname]} of its max")
+    del refs
+    same = ""
+    if dname == "bfloat16":
+        check(all(torch.equal(a, b) for a, b in zip(got, run())), f"{label}: two launches differ")
+        same = "; two launches bitwise equal"
+    print(f"phase 47 {label}: out max_abs_err={err:.3e} max|out|={mag:.3e}; every gradient "
+          f"max_abs_err={gerr:.3e} max_rel_err={grel:.3e}{same} ok", flush=True)
+    torch.cuda.empty_cache()
+
+
+def phase_width_kernels(torch, dev, name, mixer, stages, held):
+    """Every kernel that a WIDTH_CONFIGS step launches, at that step's own
+    shapes (batch 4 of 1024x1024: 65,536 .. 1,024 windows of 16 tokens a
+    stage, K2 on 1,048,576 .. 16,384 rows), on the card against its plain
+    version and VJP over the same whole operands, fp32 and bf16, within TOL
+    and GRAD_TOL (phases 33 and 42), and two bf16 launches bitwise equal: K8
+    forward, backward and weight gradients with and without region ids, K1
+    or K4 forward and backward with the folded LayerNorm (as the blocks call
+    them), K2 forward and backward. stages: (C, heads, token grid) per
+    stage. K2's shapes recur across the unetr mixers: each (N, C, H) is held
+    once (``held``)."""
+    from long_context_biomedical_imaging_tpu_torch.ops import fused_mlp as fm
+    from long_context_biomedical_imaging_tpu_torch.ops import hyena_window as hw
+    from long_context_biomedical_imaging_tpu_torch.ops import mamba_window as mw
+    from long_context_biomedical_imaging_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator().manual_seed(470)
+
+    def mk(shape, scale):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for c, heads, grid in stages:
+        bw, v = BATCH * (grid // 4) ** 2, 16
+        tag = f"{name} BW={bw} V={v} C={c}"
+        if mixer == "attention":
+            base, rid_c, do, _ = _k8_case(torch, gen, bw, v, c, grid, dev, heads=heads)
+            for dname, dt in dtypes.items():
+                x, wq, bq, wo, bo, rel = base
+                for rid in (rid_c, None):
+                    args = (x.to(dt), wq.to(dt), bq, wo.to(dt), bo, rel, heads, rid, -100.0,
+                            (c // heads) ** -0.5)
+                    _hold_repeat(torch, f"K8 {tag} D={c // heads} {dname} rid={rid is not None}",
+                                 lambda: (wa.window_attention_fwd(*args),
+                                          *wa.window_attention_bwd(do.to(dt), *args)),
+                                 lambda: (wa.window_attention_plain(*args),
+                                          *wa.window_attention_bwd_plain(do.to(dt), *args)),
+                                 dname)
+        elif mixer == "hyena":
+            x, do = mk((bw, v, c), 1.0), mk((bw, v, c), 1.0)
+            w_in, b_in, w_short, b_short = mk((c, 3 * c), 0.3), mk((3 * c,), 0.3), \
+                mk((3 * c, 5), 0.3), mk((3 * c,), 0.3)
+            k_long, b_long, w_out, b_out = mk((c, v), 0.3), mk((c,), 0.3), mk((c, c), 0.3), \
+                mk((c,), 0.3)
+            ln = (mk((c,), 0.2) + 1.0, mk((c,), 0.2))
+            ws, kl = hw.prepare_taps(w_short, k_long, b_long)
+            for dname, dt in dtypes.items():
+                raw = (x.to(dt), w_in.to(dt), b_in, w_short, b_short, k_long, b_long, w_out.to(dt),
+                       b_out, *ln)
+                taps = (x.to(dt), w_in.to(dt), b_in, ws, b_short, kl, w_out.to(dt), b_out, *ln)
+                _hold_repeat(torch, f"K1 {tag} {dname} ln=True",
+                             lambda: (hw.hyena_window_mixer(*raw),
+                                      *hw.hyena_window_bwd(do.to(dt), *taps)),
+                             lambda: (hw.hyena_window_plain(*raw),
+                                      *hw.hyena_window_bwd_plain(do.to(dt), *taps)), dname)
+        else:
+            dh, r, n = c // 2, -(-c // 16), mw.MAMBA_KERNEL_STATE
+            x, do = mk((bw, v, c), 1.0), mk((bw, v, c), 1.0)
+            dtv = torch.exp(torch.rand(dh, generator=gen) * math.log(100.0) + math.log(1e-3))
+            wconv, dtb2, at, dskip = mw.prepare_operands(
+                mk((dh, 3), 0.5), mk((dh, 3), 0.5), (dtv + torch.log(-torch.expm1(-dtv))).to(dev),
+                -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(dh, n),
+                torch.ones(dh, device=dev))
+            w = (mk((c, c), c ** -0.5), mk((dh, r + 2 * n), dh ** -0.5), mk((r, dh), r ** -0.5),
+                 mk((c, c), c ** -0.5))
+            ln = (mk((c,), 0.2) + 1.0, mk((c,), 0.2))
+            for dname, dt in dtypes.items():
+                args = (x.to(dt), w[0].to(dt), wconv, w[1].to(dt), w[2].to(dt), dtb2, at, dskip,
+                        w[3].to(dt), *ln)
+                _hold_repeat(torch, f"K4 {tag} {dname} ln=True",
+                             lambda: (mw.mamba_window_fwd(*args),
+                                      *mw.mamba_window_bwd(do.to(dt), *args)),
+                             lambda: (mw.mamba_window_plain(*args),
+                                      *mw.mamba_window_bwd_plain(do.to(dt), *args)), dname)
+        rows, hidden = BATCH * grid * grid, 4 * c
+        if (rows, c, hidden) in held:
+            continue
+        held.add((rows, c, hidden))
+        p = (mk((rows, c), 1.0), mk((c,), 0.2) + 1.0, mk((c,), 0.2), mk((c, hidden), 0.3),
+             mk((hidden,), 0.3), mk((hidden, c), 0.3), mk((c,), 0.3))
+        do = mk((rows, c), 1.0)
+        for dname, dt in dtypes.items():
+            args = (p[0].to(dt), p[1], p[2], p[3].to(dt), p[4], p[5].to(dt), p[6])
+            _hold_repeat(torch, f"K2 {name} N={rows} C={c} H={hidden} {dname}",
+                         lambda: (fm.fused_ln_mlp_residual(*args),
+                                  *fm.fused_ln_mlp_residual_bwd(do.to(dt), *args)),
+                         lambda: (fm.fused_ln_mlp_residual_plain(*args),
+                                  *fm.fused_ln_mlp_residual_bwd_plain(do.to(dt), *args)), dname)
+        del p, do
+        torch.cuda.empty_cache()
+
+
+def phase_widths(torch, dev):
+    """Phase 47: for each WIDTH_CONFIGS entry, every kernel its train step
+    launches held against its plain version at the step's shapes
+    (:func:`phase_width_kernels`); one train step of the full-width model at
+    batch 4 on 1024x1024 in bf16 (Adam, the trainer's step), with every
+    kernel's launch count checked (K8, K1 or K4 and K2 in the blocks their
+    gates reach, nothing else) and its time; then the gradients of one train
+    step at WIDTH_GRAD_SIZE, card against host, fp32 and bf16, per parameter
+    (phase_config_grads). At batch 4 on 1024x1024 every stage has at least
+    1,024 windows, so Mamba takes K4 in every block."""
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.metrics.device import make_train_metric_fn
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.optim import OptimManager
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import make_train_step
+
+    kernels = all_kernels()
+    gen = torch.Generator().manual_seed(47)
+    x = torch.randn(BATCH, 1, 1024, 1024, 1, generator=gen).to(dev)
+    y = (torch.arange(BATCH) % 2).to(dev)
+    held = set()
+    for name, size_flags, mixer in WIDTH_CONFIGS:
+        flags = width_flags(size_flags, mixer)
+        cfg = check_args(parse_config(flags))
+        model = build_model(cfg).to(dev)
+        widths = [getattr(model.encoder, f"layer_{i}").block_0.attn for i in range(4)]
+        phase_width_kernels(torch, dev, name, mixer,
+                            [(a.dim, a.num_heads, grid) for a, (_, grid, _) in zip(widths, STAGES)],
+                            held)
+        blocks = sum(cfg.Swin.depths)
+        optim = OptimManager(cfg, num_train_samples=1000)
+        optim.build(model.parameters())
+        _, metrics_fn = make_train_metric_fn(cfg)
+        train = make_train_step(model.train(), cross_entropy_loss, optim, use_amp=True,
+                                metrics_fn=metrics_fn)
+        before = {k.symbol: k.launches for k in kernels}
+        stats = train([(x, y)], cfg.optim.lr, BATCH)
+        torch.cuda.synchronize()
+        launches = {k.symbol: k.launches - before[k.symbol] for k in kernels}
+        expected = width_launches(mixer, blocks, blocks)
+        check_launches(kernels, launches, expected, f"phase 47 {name}'s train step")
+        check(all(bool(torch.isfinite(t).all()) for t in stats), f"{name}: a non-finite loss")
+        t0 = time.perf_counter()
+        train([(x, y)], cfg.optim.lr, BATCH)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ran = {kernels[i].symbol.replace("lcbi_", ""): n for i, n in sorted(expected.items())}
+        print(f"phase 47 {name} train step, batch {BATCH} of 1024x1024, bf16: stage widths "
+              + "/".join(str(a.dim) for a in widths) + ", head dims "
+              + "/".join(str(a.dim // a.num_heads) for a in widths)
+              + f"; {blocks} blocks; launches {ran}, no other kernel; loss "
+              f"{stats[0].item():.4f}; second step {ms:.2f} ms", flush=True)
+        del model, optim, train, stats
+        torch.cuda.empty_cache()
+        # the gradients at WIDTH_GRAD_SIZE: token grids 128 .. 16 at batch 2, so
+        # K4's gate passes at stage 0 alone (2,048 windows)
+        grid0 = WIDTH_GRAD_SIZE[0] // 2
+        k4_blocks = cfg.Swin.depths[0] if WIDTH_GRAD_BATCH * (grid0 // 4) ** 2 >= 1024 else 0
+        phase_config_grads(torch, dev, flags, WIDTH_GRAD_SIZE, 47, name,
+                           width_launches(mixer, blocks, k4_blocks), WIDTH_BF16_GRAD_FLOOR,
+                           f"full-width Swin ({name}) + SwinLinear, batch {WIDTH_GRAD_BATCH} of "
+                           f"{WIDTH_GRAD_SIZE[0]}x{WIDTH_GRAD_SIZE[1]}", batch=WIDTH_GRAD_BATCH)
+
+
 def profile_step(torch, fn, label):
     """Device time of one call by kernel, from torch.profiler: the CUDA
     kernel events alone. A CPU event (an aten op, an autograd Function's
@@ -3393,6 +3626,7 @@ def run():
     phase_config_throughput(torch, dev, emb_attn_flags(), 45, "emb_attn", batch=BATCH,
                             volume=EMB_VOLUME)
     k2p, k2p_launches = phase_k2_prime(torch, fused_mlp, dev)
+    phase_widths(torch, dev)
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "long_context_biomedical_imaging_tpu")
                   for m in sys.modules), "JAX was imported")
 

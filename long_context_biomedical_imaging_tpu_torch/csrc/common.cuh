@@ -34,22 +34,38 @@ __host__ __device__ __forceinline__ size_t align128(size_t bytes) {
 }
 
 __host__ __device__ __forceinline__ int round_up16(int v) { return (v + 15) & ~15; }
+__host__ __device__ __forceinline__ int round_up32(int v) { return (v + 31) & ~31; }
+
+// The padded widths of the kernels whose WMMA tiles read weights straight
+// from global memory (a fragment load cannot mask a tail): K2 and K2' run on
+// C rounded up to 16 and H to 64 (their hidden chunk); K1, K3 and K4 on C
+// rounded up to 32 (their channel chunk; K4's two C/2 halves each to 16).
+// The rows, the LayerNorm statistics and the stores keep the true C. This is
+// the one place the rounding is decided: each of those libraries reports it
+// through lcbi_padded_channels (and K2's lcbi_padded_hidden), and the
+// wrappers lay the weights out at the widths reported.
+__host__ __device__ __forceinline__ int mlp_padded_channels(int C) { return round_up16(C); }
+__host__ __device__ __forceinline__ int mlp_padded_hidden(int H) { return (H + 63) / 64 * 64; }
+__host__ __device__ __forceinline__ int chunk_padded_channels(int C) { return round_up32(C); }
 
 // Rows [0, rows) of the (rows, C) tile x -> ys (leading dimension lds) in T:
 // LayerNorm with fp32 statistics in the fast-variance form E[x^2] - mu^2,
 // eps 1e-6, then the affine g, b (both fp32). With ln == 0 the rows are
 // copied unchanged. Rows [rows, rows_pad) are zeroed: they are padding that
-// the products carry but the epilogue never stores. One warp per row.
+// the products carry but the epilogue never stores. Columns [C, cpad) are
+// zeroed too (a kernel whose tiles are wider than the true C: the statistics
+// still divide by C). One warp per row.
 // With mu/rstd given, each normalised row's statistics are kept there too
 // (the backward kernels need them for the LayerNorm backward).
 template <typename T>
 __device__ void layernorm_rows(const T* __restrict__ x, int rows, int rows_pad, int C,
                                const float* __restrict__ g, const float* __restrict__ b,
                                int ln, T* ys, int lds, float* mu_out = nullptr,
-                               float* rstd_out = nullptr) {
+                               float* rstd_out = nullptr, int cpad = 0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows_pad; r += kWarps) {
     T* yrow = ys + (size_t)r * lds;
+    for (int c = C + lane; c < cpad; c += 32) yrow[c] = from_f32<T>(0.f);
     if (r >= rows) {
       for (int c = lane; c < C; c += 32) yrow[c] = from_f32<T>(0.f);
       continue;

@@ -20,6 +20,14 @@
 // (C = 768 needs bm = 32). GELU is the tanh form under bf16 and the exact erf
 // form under fp32, as in the TPU kernel (_gelu). Weights are read from global
 // memory by every block; they stay resident in the 50 MB L2.
+//
+// Widths: the products run on Cp = C rounded up to 16 (the tensor cores'
+// depth) and a hidden width H that is a multiple of 64. The rows load at the
+// true C, with the LayerNorm statistics over C and zeros in columns [C, Cp),
+// and only columns [0, C) are stored. The weights arrive as (Cp, H) and (H,
+// Cp) with zero rows and columns past the true widths (the wrapper pads the
+// weights, never the activations), so the padded hidden columns give GELU(0)
+// = 0 and the padded channels nothing.
 #include "common.cuh"
 
 namespace lcbi {
@@ -61,7 +69,8 @@ fused_ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         const float* __restrict__ b2, T* __restrict__ out,
                         int N, int C, int H, int bm) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const MlpLayout L = mlp_layout(bm, C, sizeof(T));
+  const int Cp = mlp_padded_channels(C);
+  const MlpLayout L = mlp_layout(bm, Cp, sizeof(T));
   T* ys = reinterpret_cast<T*>(smem);
   float* acc = reinterpret_cast<float*>(smem + L.off_acc);
   float* u = reinterpret_cast<float*>(smem + L.off_u);
@@ -71,12 +80,12 @@ fused_ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   const int rows = min(bm, N - (int)r0);
   const T* xt = x + r0 * C;
 
-  layernorm_rows(xt, rows, bm, C, ln_g, ln_b, LN ? 1 : 0, ys, L.lds);
+  layernorm_rows(xt, rows, bm, C, ln_g, ln_b, LN ? 1 : 0, ys, L.lds, nullptr, nullptr, Cp);
   for (int i = threadIdx.x; i < bm * L.ldacc; i += kThreads) acc[i] = 0.f;
   __syncthreads();
 
   for (int h0 = 0; h0 < H; h0 += kHiddenChunk) {
-    gemm_tile(u, L.ldu, ys, L.lds, w1 + h0, H, bm, kHiddenChunk, C, false);
+    gemm_tile(u, L.ldu, ys, L.lds, w1 + h0, H, bm, kHiddenChunk, Cp, false);
     __syncthreads();
     for (int i = threadIdx.x; i < bm * kHiddenChunk; i += kThreads) {
       const int r = i / kHiddenChunk, j = i % kHiddenChunk;
@@ -85,7 +94,7 @@ fused_ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     __syncthreads();
     // the next chunk's first product writes only u, and its GELU pass (which
     // overwrites h) waits behind the barrier that follows that product
-    gemm_tile(acc, L.ldacc, h, L.ldh, w2 + (size_t)h0 * C, C, bm, C, kHiddenChunk, true);
+    gemm_tile(acc, L.ldacc, h, L.ldh, w2 + (size_t)h0 * Cp, Cp, bm, Cp, kHiddenChunk, true);
   }
   __syncthreads();
 
@@ -102,8 +111,8 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1, co
            const void* w2, const void* b2, void* out, int N, int C, int H, cudaStream_t stream) {
   const int limit = max_dynamic_smem();
   int bm = 64;
-  while (bm > 16 && mlp_layout(bm, C, sizeof(T)).bytes > (size_t)limit) bm /= 2;
-  const size_t bytes = mlp_layout(bm, C, sizeof(T)).bytes;
+  while (bm > 16 && mlp_layout(bm, mlp_padded_channels(C), sizeof(T)).bytes > (size_t)limit) bm /= 2;
+  const size_t bytes = mlp_layout(bm, mlp_padded_channels(C), sizeof(T)).bytes;
   if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(fused_ln_mlp_fwd_kernel<T, LN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -118,15 +127,22 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1, co
 
 }  // namespace lcbi
 
-// x, out: (N, C) in T (fp32 if is_bf16 == 0, else bf16); w1: (C, H), w2: (H, C)
-// in T; ln_g, ln_b, b2: (C,) and b1: (H,) fp32. C % 16 == 0, H % 64 == 0,
-// all pointers 32-byte aligned. Returns cudaGetLastError() of the launch.
+// The padded widths this library's kernels run on (common.cuh): the wrapper
+// lays w1, b1 and w2 out at them.
+extern "C" int lcbi_padded_channels(int C) { return lcbi::mlp_padded_channels(C); }
+extern "C" int lcbi_padded_hidden(int H) { return lcbi::mlp_padded_hidden(H); }
+
+// x, out: (N, C) in T (fp32 if is_bf16 == 0, else bf16); w1: (Cp, H), w2: (H,
+// Cp) in T with Cp = C rounded up to 16 and zeros past the true widths;
+// ln_g, ln_b, b2: (C,) and b1: (H,) fp32. C > 0, H % 64 == 0, all pointers
+// 32-byte aligned. Returns cudaGetLastError() of the launch.
 extern "C" int lcbi_fused_ln_mlp_fwd(const void* x, const void* ln_g, const void* ln_b,
                                      const void* w1, const void* b1, const void* w2,
                                      const void* b2, void* out, int N, int C, int H,
                                      int is_bf16, void* stream) {
   (void)cudaGetLastError();
-  if (N <= 0 || C % 16 != 0 || H % lcbi::kHiddenChunk != 0) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || C <= 0 || H <= 0 || H % lcbi::kHiddenChunk != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return lcbi::launch<__nv_bfloat16, true>(x, ln_g, ln_b, w1, b1, w2, b2, out, N, C, H, s);
@@ -139,7 +155,8 @@ extern "C" int lcbi_fused_mlp_fwd(const void* x, const void* w1, const void* b1,
                                   const void* b2, void* out, int N, int C, int H, int is_bf16,
                                   void* stream) {
   (void)cudaGetLastError();
-  if (N <= 0 || C % 16 != 0 || H % lcbi::kHiddenChunk != 0) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || C <= 0 || H <= 0 || H % lcbi::kHiddenChunk != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return lcbi::launch<__nv_bfloat16, false>(x, nullptr, nullptr, w1, b1, w2, b2, out, N, C, H,

@@ -32,6 +32,11 @@
 // dxhat = dy * g. Operands of every product are rounded to T where the TPU
 // kernel rounds them (y, h, du, do), and every sum is fp32. GELU' is the
 // derivative of the tanh form under bf16 and of the exact erf form in fp32.
+//
+// Widths as the forward's (fused_mlp.cu): the tiles, the weights and the
+// weight-gradient slots run on Cp = C rounded up to 16 and H % 64 == 0, the
+// rows of x, do and dx and the LayerNorm at the true C; dw1 and dw2 come out
+// (Cp, H) and (H, Cp) and the caller keeps their true blocks.
 #include "common.cuh"
 
 namespace lcbi {
@@ -89,7 +94,8 @@ fused_ln_mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         const T* __restrict__ dout, T* __restrict__ dx, float* __restrict__ slots,
                         size_t P, MlpSlots off, int N, int C, int H, int bm, long long tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const MlpBwdLayout L = mlp_bwd_layout(bm, C, sizeof(T));
+  const int Cp = mlp_padded_channels(C);
+  const MlpBwdLayout L = mlp_bwd_layout(bm, Cp, sizeof(T));
   T* ys = reinterpret_cast<T*>(smem);
   T* dos = reinterpret_cast<T*>(smem + L.off_dos);
   float* dy = reinterpret_cast<float*>(smem + L.off_dy);
@@ -117,17 +123,19 @@ fused_ln_mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     const T* xt = x + r0 * C;
     const T* dot = dout + r0 * C;
 
-    layernorm_rows(xt, rows, bm, C, ln_g, ln_b, LN ? 1 : 0, ys, L.lds, mus, rstds);
-    for (int i = threadIdx.x; i < bm * C; i += kThreads) {
-      const int r = i / C, c = i % C;
-      dos[(size_t)r * L.lds + c] = r < rows ? dot[(size_t)r * C + c] : from_f32<T>(0.f);
+    layernorm_rows(xt, rows, bm, C, ln_g, ln_b, LN ? 1 : 0, ys, L.lds, mus, rstds, Cp);
+    for (int i = threadIdx.x; i < bm * Cp; i += kThreads) {
+      const int r = i / Cp, c = i % Cp;
+      dos[(size_t)r * L.lds + c] =
+          r < rows && c < C ? dot[(size_t)r * C + c] : from_f32<T>(0.f);
     }
     for (int i = threadIdx.x; i < bm * L.lddy; i += kThreads) dy[i] = 0.f;
     __syncthreads();
 
     for (int h0 = 0; h0 < H; h0 += kBwdChunk) {
-      gemm<false, false>(u, L.ldu, ys, L.lds, w1 + h0, H, bm, kBwdChunk, C, false);
-      gemm<false, true>(dh, L.ldu, dos, L.lds, w2 + (size_t)h0 * C, C, bm, kBwdChunk, C, false);
+      gemm<false, false>(u, L.ldu, ys, L.lds, w1 + h0, H, bm, kBwdChunk, Cp, false);
+      gemm<false, true>(dh, L.ldu, dos, L.lds, w2 + (size_t)h0 * Cp, Cp, bm, kBwdChunk, Cp,
+                        false);
       __syncthreads();
       // pad rows: y = 0 gives h = GELU(b1) != 0, but do = 0 there, so dh = du
       // = 0 and neither weight gradient sees them
@@ -147,9 +155,10 @@ fused_ln_mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
         s_db1[h0 + j] = (first ? 0.f : s_db1[h0 + j]) + s;
       }
       // dw2[chunk, :] += h^T do; dw1[:, chunk] += y^T du; dy += du w1[:, chunk]^T
-      gemm<true, false>(s_dw2 + (size_t)h0 * C, C, hs, L.ldh, dos, L.lds, kBwdChunk, C, bm, !first);
-      gemm<true, false>(s_dw1 + h0, H, ys, L.lds, dus, L.ldh, C, kBwdChunk, bm, !first);
-      gemm<false, true>(dy, L.lddy, dus, L.ldh, w1 + h0, H, bm, C, kBwdChunk, true);
+      gemm<true, false>(s_dw2 + (size_t)h0 * Cp, Cp, hs, L.ldh, dos, L.lds, kBwdChunk, Cp, bm,
+                        !first);
+      gemm<true, false>(s_dw1 + h0, H, ys, L.lds, dus, L.ldh, Cp, kBwdChunk, bm, !first);
+      gemm<false, true>(dy, L.lddy, dus, L.ldh, w1 + h0, H, bm, Cp, kBwdChunk, true);
       __syncthreads();
     }
 
@@ -211,8 +220,9 @@ int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* w1
                MlpSlots off, int max_slots, int N, int C, int H, cudaStream_t stream) {
   const int limit = max_dynamic_smem();
   int bm = 64;
-  while (bm > 16 && mlp_bwd_layout(bm, C, sizeof(T)).bytes > (size_t)limit) bm /= 2;
-  const size_t bytes = mlp_bwd_layout(bm, C, sizeof(T)).bytes;
+  const int Cp = mlp_padded_channels(C);
+  while (bm > 16 && mlp_bwd_layout(bm, Cp, sizeof(T)).bytes > (size_t)limit) bm /= 2;
+  const size_t bytes = mlp_bwd_layout(bm, Cp, sizeof(T)).bytes;
   if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(fused_ln_mlp_bwd_kernel<T, LN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -231,12 +241,18 @@ int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* w1
 
 }  // namespace lcbi
 
-// x, dout, dx: (N, C) in T (fp32 if is_bf16 == 0, else bf16); w1: (C, H) and
-// w2: (H, C) in T; ln_g, ln_b: (C,) and b1: (H,) fp32. slots: max_slots x P
-// fp32 scratch (P a multiple of 8, every offset of a block's slot in floats:
-// dw1 (C, H) at 0, dw2 (H, C) at off_dw2, then db1 (H), db2, dg, dbln (C)).
-// out: (P,) fp32, the slots summed. C % 16 == 0, H % 64 == 0, all pointers
-// 32-byte aligned. Returns cudaGetLastError() of the launches.
+// The padded widths this library's kernels run on (common.cuh): the wrapper
+// lays w1, b1 and w2 out at them.
+extern "C" int lcbi_padded_channels(int C) { return lcbi::mlp_padded_channels(C); }
+extern "C" int lcbi_padded_hidden(int H) { return lcbi::mlp_padded_hidden(H); }
+
+// x, dout, dx: (N, C) in T (fp32 if is_bf16 == 0, else bf16); w1: (Cp, H) and
+// w2: (H, Cp) in T, Cp = C rounded up to 16, zeros past the true widths;
+// ln_g, ln_b: (C,) and b1: (H,) fp32. slots: max_slots x P fp32 scratch (P a
+// multiple of 8, every offset of a block's slot in floats: dw1 (Cp, H) at 0,
+// dw2 (H, Cp) at off_dw2, then db1 (H), db2, dg, dbln (C, each at least Cp
+// floats apart)). out: (P,) fp32, the slots summed. C > 0, H % 64 == 0, all
+// pointers 32-byte aligned. Returns cudaGetLastError() of the launches.
 extern "C" int lcbi_fused_ln_mlp_bwd(const void* x, const void* ln_g, const void* ln_b,
                                      const void* w1, const void* b1, const void* w2,
                                      const void* dout, void* dx, void* slots, void* out, int N,
@@ -244,7 +260,7 @@ extern "C" int lcbi_fused_ln_mlp_bwd(const void* x, const void* ln_g, const void
                                      int off_dw2, int off_db1, int off_db2, int off_dg,
                                      int off_dbln, void* stream) {
   (void)cudaGetLastError();
-  if (N <= 0 || C % 16 != 0 || H % lcbi::kBwdChunk != 0 || max_slots < 1 || P % 8 != 0)
+  if (N <= 0 || C <= 0 || H <= 0 || H % lcbi::kBwdChunk != 0 || max_slots < 1 || P % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const lcbi::MlpSlots off{off_dw2, off_db1, off_db2, off_dg, off_dbln};
@@ -265,7 +281,7 @@ extern "C" int lcbi_fused_mlp_bwd(const void* x, const void* w1, const void* b1,
                                   int C, int H, int is_bf16, int max_slots, long long P,
                                   int off_dw2, int off_db1, int off_db2, void* stream) {
   (void)cudaGetLastError();
-  if (N <= 0 || C % 16 != 0 || H % lcbi::kBwdChunk != 0 || max_slots < 1 || P % 8 != 0)
+  if (N <= 0 || C <= 0 || H <= 0 || H % lcbi::kBwdChunk != 0 || max_slots < 1 || P % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const lcbi::MlpSlots off{off_dw2, off_db1, off_db2, 0, 0};

@@ -73,20 +73,21 @@ k3_rows_out_kernel(const T* __restrict__ v2, const T* __restrict__ x, const T* _
                    int has_ln) {
   constexpr int R = kRowTile;
   extern __shared__ __align__(128) unsigned char smem[];
-  const RowsOutLayout L = rows_out_layout(C, sizeof(T));
+  const int Cp = chunk_padded_channels(C);
+  const RowsOutLayout L = rows_out_layout(Cp, sizeof(T));
   T* vs = reinterpret_cast<T*>(smem);
   float* acc = reinterpret_cast<float*>(smem + L.off_acc);
   const int tiles_per_window = V / R;
   const int w = blockIdx.x / tiles_per_window;
   const int t0 = (blockIdx.x % tiles_per_window) * R;
   const size_t plane = (size_t)BW * V;
-  // the tile of v2, channel-major in global memory, row-major here
-  for (int i = threadIdx.x; i < R * C; i += kThreads) {
+  // the tile of v2 (Cp channels), channel-major in global memory, row-major here
+  for (int i = threadIdx.x; i < R * Cp; i += kThreads) {
     const int c = i / R, t = i % R;
     vs[(size_t)t * L.ldv + c] = v2[(size_t)c * plane + (size_t)w * V + t0 + t];
   }
   __syncthreads();
-  gemm<false, false>(acc, L.ldacc, vs, L.ldv, wo, C, R, C, C, false);
+  gemm<false, false>(acc, L.ldacc, vs, L.ldv, wo, Cp, R, Cp, Cp, false);
   __syncthreads();
   const size_t base = ((size_t)w * V + t0) * C;
   for (int i = threadIdx.x; i < R * C; i += kThreads) {
@@ -109,11 +110,11 @@ int launch_fwd(const void* x, const void* ln_g, const void* ln_b, const void* wi
                const void* bin, const void* ws, const void* bs, const void* m, const void* wo,
                const void* bo, void* out, void* gbuf, void* x2buf, int BW, int V, int C, int K,
                int chunk, int has_ln, cudaStream_t stream) {
-  const int n = V / chunk;
+  const int n = V / chunk, Cp = chunk_padded_channels(C);
   const unsigned row_tiles = (unsigned)((size_t)BW * V / kRowTile);
-  const size_t in_bytes = rows_in_layout(C, K, sizeof(T)).bytes;
+  const size_t in_bytes = rows_in_layout(Cp, K, sizeof(T), false).bytes;  // no do
   const size_t tp_bytes = toeplitz_layout(n, chunk, sizeof(T), false).bytes;
-  const size_t out_bytes = rows_out_layout(C, sizeof(T)).bytes;
+  const size_t out_bytes = rows_out_layout(Cp, sizeof(T)).bytes;
   int err = prepare(k3_rows_in_kernel<T>, in_bytes);
   if (err == 0) err = prepare(k3_toeplitz_fwd_kernel<T>, tp_bytes);
   if (err == 0) err = prepare(k3_rows_out_kernel<T>, out_bytes);
@@ -125,9 +126,9 @@ int launch_fwd(const void* x, const void* ln_g, const void* ln_b, const void* wi
       static_cast<const T*>(win), static_cast<const float*>(bin), static_cast<const float*>(ws),
       static_cast<const float*>(bs), nullptr, nullptr, g, x2, nullptr, BW, V, C, K, has_ln);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  const dim3 groups((unsigned)((BW + kWindowGroup - 1) / kWindowGroup), (unsigned)C);
+  const dim3 groups((unsigned)((BW + kWindowGroup - 1) / kWindowGroup), (unsigned)Cp);
   k3_toeplitz_fwd_kernel<T><<<groups, kThreads, tp_bytes, stream>>>(
-      g, x2, static_cast<const T*>(m), BW, V, C, chunk);
+      g, x2, static_cast<const T*>(m), BW, V, Cp, chunk);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   k3_rows_out_kernel<T><<<row_tiles, kThreads, out_bytes, stream>>>(
       g, static_cast<const T*>(x), static_cast<const T*>(wo), static_cast<const float*>(bo),
@@ -137,11 +138,16 @@ int launch_fwd(const void* x, const void* ln_g, const void* ln_b, const void* wi
 
 }  // namespace lcbi
 
-// x, out: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); win: (C, 3C), wo:
-// (C, C) and m: (V / chunk, C, chunk, chunk) in T; bin, bs: (3C,), ws: (K, 3C),
-// bo: (C,) and, if has_ln, ln_g, ln_b: (C,), all fp32. gbuf: C * BW * V of T
-// and x2buf: C * BW * V fp32, scratch. V % 64 == 0, chunk 64 or 128 dividing
-// V, C % 32 == 0, 1 <= K <= 16, all pointers 32-byte aligned. Returns
+// The padded width this library's kernels run on (common.cuh): the wrapper
+// lays the weights, taps and biases out at it.
+extern "C" int lcbi_padded_channels(int C) { return lcbi::chunk_padded_channels(C); }
+
+// x, out: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); win: (Cp, 3Cp), wo:
+// (Cp, Cp) and m: (V / chunk, Cp, chunk, chunk) in T; bin, bs: (3Cp,), ws:
+// (K, 3Cp) fp32, all padded with zeros per C-wide block to Cp = C rounded up
+// to 32; bo: (C,) and, if has_ln, ln_g, ln_b: (C,), fp32. gbuf: Cp * BW * V
+// of T and x2buf: Cp * BW * V fp32, scratch. V % 64 == 0, chunk 64 or 128
+// dividing V, C > 0, 1 <= K <= 16, all pointers 32-byte aligned. Returns
 // cudaGetLastError() of the launches.
 extern "C" int lcbi_hyena_chunked_fwd(const void* x, const void* ln_g, const void* ln_b,
                                       const void* win, const void* bin, const void* ws,
@@ -151,7 +157,7 @@ extern "C" int lcbi_hyena_chunked_fwd(const void* x, const void* ln_g, const voi
                                       void* stream) {
   (void)cudaGetLastError();
   if (BW <= 0 || V <= 0 || V % lcbi::kRowTile != 0 || (chunk != 64 && chunk != 128) ||
-      V % chunk != 0 || C <= 0 || C % lcbi::kChunkChannels != 0 || K < 1 || K > lcbi::kMaxTaps)
+      V % chunk != 0 || C <= 0 || K < 1 || K > lcbi::kMaxTaps)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)

@@ -14,6 +14,13 @@
 // through global memory in a channel-major layout (C, BW, V), in which one
 // channel of one window is V contiguous values: the row-tile kernels write
 // and read it in runs of a tile's tokens, the channel kernels in whole rows.
+//
+// Widths: the channel axis runs over Cp = C rounded up to 32 (whole chunks
+// of 32). The rows of x and do load at the true C (LayerNorm statistics over
+// C, zeros in columns [C, Cp)) and only columns [0, C) of out and dx are
+// stored; the weights, taps, biases and Toeplitz blocks arrive padded to Cp
+// with zeros (the wrapper pads them, never the activations), and the
+// channel-major streams hold Cp channels, the padded ones zero.
 #pragma once
 
 #include "common.cuh"
@@ -27,21 +34,38 @@ constexpr int kWindowGroup = 16;     // windows per channel-kernel block (a WMMA
 constexpr int kMaxTaps = 16;
 
 // Rows of a row tile: local row i holds token t0 - hb + i of window w, LN'd
-// (or copied) into ys in T; rows whose token lies outside [0, V) are zero.
-// mu/rstd (may be null) receive each LN'd row's statistics.
+// (or copied) into ys in T, columns [C, Cp) zero; rows whose token lies
+// outside [0, V) are zero. mu/rstd (may be null) receive each LN'd row's
+// statistics.
 template <typename T>
 __device__ void load_window_rows(const T* __restrict__ x, int w, int t0, int hb, int rows_pad,
-                                 int V, int C, const float* __restrict__ ln_g,
+                                 int V, int C, int Cp, const float* __restrict__ ln_g,
                                  const float* __restrict__ ln_b, int has_ln, T* ys, int lds,
                                  float* mu, float* rstd) {
   const int lo = max(0, hb - t0);
   const int hi = min(rows_pad, hb + V - t0);
   const T* src = x + ((size_t)w * V + (t0 - hb + lo)) * C;
   layernorm_rows(src, hi - lo, hi - lo, C, ln_g, ln_b, has_ln, ys + (size_t)lo * lds, lds,
-                 mu == nullptr ? nullptr : mu + lo, rstd == nullptr ? nullptr : rstd + lo);
-  for (int i = threadIdx.x; i < rows_pad * C; i += kThreads) {
-    const int r = i / C;
-    if (r < lo || r >= hi) ys[(size_t)r * lds + i % C] = from_f32<T>(0.f);
+                 mu == nullptr ? nullptr : mu + lo, rstd == nullptr ? nullptr : rstd + lo, Cp);
+  for (int i = threadIdx.x; i < rows_pad * Cp; i += kThreads) {
+    const int r = i / Cp;
+    if (r < lo || r >= hi) ys[(size_t)r * lds + i % Cp] = from_f32<T>(0.f);
+  }
+}
+
+// The backward's products read do straight from global memory in 16-column
+// tiles where C % 16 == 0; otherwise (C = 24, say) a tile of do is staged in
+// shared memory with zeros past C, so that no tile reads past a row.
+__host__ __device__ __forceinline__ bool stage_dout(int C) { return C % 16 != 0; }
+
+// The R rows of do from token row `row0` of the (BW V, C) stream into a
+// (R, Cp) tile (ld lds) in T, columns [C, Cp) zero.
+template <typename T>
+__device__ void load_dout_rows(const T* __restrict__ dout, size_t row0, int R, int C, int Cp,
+                               T* dst, int lds) {
+  for (int i = threadIdx.x; i < R * Cp; i += kThreads) {
+    const int r = i / Cp, c = i % Cp;
+    dst[(size_t)r * lds + c] = c < C ? dout[(row0 + r) * C + c] : from_f32<T>(0.f);
   }
 }
 
@@ -76,28 +100,30 @@ __device__ __forceinline__ float short_conv_at(const float* z, int ldz, int row,
 
 struct RowsInLayout {
   int lds, ldz, ldd;
-  size_t off_z, off_ws, off_bias, off_dv2, bytes;
+  size_t off_z, off_ws, off_bias, off_dv2, off_dos, bytes;
 };
 
-__host__ __device__ inline RowsInLayout rows_in_layout(int C, int K, int elem) {
+// Cp: the padded width; with stage, room for a tile of do (stage_dout).
+__host__ __device__ inline RowsInLayout rows_in_layout(int Cp, int K, int elem, bool stage) {
   RowsInLayout L;
   const int rows_pad = kHalo + kRowTile;
-  L.lds = C + 8;
+  L.lds = Cp + 8;
   L.ldz = 3 * kChunkChannels + 4;
   L.ldd = kChunkChannels + 4;
   L.off_z = align128((size_t)rows_pad * L.lds * elem);
   L.off_ws = L.off_z + align128((size_t)rows_pad * L.ldz * 4);
   L.off_bias = L.off_ws + align128((size_t)K * 3 * kChunkChannels * 4);
   L.off_dv2 = L.off_bias + align128((size_t)2 * 3 * kChunkChannels * 4);
-  L.bytes = L.off_dv2 + align128((size_t)kRowTile * L.ldd * 4);
+  L.off_dos = L.off_dv2 + align128((size_t)kRowTile * L.ldd * 4);
+  L.bytes = L.off_dos + (stage ? align128((size_t)kRowTile * L.lds * elem) : 0);
   return L;
 }
 
 // Row-tile kernel, one block per tile of 64 tokens of one window (plus a
 // back halo of 16 rows): [LN], in_proj, the short conv and the pre-gate, in
-// chunks of 32 channels. Writes g = v * x1 (in T, the Toeplitz operand) and
-// x2 (fp32) channel-major; with dout given, also dv2 = dout @ wo^T (fp32),
-// the start of the backward.
+// chunks of 32 channels over Cp. Writes g = v * x1 (in T, the Toeplitz
+// operand) and x2 (fp32) channel-major, Cp channels; with dout given, also
+// dv2 = dout @ wo^T (fp32), the start of the backward.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 k3_rows_in_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
@@ -109,30 +135,37 @@ k3_rows_in_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   constexpr int CC = kChunkChannels;
   constexpr int R = kRowTile, rows_pad = kHalo + kRowTile;
   extern __shared__ __align__(128) unsigned char smem[];
-  const RowsInLayout L = rows_in_layout(C, K, sizeof(T));
+  const int Cp = chunk_padded_channels(C);
+  const bool stage = dout != nullptr && stage_dout(C);
+  const RowsInLayout L = rows_in_layout(Cp, K, sizeof(T), stage);
   T* ys = reinterpret_cast<T*>(smem);
   float* z = reinterpret_cast<float*>(smem + L.off_z);
   float* wsc = reinterpret_cast<float*>(smem + L.off_ws);
   float* binc = reinterpret_cast<float*>(smem + L.off_bias);
   float* bsc = binc + 3 * CC;
   float* dv2c = reinterpret_cast<float*>(smem + L.off_dv2);
+  T* dos = reinterpret_cast<T*>(smem + L.off_dos);
 
   const int tiles_per_window = V / R;
   const int w = blockIdx.x / tiles_per_window;
   const int t0 = (blockIdx.x % tiles_per_window) * R;
   const size_t plane = (size_t)BW * V;
-  load_window_rows(x, w, t0, kHalo, rows_pad, V, C, ln_g, ln_b, has_ln, ys, L.lds,
+  load_window_rows(x, w, t0, kHalo, rows_pad, V, C, Cp, ln_g, ln_b, has_ln, ys, L.lds,
                    (float*)nullptr, (float*)nullptr);
+  if (stage) load_dout_rows(dout, (size_t)w * V + t0, R, C, Cp, dos, L.lds);
+  // dv2's A operand: the staged tile (depth Cp) or do's rows in global memory
+  // (depth C, a multiple of 16)
+  const T* da = stage ? dos : dout + ((size_t)w * V + t0) * C;
+  const int lda = stage ? L.lds : C, kd = stage ? Cp : C;
 
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    load_chunk_taps(ws, bin, bs, C, K, c0, wsc, binc, bsc);
+  for (int c0 = 0; c0 < Cp; c0 += CC) {
+    load_chunk_taps(ws, bin, bs, Cp, K, c0, wsc, binc, bsc);
     __syncthreads();  // also orders the row loads before the first product
     for (int s = 0; s < 3; ++s)
-      gemm<false, false>(z + s * CC, L.ldz, ys, L.lds, win + s * C + c0, 3 * C, rows_pad, CC, C,
-                         false);
+      gemm<false, false>(z + s * CC, L.ldz, ys, L.lds, win + s * Cp + c0, 3 * Cp, rows_pad, CC,
+                         Cp, false);
     if (dout != nullptr)
-      gemm<false, true>(dv2c, L.ldd, dout + ((size_t)w * V + t0) * C, C, wo + (size_t)c0 * C, C,
-                        R, CC, C, false);
+      gemm<false, true>(dv2c, L.ldd, da, lda, wo + (size_t)c0 * Cp, Cp, R, CC, kd, false);
     __syncthreads();
     // one thread per (token, channel), tokens fastest: the channel-major
     // stores of a warp are 32 neighbouring tokens of one channel

@@ -87,19 +87,20 @@ struct ChunkedSlots {
 
 struct RowsBwdLayout {
   int lds, ldz, ldd, lddy;
-  size_t off_z, off_dzc, off_dz, off_dy, off_ws, off_bias, off_stats, bytes;
+  size_t off_z, off_dzc, off_dz, off_dy, off_ws, off_bias, off_stats, off_dos, bytes;
 };
 
 // Row tile of the backward: 16 halo rows, 64 tile rows, 16 halo rows.
 constexpr int kBwdRows = kHalo + kRowTile + kHalo;
 
-__host__ __device__ inline RowsBwdLayout rows_bwd_layout(int C, int K, int elem) {
+// stage: room for a tile of do (stage_dout).
+__host__ __device__ inline RowsBwdLayout rows_bwd_layout(int Cp, int K, int elem, bool stage) {
   constexpr int W3 = 3 * kChunkChannels;
   RowsBwdLayout L;
-  L.lds = C + 8;
+  L.lds = Cp + 8;
   L.ldz = W3 + 4;
   L.ldd = W3 + 8;
-  L.lddy = C + 4;
+  L.lddy = Cp + 4;
   L.off_z = align128((size_t)kBwdRows * L.lds * elem);
   L.off_dzc = L.off_z + align128((size_t)kBwdRows * L.ldz * 4);
   L.off_dz = L.off_dzc + align128((size_t)(kRowTile + kHalo) * L.ldz * 4);
@@ -107,7 +108,8 @@ __host__ __device__ inline RowsBwdLayout rows_bwd_layout(int C, int K, int elem)
   L.off_ws = L.off_dy + align128((size_t)kRowTile * L.lddy * 4);
   L.off_bias = L.off_ws + align128((size_t)K * W3 * 4);
   L.off_stats = L.off_bias + align128((size_t)2 * W3 * 4);
-  L.bytes = L.off_stats + align128((size_t)2 * kBwdRows * 4);
+  L.off_dos = L.off_stats + align128((size_t)2 * kBwdRows * 4);
+  L.bytes = L.off_dos + (stage ? align128((size_t)kRowTile * L.lds * elem) : 0);
   return L;
 }
 
@@ -124,7 +126,9 @@ k3_rows_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   constexpr int CC = kChunkChannels, W3 = 3 * kChunkChannels, R = kRowTile, H = kHalo;
   constexpr int NE = R + H;  // conv rows whose dzc the tile needs: tokens t0 .. t0 + R + H - 1
   extern __shared__ __align__(128) unsigned char smem[];
-  const RowsBwdLayout L = rows_bwd_layout(C, K, sizeof(T));
+  const int Cp = chunk_padded_channels(C);
+  const bool stage = stage_dout(C);
+  const RowsBwdLayout L = rows_bwd_layout(Cp, K, sizeof(T), stage);
   T* ys = reinterpret_cast<T*>(smem);
   float* z = reinterpret_cast<float*>(smem + L.off_z);      // in_proj without bias
   float* dzc = reinterpret_cast<float*>(smem + L.off_dzc);  // d(short conv out), rows t0..
@@ -135,6 +139,7 @@ k3_rows_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   float* bsc = binc + W3;
   float* mus = reinterpret_cast<float*>(smem + L.off_stats);
   float* rstds = mus + kBwdRows;
+  T* dos = reinterpret_cast<T*>(smem + L.off_dos);          // a staged tile of do, (R, Cp)
 
   float* slot = slots + (size_t)blockIdx.x * P;
   float* s_dwin = slot;
@@ -155,15 +160,17 @@ k3_rows_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     const int w = (int)(tile / tiles_per_window);
     const int t0 = (int)(tile % tiles_per_window) * R;
     const size_t base = ((size_t)w * V + t0) * C;
-    load_window_rows(x, w, t0, H, kBwdRows, V, C, ln_g, ln_b, has_ln, ys, L.lds, mus, rstds);
+    load_window_rows(x, w, t0, H, kBwdRows, V, C, Cp, ln_g, ln_b, has_ln, ys, L.lds, mus,
+                     rstds);
+    if (stage) load_dout_rows(dout, (size_t)w * V + t0, R, C, Cp, dos, L.lds);
     for (int i = threadIdx.x; i < R * L.lddy; i += kThreads) dy[i] = 0.f;
 
-    for (int c0 = 0; c0 < C; c0 += CC) {
-      load_chunk_taps(ws, bin, bs, C, K, c0, wsc, binc, bsc);
+    for (int c0 = 0; c0 < Cp; c0 += CC) {
+      load_chunk_taps(ws, bin, bs, Cp, K, c0, wsc, binc, bsc);
       __syncthreads();  // also orders the row loads (and the last chunk's reads) before
       for (int s = 0; s < 3; ++s)
-        gemm<false, false>(z + s * CC, L.ldz, ys, L.lds, win + s * C + c0, 3 * C, kBwdRows, CC,
-                           C, false);
+        gemm<false, false>(z + s * CC, L.ldz, ys, L.lds, win + s * Cp + c0, 3 * Cp, kBwdRows, CC,
+                           Cp, false);
       __syncthreads();
       // dzc at tokens t0 .. t0 + NE - 1 (zero past the window end), tokens fastest
       for (int p = threadIdx.x; p < NE * CC; p += kThreads) {
@@ -196,7 +203,7 @@ k3_rows_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
             if (t0 + e - mm < 0) continue;
             a += dzc[(size_t)e * L.ldz + col] * (z[(size_t)(H + e - mm) * L.ldz + col] + bi);
           }
-          float* dst = s_dws + (size_t)mm * 3 * C + (col / CC) * C + c0 + col % CC;
+          float* dst = s_dws + (size_t)mm * 3 * Cp + (col / CC) * Cp + c0 + col % CC;
           *dst = (first ? 0.f : *dst) + a;
         }
         for (int e = 0; e < R; ++e) {
@@ -205,25 +212,32 @@ k3_rows_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
           dzs[(size_t)e * L.ldd + col] = from_f32<T>(a);
           si += a;
         }
-        const size_t at = (size_t)(col / CC) * C + c0 + col % CC;
+        const size_t at = (size_t)(col / CC) * Cp + c0 + col % CC;
         s_dbs[at] = (first ? 0.f : s_dbs[at]) + sb;
         s_dbin[at] = (first ? 0.f : s_dbin[at]) + si;
       }
       __syncthreads();
       // dwin[:, cols] += y^T dz over the tile rows; dy += dz @ win[:, cols]^T
       for (int s = 0; s < 3; ++s) {
-        gemm<true, false>(s_dwin + s * C + c0, 3 * C, ys + (size_t)H * L.lds, L.lds, dzs + s * CC,
-                          L.ldd, C, CC, R, !first);
-        gemm<false, true>(dy, L.lddy, dzs + s * CC, L.ldd, win + s * C + c0, 3 * C, R, C, CC,
+        gemm<true, false>(s_dwin + s * Cp + c0, 3 * Cp, ys + (size_t)H * L.lds, L.lds,
+                          dzs + s * CC, L.ldd, Cp, CC, R, !first);
+        gemm<false, true>(dy, L.lddy, dzs + s * CC, L.ldd, win + s * Cp + c0, 3 * Cp, R, Cp, CC,
                           true);
       }
       __syncthreads();
     }
 
     // dwo += v2^T do over the tile rows (v2 channel-major: row c of the
-    // operand is channel c's tile, stride BW * V between channels)
-    gemm<false, false>(s_dwo, C, v2 + (size_t)w * V + t0, (int)plane, dout + base, C, C, C, R,
-                       !first);
+    // operand is channel c's tile, stride BW * V between channels), against
+    // the staged tile of do (Cp columns) or do's rows in global memory (C
+    // columns, a multiple of 16: dwo's columns past C stay unwritten, and the
+    // caller keeps the first C)
+    if (stage)
+      gemm<false, false>(s_dwo, Cp, v2 + (size_t)w * V + t0, (int)plane, dos, L.lds, Cp, Cp, R,
+                         !first);
+    else
+      gemm<false, false>(s_dwo, Cp, v2 + (size_t)w * V + t0, (int)plane, dout + base, C, Cp, C, R,
+                         !first);
     // dbo = sum of do over the rows; with the folded LN, d ln_g and d ln_b
     for (int c = threadIdx.x; c < C; c += kThreads) {
       float so = 0.f, sg = 0.f, sb = 0.f;
@@ -289,11 +303,11 @@ int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* wi
                const void* dout, void* dx, void* gs, void* dvl, void* v2, void* fa, void* fb,
                float* slots, float* red, size_t P, ChunkedSlots off, int max_slots, int BW, int V,
                int C, int K, int chunk, int has_ln, cudaStream_t stream) {
-  const int n = V / chunk;
+  const int n = V / chunk, Cp = chunk_padded_channels(C);
   const long long row_tiles = (long long)BW * V / kRowTile;
-  const size_t in_bytes = rows_in_layout(C, K, sizeof(T)).bytes;
+  const size_t in_bytes = rows_in_layout(Cp, K, sizeof(T), stage_dout(C)).bytes;
   const size_t tp_bytes = toeplitz_layout(n, chunk, sizeof(T), true).bytes;
-  const size_t bwd_bytes = rows_bwd_layout(C, K, sizeof(T)).bytes;
+  const size_t bwd_bytes = rows_bwd_layout(Cp, K, sizeof(T), stage_dout(C)).bytes;
   int err = prepare(k3_rows_in_kernel<T>, in_bytes);
   if (err == 0) err = prepare(k3_toeplitz_bwd_kernel<T>, tp_bytes);
   if (err == 0) err = prepare(k3_rows_bwd_kernel<T>, bwd_bytes);
@@ -314,10 +328,10 @@ int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* wi
       xt, lg, lb, wint, bint, wst, bst, dt, static_cast<const T*>(wo), static_cast<T*>(gs), fa32,
       fb32, BW, V, C, K, has_ln);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  const dim3 groups((unsigned)((BW + kWindowGroup - 1) / kWindowGroup), (unsigned)C);
+  const dim3 groups((unsigned)((BW + kWindowGroup - 1) / kWindowGroup), (unsigned)Cp);
   k3_toeplitz_bwd_kernel<T><<<groups, kThreads, tp_bytes, stream>>>(
       static_cast<const T*>(gs), fa32, fb32, static_cast<T*>(dvl), static_cast<T*>(v2),
-      static_cast<const T*>(m), BW, V, C, chunk);
+      static_cast<const T*>(m), BW, V, Cp, chunk);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   k3_rows_bwd_kernel<T><<<G, kThreads, bwd_bytes, stream>>>(
       xt, lg, lb, wint, bint, wst, bst, dt, fa32, fb32, static_cast<const T*>(v2),
@@ -328,16 +342,21 @@ int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* wi
 
 }  // namespace lcbi
 
-// x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); win: (C, 3C),
-// wo: (C, C) and m: (V / chunk, C, chunk, chunk) in T; bin, bs: (3C,), ws:
-// (K, 3C) and, if has_ln, ln_g, ln_b: (C,), all fp32. gs, dvl (out: the
-// streams of g and dvl) and v2 (scratch): C * BW * V of T; fa, fb: C * BW * V
-// fp32 scratch. slots: max_slots x P fp32 scratch (P a multiple of 8; offsets
-// in floats inside a block's slot: dwin (C, 3C) at 0, dwo (C, C) at off_dwo, a
-// multiple of 8, then dws (K, 3C), dbin, dbs (3C), dbo, dg, dbln (C)). red:
-// (P,) fp32, the slots summed. V % 64 == 0, chunk 64 or 128 dividing V,
-// C % 32 == 0, 1 <= K <= 16, all pointers 32-byte aligned. Returns
-// cudaGetLastError() of the launches.
+// The padded width this library's kernels run on (common.cuh): the wrapper
+// lays the weights, taps and biases out at it.
+extern "C" int lcbi_padded_channels(int C) { return lcbi::chunk_padded_channels(C); }
+
+// x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); win: (Cp,
+// 3Cp), wo: (Cp, Cp) and m: (V / chunk, Cp, chunk, chunk) in T; bin, bs: (3Cp,),
+// ws: (K, 3Cp) fp32, padded as the forward's (Cp = C rounded up to 32), and,
+// if has_ln, ln_g, ln_b: (C,) fp32. gs, dvl (out: the streams of g and dvl)
+// and v2 (scratch): Cp * BW * V of T; fa, fb: Cp * BW * V fp32 scratch.
+// slots: max_slots x P fp32 scratch (P a multiple of 8; offsets in floats
+// inside a block's slot: dwin (Cp, 3Cp) at 0, dwo (Cp, Cp) at off_dwo, a
+// multiple of 8, then dws (K, 3Cp), dbin, dbs (3Cp), dbo, dg, dbln (C, each
+// at least Cp floats apart)). red: (P,) fp32, the slots summed. V % 64 == 0,
+// chunk 64 or 128 dividing V, C > 0, 1 <= K <= 16, all pointers 32-byte
+// aligned. Returns cudaGetLastError() of the launches.
 extern "C" int lcbi_hyena_chunked_bwd(const void* x, const void* ln_g, const void* ln_b,
                                       const void* win, const void* bin, const void* ws,
                                       const void* bs, const void* m, const void* wo,
@@ -349,8 +368,8 @@ extern "C" int lcbi_hyena_chunked_bwd(const void* x, const void* ln_g, const voi
                                       int off_dbln, void* stream) {
   (void)cudaGetLastError();
   if (BW <= 0 || V <= 0 || V % lcbi::kRowTile != 0 || (chunk != 64 && chunk != 128) ||
-      V % chunk != 0 || C <= 0 || C % lcbi::kChunkChannels != 0 || K < 1 ||
-      K > lcbi::kMaxTaps || max_slots < 1 || P % 8 != 0 || off_dwo % 8 != 0)
+      V % chunk != 0 || C <= 0 || K < 1 || K > lcbi::kMaxTaps || max_slots < 1 || P % 8 != 0 ||
+      off_dwo % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const lcbi::ChunkedSlots off{off_dwo, off_dws, off_dbin, off_dbs, off_dbo, off_dg, off_dbln};

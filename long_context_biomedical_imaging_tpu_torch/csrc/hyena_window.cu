@@ -24,6 +24,13 @@
 // Taps arrive prepared by the wrapper, as for the TPU kernel: ws (K, 3C) is
 // the short filter flipped to causal tap order, kl (V, C) the long filter
 // with the skip weight added to tap 0.
+//
+// Widths: the channel axis runs in chunks of 32 over Cp = C rounded up to 32.
+// The rows of x load at the true C (LayerNorm statistics over C, zeros in
+// columns [C, Cp)) and only columns [0, C) of the output are stored; the
+// weights, taps and biases arrive padded to Cp with zeros (the wrapper pads
+// the weights, never the activations), so the padded channels of a chunk's
+// tail stay zero through the whole chain.
 #include "common.cuh"
 
 namespace lcbi {
@@ -63,7 +70,8 @@ hyena_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         int rows_pad, int has_ln) {
   constexpr int CC = kChanChunk, W3 = 3 * kChanChunk;
   extern __shared__ __align__(128) unsigned char smem[];
-  const HyenaLayout L = hyena_layout(rows_pad, V, C, K, sizeof(T));
+  const int Cp = chunk_padded_channels(C);
+  const HyenaLayout L = hyena_layout(rows_pad, V, Cp, K, sizeof(T));
   T* ys = reinterpret_cast<T*>(smem);
   float* acc = reinterpret_cast<float*>(smem + L.off_acc);
   float* z = reinterpret_cast<float*>(smem + L.off_z);
@@ -79,28 +87,28 @@ hyena_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   const size_t base = (size_t)w0 * V * C;
   const T* xt = x + base;
 
-  layernorm_rows(xt, rows, rows_pad, C, ln_g, ln_b, has_ln, ys, L.lds);
+  layernorm_rows(xt, rows, rows_pad, C, ln_g, ln_b, has_ln, ys, L.lds, nullptr, nullptr, Cp);
   for (int i = threadIdx.x; i < rows_pad * L.ldacc; i += kThreads) acc[i] = 0.f;
   // pad rows of v2 are never written by the gates; keep them finite
   for (int i = threadIdx.x; i < rows_pad * L.ldv; i += kThreads) v2[i] = from_f32<T>(0.f);
 
-  for (int c0 = 0; c0 < C; c0 += CC) {
+  for (int c0 = 0; c0 < Cp; c0 += CC) {
     // this chunk's taps and biases; column j of a 3CC-wide chunk is channel
     // c0 + j % CC of block j / CC of the [x1 | x2 | v] projection
     for (int i = threadIdx.x; i < V * CC; i += kThreads)
-      klc[i] = kl[(size_t)(i / CC) * C + c0 + i % CC];
+      klc[i] = kl[(size_t)(i / CC) * Cp + c0 + i % CC];
     for (int i = threadIdx.x; i < K * W3; i += kThreads) {
       const int m = i / W3, j = i % W3;
-      wsc[i] = ws[(size_t)m * 3 * C + (j / CC) * C + c0 + j % CC];
+      wsc[i] = ws[(size_t)m * 3 * Cp + (j / CC) * Cp + c0 + j % CC];
     }
     for (int j = threadIdx.x; j < W3; j += kThreads) {
-      const int col = (j / CC) * C + c0 + j % CC;
+      const int col = (j / CC) * Cp + c0 + j % CC;
       binc[j] = bin[col];
       bsc[j] = bs[col];
     }
     __syncthreads();  // also orders the LN prologue before the first product
     for (int s = 0; s < 3; ++s)
-      gemm_tile(z + s * CC, L.ldz, ys, L.lds, win + s * C + c0, 3 * C, rows_pad, CC, C, false);
+      gemm_tile(z + s * CC, L.ldz, ys, L.lds, win + s * Cp + c0, 3 * Cp, rows_pad, CC, Cp, false);
     __syncthreads();
 
     for (int p = threadIdx.x; p < nwin * CC; p += kThreads) {
@@ -133,7 +141,7 @@ hyena_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     __syncthreads();
     // the next chunk's tap loads and first product touch neither v2 nor acc,
     // and its gates (which overwrite v2) wait behind the barrier after them
-    gemm_tile(acc, L.ldacc, v2, L.ldv, wo + (size_t)c0 * C, C, rows_pad, C, CC, true);
+    gemm_tile(acc, L.ldacc, v2, L.ldv, wo + (size_t)c0 * Cp, Cp, rows_pad, Cp, CC, true);
   }
   __syncthreads();
 
@@ -152,7 +160,9 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* win, c
            void* out, int BW, int V, int C, int K, int has_ln, cudaStream_t stream) {
   const int limit = max_dynamic_smem();
   int wb = kMaxWindow / V;
-  auto bytes_for = [&](int nw) { return hyena_layout(round_up16(nw * V), V, C, K, sizeof(T)).bytes; };
+  auto bytes_for = [&](int nw) {
+    return hyena_layout(round_up16(nw * V), V, chunk_padded_channels(C), K, sizeof(T)).bytes;
+  };
   while (wb > 1 && bytes_for(wb) > (size_t)limit) wb /= 2;
   const size_t bytes = bytes_for(wb);
   if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
@@ -171,9 +181,14 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* win, c
 
 }  // namespace lcbi
 
-// x, out: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); win: (C, 3C) and
-// wo: (C, C) in T; bin, bs: (3C,), ws: (K, 3C), kl: (V, C), bo: (C,) and, if
-// has_ln, ln_g, ln_b: (C,), all fp32. 1 <= V <= 64, C % 32 == 0, all pointers
+// The padded width this library's kernels run on (common.cuh): the wrapper
+// lays the weights, taps and biases out at it.
+extern "C" int lcbi_padded_channels(int C) { return lcbi::chunk_padded_channels(C); }
+
+// x, out: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); win: (Cp, 3Cp)
+// and wo: (Cp, Cp) in T; bin, bs: (3Cp,), ws: (K, 3Cp), kl: (V, Cp) fp32, all
+// padded per [x1 | x2 | v] block with zeros to Cp = C rounded up to 32; bo
+// and, if has_ln, ln_g, ln_b: (C,) fp32. 1 <= V <= 64, C > 0, all pointers
 // 32-byte aligned. Returns cudaGetLastError() of the launch.
 extern "C" int lcbi_hyena_window_fwd(const void* x, const void* ln_g, const void* ln_b,
                                      const void* win, const void* bin, const void* ws,
@@ -181,7 +196,7 @@ extern "C" int lcbi_hyena_window_fwd(const void* x, const void* ln_g, const void
                                      const void* bo, void* out, int BW, int V, int C, int K,
                                      int has_ln, int is_bf16, void* stream) {
   (void)cudaGetLastError();
-  if (BW <= 0 || V < 1 || V > lcbi::kMaxWindow || C % lcbi::kChanChunk != 0 || K < 1)
+  if (BW <= 0 || V < 1 || V > lcbi::kMaxWindow || C <= 0 || K < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)

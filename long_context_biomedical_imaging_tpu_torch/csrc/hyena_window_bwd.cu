@@ -36,6 +36,11 @@
 // Taps arrive prepared by the wrapper, as for the forward: ws (K, 3C) in
 // causal tap order, kl (V, C) with the skip weight in tap 0. The gradients
 // are those of the prepared taps; the wrapper's flip and fold carry them back.
+//
+// Widths as the forward's (hyena_window.cu): chunks over Cp = C rounded up
+// to 32, the rows of x, do and dx and the LayerNorm at the true C; the
+// weight, tap and bias gradients come out in the padded layout and the
+// wrapper keeps their true blocks.
 #include "common.cuh"
 
 namespace lcbi {
@@ -96,7 +101,8 @@ hyena_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         long long tiles) {
   constexpr int CC = kChanChunk, W3 = 3 * kChanChunk;
   extern __shared__ __align__(128) unsigned char smem[];
-  const HyenaBwdLayout L = hyena_bwd_layout(rows_pad, wb, V, C, K, sizeof(T));
+  const int Cp = chunk_padded_channels(C);
+  const HyenaBwdLayout L = hyena_bwd_layout(rows_pad, wb, V, Cp, K, sizeof(T));
   T* ys = reinterpret_cast<T*>(smem);
   T* dos = reinterpret_cast<T*>(smem + L.off_dos);
   float* dy = reinterpret_cast<float*>(smem + L.off_dy);
@@ -138,10 +144,11 @@ hyena_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     const T* xt = x + base;
     const T* dot = dout + base;
 
-    layernorm_rows(xt, rows, rows_pad, C, ln_g, ln_b, has_ln, ys, L.lds, mus, rstds);
-    for (int i = threadIdx.x; i < rows_pad * C; i += kThreads) {
-      const int r = i / C, c = i % C;
-      dos[(size_t)r * L.lds + c] = r < rows ? dot[(size_t)r * C + c] : from_f32<T>(0.f);
+    layernorm_rows(xt, rows, rows_pad, C, ln_g, ln_b, has_ln, ys, L.lds, mus, rstds, Cp);
+    for (int i = threadIdx.x; i < rows_pad * Cp; i += kThreads) {
+      const int r = i / Cp, c = i % Cp;
+      dos[(size_t)r * L.lds + c] =
+          r < rows && c < C ? dot[(size_t)r * C + c] : from_f32<T>(0.f);
     }
     for (int i = threadIdx.x; i < rows_pad * L.lddy; i += kThreads) dy[i] = 0.f;
     // pad rows of v2 and dz are never written per chunk; they must be zero so
@@ -149,24 +156,25 @@ hyena_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     for (int i = threadIdx.x; i < rows_pad * L.ldv; i += kThreads) v2s[i] = from_f32<T>(0.f);
     for (int i = threadIdx.x; i < rows_pad * L.ldd; i += kThreads) dzs[i] = from_f32<T>(0.f);
 
-    for (int c0 = 0; c0 < C; c0 += CC) {
+    for (int c0 = 0; c0 < Cp; c0 += CC) {
       // this chunk's short taps and biases (the long taps are read from
       // global memory, through L1); column j of a 3CC-wide chunk is channel
       // c0 + j % CC of block j / CC of the [x1 | x2 | v] projection
       for (int i = threadIdx.x; i < K * W3; i += kThreads) {
         const int m = i / W3, j = i % W3;
-        wsc[i] = ws[(size_t)m * 3 * C + (j / CC) * C + c0 + j % CC];
+        wsc[i] = ws[(size_t)m * 3 * Cp + (j / CC) * Cp + c0 + j % CC];
       }
       for (int j = threadIdx.x; j < W3; j += kThreads) {
-        const int col = (j / CC) * C + c0 + j % CC;
+        const int col = (j / CC) * Cp + c0 + j % CC;
         binc[j] = bin[col];
         bsc[j] = bs[col];
       }
       __syncthreads();  // also orders the prologue before the first products
       for (int s = 0; s < 3; ++s)
-        gemm<false, false>(z + s * CC, L.ldz, ys, L.lds, win + s * C + c0, 3 * C, rows_pad, CC, C,
-                           false);
-      gemm<false, true>(dv2, L.ldc, dos, L.lds, wo + (size_t)c0 * C, C, rows_pad, CC, C, false);
+        gemm<false, false>(z + s * CC, L.ldz, ys, L.lds, win + s * Cp + c0, 3 * Cp, rows_pad, CC,
+                           Cp, false);
+      gemm<false, true>(dv2, L.ldc, dos, L.lds, wo + (size_t)c0 * Cp, Cp, rows_pad, CC, Cp,
+                        false);
       __syncthreads();
 
       for (int p = threadIdx.x; p < nwin * CC; p += kThreads) {
@@ -177,7 +185,7 @@ hyena_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
         float* gr = gb + r0 * L.ldc;
         float* lr = vlb + r0 * L.ldc;
         float* dr = dv2 + r0 * L.ldc;
-        const float* klj = kl + c0 + j;   // tap m of this channel: klj[m * C]
+        const float* klj = kl + c0 + j;   // tap m of this channel: klj[m * Cp]
         // forward recompute: in_proj bias, causal short conv, gates, long conv
         for (int s = 0; s < 3; ++s) {
           const int col = s * CC + j;
@@ -195,7 +203,7 @@ hyena_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
         for (int t = 0; t < V; ++t) {
           float a = 0.f;
           for (int m = 0; m <= t; ++m)
-            a += gr[(size_t)(t - m) * L.ldc + j] * __ldg(klj + (size_t)m * C);
+            a += gr[(size_t)(t - m) * L.ldc + j] * __ldg(klj + (size_t)m * Cp);
           lr[(size_t)t * L.ldc + j] = a;
           v2s[(r0 + t) * L.ldv + j] = from_f32<T>(a * cr[(size_t)t * L.ldz + CC + j]);
         }
@@ -217,7 +225,7 @@ hyena_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
         for (int t = 0; t < V; ++t) {
           float dg = 0.f;
           for (int m = 0; t + m < V; ++m)
-            dg += __ldg(klj + (size_t)m * C) * dr[(size_t)(t + m) * L.ldc + j];
+            dg += __ldg(klj + (size_t)m * Cp) * dr[(size_t)(t + m) * L.ldc + j];
           const float x1 = cr[(size_t)t * L.ldz + j], v = cr[(size_t)t * L.ldz + 2 * CC + j];
           cr[(size_t)t * L.ldz + j] = dg * v;
           cr[(size_t)t * L.ldz + 2 * CC + j] = dg * x1;
@@ -252,14 +260,14 @@ hyena_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
         const int tau = i / CC, j = i % CC;
         float a = 0.f;
         for (int w = 0; w < nwin; ++w) a += vlb[((size_t)w * V + tau) * L.ldc + j];
-        float* dst = s_dkl + (size_t)tau * C + c0 + j;
+        float* dst = s_dkl + (size_t)tau * Cp + c0 + j;
         *dst = (first ? 0.f : *dst) + a;
       }
       for (int i = threadIdx.x; i < K * W3; i += kThreads) {
         const int m = i / W3, col = i % W3;
         float a = 0.f;
         for (int w = 0; w < nwin; ++w) a += wspart[((size_t)w * K + m) * W3 + col];
-        float* dst = s_dws + (size_t)m * 3 * C + (col / CC) * C + c0 + col % CC;
+        float* dst = s_dws + (size_t)m * 3 * Cp + (col / CC) * Cp + c0 + col % CC;
         *dst = (first ? 0.f : *dst) + a;
       }
       for (int col = threadIdx.x; col < W3; col += kThreads) {
@@ -268,17 +276,18 @@ hyena_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
           a += bspart[(size_t)w * W3 + col];
           b += bipart[(size_t)w * W3 + col];
         }
-        const size_t at = (size_t)(col / CC) * C + c0 + col % CC;
+        const size_t at = (size_t)(col / CC) * Cp + c0 + col % CC;
         s_dbs[at] = (first ? 0.f : s_dbs[at]) + a;
         s_dbin[at] = (first ? 0.f : s_dbin[at]) + b;
       }
       // dwo[chunk, :] += v2^T do; dwin[:, cols] += y^T dz; dy += dz win[:, cols]^T
-      gemm<true, false>(s_dwo + (size_t)c0 * C, C, v2s, L.ldv, dos, L.lds, CC, C, rows_pad, !first);
+      gemm<true, false>(s_dwo + (size_t)c0 * Cp, Cp, v2s, L.ldv, dos, L.lds, CC, Cp, rows_pad,
+                        !first);
       for (int s = 0; s < 3; ++s) {
-        gemm<true, false>(s_dwin + s * C + c0, 3 * C, ys, L.lds, dzs + s * CC, L.ldd, C, CC,
+        gemm<true, false>(s_dwin + s * Cp + c0, 3 * Cp, ys, L.lds, dzs + s * CC, L.ldd, Cp, CC,
                           rows_pad, !first);
-        gemm<false, true>(dy, L.lddy, dzs + s * CC, L.ldd, win + s * C + c0, 3 * C, rows_pad, C,
-                          CC, true);
+        gemm<false, true>(dy, L.lddy, dzs + s * CC, L.ldd, win + s * Cp + c0, 3 * Cp, rows_pad,
+                          Cp, CC, true);
       }
       __syncthreads();
     }
@@ -345,7 +354,7 @@ int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* wi
   const int limit = max_dynamic_smem();
   int wb = kMaxWindow / V;
   auto bytes_for = [&](int nw) {
-    return hyena_bwd_layout(round_up16(nw * V), nw, V, C, K, sizeof(T)).bytes;
+    return hyena_bwd_layout(round_up16(nw * V), nw, V, chunk_padded_channels(C), K, sizeof(T)).bytes;
   };
   while (wb > 1 && bytes_for(wb) > (size_t)limit) wb /= 2;
   const size_t bytes = bytes_for(wb);
@@ -369,14 +378,19 @@ int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* wi
 
 }  // namespace lcbi
 
-// x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); win: (C, 3C)
-// and wo: (C, C) in T; bin, bs: (3C,), ws: (K, 3C), kl: (V, C) and, if has_ln,
-// ln_g, ln_b: (C,), all fp32. slots: max_slots x P fp32 scratch (P a multiple
-// of 8; offsets in floats inside a block's slot: dwin (C, 3C) at 0, dwo (C, C)
-// at off_dwo, a multiple of 8, then dws (K, 3C), dbin, dbs (3C), dkl (V, C),
-// dbo, dg, dbln (C)). out: (P,) fp32, the slots summed. 1 <= V <= 64,
-// C % 32 == 0, all pointers 32-byte aligned. Returns cudaGetLastError() of the
-// launches.
+// The padded width this library's kernels run on (common.cuh): the wrapper
+// lays the weights, taps and biases out at it.
+extern "C" int lcbi_padded_channels(int C) { return lcbi::chunk_padded_channels(C); }
+
+// x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); win: (Cp,
+// 3Cp) and wo: (Cp, Cp) in T; bin, bs: (3Cp,), ws: (K, 3Cp), kl: (V, Cp), all
+// padded as the forward's (Cp = C rounded up to 32), and, if has_ln, ln_g,
+// ln_b: (C,), all fp32. slots: max_slots x P fp32 scratch (P a multiple of 8;
+// offsets in floats inside a block's slot: dwin (Cp, 3Cp) at 0, dwo (Cp, Cp)
+// at off_dwo, a multiple of 8, then dws (K, 3Cp), dbin, dbs (3Cp), dkl (V,
+// Cp), dbo, dg, dbln (C, each at least Cp floats apart)). out: (P,) fp32,
+// the slots summed. 1 <= V <= 64, C > 0, all pointers 32-byte aligned.
+// Returns cudaGetLastError() of the launches.
 extern "C" int lcbi_hyena_window_bwd(const void* x, const void* ln_g, const void* ln_b,
                                      const void* win, const void* bin, const void* ws,
                                      const void* bs, const void* kl, const void* wo,
@@ -386,8 +400,8 @@ extern "C" int lcbi_hyena_window_bwd(const void* x, const void* ln_g, const void
                                      int off_dbs, int off_dkl, int off_dbo, int off_dg,
                                      int off_dbln, void* stream) {
   (void)cudaGetLastError();
-  if (BW <= 0 || V < 1 || V > lcbi::kMaxWindow || C % lcbi::kChanChunk != 0 || K < 1 ||
-      max_slots < 1 || P % 8 != 0 || off_dwo % 8 != 0)
+  if (BW <= 0 || V < 1 || V > lcbi::kMaxWindow || C <= 0 || K < 1 || max_slots < 1 ||
+      P % 8 != 0 || off_dwo % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const lcbi::HyenaSlots off{off_dwo, off_dws, off_dbin, off_dbs,

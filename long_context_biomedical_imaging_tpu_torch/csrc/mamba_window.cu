@@ -104,9 +104,10 @@ mamba_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         const T* __restrict__ wdt, const float* __restrict__ dtb2,
                         const float* __restrict__ at, const float* __restrict__ dskip,
                         const T* __restrict__ wout, T* __restrict__ out,
-                        unsigned char* __restrict__ work, int BW, int V, int C, int R, int wb,
+                        unsigned char* __restrict__ work, int BW, int V, int Ct, int R, int wb,
                         int rows_pad, int has_ln) {
   constexpr int N = kMambaN;
+  const int C = chunk_padded_channels(Ct);  // the padded width (mamba_window.cuh)
   extern __shared__ __align__(128) unsigned char smem[];
   const int Dh = C / 2, W = R + 2 * N;
   const MambaFwdLayout L = mamba_fwd_layout(rows_pad, C, W, sizeof(T), kPlace);
@@ -131,10 +132,10 @@ mamba_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   const int w0 = blockIdx.x * wb;
   const int nwin = min(wb, BW - w0);
   const int rows = nwin * V;
-  const size_t base = (size_t)w0 * V * C;
+  const size_t base = (size_t)w0 * V * Ct;
   const T* xt = x + base;
 
-  layernorm_rows(xt, rows, rows_pad, C, ln_g, ln_b, has_ln, ys, L.lds);
+  layernorm_rows(xt, rows, rows_pad, Ct, ln_g, ln_b, has_ln, ys, L.lds, nullptr, nullptr, C);
   __syncthreads();
   gemm_tile(acc, L.ldacc, ys, L.lds, wxz, C, rows_pad, C, C, false);
   __syncthreads();
@@ -178,8 +179,8 @@ mamba_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   __syncthreads();
 
   T* ot = out + base;
-  for (int i = threadIdx.x; i < rows * C; i += kThreads) {
-    const int r = i / C, c = i % C;
+  for (int i = threadIdx.x; i < rows * Ct; i += kThreads) {
+    const int r = i / Ct, c = i % Ct;
     float v = acc[(size_t)r * L.ldacc + c];
     if (has_ln) v += to_f32(xt[i]);
     ot[i] = from_f32<T>(v);
@@ -191,7 +192,7 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* wxz, c
            const void* wdbl, const void* wdt, const void* dtb2, const void* at, const void* dskip,
            const void* wout, void* out, void* work, size_t work_bytes, int BW, int V, int C, int R,
            int has_ln, cudaStream_t stream) {
-  const MambaFwdPlan P = mamba_fwd_plan(BW, V, C, R, sizeof(T));
+  const MambaFwdPlan P = mamba_fwd_plan(BW, V, chunk_padded_channels(C), R, sizeof(T));
   if (P.wb == 0 || P.work_bytes > work_bytes) return (int)cudaErrorInvalidValue;
   auto kernel = P.place == kShared      ? mamba_window_fwd_kernel<T, kShared>
                 : P.place == kAccGlobal ? mamba_window_fwd_kernel<T, kAccGlobal>
@@ -210,22 +211,28 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* wxz, c
 
 }  // namespace lcbi
 
+// The padded width this library's kernels run on (common.cuh): the wrapper
+// lays the weights, taps and biases out at it.
+extern "C" int lcbi_padded_channels(int C) { return lcbi::chunk_padded_channels(C); }
+
 // Bytes of global scratch the forward needs for BW windows of V tokens at C
 // channels and dt rank R (0 where its tiles fit in shared memory), or -1 where
 // it cannot take the shape.
 extern "C" long long lcbi_mamba_window_fwd_workspace(int BW, int V, int C, int R, int is_bf16) {
   if (!lcbi::mamba_shape_ok(BW, V, C, R)) return -1;
-  const lcbi::MambaFwdPlan P = lcbi::mamba_fwd_plan(BW, V, C, R, is_bf16 ? 2 : 4);
+  const lcbi::MambaFwdPlan P = lcbi::mamba_fwd_plan(BW, V, lcbi::chunk_padded_channels(C), R, is_bf16 ? 2 : 4);
   return P.wb == 0 ? -1 : (long long)P.work_bytes;
 }
 
-// x, out: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); wxz, wout: (C, C),
-// wdbl: (C/2, R + 16) and wdt: (R, C/2) in T; wconv: (3, C), at: (8, C/2),
-// dtb2, dskip: (C/2,) and, if has_ln, ln_g, ln_b: (C,), all fp32. work:
-// work_bytes of global scratch, at least lcbi_mamba_window_fwd_workspace
-// (NULL where that is 0). 16 <= V <= 64 with V % 8 == 0, C % 32 == 0, 1 <= R
-// <= 64, all pointers 32-byte aligned. Returns cudaGetLastError() of the launch
-// (or cudaErrorInvalidValue for a shape the workspace query refuses).
+// x, out: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); with Cp = C
+// rounded up to 32 and every C/2 block padded with zeros to Cp/2 (see
+// mamba_window.cuh): wxz, wout: (Cp, Cp), wdbl: (Cp/2, R + 16) and wdt: (R,
+// Cp/2) in T; wconv: (3, Cp), at: (8, Cp/2), dtb2, dskip: (Cp/2,) fp32; if
+// has_ln, ln_g, ln_b: (C,) fp32. work: work_bytes of global scratch, at
+// least lcbi_mamba_window_fwd_workspace (NULL where that is 0). 16 <= V <= 64
+// with V % 8 == 0, C even, 1 <= R <= 64, all pointers 32-byte aligned.
+// Returns cudaGetLastError() of the launch (or cudaErrorInvalidValue for a
+// shape the workspace query refuses).
 extern "C" int lcbi_mamba_window_fwd(const void* x, const void* ln_g, const void* ln_b,
                                      const void* wxz, const void* wconv, const void* wdbl,
                                      const void* wdt, const void* dtb2, const void* at,

@@ -9,6 +9,15 @@
 //     out = [x +] [y | z] @ wout
 // The four products take operands rounded to the stream type T (bf16 under
 // AMP) and sum in fp32; everything else is fp32.
+//
+// Widths: the kernels take any even C. Their tiles and weights run on Cp = C
+// rounded up to 32 (Dhp = Cp / 2 per half): the rows of x, do and dx load
+// and store at the true C (LayerNorm statistics over C, zeros in columns
+// [C, Cp)), and the weights and per-channel operands arrive with each Dh
+// block padded with zeros to Dhp (the wrapper pads the weights, never the
+// activations), so a padded channel's x and z are SiLU(0) = 0, its scan state
+// stays 0 and it adds nothing to out_proj. Inside a kernel C names the padded
+// width and Ct the true one.
 #pragma once
 
 #include "common.cuh"
@@ -20,7 +29,7 @@ constexpr int kMambaMaxV = 64;
 
 // The shapes both kernels take (besides the shared-memory fit of the forward).
 inline bool mamba_shape_ok(int BW, int V, int C, int R) {
-  return BW > 0 && V >= 16 && V <= kMambaMaxV && V % 8 == 0 && C % 32 == 0 && C > 0 && R >= 1 &&
+  return BW > 0 && V >= 16 && V <= kMambaMaxV && V % 8 == 0 && C % 2 == 0 && C > 0 && R >= 1 &&
          R <= 64;
 }
 

@@ -108,8 +108,9 @@ mamba_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         const T* __restrict__ wout, const T* __restrict__ dout,
                         T* __restrict__ dx, unsigned char* __restrict__ work, size_t work_bytes,
                         float* __restrict__ slots, size_t P, MambaSlots off, int BW, int V,
-                        int C, int R, int wb, int rows_pad, int has_ln, long long tiles) {
+                        int Ct, int R, int wb, int rows_pad, int has_ln, long long tiles) {
   constexpr int N = kMambaN;
+  const int C = chunk_padded_channels(Ct);  // the padded width (mamba_window.cuh)
   const int Dh = C / 2, W = R + 2 * N;
   const MambaBwdLayout L = mamba_bwd_layout(rows_pad, wb, C, R, sizeof(T));
   const int Wp = L.Wp, G = L.groups;
@@ -142,14 +143,16 @@ mamba_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     const int w0 = (int)tile * wb;
     const int nwin = min(wb, BW - w0);
     const int rows = nwin * V;
-    const size_t base = (size_t)w0 * V * C;
+    const size_t base = (size_t)w0 * V * Ct;
     const T* xt = x + base;
     const T* dot = dout + base;
 
     // ---- recompute the forward up to the scan; do and dyz ------------------
-    layernorm_rows(xt, rows, rows_pad, C, ln_g, ln_b, has_ln, ys, C, mus, rstds);
-    for (int i = threadIdx.x; i < rows_pad * C; i += kThreads)
-      dos[i] = i < rows * C ? dot[i] : from_f32<T>(0.f);
+    layernorm_rows(xt, rows, rows_pad, Ct, ln_g, ln_b, has_ln, ys, C, mus, rstds, C);
+    for (int i = threadIdx.x; i < rows_pad * C; i += kThreads) {
+      const int r = i / C, c = i % C;
+      dos[i] = r < rows && c < Ct ? dot[(size_t)r * Ct + c] : from_f32<T>(0.f);
+    }
     __syncthreads();
     gemm<false, false>(xz, C, ys, C, wxz, C, rows_pad, C, C, false);
     gemm<false, true>(gyz, C, dos, C, wout, C, rows_pad, C, C, false);
@@ -359,11 +362,11 @@ mamba_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     // ---- LayerNorm backward (with the residual's do), or dx = dxin ---------
     const float* dy = xz;
     if (has_ln) {
-      for (int c = threadIdx.x; c < C; c += kThreads) {
+      for (int c = threadIdx.x; c < Ct; c += kThreads) {
         float sg = 0.f, sb = 0.f;
         for (int r = 0; r < rows; ++r) {
           const float d = dy[(size_t)r * C + c];
-          sg += d * (to_f32(xt[(size_t)r * C + c]) - mus[r]) * rstds[r];
+          sg += d * (to_f32(xt[(size_t)r * Ct + c]) - mus[r]) * rstds[r];
           sb += d;
         }
         slot_add(slot + off.dg + c, sg, first);
@@ -372,12 +375,12 @@ mamba_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     }
     T* dxt = dx + base;
     if (has_ln) {
-      const float inv = 1.f / (float)C;
+      const float inv = 1.f / (float)Ct;
       for (int r = warp; r < rows; r += kWarps) {
         const float mu = mus[r], rstd = rstds[r];
         float s1 = 0.f, s2 = 0.f;
-        for (int c = lane; c < C; c += 32) {
-          const float xhat = (to_f32(xt[(size_t)r * C + c]) - mu) * rstd;
+        for (int c = lane; c < Ct; c += 32) {
+          const float xhat = (to_f32(xt[(size_t)r * Ct + c]) - mu) * rstd;
           const float dxh = dy[(size_t)r * C + c] * ln_g[c];
           s1 += dxh;
           s2 += dxh * xhat;
@@ -385,15 +388,16 @@ mamba_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
         s1 = warp_sum(s1);
         s2 = warp_sum(s2);
         const float m1 = s1 * inv, m2 = s2 * inv;
-        for (int c = lane; c < C; c += 32) {
-          const float xhat = (to_f32(xt[(size_t)r * C + c]) - mu) * rstd;
+        for (int c = lane; c < Ct; c += 32) {
+          const float xhat = (to_f32(xt[(size_t)r * Ct + c]) - mu) * rstd;
           const float dxh = dy[(size_t)r * C + c] * ln_g[c];
           const float v = rstd * (dxh - m1 - xhat * m2) + to_f32(dos[(size_t)r * C + c]);
-          dxt[(size_t)r * C + c] = from_f32<T>(v);
+          dxt[(size_t)r * Ct + c] = from_f32<T>(v);
         }
       }
     } else {
-      for (int i = threadIdx.x; i < rows * C; i += kThreads) dxt[i] = from_f32<T>(dy[i]);
+      for (int i = threadIdx.x; i < rows * Ct; i += kThreads)
+        dxt[i] = from_f32<T>(dy[(size_t)(i / Ct) * C + i % Ct]);
     }
     __syncthreads();
   }
@@ -405,10 +409,10 @@ int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* wx
                const void* at, const void* dskip, const void* wout, const void* dout, void* dx,
                void* work, size_t work_bytes, float* slots, float* out, size_t P, MambaSlots off,
                int max_slots, int BW, int V, int C, int R, int has_ln, cudaStream_t stream) {
-  const int wb = mamba_bwd_tile_windows(V, C);
+  const int wb = mamba_bwd_tile_windows(V, chunk_padded_channels(C));
   const int rows_pad = round_up16(wb * V);
   if (rows_pad > kMaxTileRows) return (int)cudaErrorInvalidValue;
-  if (mamba_bwd_layout(rows_pad, wb, C, R, sizeof(T)).bytes > work_bytes)
+  if (mamba_bwd_layout(rows_pad, wb, chunk_padded_channels(C), R, sizeof(T)).bytes > work_bytes)
     return (int)cudaErrorInvalidValue;
   const long long tiles = (BW + wb - 1) / wb;
   const int G = persistent_blocks(mamba_window_bwd_kernel<T>, 0, tiles, max_slots);
@@ -427,26 +431,33 @@ int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* wx
 
 }  // namespace lcbi
 
+// The padded width this library's kernels run on (common.cuh): the wrapper
+// lays the weights, taps and biases out at it.
+extern "C" int lcbi_padded_channels(int C) { return lcbi::chunk_padded_channels(C); }
+
 // Bytes of global scratch one block of the backward uses (its tile's
 // intermediates, MambaBwdLayout) for windows of V tokens at C channels and dt
 // rank R, or -1 where the kernel cannot take the shape.
 extern "C" long long lcbi_mamba_window_bwd_workspace(int V, int C, int R, int is_bf16) {
   if (!lcbi::mamba_shape_ok(1, V, C, R)) return -1;
-  const int wb = lcbi::mamba_bwd_tile_windows(V, C);
-  return (long long)lcbi::mamba_bwd_layout(lcbi::round_up16(wb * V), wb, C, R, is_bf16 ? 2 : 4)
+  const int Cp = lcbi::chunk_padded_channels(C);
+  const int wb = lcbi::mamba_bwd_tile_windows(V, Cp);
+  return (long long)lcbi::mamba_bwd_layout(lcbi::round_up16(wb * V), wb, Cp, R, is_bf16 ? 2 : 4)
       .bytes;
 }
 
-// x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); wxz, wout:
-// (C, C), wdbl: (C/2, R + 16) and wdt: (R, C/2) in T; wconv: (3, C), at: (8, C/2),
-// dtb2, dskip: (C/2,) and, if has_ln, ln_g, ln_b: (C,), all fp32. work:
-// max_slots x work_floats fp32 scratch, work_floats at least
+// x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); the weights
+// and per-channel operands padded as the forward's (Cp = C rounded up to 32):
+// wxz, wout: (Cp, Cp), wdbl: (Cp/2, R + 16) and wdt: (R, Cp/2) in T; wconv: (3,
+// Cp), at: (8, Cp/2), dtb2, dskip: (Cp/2,) fp32; if has_ln, ln_g, ln_b: (C,)
+// fp32. work: max_slots x work_floats fp32 scratch, work_floats at least
 // lcbi_mamba_window_bwd_workspace / 4 and a multiple of 32. slots: max_slots x
-// P fp32 (P a multiple of 8; offsets in floats inside a block's slot: dwxz (C,
-// C) at 0, dwout (C, C) at off_dwout, a multiple of 8, then dwconv (3, C),
-// dwdbl (C/2, R + 16), dwdt (R, C/2), ddtb (C/2), dat (8, C/2), dd (C/2), dg,
-// dbln (C)). out: (P,) fp32, the slots summed. 16 <= V <= 64 with V % 8 == 0,
-// C % 32 == 0, 1 <= R <= 64, all pointers 32-byte aligned. Returns
+// P fp32 (P a multiple of 8; offsets in floats inside a block's slot, every
+// gradient in the padded layout: dwxz (Cp, Cp) at 0, dwout (Cp, Cp) at
+// off_dwout, a multiple of 8, then dwconv (3, Cp), dwdbl (Cp/2, R + 16), dwdt
+// (R, Cp/2), ddtb (Cp/2), dat (8, Cp/2), dd (Cp/2), dg, dbln (C, each at least
+// Cp floats apart)). out: (P,) fp32, the slots summed. 16 <= V <= 64 with V %
+// 8 == 0, C even, 1 <= R <= 64, all pointers 32-byte aligned. Returns
 // cudaGetLastError() of the launches.
 extern "C" int lcbi_mamba_window_bwd(const void* x, const void* ln_g, const void* ln_b,
                                      const void* wxz, const void* wconv, const void* wdbl,

@@ -1,4 +1,5 @@
-// Swin window attention K8, forward: per window of V tokens, H heads of D = 32,
+// Swin window attention K8, forward: per window of V tokens, H heads of D = C / H
+// (any D up to 64; window_attention.cuh),
 //     qkv = x Wqkv + bqkv (fp32 sums);  q | k | v head-major column blocks
 //     s_h = (q_h scale) k_h^T + rel[h] + (region ids differ ? mask_value : 0)
 //     o_h = softmax(s_h) v_h;  out = sum_h o_h Wout[hD:(h+1)D, :] + bout
@@ -37,12 +38,12 @@ struct FwdLayout {
   size_t off_q, off_k, off_v, off_s, off_p, bytes;
 };
 
-__host__ __device__ inline FwdLayout fwd_layout(int V, int elem) {
+template <int KD> __host__ __device__ inline FwdLayout fwd_layout(int V, int elem) {
   FwdLayout L;
   L.lds = ld_scores(V);
   L.ldp = ld_probs(V);
-  const size_t f = align128((size_t)kTileRows * (kLdO > kLdF ? kLdO : kLdF) * 4);
-  const size_t t = align128((size_t)kTileRows * kLdT * elem);
+  const size_t f = align128((size_t)kTileRows * ld_wide<KD>() * 4);
+  const size_t t = align128((size_t)kTileRows * HeadDims<KD>::kLdT * elem);
   L.off_q = f;
   L.off_k = L.off_q + t;
   L.off_v = L.off_k + t;
@@ -52,15 +53,16 @@ __host__ __device__ inline FwdLayout fwd_layout(int V, int elem) {
   return L;
 }
 
-template <typename T>
+template <typename T, int KD>
 __global__ void __launch_bounds__(kThreads)
 window_attention_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
                             const float* __restrict__ bqkv, const T* __restrict__ wout,
                             const float* __restrict__ bout, const float* __restrict__ rel,
                             const int* __restrict__ rid, T* obuf, T* __restrict__ out, int BW,
                             int V, int C, int H, int nW, float scale2, float mask2) {
+  constexpr int kLdT = HeadDims<KD>::kLdT, kLdF = HeadDims<KD>::kLdF, kLdO = kOutCols + 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdLayout L = fwd_layout(V, sizeof(T));
+  const FwdLayout L = fwd_layout<KD>(V, sizeof(T));
   float* F = reinterpret_cast<float*>(smem);
   T* Q = reinterpret_cast<T*>(smem + L.off_q);
   T* K = reinterpret_cast<T*>(smem + L.off_k);
@@ -73,26 +75,26 @@ window_attention_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
   T* orow = obuf + tl.row0 * C;
 
   for (int h = 0; h < H; ++h) {
-    project_head(F, xr, wqkv, M, C, h);
-    for (int e = threadIdx.x; e < M * 3 * kHeadDim; e += kThreads) {
-      const int r = e / (3 * kHeadDim), j = e % (3 * kHeadDim);
-      const int part = j / kHeadDim, d = j % kHeadDim;
-      const float v = F[r * kLdF + j] + bqkv[part * C + h * kHeadDim + d];
+    project_head<KD>(F, xr, wqkv, M, C, h);
+    for (int e = threadIdx.x; e < M * 3 * KD; e += kThreads) {
+      const int r = e / (3 * KD), j = e % (3 * KD);
+      const int part = j / KD, d = j % KD;
+      const float v = F[r * kLdF + j] + bqkv[part * C + h * KD + d];
       T* dst = part == 0 ? Q : (part == 1 ? K : Vt);
       dst[r * kLdT + d] = from_f32<T>(part == 0 ? v * scale2 : v);
     }
     __syncthreads();
     gemm_batched<false, true>(nb, S, L.lds, V * L.lds, Q, kLdT, V * kLdT, K, kLdT, V * kLdT, V,
-                              V, kHeadDim);
+                              V, KD);
     __syncthreads();
     softmax_rows(S, L.lds, P, L.ldp, M, V, rel + (size_t)h * V * V, rid, nW, tl.w0, mask2);
     __syncthreads();
     gemm_batched<false, false>(nb, F, kLdF, V * kLdF, P, L.ldp, V * L.ldp, Vt, kLdT, V * kLdT, V,
-                               kHeadDim, V);
+                               KD, V);
     __syncthreads();
-    for (int e = threadIdx.x; e < M * kHeadDim; e += kThreads) {
-      const int r = e / kHeadDim, d = e % kHeadDim;
-      orow[(size_t)r * C + h * kHeadDim + d] = from_f32<T>(F[r * kLdF + d]);
+    for (int e = threadIdx.x; e < M * KD; e += kThreads) {
+      const int r = e / KD, d = e % KD;
+      orow[(size_t)r * C + h * KD + d] = from_f32<T>(F[r * kLdF + d]);
     }
     __syncthreads();
   }
@@ -110,7 +112,7 @@ window_attention_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
   }
 }
 
-template <typename T>
+template <typename T, int KD>
 int launch_fwd_general(const void* x, const void* wqkv, const float* bqkv, const void* wout,
                        const float* bout, const float* rel, const int* rid, void* obuf,
                        void* qkv, void* out, int BW, int V, int C, int H, int nW, float scale2,
@@ -120,27 +122,61 @@ int launch_fwd_general(const void* x, const void* wqkv, const float* bqkv, const
                            -1, stream);
   if (err != 0) return err;
   int blocks = 0;
-  err = launch_rows<T, false>(qkv, 3 * C, rel, rid, nullptr, nullptr, obuf, nullptr, nullptr,
-                              nullptr, 1, BW, V, C, H, nW, 1.f, mask2, &blocks, stream);
+  err = launch_rows<T, false, KD>(qkv, 3 * C, rel, rid, nullptr, nullptr, obuf, nullptr, nullptr,
+                                  nullptr, 1, BW, V, C, H, nW, 1.f, mask2, &blocks, stream);
   if (err != 0) return err;
   return launch_proj<T>(obuf, C, wout, C, false, bout, out, C, N, C, C, 0, 1.f, -1, stream);
 }
 
-template <typename T>
-int launch_fwd(const void* x, const void* wqkv, const float* bqkv, const void* wout,
-               const float* bout, const float* rel, const int* rid, void* obuf, void* out, int BW,
-               int V, int C, int H, int nW, float scale2, float mask2, cudaStream_t stream) {
-  const size_t bytes = fwd_layout(V, sizeof(T)).bytes;
+template <typename T, int KD>
+int launch_fwd_whole(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+                     const float* bout, const float* rel, const int* rid, void* obuf, void* out,
+                     int BW, int V, int C, int H, int nW, float scale2, float mask2,
+                     cudaStream_t stream) {
+  const size_t bytes = fwd_layout<KD>(V, sizeof(T)).bytes;
   if (bytes > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(window_attention_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(window_attention_fwd_kernel<T, KD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int tw = kTileRows / V;
   const long long tiles = ((long long)BW + tw - 1) / tw;
-  window_attention_fwd_kernel<T><<<(unsigned)tiles, kThreads, bytes, stream>>>(
+  window_attention_fwd_kernel<T, KD><<<(unsigned)tiles, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), bqkv, static_cast<const T*>(wout),
       bout, rel, rid, static_cast<T*>(obuf), static_cast<T*>(out), BW, V, C, H, nW, scale2, mask2);
   return (int)cudaGetLastError();
+}
+
+// The whole-window path where it takes the shape, else the general path;
+// both at the padded head dim KD.
+template <typename T, int KD>
+int launch_fwd(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+               const float* bout, const float* rel, const int* rid, void* obuf, void* qkv,
+               void* out, int BW, int V, int C, int H, int nW, float scale2, float mask2,
+               cudaStream_t s) {
+  if (whole_window_path(V, C, H))
+    return launch_fwd_whole<T, KD>(x, wqkv, bqkv, wout, bout, rel, rid, obuf, out, BW, V, C, H,
+                                   nW, scale2, mask2, s);
+  if (qkv == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_fwd_general<T, KD>(x, wqkv, bqkv, wout, bout, rel, rid, obuf, qkv, out, BW, V, C,
+                                   H, nW, scale2, mask2, s);
+}
+
+template <typename T>
+int launch_fwd_d(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+                 const float* bout, const float* rel, const int* rid, void* obuf, void* qkv,
+                 void* out, int BW, int V, int C, int H, int nW, float scale2, float mask2,
+                 cudaStream_t s) {
+  switch (padded_head_dim(C / H)) {
+    case 16:
+      return launch_fwd<T, 16>(x, wqkv, bqkv, wout, bout, rel, rid, obuf, qkv, out, BW, V, C, H,
+                               nW, scale2, mask2, s);
+    case 32:
+      return launch_fwd<T, 32>(x, wqkv, bqkv, wout, bout, rel, rid, obuf, qkv, out, BW, V, C, H,
+                               nW, scale2, mask2, s);
+    default:
+      return launch_fwd<T, 64>(x, wqkv, bqkv, wout, bout, rel, rid, obuf, qkv, out, BW, V, C, H,
+                               nW, scale2, mask2, s);
+  }
 }
 
 }  // namespace lcbi
@@ -148,10 +184,11 @@ int launch_fwd(const void* x, const void* wqkv, const float* bqkv, const void* w
 // x, out, obuf: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); obuf is
 // scratch, and so is qkv (BW V, 3C) in T, which only the general path uses
 // (NULL otherwise). wqkv (C, 3C), wout (C, C) in T; bqkv (3C,), bout (C,), rel
-// (H, V, V) fp32; rid (nW, V) int32 or NULL (then nW is ignored). C = 32 H,
-// 1 <= V <= 512 (V = 16, 32, 48, 64: the whole-window path; the rest the
-// general path), all pointers 32-byte aligned. scale2 = scale log2(e), mask2
-// = mask_value log2(e). Returns cudaGetLastError() of the launches.
+// (H, V, V) fp32; rid (nW, V) int32 or NULL (then nW is ignored). C = D H
+// with 1 <= D <= 64, 1 <= V <= 512 (lcbi_window_attention_whole says which
+// path takes the shape), all pointers 32-byte aligned. scale2 = scale
+// log2(e), mask2 = mask_value log2(e). Returns cudaGetLastError() of the
+// launches.
 extern "C" int lcbi_window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
                                          const void* wout, const void* bout, const void* rel,
                                          const void* rid, void* obuf, void* qkv, void* out,
@@ -166,17 +203,9 @@ extern "C" int lcbi_window_attention_fwd(const void* x, const void* wqkv, const 
   const float* b1 = static_cast<const float*>(bout);
   const float* r = static_cast<const float*>(rel);
   const int* ids = static_cast<const int*>(rid);
-  if (!lcbi::whole_window_path(V)) {
-    if (qkv == nullptr) return (int)cudaErrorInvalidValue;
-    if (is_bf16)
-      return lcbi::launch_fwd_general<__nv_bfloat16>(x, wqkv, b3, wout, b1, r, ids, obuf, qkv,
-                                                     out, BW, V, C, H, nW, scale2, mask2, s);
-    return lcbi::launch_fwd_general<float>(x, wqkv, b3, wout, b1, r, ids, obuf, qkv, out, BW, V,
-                                           C, H, nW, scale2, mask2, s);
-  }
   if (is_bf16)
-    return lcbi::launch_fwd<__nv_bfloat16>(x, wqkv, b3, wout, b1, r, ids, obuf, out, BW, V, C, H,
-                                           nW, scale2, mask2, s);
-  return lcbi::launch_fwd<float>(x, wqkv, b3, wout, b1, r, ids, obuf, out, BW, V, C, H, nW,
-                                 scale2, mask2, s);
+    return lcbi::launch_fwd_d<__nv_bfloat16>(x, wqkv, b3, wout, b1, r, ids, obuf, qkv, out, BW, V,
+                                             C, H, nW, scale2, mask2, s);
+  return lcbi::launch_fwd_d<float>(x, wqkv, b3, wout, b1, r, ids, obuf, qkv, out, BW, V, C, H,
+                                   nW, scale2, mask2, s);
 }

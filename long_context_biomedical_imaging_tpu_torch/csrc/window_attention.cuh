@@ -2,39 +2,57 @@
 // (window_attention.cu, window_attention_bwd.cu). Two paths:
 //
 // The whole-window path, for V = 16, 32, 48 or 64 tokens (2D windows 4x4 to
-// 8x8): a block takes a tile of whole windows, 64 token rows (64 / V
-// windows), and walks the heads one by one. Per head it projects its q, k,
-// v columns (a C x 3D slice of Wqkv, D = 32) from the tile's token rows,
+// 8x8) at a head dim D of 16, 32 or 64 and C % 16 == 0: a block takes a tile
+// of whole windows, 64 token rows (64 / V windows), and walks the heads one
+// by one. Per head it projects its q, k, v columns (a C x 3D slice of Wqkv)
+// from the tile's token rows,
 // read straight from global memory, into fp32 shared memory, adds the bias
 // and rounds them to the stream type T; then scores, the base-2 softmax and
 // the value products run per window on shared-memory tiles.
 //
 // The general path, for every other V up to 512 (3D windows, shrunk and
-// ragged windows): one block cannot hold a window's every head, so the
+// ragged windows) and every other head dim up to 64: one block cannot hold a
+// window's every head, so the
 // projections run as tiled matrix products (proj_gemm_kernel) that write q,
 // k, v to device memory once, rounded to T where the TPU kernel rounds them;
 // the attention then runs per (window, head, tile of query rows) on
 // full score rows (window_attention_rows_kernel), so the softmax normalises
 // each row before it rounds p, as the TPU kernel does.
 //
+// Head dims: the true D = C / H is any value from 1 to 64; a padded head dim
+// KD in {16, 32, 64} (the least that holds D) is a template argument and
+// sets the tiles. The general path loads a head's D columns into KD-wide
+// tiles with zeros past D (they add nothing to q k^T) and stores only the D
+// columns of its products; the whole-window path runs where D == KD.
+//
 // Products run on the tensor cores (WMMA 16x16x16, fp32 sums) for bf16 and
 // as fp32 FMA loops for fp32 (common.cuh).
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace lcbi {
 
-constexpr int kHeadDim = 32;               // D, every Swin preset's head dim
+constexpr int kMaxHeadDim = 64;            // the largest padded head dim KD
 constexpr int kTileRows = 64;              // token rows per tile
-constexpr int kLdT = kHeadDim + 8;         // q, k, v, do tiles (T)
-constexpr int kLdF = 3 * kHeadDim + 4;     // the head's fp32 q | k | v product
-constexpr int kLdG = kHeadDim + 4;         // a head's fp32 (rows x D) product
 constexpr int kOutCols = 128;              // column chunk of the C-wide products
 constexpr int kLdO = kOutCols + 4;         // its fp32 accumulator
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Leading dimensions of the tiles at padded head dim KD.
+template <int KD> struct HeadDims {
+  static constexpr int kLdT = KD + 8;       // q, k, v, do tiles (T)
+  static constexpr int kLdF = 3 * KD + 4;   // the head's fp32 q | k | v product
+  static constexpr int kLdG = KD + 4;       // a head's fp32 (rows x KD) product
+};
+// The whole-window path's fp32 tiles of C-wide products share the q | k | v
+// product's buffer, which must hold 64 x kOutCols.
+template <int KD> constexpr int ld_wide() {
+  return HeadDims<KD>::kLdF > kOutCols + 4 ? HeadDims<KD>::kLdF : kOutCols + 4;
+}
 
 // Scores and probabilities of a window: fp32 (V x V, ld V + 4) and T (ld V + 8).
 __host__ __device__ __forceinline__ int ld_scores(int V) { return V + 4; }
@@ -107,14 +125,15 @@ __device__ __forceinline__ void gemm_batched(int nb, float* Cp, int ldc, int sc,
 
 // The head's q | k | v product of the tile's M token rows xr (global, ld C):
 // F[:, 0:D] = xr @ Wqkv[:, hD:(h+1)D], F[:, D:2D] and F[:, 2D:3D] from the
-// k and v column blocks at C + hD and 2C + hD. Ends with a barrier.
-template <typename T>
+// k and v column blocks at C + hD and 2C + hD (the whole-window path: D =
+// KD). Ends with a barrier.
+template <int KD, typename T>
 __device__ __forceinline__ void project_head(float* F, const T* xr, const T* wqkv, int M, int C,
                                              int h) {
 #pragma unroll
   for (int part = 0; part < 3; ++part)
-    gemm<false, false>(F + part * kHeadDim, kLdF, xr, C, wqkv + part * C + h * kHeadDim, 3 * C, M,
-                       kHeadDim, C, false);
+    gemm<false, false>(F + part * KD, HeadDims<KD>::kLdF, xr, C, wqkv + part * C + h * KD, 3 * C,
+                       M, KD, C, false);
   __syncthreads();
 }
 
@@ -185,15 +204,22 @@ __device__ __forceinline__ Tile tile_of(long long t, int BW, int V) {
   return tl;
 }
 
-// Shapes the kernels take: V in [1, 512], H heads of D = 32.
+// Shapes the kernels take: V in [1, 512], H heads of any D = C / H up to 64.
 constexpr int kMaxTokens = 512;
 __host__ __forceinline__ bool attn_shape_ok(int BW, int V, int C, int H) {
-  return BW > 0 && V >= 1 && V <= kMaxTokens && H > 0 && C == H * kHeadDim;
+  return BW > 0 && V >= 1 && V <= kMaxTokens && H > 0 && C > 0 && C % H == 0 &&
+         C / H <= kMaxHeadDim;
 }
 
-// Windows the whole-window path takes; every other V takes the general path.
-__host__ __forceinline__ bool whole_window_path(int V) {
-  return V >= 16 && V <= kTileRows && V % 16 == 0;
+// The least padded head dim that holds D.
+__host__ __forceinline__ int padded_head_dim(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : 64; }
+
+// Shapes the whole-window path takes; every other shape takes the general
+// path. Its products read x and the weights straight from global memory in
+// 16-column WMMA tiles, so C % 16 == 0 and D must be a padded head dim.
+__host__ __forceinline__ bool whole_window_path(int V, int C, int H) {
+  const int D = C / H;
+  return V >= 16 && V <= kTileRows && V % 16 == 0 && C % 16 == 0 && D == padded_head_dim(D);
 }
 
 // ---------------------------------------------------------------------------
@@ -221,27 +247,40 @@ __host__ __device__ inline ProjLayout proj_layout(int elem) {
   return L;
 }
 
+// dst[r * ldd + c] = src[r * lds + c] for r < rows, c < width, and zero for
+// rows <= r < n or width <= c < wpad (wpad a multiple of 16 / sizeof(T)); in
+// 16-byte vectors where width and lds are multiples of 16 / sizeof(T) and src
+// is 16-byte aligned (a uniform test: the whole block takes one branch),
+// element by element otherwise.
+template <typename T>
+__device__ __forceinline__ void load_rows16(T* dst, int ldd, const T* __restrict__ src,
+                                            size_t lds, int rows, int n, int width, int wpad) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int per_row = wpad / kVec;
+  const bool vec = width % kVec == 0 && lds % kVec == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  for (int e = threadIdx.x; e < n * per_row; e += kThreads) {
+    const int r = e / per_row, c = (e % per_row) * kVec;
+    T* d = dst + (size_t)r * ldd + c;
+    if (vec) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows && c < width) v = *reinterpret_cast<const uint4*>(src + (size_t)r * lds + c);
+      *reinterpret_cast<uint4*>(d) = v;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i)
+        d[i] = r < rows && c + i < width ? src[(size_t)r * lds + c + i] : from_f32<T>(0.f);
+    }
+  }
+}
+
 // out = epilogue(A @ B) over M x N: A (M x K, row-major, ld lda) in T; B (K x
 // N, row-major, ld ldb) or, with B_COL, the transpose of a row-major (N x K)
 // matrix. The epilogue adds bias[n] (if given) in fp32; a column n < nscale
 // is stored as T(v * scale) and, with dup >= 0, also as T(v) at column dup +
-// n; every other column as T(v). K % 32 == 0. A block per 64 x 64 output
-// tile walks K in steps of 32 staged in shared memory.
-// dst[r * ldd + c] = src[r * lds + c] for r < rows, c < width, and zero for
-// rows <= r < n, in 16-byte vectors: width a multiple of 16 / sizeof(T), every
-// row start 16-byte aligned.
-template <typename T>
-__device__ __forceinline__ void load_rows16(T* dst, int ldd, const T* __restrict__ src,
-                                            size_t lds, int rows, int n, int width) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int per_row = width / kVec;
-  for (int e = threadIdx.x; e < n * per_row; e += kThreads) {
-    const int r = e / per_row, c = (e % per_row) * kVec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) v = *reinterpret_cast<const uint4*>(src + (size_t)r * lds + c);
-    *reinterpret_cast<uint4*>(dst + (size_t)r * ldd + c) = v;
-  }
-}
+// n; every other column as T(v). Any M, N, K: the staged tiles are zero past
+// them. A block per 64 x 64 output tile walks K in steps of 32 staged in
+// shared memory.
 
 template <typename T, bool B_COL>
 __global__ void __launch_bounds__(kThreads)
@@ -257,21 +296,16 @@ proj_gemm_kernel(const T* __restrict__ A, int lda, const T* __restrict__ B, int 
   constexpr int kLdC = kProjTile + 4;
   const long long m0 = (long long)blockIdx.x * kProjTile;
   const int n0 = blockIdx.y * kProjTile;
-  constexpr int kVec = 16 / sizeof(T);
   const int rows_a = (int)min((long long)kProjTile, (long long)M - m0);
   for (int k0 = 0; k0 < K; k0 += kProjK) {
-    load_rows16(As, kLdA, A + (size_t)m0 * lda + k0, lda, rows_a, kProjTile, kProjK);
+    const int kw = min(kProjK, K - k0);
+    load_rows16(As, kLdA, A + (size_t)m0 * lda + k0, lda, rows_a, kProjTile, kw, kProjK);
     if (B_COL) {
       load_rows16(Bs, kLdB, B + (size_t)n0 * ldb + k0, ldb, min(kProjTile, N - n0), kProjTile,
-                  kProjK);
+                  kw, kProjK);
     } else {
-      // N is a multiple of 32: a vector lies wholly inside or past it
-      for (int e = threadIdx.x; e < kProjK * (kProjTile / kVec); e += kThreads) {
-        const int kk = e / (kProjTile / kVec), n = (e % (kProjTile / kVec)) * kVec;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (n0 + n < N) v = *reinterpret_cast<const uint4*>(B + (size_t)(k0 + kk) * ldb + n0 + n);
-        *reinterpret_cast<uint4*>(Bs + kk * kLdB + n) = v;
-      }
+      load_rows16(Bs, kLdB, B + (size_t)k0 * ldb + n0, ldb, kw, kProjK, min(kProjTile, N - n0),
+                  kProjTile);
     }
     __syncthreads();
     gemm<false, B_COL>(acc, kLdC, As, kLdA, Bs, kLdB, kProjTile, kProjTile, kProjK, k0 > 0);
@@ -321,7 +355,9 @@ struct RowLayout {
   size_t off_dp, off_k, off_v, off_q, off_do, off_o, off_dq, bytes;
 };
 
+template <int KD>
 __host__ __device__ inline RowLayout row_layout(int V, int elem, bool bwd) {
+  constexpr int kLdT = HeadDims<KD>::kLdT, kLdG = HeadDims<KD>::kLdG;
   const int kRows = bwd ? RowTile<true>::rows : RowTile<false>::rows;
   RowLayout L;
   L.lds = round_up16(V) + 4;
@@ -342,12 +378,12 @@ __host__ __device__ inline RowLayout row_layout(int V, int elem, bool bwd) {
 }
 
 // Rows [0, rows) of a (rows x D) tile of a head from a token-major stream
-// (ld ld, the head's columns from col) into shared memory (ld kLdT); rows
-// [rows, n) are zeroed.
-template <typename T>
+// (ld ld, the head's columns from col) into shared memory (ld KD + 8);
+// columns [D, KD) and rows [rows, n) are zeroed.
+template <int KD, typename T>
 __device__ __forceinline__ void load_head_rows(T* dst, const T* __restrict__ src, size_t ld,
-                                               int col, int rows, int n) {
-  load_rows16(dst, kLdT, src + col, ld, rows, n, kHeadDim);
+                                               int col, int D, int rows, int n) {
+  load_rows16(dst, HeadDims<KD>::kLdT, src + col, ld, rows, n, D, KD);
 }
 
 // The attention of the general path, per item (window w, head h, query tile
@@ -363,8 +399,9 @@ __device__ __forceinline__ void load_head_rows(T* dst, const T* __restrict__ src
 // Keys past V are zero rows and get p = 0; rows past the window are zero
 // rows, never stored. The backward also sums dq (fp32) over its rows into
 // the block's slot at [0, C) and, for h = 0, the rows of dout at [C, 2C).
-// Blocks walk contiguous ranges of the BW H ceil(V / R) items.
-template <typename T, bool BWD>
+// Blocks walk contiguous ranges of the BW H ceil(V / R) items. Head h's
+// columns are [h D, (h + 1) D) of each C-wide block; tiles are KD wide.
+template <typename T, bool BWD, int KD>
 __global__ void __launch_bounds__(kThreads)
 window_attention_rows_kernel(const T* __restrict__ qkv, int ldq, const float* __restrict__ rel,
                              const int* __restrict__ rid, const T* __restrict__ dO,
@@ -373,7 +410,9 @@ window_attention_rows_kernel(const T* __restrict__ qkv, int ldq, const float* __
                              int C, int H, int nW, float scale, float mask2) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kRows = RowTile<BWD>::rows;
-  const RowLayout L = row_layout(V, sizeof(T), BWD);
+  constexpr int kLdT = HeadDims<KD>::kLdT, kLdG = HeadDims<KD>::kLdG;
+  const int D = C / H;
+  const RowLayout L = row_layout<KD>(V, sizeof(T), BWD);
   float* S = reinterpret_cast<float*>(smem);
   T* P = reinterpret_cast<T*>(smem);
   float* DP = reinterpret_cast<float*>(smem + L.off_dp);
@@ -402,15 +441,15 @@ window_attention_rows_kernel(const T* __restrict__ qkv, int ldq, const float* __
     const int i0 = qt * kRows, rows = min(kRows, V - i0);
     const size_t row0 = (size_t)w * V;
     const T* qrow = qkv + row0 * ldq;
-    load_head_rows(Q, qrow + (size_t)i0 * ldq, ldq, h * kHeadDim, rows, kRows);
-    if (BWD) load_head_rows(DOt, dO + (row0 + i0) * C, C, h * kHeadDim, rows, kRows);
+    load_head_rows<KD>(Q, qrow + (size_t)i0 * ldq, ldq, h * D, D, rows, kRows);
+    if (BWD) load_head_rows<KD>(DOt, dO + (row0 + i0) * C, C, h * D, D, rows, kRows);
     for (int j0 = 0; j0 < Vp; j0 += kKeyChunk) {
       const int kw = min(kKeyChunk, Vp - j0), keys = min(kKeyChunk, V - j0);
-      load_head_rows(Kc, qrow + (size_t)j0 * ldq, ldq, C + h * kHeadDim, keys, kw);
-      if (BWD) load_head_rows(Vc, qrow + (size_t)j0 * ldq, ldq, 2 * C + h * kHeadDim, keys, kw);
+      load_head_rows<KD>(Kc, qrow + (size_t)j0 * ldq, ldq, C + h * D, D, keys, kw);
+      if (BWD) load_head_rows<KD>(Vc, qrow + (size_t)j0 * ldq, ldq, 2 * C + h * D, D, keys, kw);
       __syncthreads();
-      gemm<false, true>(S + j0, L.lds, Q, kLdT, Kc, kLdT, kRows, kw, kHeadDim, false);
-      if (BWD) gemm<false, true>(DP + j0, L.lds, DOt, kLdT, Vc, kLdT, kRows, kw, kHeadDim, false);
+      gemm<false, true>(S + j0, L.lds, Q, kLdT, Kc, kLdT, kRows, kw, KD, false);
+      if (BWD) gemm<false, true>(DP + j0, L.lds, DOt, kLdT, Vc, kLdT, kRows, kw, KD, false);
       __syncthreads();
     }
 
@@ -488,24 +527,23 @@ window_attention_rows_kernel(const T* __restrict__ qkv, int ldq, const float* __
 
     for (int j0 = 0; j0 < Vp; j0 += kKeyChunk) {
       const int kw = min(kKeyChunk, Vp - j0), keys = min(kKeyChunk, V - j0);
-      load_head_rows(Vc, qrow + (size_t)j0 * ldq, ldq, 2 * C + h * kHeadDim, keys, kw);
-      if (BWD) load_head_rows(Kc, qrow + (size_t)j0 * ldq, ldq, C + h * kHeadDim, keys, kw);
+      load_head_rows<KD>(Vc, qrow + (size_t)j0 * ldq, ldq, 2 * C + h * D, D, keys, kw);
+      if (BWD) load_head_rows<KD>(Kc, qrow + (size_t)j0 * ldq, ldq, C + h * D, D, keys, kw);
       __syncthreads();
-      gemm<false, false>(OA, kLdG, P + j0, L.ldp, Vc, kLdT, kRows, kHeadDim, kw, j0 > 0);
-      if (BWD) gemm<false, false>(DQA, kLdG, DS + j0, L.ldp, Kc, kLdT, kRows, kHeadDim, kw, j0 > 0);
+      gemm<false, false>(OA, kLdG, P + j0, L.ldp, Vc, kLdT, kRows, KD, kw, j0 > 0);
+      if (BWD) gemm<false, false>(DQA, kLdG, DS + j0, L.ldp, Kc, kLdT, kRows, KD, kw, j0 > 0);
       __syncthreads();
     }
-    for (int e = threadIdx.x; e < rows * kHeadDim; e += kThreads) {
-      const int r = e / kHeadDim, d = e % kHeadDim;
-      o[(row0 + i0 + r) * C + h * kHeadDim + d] = from_f32<T>(OA[r * kLdG + d]);
-      if (BWD)
-        dqkv[(row0 + i0 + r) * 3 * C + h * kHeadDim + d] = from_f32<T>(DQA[r * kLdG + d] * scale);
+    for (int e = threadIdx.x; e < rows * D; e += kThreads) {
+      const int r = e / D, d = e % D;
+      o[(row0 + i0 + r) * C + h * D + d] = from_f32<T>(OA[r * kLdG + d]);
+      if (BWD) dqkv[(row0 + i0 + r) * 3 * C + h * D + d] = from_f32<T>(DQA[r * kLdG + d] * scale);
     }
     if (BWD) {
-      for (int d = threadIdx.x; d < kHeadDim; d += kThreads) {
+      for (int d = threadIdx.x; d < D; d += kThreads) {
         float acc = 0.f;
         for (int r = 0; r < rows; ++r) acc += DQA[r * kLdG + d] * scale;
-        slot[h * kHeadDim + d] += acc;
+        slot[h * D + d] += acc;
       }
       if (h == 0) {
         for (int c = threadIdx.x; c < C; c += kThreads) {
@@ -521,23 +559,24 @@ window_attention_rows_kernel(const T* __restrict__ qkv, int ldq, const float* __
 
 // Blocks of the row kernel: one per item in the forward; in the backward a
 // persistent grid of at most max_slots blocks, each with its own slot.
-template <typename T, bool BWD>
+template <typename T, bool BWD, int KD>
 int launch_rows(const void* qkv, int ldq, const float* rel, const int* rid, const void* dO,
                 const void* dout, void* o, void* dqkv, float* stats, float* slots, int max_slots,
                 int BW, int V, int C, int H, int nW, float scale, float mask2, int* blocks,
                 cudaStream_t stream) {
-  const size_t bytes = row_layout(V, sizeof(T), BWD).bytes;
+  const size_t bytes = row_layout<KD>(V, sizeof(T), BWD).bytes;
   if (bytes > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(window_attention_rows_kernel<T, BWD>,
+  cudaError_t err = cudaFuncSetAttribute(window_attention_rows_kernel<T, BWD, KD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   constexpr int kRows = RowTile<BWD>::rows;
   const long long items = (long long)BW * H * ((V + kRows - 1) / kRows);
   long long G = items;
-  if (BWD) G = persistent_blocks(window_attention_rows_kernel<T, BWD>, bytes, items, max_slots);
+  if (BWD)
+    G = persistent_blocks(window_attention_rows_kernel<T, BWD, KD>, bytes, items, max_slots);
   if (G <= 0 || G > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   *blocks = (int)G;
-  window_attention_rows_kernel<T, BWD><<<(unsigned)G, kThreads, bytes, stream>>>(
+  window_attention_rows_kernel<T, BWD, KD><<<(unsigned)G, kThreads, bytes, stream>>>(
       static_cast<const T*>(qkv), ldq, rel, rid, static_cast<const T*>(dO),
       static_cast<const T*>(dout), static_cast<T*>(o), static_cast<T*>(dqkv), stats, slots, BW,
       V, C, H, nW, scale, mask2);
@@ -545,3 +584,10 @@ int launch_rows(const void* qkv, int ldq, const float* rel, const int* rid, cons
 }
 
 }  // namespace lcbi
+
+// 1 where the whole-window path takes (V, C, H), 0 where the general path
+// does, -1 for a shape neither takes. Launches nothing.
+extern "C" int lcbi_window_attention_whole(int V, int C, int H) {
+  if (!lcbi::attn_shape_ok(1, V, C, H)) return -1;
+  return lcbi::whole_window_path(V, C, H) ? 1 : 0;
+}

@@ -45,15 +45,15 @@ struct BwdLayout {
   size_t off_g, off_q, off_qu, off_k, off_v, off_do, off_s, off_dp, off_p, off_ds, bytes;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int V, int elem) {
+template <int KD> __host__ __device__ inline BwdLayout bwd_layout(int V, int elem) {
   BwdLayout L;
   L.lds = ld_scores(V);
   L.ldp = ld_probs(V);
-  const size_t t = align128((size_t)kTileRows * kLdT * elem);
+  const size_t t = align128((size_t)kTileRows * HeadDims<KD>::kLdT * elem);
   const size_t s = align128((size_t)kTileRows * L.lds * 4);
   const size_t p = align128((size_t)kTileRows * L.ldp * elem);
-  L.off_g = align128((size_t)kTileRows * (kLdO > kLdF ? kLdO : kLdF) * 4);
-  L.off_q = L.off_g + align128((size_t)kTileRows * kLdG * 4);
+  L.off_g = align128((size_t)kTileRows * ld_wide<KD>() * 4);
+  L.off_q = L.off_g + align128((size_t)kTileRows * HeadDims<KD>::kLdG * 4);
   L.off_qu = L.off_q + t;
   L.off_k = L.off_qu + t;
   L.off_v = L.off_k + t;
@@ -67,7 +67,8 @@ __host__ __device__ inline BwdLayout bwd_layout(int V, int elem) {
 }
 
 // Slot layout (floats): dbqkv [0, 3C), dbout [3C, 4C), drel [4C, 4C + H V V).
-template <typename T>
+// The whole-window path: D = KD.
+template <typename T, int KD>
 __global__ void __launch_bounds__(kThreads)
 window_attention_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
                             const float* __restrict__ bqkv, const T* __restrict__ wout,
@@ -75,8 +76,10 @@ window_attention_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
                             const T* __restrict__ dout, T* __restrict__ dx, T* dqkv,
                             T* __restrict__ o, float* __restrict__ slots, int BW, int V, int C,
                             int H, int nW, float scale, float scale2, float mask2) {
+  constexpr int kLdT = HeadDims<KD>::kLdT, kLdF = HeadDims<KD>::kLdF;
+  constexpr int kLdG = HeadDims<KD>::kLdG, kLdO = kOutCols + 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout L = bwd_layout(V, sizeof(T));
+  const BwdLayout L = bwd_layout<KD>(V, sizeof(T));
   float* F = reinterpret_cast<float*>(smem);
   float* G = reinterpret_cast<float*>(smem + L.off_g);
   T* Q = reinterpret_cast<T*>(smem + L.off_q);
@@ -112,11 +115,11 @@ window_attention_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
     }
 
     for (int h = 0; h < H; ++h) {
-      project_head(F, xr, wqkv, M, C, h);
-      for (int e = threadIdx.x; e < M * 3 * kHeadDim; e += kThreads) {
-        const int r = e / (3 * kHeadDim), j = e % (3 * kHeadDim);
-        const int part = j / kHeadDim, d = j % kHeadDim;
-        const float v = F[r * kLdF + j] + bqkv[part * C + h * kHeadDim + d];
+      project_head<KD>(F, xr, wqkv, M, C, h);
+      for (int e = threadIdx.x; e < M * 3 * KD; e += kThreads) {
+        const int r = e / (3 * KD), j = e % (3 * KD);
+        const int part = j / KD, d = j % KD;
+        const float v = F[r * kLdF + j] + bqkv[part * C + h * KD + d];
         if (part == 0) {
           Q[r * kLdT + d] = from_f32<T>(v * scale2);
           QU[r * kLdT + d] = from_f32<T>(v);
@@ -126,28 +129,28 @@ window_attention_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
       }
       __syncthreads();
       gemm_batched<false, true>(nb, S, L.lds, V * L.lds, Q, kLdT, V * kLdT, K, kLdT, V * kLdT,
-                                V, V, kHeadDim);
+                                V, V, KD);
       // do_h = dout Wout[hD:(h+1)D, :]^T over the tile's rows
-      gemm<false, true>(F, kLdF, gr, C, wout + (size_t)h * kHeadDim * C, C, M, kHeadDim, C,
+      gemm<false, true>(F, kLdF, gr, C, wout + (size_t)h * KD * C, C, M, KD, C,
                         false);
       __syncthreads();
       softmax_rows(S, L.lds, P, L.ldp, M, V, rel + (size_t)h * V * V, rid, nW, tl.w0, mask2);
-      for (int e = threadIdx.x; e < M * kHeadDim; e += kThreads) {
-        const int r = e / kHeadDim, d = e % kHeadDim;
+      for (int e = threadIdx.x; e < M * KD; e += kThreads) {
+        const int r = e / KD, d = e % KD;
         DO[r * kLdT + d] = from_f32<T>(F[r * kLdF + d]);
       }
       __syncthreads();
       // o_h = p v; dv = p^T do; dp = do v^T
       gemm_batched<false, false>(nb, G, kLdG, V * kLdG, P, L.ldp, V * L.ldp, Vt, kLdT, V * kLdT,
-                                 V, kHeadDim, V);
-      gemm_batched<true, false>(nb, F + 2 * kHeadDim, kLdF, V * kLdF, P, L.ldp, V * L.ldp, DO,
-                                kLdT, V * kLdT, V, kHeadDim, V);
+                                 V, KD, V);
+      gemm_batched<true, false>(nb, F + 2 * KD, kLdF, V * kLdF, P, L.ldp, V * L.ldp, DO,
+                                kLdT, V * kLdT, V, KD, V);
       gemm_batched<false, true>(nb, DP, L.lds, V * L.lds, DO, kLdT, V * kLdT, Vt, kLdT,
-                                V * kLdT, V, V, kHeadDim);
+                                V * kLdT, V, V, KD);
       __syncthreads();
-      for (int e = threadIdx.x; e < M * kHeadDim; e += kThreads) {
-        const int r = e / kHeadDim, d = e % kHeadDim;
-        orow[(size_t)r * C + h * kHeadDim + d] = from_f32<T>(G[r * kLdG + d]);
+      for (int e = threadIdx.x; e < M * KD; e += kThreads) {
+        const int r = e / KD, d = e % KD;
+        orow[(size_t)r * C + h * KD + d] = from_f32<T>(G[r * kLdG + d]);
       }
       // ds = p (dp - rowsum(dp p)), one warp per row
       {
@@ -175,13 +178,13 @@ window_attention_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
       }
       // dq = ds k, dk = ds^T q (unscaled q; both times scale below)
       gemm_batched<false, false>(nb, F, kLdF, V * kLdF, DS, L.ldp, V * L.ldp, K, kLdT, V * kLdT,
-                                 V, kHeadDim, V);
-      gemm_batched<true, false>(nb, F + kHeadDim, kLdF, V * kLdF, DS, L.ldp, V * L.ldp, QU, kLdT,
-                                V * kLdT, V, kHeadDim, V);
+                                 V, KD, V);
+      gemm_batched<true, false>(nb, F + KD, kLdF, V * kLdF, DS, L.ldp, V * L.ldp, QU, kLdT,
+                                V * kLdT, V, KD, V);
       __syncthreads();
-      for (int j = threadIdx.x; j < 3 * kHeadDim; j += kThreads) {
-        const float mul = j < 2 * kHeadDim ? scale : 1.f;
-        const int col = (j / kHeadDim) * C + h * kHeadDim + j % kHeadDim;
+      for (int j = threadIdx.x; j < 3 * KD; j += kThreads) {
+        const float mul = j < 2 * KD ? scale : 1.f;
+        const int col = (j / KD) * C + h * KD + j % KD;
         float acc = 0.f;
         for (int r = 0; r < M; ++r) {
           const float v = F[r * kLdF + j] * mul;
@@ -220,11 +223,14 @@ struct KvLayout {
       bytes;
 };
 
+template <int KD>
+
 // drel's columns of the key tile for every query row (V x 32 fp32) first,
 // then the k, v tile, the q, unscaled q and do rows of a step, the
 // transposed scores and dp (fp32) and p, ds (T) of a step, the fp32 dk, dv
 // sums and the step's row statistics.
 __host__ __device__ inline KvLayout kv_layout(int V, int elem) {
+  constexpr int kLdT = HeadDims<KD>::kLdT, kLdG = HeadDims<KD>::kLdG;
   KvLayout L;
   const size_t kv = align128((size_t)kKeyTile * kLdT * elem);
   const size_t q = align128((size_t)kQRows * kLdT * elem);
@@ -257,15 +263,18 @@ __host__ __device__ inline KvLayout kv_layout(int V, int elem) {
 // kt] ([dbk | dbv], 2C floats, the head's columns), and the drel tile to
 // rows [0, V) and columns of its keys in kslots[g] (H V V floats). qkvu: q
 // scale log2(e) | k | v | q per token row (ld 4C); dO: do per head (ld C).
-template <typename T>
+// Head h's D columns sit at h D of each C-wide block; tiles are KD wide.
+template <typename T, int KD>
 __global__ void __launch_bounds__(kThreads)
 window_attention_keys_kernel(const T* __restrict__ qkvu, const T* __restrict__ dO,
                              const float* __restrict__ rel, const int* __restrict__ rid,
                              const float* __restrict__ stats, T* __restrict__ dqkv,
                              float* __restrict__ kslots, float* __restrict__ ksums, int BW,
                              int V, int C, int H, int nW, float scale, float mask2) {
+  constexpr int kLdT = HeadDims<KD>::kLdT, kLdG = HeadDims<KD>::kLdG;
+  const int D = C / H;
   extern __shared__ __align__(128) unsigned char smem[];
-  const KvLayout L = kv_layout(V, sizeof(T));
+  const KvLayout L = kv_layout<KD>(V, sizeof(T));
   float* Dr = reinterpret_cast<float*>(smem);
   T* Kt = reinterpret_cast<T*>(smem + L.off_k);
   T* Vt = reinterpret_cast<T*>(smem + L.off_v);
@@ -297,21 +306,21 @@ window_attention_keys_kernel(const T* __restrict__ qkvu, const T* __restrict__ d
     const T* base = qkvu + row0 * ld;
     const int* rr = rid == nullptr ? nullptr : rid + (size_t)(w % nW) * V;
     const size_t srow = ((size_t)w * H + h) * V;
-    load_head_rows(Kt, base + (size_t)j0 * ld, ld, C + h * kHeadDim, keys, kKeyTile);
-    load_head_rows(Vt, base + (size_t)j0 * ld, ld, 2 * C + h * kHeadDim, keys, kKeyTile);
+    load_head_rows<KD>(Kt, base + (size_t)j0 * ld, ld, C + h * D, D, keys, kKeyTile);
+    load_head_rows<KD>(Vt, base + (size_t)j0 * ld, ld, 2 * C + h * D, D, keys, kKeyTile);
     for (int qs = 0; qs < nq; ++qs) {
       const int i0 = qs * kQRows, rows = min(kQRows, V - i0);
-      load_head_rows(Q2, base + (size_t)i0 * ld, ld, h * kHeadDim, rows, kQRows);
-      load_head_rows(QU, base + (size_t)i0 * ld, ld, 3 * C + h * kHeadDim, rows, kQRows);
-      load_head_rows(DOt, dO + (row0 + i0) * C, C, h * kHeadDim, rows, kQRows);
+      load_head_rows<KD>(Q2, base + (size_t)i0 * ld, ld, h * D, D, rows, kQRows);
+      load_head_rows<KD>(QU, base + (size_t)i0 * ld, ld, 3 * C + h * D, D, rows, kQRows);
+      load_head_rows<KD>(DOt, dO + (row0 + i0) * C, C, h * D, D, rows, kQRows);
       for (int r = threadIdx.x; r < kQRows; r += kThreads) {
         Mst[r] = r < rows ? stats[srow + i0 + r] : 0.f;
         Lst[r] = r < rows ? stats[plane + srow + i0 + r] : 1.f;
         Dst[r] = r < rows ? stats[2 * plane + srow + i0 + r] : 0.f;
       }
       __syncthreads();
-      gemm<false, true>(St, kLdSt, Kt, kLdT, Q2, kLdT, kKeyTile, kQRows, kHeadDim, false);
-      gemm<false, true>(DPt, kLdSt, Vt, kLdT, DOt, kLdT, kKeyTile, kQRows, kHeadDim, false);
+      gemm<false, true>(St, kLdSt, Kt, kLdT, Q2, kLdT, kKeyTile, kQRows, KD, false);
+      gemm<false, true>(DPt, kLdSt, Vt, kLdT, DOt, kLdT, kKeyTile, kQRows, KD, false);
       __syncthreads();
       for (int e = threadIdx.x; e < kKeyTile * kQRows; e += kThreads) {
         const int jj = e % kKeyTile, r = e / kKeyTile;
@@ -328,20 +337,20 @@ window_attention_keys_kernel(const T* __restrict__ qkvu, const T* __restrict__ d
         DSt[jj * kLdPt + r] = from_f32<T>(ds);
       }
       __syncthreads();
-      gemm<false, false>(DVA, kLdG, Pt, kLdPt, DOt, kLdT, kKeyTile, kHeadDim, kQRows, qs > 0);
-      gemm<false, false>(DKA, kLdG, DSt, kLdPt, QU, kLdT, kKeyTile, kHeadDim, kQRows, qs > 0);
+      gemm<false, false>(DVA, kLdG, Pt, kLdPt, DOt, kLdT, kKeyTile, KD, kQRows, qs > 0);
+      gemm<false, false>(DKA, kLdG, DSt, kLdPt, QU, kLdT, kKeyTile, KD, kQRows, qs > 0);
       __syncthreads();
     }
-    for (int e = threadIdx.x; e < keys * kHeadDim; e += kThreads) {
-      const int jj = e / kHeadDim, d = e % kHeadDim;
-      T* drow = dqkv + (row0 + j0 + jj) * 3 * C + h * kHeadDim + d;
+    for (int e = threadIdx.x; e < keys * D; e += kThreads) {
+      const int jj = e / D, d = e % D;
+      T* drow = dqkv + (row0 + j0 + jj) * 3 * C + h * D + d;
       drow[C] = from_f32<T>(DKA[jj * kLdG + d] * scale);
       drow[2 * C] = from_f32<T>(DVA[jj * kLdG + d]);
     }
-    if (threadIdx.x < 2 * kHeadDim) {
-      const int d = threadIdx.x % kHeadDim;
-      const float* A = threadIdx.x < kHeadDim ? DKA : DVA;
-      const float mul = threadIdx.x < kHeadDim ? scale : 1.f;
+    if (threadIdx.x < 2 * D) {
+      const int d = threadIdx.x % D;
+      const float* A = threadIdx.x < D ? DKA : DVA;
+      const float mul = threadIdx.x < D ? scale : 1.f;
       for (int jj = 0; jj < keys; ++jj) colsum += A[jj * kLdG + d] * mul;
     }
     __syncthreads();
@@ -351,21 +360,21 @@ window_attention_keys_kernel(const T* __restrict__ qkvu, const T* __restrict__ d
     const int i = e / keys, jj = e % keys;
     drel[(size_t)i * V + j0 + jj] = Dr[i * kLdDr + jj];
   }
-  if (threadIdx.x < 2 * kHeadDim) {
-    const int part = threadIdx.x / kHeadDim, d = threadIdx.x % kHeadDim;
-    ksums[((size_t)g * nkt + kt) * 2 * C + part * C + h * kHeadDim + d] = colsum;
+  if (threadIdx.x < 2 * D) {
+    const int part = threadIdx.x / D, d = threadIdx.x % D;
+    ksums[((size_t)g * nkt + kt) * 2 * C + part * C + h * D + d] = colsum;
   }
 }
 
 // Window ranges of the key-tile grid: enough that its nkt H blocks per range
 // fill the card's resident blocks four times over, at most max_gw and BW.
-template <typename T>
+template <typename T, int KD>
 int key_ranges(int BW, int V, int H, int max_gw) {
-  const size_t bytes = kv_layout(V, sizeof(T)).bytes;
+  const size_t bytes = kv_layout<KD>(V, sizeof(T)).bytes;
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_attention_keys_kernel<T>,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_attention_keys_kernel<T, KD>,
                                                     kThreads, bytes) != cudaSuccess)
     return 0;
   const long long per_range = (long long)((V + kKeyTile - 1) / kKeyTile) * H;
@@ -378,7 +387,7 @@ int key_ranges(int BW, int V, int H, int max_gw) {
 
 // The general path's backward (see the top of this file). red receives
 // [dbqkv (3C) | dbout (C) | drel (H V V)] as the whole-window path's.
-template <typename T>
+template <typename T, int KD>
 int launch_bwd_general(const void* x, const void* wqkv, const float* bqkv, const void* wout,
                        const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
                        void* o, float* slots, float* red, void* qkvu, void* dob, float* stats,
@@ -392,18 +401,18 @@ int launch_bwd_general(const void* x, const void* wqkv, const float* bqkv, const
   err = launch_proj<T>(dout, C, wout, C, true, nullptr, dob, C, N, C, C, 0, 1.f, -1, stream);
   if (err != 0) return err;
   int G1 = 0;
-  err = launch_rows<T, true>(qkvu, 4 * C, rel, rid, dob, dout, o, dqkv, stats, slots, max_slots,
-                             BW, V, C, H, nW, scale, mask2, &G1, stream);
+  err = launch_rows<T, true, KD>(qkvu, 4 * C, rel, rid, dob, dout, o, dqkv, stats, slots,
+                                 max_slots, BW, V, C, H, nW, scale, mask2, &G1, stream);
   if (err != 0) return err;
-  const size_t bytes = kv_layout(V, sizeof(T)).bytes;
+  const size_t bytes = kv_layout<KD>(V, sizeof(T)).bytes;
   if (bytes > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
-  cudaError_t cerr = cudaFuncSetAttribute(window_attention_keys_kernel<T>,
+  cudaError_t cerr = cudaFuncSetAttribute(window_attention_keys_kernel<T, KD>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (cerr != cudaSuccess) return (int)cerr;
   const int nkt = (V + kKeyTile - 1) / kKeyTile;
-  const int Gw = key_ranges<T>(BW, V, H, max_gw);
+  const int Gw = key_ranges<T, KD>(BW, V, H, max_gw);
   if (Gw <= 0) return (int)cudaErrorInvalidValue;
-  window_attention_keys_kernel<T><<<dim3((unsigned)nkt, (unsigned)H, (unsigned)Gw), kThreads,
+  window_attention_keys_kernel<T, KD><<<dim3((unsigned)nkt, (unsigned)H, (unsigned)Gw), kThreads,
                                     bytes, stream>>>(
       static_cast<const T*>(qkvu), static_cast<const T*>(dob), rel, rid, stats,
       static_cast<T*>(dqkv), kslots, ksums, BW, V, C, H, nW, scale, mask2);
@@ -423,21 +432,21 @@ int launch_bwd_general(const void* x, const void* wqkv, const float* bqkv, const
                                stream);
 }
 
-template <typename T>
+template <typename T, int KD>
 int launch_bwd(const void* x, const void* wqkv, const float* bqkv, const void* wout,
                const float* rel, const int* rid, const void* dout, void* dx, void* dqkv, void* o,
                float* slots, float* red, int BW, int V, int C, int H, int nW, float scale,
                float scale2, float mask2, int max_slots, cudaStream_t stream) {
-  const size_t bytes = bwd_layout(V, sizeof(T)).bytes;
+  const size_t bytes = bwd_layout<KD>(V, sizeof(T)).bytes;
   if (bytes > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(window_attention_bwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(window_attention_bwd_kernel<T, KD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int tw = kTileRows / V;
   const long long tiles = ((long long)BW + tw - 1) / tw;
-  const int G = persistent_blocks(window_attention_bwd_kernel<T>, bytes, tiles, max_slots);
+  const int G = persistent_blocks(window_attention_bwd_kernel<T, KD>, bytes, tiles, max_slots);
   if (G <= 0) return (int)cudaErrorInvalidValue;
-  window_attention_bwd_kernel<T><<<G, kThreads, bytes, stream>>>(
+  window_attention_bwd_kernel<T, KD><<<G, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), bqkv, static_cast<const T*>(wout),
       rel, rid, static_cast<const T*>(dout), static_cast<T*>(dx), static_cast<T*>(dqkv),
       static_cast<T*>(o), slots, BW, V, C, H, nW, scale, scale2, mask2);
@@ -446,14 +455,62 @@ int launch_bwd(const void* x, const void* wqkv, const float* bqkv, const void* w
   return launch_reduce(slots, G, (size_t)4 * C + (size_t)H * V * V, red, stream);
 }
 
+// The whole-window or the general path at the padded head dim KD.
+template <typename T, int KD>
+int launch_bwd_path(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+                    const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
+                    void* o, float* slots, float* red, void* qkvu, void* dob, float* stats,
+                    float* kslots, float* ksums, int BW, int V, int C, int H, int nW, float scale,
+                    float scale2, float mask2, int max_slots, int max_gw, cudaStream_t s) {
+  if (whole_window_path(V, C, H))
+    return launch_bwd<T, KD>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red, BW, V,
+                             C, H, nW, scale, scale2, mask2, max_slots, s);
+  if (qkvu == nullptr || dob == nullptr || stats == nullptr || kslots == nullptr ||
+      ksums == nullptr || max_gw < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_bwd_general<T, KD>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
+                                   qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
+                                   scale2, mask2, max_slots, max_gw, s);
+}
+
+template <typename T>
+int launch_bwd_d(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+                 const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
+                 void* o, float* slots, float* red, void* qkvu, void* dob, float* stats,
+                 float* kslots, float* ksums, int BW, int V, int C, int H, int nW, float scale,
+                 float scale2, float mask2, int max_slots, int max_gw, cudaStream_t s) {
+  switch (padded_head_dim(C / H)) {
+    case 16:
+      return launch_bwd_path<T, 16>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
+                                    qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
+                                    scale2, mask2, max_slots, max_gw, s);
+    case 32:
+      return launch_bwd_path<T, 32>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
+                                    qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
+                                    scale2, mask2, max_slots, max_gw, s);
+    default:
+      return launch_bwd_path<T, 64>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
+                                    qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
+                                    scale2, mask2, max_slots, max_gw, s);
+  }
+}
+
+template <typename T> int key_ranges_d(int BW, int V, int C, int H, int max_gw) {
+  switch (padded_head_dim(C / H)) {
+    case 16: return key_ranges<T, 16>(BW, V, H, max_gw);
+    case 32: return key_ranges<T, 32>(BW, V, H, max_gw);
+    default: return key_ranges<T, 64>(BW, V, H, max_gw);
+  }
+}
+
 }  // namespace lcbi
 
 // x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); dqkv (BW V,
 // 3C) and o (BW V, C) in T, written; wqkv (C, 3C), wout (C, C) in T; bqkv (3C,),
 // rel (H, V, V) fp32; rid (nW, V) int32 or NULL. red (4C + H V V) fp32
-// receives [dbqkv | dbout | drel]. Whole-window path (V = 16, 32, 48, 64):
+// receives [dbqkv | dbout | drel]. Whole-window path (lcbi_window_attention_whole):
 // slots max_slots x (4C + H V V) fp32 scratch; the general path's scratch
-// pointers may be NULL. General path (every other V up to 512): slots
+// pointers may be NULL. General path (every other shape): slots
 // max_slots x 2C fp32; qkvu (BW V, 4C) and dob (BW V, C) in T; stats 3 BW H V
 // fp32; kslots max_gw x H V V and ksums max_gw ceil(V / 32) x 2C fp32.
 // Shapes as lcbi_window_attention_fwd. Returns cudaGetLastError() of the
@@ -467,9 +524,9 @@ extern "C" int lcbi_window_attention_bwd(const void* x, const void* wqkv, const 
                                          float mask2, int max_slots, int max_gw, int is_bf16,
                                          void* stream) {
   (void)cudaGetLastError();
-  const bool whole = lcbi::whole_window_path(V);
   if (!lcbi::attn_shape_ok(BW, V, C, H) || (rid != nullptr && (nW <= 0 || BW % nW != 0)) ||
-      (long long)BW * V * (whole ? 3 : 4) * C >= (1LL << 31) || max_slots < 1)
+      (long long)BW * V * (lcbi::whole_window_path(V, C, H) ? 3 : 4) * C >= (1LL << 31) ||
+      max_slots < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b3 = static_cast<const float*>(bqkv);
@@ -477,37 +534,26 @@ extern "C" int lcbi_window_attention_bwd(const void* x, const void* wqkv, const 
   const int* ids = static_cast<const int*>(rid);
   float* sl = static_cast<float*>(slots);
   float* rd = static_cast<float*>(red);
-  if (!whole) {
-    if (qkvu == nullptr || dob == nullptr || stats == nullptr || kslots == nullptr ||
-        ksums == nullptr || max_gw < 1)
-      return (int)cudaErrorInvalidValue;
-    float* st = static_cast<float*>(stats);
-    float* ks = static_cast<float*>(kslots);
-    float* ku = static_cast<float*>(ksums);
-    if (is_bf16)
-      return lcbi::launch_bwd_general<__nv_bfloat16>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o,
-                                                     sl, rd, qkvu, dob, st, ks, ku, BW, V, C, H,
-                                                     nW, scale, scale2, mask2, max_slots, max_gw,
-                                                     s);
-    return lcbi::launch_bwd_general<float>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o, sl, rd,
-                                           qkvu, dob, st, ks, ku, BW, V, C, H, nW, scale, scale2,
-                                           mask2, max_slots, max_gw, s);
-  }
+  float* st = static_cast<float*>(stats);
+  float* ks = static_cast<float*>(kslots);
+  float* ku = static_cast<float*>(ksums);
   if (is_bf16)
-    return lcbi::launch_bwd<__nv_bfloat16>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o, sl, rd,
-                                           BW, V, C, H, nW, scale, scale2, mask2, max_slots, s);
-  return lcbi::launch_bwd<float>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o, sl, rd, BW, V, C,
-                                 H, nW, scale, scale2, mask2, max_slots, s);
+    return lcbi::launch_bwd_d<__nv_bfloat16>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o, sl, rd,
+                                             qkvu, dob, st, ks, ku, BW, V, C, H, nW, scale,
+                                             scale2, mask2, max_slots, max_gw, s);
+  return lcbi::launch_bwd_d<float>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o, sl, rd, qkvu, dob,
+                                   st, ks, ku, BW, V, C, H, nW, scale, scale2, mask2, max_slots,
+                                   max_gw, s);
 }
 
 // The number of window ranges (rows of kslots) that the general backward's
 // key-tile grid runs for these shapes, given at most max_gw, and in
 // *key_tiles its key tiles per window (ksums has ranges x key_tiles rows); 0
 // on a device query error. Launches nothing.
-extern "C" int lcbi_window_attention_key_ranges(int BW, int V, int H, int max_gw, int is_bf16,
-                                                int* key_tiles) {
-  if (BW < 1 || V < 1 || V > lcbi::kMaxTokens || H < 1 || max_gw < 1) return 0;
+extern "C" int lcbi_window_attention_key_ranges(int BW, int V, int C, int H, int max_gw,
+                                                int is_bf16, int* key_tiles) {
+  if (!lcbi::attn_shape_ok(BW, V, C, H) || max_gw < 1) return 0;
   *key_tiles = (V + lcbi::kKeyTile - 1) / lcbi::kKeyTile;
-  return is_bf16 ? lcbi::key_ranges<__nv_bfloat16>(BW, V, H, max_gw)
-                 : lcbi::key_ranges<float>(BW, V, H, max_gw);
+  return is_bf16 ? lcbi::key_ranges_d<__nv_bfloat16>(BW, V, C, H, max_gw)
+                 : lcbi::key_ranges_d<float>(BW, V, C, H, max_gw);
 }

@@ -120,14 +120,15 @@ int launch_wgrad(const void* x, const void* dqkv, const void* o, const void* dou
 
 // x, o, dout: (N, C) and dqkv: (N, 3C) in T (fp32 if is_bf16 == 0, else bf16).
 // partials: S x 4C^2 fp32 scratch; out: 4C^2 fp32 receives [dWqkv (C, 3C) |
-// dWout (C, C)], row-major. C % 32 == 0, 1 <= S <= N, all pointers 32-byte
+// dWout (C, C)], row-major. Any C > 0 (the staged tiles are zero past C),
+// 1 <= S <= N, all pointers 32-byte
 // aligned. Returns cudaGetLastError() of the launches.
 extern "C" int lcbi_window_attention_wgrad(const void* x, const void* dqkv, const void* o,
                                            const void* dout, void* partials, void* out,
                                            long long N, int C, int S, int is_bf16,
                                            void* stream) {
   (void)cudaGetLastError();
-  if (N <= 0 || C <= 0 || C % 32 != 0 || S < 1 || S > N || S > 65535)
+  if (N <= 0 || C <= 0 || S < 1 || S > N || S > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partials);

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -166,6 +167,59 @@ def slot_count(slot_floats: int, device) -> int:
     SLOT_BYTES_BUDGET of fp32 scratch in all."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(4 * sms, SLOT_BYTES_BUDGET // (4 * slot_floats)))
+
+
+def padded_width(kernel: CudaKernel, symbol: str, width: int) -> int:
+    """width as the kernel's library pads it for its tiles (its
+    ``lcbi_padded_channels`` or ``lcbi_padded_hidden``; ``csrc/common.cuh``
+    decides the rounding): the width a wrapper lays the weights out at."""
+    return kernel.query(symbol, [ctypes.c_int], ctypes.c_int, width)
+
+
+def pad_channel_blocks(t, c: int, cp: int, dims):
+    """t with each dimension in ``dims`` read as blocks of c entries (C, or
+    the [x1 | x2 | v] blocks of a 3C axis), each block padded with zeros to
+    cp: the weight layout of a kernel whose channel chunks run past the true
+    C. Returns t itself when cp == c."""
+    if cp == c:
+        return t
+    for d in dims:
+        n = t.shape[d] // c
+        out = t.new_zeros(*t.shape[:d], n, cp, *t.shape[d + 1:])
+        out.narrow(d + 1, 0, c).copy_(t.unflatten(d, (n, c)))
+        t = out.flatten(d, d + 1)
+    return t
+
+
+def cut_channel_blocks(t, c: int, cp: int, dims):
+    """The inverse of :func:`pad_channel_blocks`: the first c entries of each
+    block of cp along each dimension in ``dims`` (a gradient in the kernels'
+    padded layout back to the true widths)."""
+    if cp == c:
+        return t
+    for d in dims:
+        t = t.unflatten(d, (t.shape[d] // cp, cp)).narrow(d + 1, 0, c).flatten(d, d + 1)
+    return t
+
+
+def pad_blocks(t, blocks):
+    """t padded by :func:`pad_channel_blocks` along every (width, padded
+    width, dims) of ``blocks``."""
+    for c, cp, dims in blocks:
+        t = pad_channel_blocks(t, c, cp, dims)
+    return t
+
+
+def slot_grad(red, layout, name: str, stored, blocks=(), dtype=torch.float32):
+    """The gradient ``name`` of a backward kernel's reduced slot ``red``
+    (offsets ``layout``, :func:`slot_layout`), stored there with the shape
+    ``stored`` in the kernel's padded layout, cut back by
+    :func:`cut_channel_blocks` along every (width, padded width, dims) of
+    ``blocks``, in ``dtype``."""
+    g = red[layout[name]:layout[name] + math.prod(stored)].view(stored)
+    for c, cp, dims in blocks:
+        g = cut_channel_blocks(g, c, cp, dims)
+    return g.to(dtype)
 
 
 def check_cuda_operand(name: str, t, device, dtype, shape) -> None:

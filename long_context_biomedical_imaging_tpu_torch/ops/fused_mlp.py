@@ -18,18 +18,26 @@ fp32; GELU is the tanh form under bf16 and the exact erf form in fp32
 the residual add. The backward kernel rounds the operands of its products
 (y, h, du, do) to ``x.dtype`` as the TPU kernel does and returns dw1, dw2 in
 the weight dtype and the other gradients in fp32.
+
+Widths: the kernels take any C and H. Their tiles run on C rounded up to 16
+and H rounded up to 64, as their library reports (``lcbi_padded_channels``,
+``lcbi_padded_hidden``; ``csrc/common.cuh``); the rows load at the true C
+(LayerNorm statistics over C, zeros past it) and only the true columns are
+stored. The wrappers hand them the weights padded with zeros to those widths
+(:func:`_padded_weights`, a copy of the weights only where a width is not
+aligned; the activations are never padded) and cut the weight gradients
+back to the true widths.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import (CudaKernel, check_cuda_operand, ptr, slot_count, slot_layout,
-                         stream_handle)
+from .cuda_build import (CudaKernel, check_cuda_operand, pad_blocks, padded_width, ptr,
+                         slot_count, slot_grad, slot_layout, stream_handle)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, as the TPU kernels
 
@@ -95,14 +103,26 @@ def fused_ln_mlp_residual_bwd_plain(do, x, ln_scale, ln_bias, w1, b1, w2, b2):
     return vjp(do)
 
 
+def _padded_weights(kernel, w1, b1, w2):
+    """The kernel's weight layout: w1 (Cp, Hp), b1 (Hp,) and w2 (Hp, Cp) at
+    the widths its library reports, zero past the true widths, and the
+    (width, padded width) pairs of C and H. The activations stay at their
+    true width; the kernels mask them. Aligned widths pass as they are."""
+    c, hidden = w1.shape
+    cw = (c, padded_width(kernel, "lcbi_padded_channels", c))
+    hw = (hidden, padded_width(kernel, "lcbi_padded_hidden", hidden))
+    return (pad_blocks(w1, [(*cw, (0,)), (*hw, (1,))]), pad_blocks(b1, [(*hw, (0,))]),
+            pad_blocks(w2, [(*hw, (0,)), (*cw, (1,))]), cw, hw)
+
+
 def _check_operands(x2, f32, w1, w2):
     n, c = x2.shape
     hidden = w1.shape[-1]
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused LN+MLP kernel takes fp32 or bf16, got {x2.dtype}")
-    if n == 0 or c % 16 or hidden % 64 or x2.numel() >= 2**31:
-        raise ValueError(f"fused LN+MLP kernel needs 0 < N*C < 2^31, C % 16 == 0 "
-                         f"and H % 64 == 0; got N={n}, C={c}, H={hidden}")
+    if n == 0 or c == 0 or hidden == 0 or x2.numel() >= 2**31:
+        raise ValueError(f"fused LN+MLP kernel needs 0 < N*C < 2^31 and H > 0; got N={n}, "
+                         f"C={c}, H={hidden}")
     dev = x2.device
     check_cuda_operand("x", x2, dev, x2.dtype, (n, c))
     check_cuda_operand("w1", w1, dev, x2.dtype, (c, hidden))
@@ -114,6 +134,7 @@ def _check_operands(x2, f32, w1, w2):
 def _fwd_cuda(x2, g, b, w1, b1, w2, b2):
     _check_operands(x2, (g, b, b1, b2), w1, w2)
     n, c = x2.shape
+    w1, b1, w2, _, _ = _padded_weights(FUSED_LN_MLP_FWD, w1, b1, w2)
     out = torch.empty_like(x2)
     FUSED_LN_MLP_FWD(ptr(x2), ptr(g), ptr(b), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(out),
                      n, c, w1.shape[1], int(x2.dtype == torch.bfloat16), stream_handle(x2.device))
@@ -126,24 +147,32 @@ def fused_ln_mlp_residual_bwd(do, x2, g, b, w1, b1, w2, b2):
     and dtypes."""
     _check_operands(x2, (g, b, b1, b2), w1, w2)
     n, c = x2.shape
-    hidden = w1.shape[1]
     check_cuda_operand("do", do, x2.device, x2.dtype, (n, c))
-    layout, size = slot_layout([("dw1", c * hidden), ("dw2", hidden * c), ("db1", hidden),
-                                ("db2", c), ("dg", c), ("dbln", c)])
+    w1p, b1, w2p, cw, hw = _padded_weights(FUSED_LN_MLP_BWD, w1, b1, w2)
+    cp, hp = cw[1], hw[1]
+    layout, size = slot_layout([("dw1", cp * hp), ("dw2", hp * cp), ("db1", hp),
+                                ("db2", cp), ("dg", cp), ("dbln", cp)])
     slots = torch.empty(slot_count(size, x2.device), size, device=x2.device,
                         dtype=torch.float32)
     red = torch.empty(size, device=x2.device, dtype=torch.float32)
     dx = torch.empty_like(x2)
-    FUSED_LN_MLP_BWD(ptr(x2), ptr(g), ptr(b), ptr(w1), ptr(b1), ptr(w2), ptr(do), ptr(dx),
-                     ptr(slots), ptr(red), n, c, hidden, int(x2.dtype == torch.bfloat16),
+    FUSED_LN_MLP_BWD(ptr(x2), ptr(g), ptr(b), ptr(w1p), ptr(b1), ptr(w2p), ptr(do), ptr(dx),
+                     ptr(slots), ptr(red), n, c, hp, int(x2.dtype == torch.bfloat16),
                      slots.shape[0], size, layout["dw2"], layout["db1"], layout["db2"],
                      layout["dg"], layout["dbln"], stream_handle(x2.device))
+    return (dx, *_mlp_grads(red, layout, cw, hw, ("dg", "dbln"), w1.dtype))
 
-    def grad(name, shape, dtype=torch.float32):
-        return red[layout[name]:layout[name] + math.prod(shape)].view(shape).to(dtype)
 
-    return (dx, grad("dg", (c,)), grad("dbln", (c,)), grad("dw1", (c, hidden), w1.dtype),
-            grad("db1", (hidden,)), grad("dw2", (hidden, c), w2.dtype), grad("db2", (c,)))
+def _mlp_grads(red, layout, cw, hw, leading=(), w_dtype=torch.float32):
+    """The reduced slot's gradients at the true widths (cw, hw: C's and H's
+    (width, padded width)): those named in ``leading`` (each (C,) fp32),
+    then dw1 and dw2 in w_dtype, db1 and db2 in fp32."""
+    (c, cp), (hidden, hp) = cw, hw
+    return (*(slot_grad(red, layout, n, (c,)) for n in leading),
+            slot_grad(red, layout, "dw1", (cp, hp), [(*cw, (0,)), (*hw, (1,))], w_dtype),
+            slot_grad(red, layout, "db1", (hidden,)),
+            slot_grad(red, layout, "dw2", (hp, cp), [(*hw, (0,)), (*cw, (1,))], w_dtype),
+            slot_grad(red, layout, "db2", (c,)))
 
 
 class _FusedLnMlpResidual(torch.autograd.Function):
@@ -210,9 +239,9 @@ def _check_mlp_operands(x2, w1, b1, w2, b2):
     hidden = w1.shape[-1]
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused MLP kernel takes fp32 or bf16, got {x2.dtype}")
-    if n == 0 or c % 16 or hidden % 64 or x2.numel() >= 2**31:
-        raise ValueError(f"fused MLP kernel needs 0 < N*C < 2^31, C % 16 == 0 and H % 64 == 0; "
-                         f"got N={n}, C={c}, H={hidden}")
+    if n == 0 or c == 0 or hidden == 0 or x2.numel() >= 2**31:
+        raise ValueError(f"fused MLP kernel needs 0 < N*C < 2^31 and H > 0; got N={n}, C={c}, "
+                         f"H={hidden}")
     if not x2.is_cuda:
         raise ValueError(f"fused MLP kernels take CUDA tensors, got x on {x2.device}")
     dev = x2.device
@@ -228,6 +257,7 @@ def fused_mlp_fwd(x2, w1, b1, w2, b2):
     b2 fp32; the output of :func:`fused_mlp_plain`."""
     _check_mlp_operands(x2, w1, b1, w2, b2)
     n, c = x2.shape
+    w1, b1, w2, _, _ = _padded_weights(FUSED_MLP_FWD, w1, b1, w2)
     out = torch.empty_like(x2)
     FUSED_MLP_FWD(ptr(x2), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(out), n, c, w1.shape[1],
                   int(x2.dtype == torch.bfloat16), stream_handle(x2.device))
@@ -240,23 +270,18 @@ def fused_mlp_bwd(do, x2, w1, b1, w2, b2):
     K2's fixed order."""
     _check_mlp_operands(x2, w1, b1, w2, b2)
     n, c = x2.shape
-    hidden = w1.shape[1]
     check_cuda_operand("do", do, x2.device, x2.dtype, (n, c))
-    layout, size = slot_layout([("dw1", c * hidden), ("dw2", hidden * c), ("db1", hidden),
-                                ("db2", c)])
+    w1p, b1, w2p, cw, hw = _padded_weights(FUSED_MLP_BWD, w1, b1, w2)
+    cp, hp = cw[1], hw[1]
+    layout, size = slot_layout([("dw1", cp * hp), ("dw2", hp * cp), ("db1", hp), ("db2", cp)])
     slots = torch.empty(slot_count(size, x2.device), size, device=x2.device,
                         dtype=torch.float32)
     red = torch.empty(size, device=x2.device, dtype=torch.float32)
     dx = torch.empty_like(x2)
-    FUSED_MLP_BWD(ptr(x2), ptr(w1), ptr(b1), ptr(w2), ptr(do), ptr(dx), ptr(slots), ptr(red), n,
-                  c, hidden, int(x2.dtype == torch.bfloat16), slots.shape[0], size,
+    FUSED_MLP_BWD(ptr(x2), ptr(w1p), ptr(b1), ptr(w2p), ptr(do), ptr(dx), ptr(slots), ptr(red),
+                  n, c, hp, int(x2.dtype == torch.bfloat16), slots.shape[0], size,
                   layout["dw2"], layout["db1"], layout["db2"], stream_handle(x2.device))
-
-    def grad(name, shape):
-        return red[layout[name]:layout[name] + math.prod(shape)].view(shape)
-
-    return (dx, grad("dw1", (c, hidden)), grad("db1", (hidden,)), grad("dw2", (hidden, c)),
-            grad("db2", (c,)))
+    return (dx, *_mlp_grads(red, layout, cw, hw))
 
 
 class _FusedMlp(torch.autograd.Function):

@@ -33,18 +33,25 @@ runs in fp32; the output is cast to ``x.dtype`` once, after the residual add.
 The backward kernels round the operands of their products to ``x.dtype`` as
 the TPU kernels do and return dw_in, dw_out (and dM) in their input's dtype,
 the rest in fp32.
+
+Widths: the kernels take any C (K3 up to 192). They walk the channels in
+chunks of 32 over C rounded up to 32, as their library reports
+(``lcbi_padded_channels``; ``csrc/common.cuh``), load the rows at the true C
+(LayerNorm statistics over C, zeros past it) and store only the true
+columns; the wrappers hand them the weights, taps and biases padded with
+zeros per [x1 | x2 | v] block (:func:`_padded_operands`, a copy only where
+C % 32 != 0; the activations are never padded) and cut the gradients back.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import (CudaKernel, check_cuda_operand, ptr, slot_count, slot_layout,
-                         stream_handle)
+from .cuda_build import (CudaKernel, check_cuda_operand, cut_channel_blocks, pad_channel_blocks,
+                         padded_width, ptr, slot_count, slot_grad, slot_layout, stream_handle)
 from .fftconv import diagonal_sums, lag_sums
 from .fused_mlp import layer_norm_f32, matmul_rounded
 
@@ -172,9 +179,9 @@ def _check_operands(x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale, ln_bias):
             f"got {v}: longer windows go through the chunked kernel (hyena_window_mixer)")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"Hyena window kernel takes fp32 or bf16, got {x.dtype}")
-    if bw == 0 or c % 32 or x.numel() >= 2**31:
-        raise ValueError(f"Hyena window kernel needs 0 < BW*V*C < 2^31 and "
-                         f"C % 32 == 0; got BW={bw}, V={v}, C={c}")
+    if bw == 0 or c == 0 or x.numel() >= 2**31:
+        raise ValueError(f"Hyena window kernel needs 0 < BW*V*C < 2^31; got BW={bw}, V={v}, "
+                         f"C={c}")
     dev = x.device
     check_cuda_operand("x", x, dev, x.dtype, (bw, v, c))
     check_cuda_operand("w_in", w_in, dev, x.dtype, (c, 3 * c))
@@ -189,9 +196,38 @@ def _check_operands(x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale, ln_bias):
                            (3 * c,) if name in ("b_in", "b_short") else (c,))
 
 
+def _padded_operands(kernel, c, *operands):
+    """The padded width cp that the kernel's library reports for C, then
+    each (operand, dims) of ``operands`` with every C-wide block along dims
+    padded with zeros to cp: the kernel's layout of its weights, taps and
+    biases."""
+    cp = padded_width(kernel, "lcbi_padded_channels", c)
+    return (cp, *(pad_channel_blocks(t, c, cp, dims) for t, dims in operands))
+
+
+def _weight_grads(red, layout, c, cp, k, w_dtype, has_ln, v=None):
+    """The reduced slot's gradients cut back to the true C: dw_in, db_in,
+    dws, dbs, (K1: dkl), dw_out, db_out (and the LN parameters'), the
+    projections' in w_dtype, the rest fp32."""
+    def grad(name, stored, dims=(), dtype=torch.float32):
+        return slot_grad(red, layout, name, stored, [(c, cp, dims)], dtype)
+
+    grads = (grad("dwin", (cp, 3 * cp), (0, 1), w_dtype), grad("dbin", (3 * cp,), (0,)),
+             grad("dws", (k, 3 * cp), (1,)), grad("dbs", (3 * cp,), (0,)))
+    if v is not None:
+        grads += (grad("dkl", (v, cp), (1,)),)
+    grads += (grad("dwo", (cp, cp), (0, 1), w_dtype), grad("dbo", (c,)))
+    if has_ln:
+        grads += (grad("dg", (c,)), grad("dbln", (c,)))
+    return grads
+
+
 def _fwd_cuda(x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale, ln_bias):
     _check_operands(x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale, ln_bias)
     bw, v, c = x.shape
+    _, w_in, b_in, ws, bs, w_out, kl = _padded_operands(
+        HYENA_WINDOW_FWD, c, (w_in, (0, 1)), (b_in, (0,)), (ws, (1,)), (bs, (0,)),
+        (w_out, (0, 1)), (kl, (1,)))
     out = torch.empty_like(x)
     HYENA_WINDOW_FWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in), ptr(b_in), ptr(ws),
                      ptr(bs), ptr(kl), ptr(w_out), ptr(b_out), ptr(out),
@@ -208,28 +244,22 @@ def hyena_window_bwd(do, x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale=None,
     bw, v, c = x.shape
     k = ws.shape[0]
     check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
-    layout, size = slot_layout([("dwin", 3 * c * c), ("dwo", c * c), ("dws", k * 3 * c),
-                                ("dbin", 3 * c), ("dbs", 3 * c), ("dkl", v * c), ("dbo", c),
-                                ("dg", c), ("dbln", c)])
+    cp, w_in_p, b_in_p, ws_p, bs_p, w_out_p, kl_p = _padded_operands(
+        HYENA_WINDOW_BWD, c, (w_in, (0, 1)), (b_in, (0,)), (ws, (1,)), (bs, (0,)),
+        (w_out, (0, 1)), (kl, (1,)))
+    layout, size = slot_layout([("dwin", 3 * cp * cp), ("dwo", cp * cp), ("dws", k * 3 * cp),
+                                ("dbin", 3 * cp), ("dbs", 3 * cp), ("dkl", v * cp), ("dbo", cp),
+                                ("dg", cp), ("dbln", cp)])
     slots = torch.empty(slot_count(size, x.device), size, device=x.device, dtype=torch.float32)
     red = torch.empty(size, device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
-    HYENA_WINDOW_BWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in), ptr(b_in), ptr(ws),
-                     ptr(bs), ptr(kl), ptr(w_out), ptr(do), ptr(dx), ptr(slots), ptr(red),
+    HYENA_WINDOW_BWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in_p), ptr(b_in_p), ptr(ws_p),
+                     ptr(bs_p), ptr(kl_p), ptr(w_out_p), ptr(do), ptr(dx), ptr(slots), ptr(red),
                      bw, v, c, k, int(ln_scale is not None), int(x.dtype == torch.bfloat16),
                      slots.shape[0], size, *(layout[n] for n in (
                          "dwo", "dws", "dbin", "dbs", "dkl", "dbo", "dg", "dbln")),
                      stream_handle(x.device))
-
-    def grad(name, shape, dtype=torch.float32):
-        return red[layout[name]:layout[name] + math.prod(shape)].view(shape).to(dtype)
-
-    grads = (dx, grad("dwin", (c, 3 * c), w_in.dtype), grad("dbin", (3 * c,)),
-             grad("dws", (k, 3 * c)), grad("dbs", (3 * c,)), grad("dkl", (v, c)),
-             grad("dwo", (c, c), w_out.dtype), grad("dbo", (c,)))
-    if ln_scale is not None:
-        grads += (grad("dg", (c,)), grad("dbln", (c,)))
-    return grads
+    return (dx, *_weight_grads(red, layout, c, cp, k, x.dtype, ln_scale is not None, v))
 
 
 class _HyenaWindowMixer(torch.autograd.Function):
@@ -348,9 +378,9 @@ def _check_chunked(x, w_in, b_in, ws, bs, m, w_out, b_out, ln_scale, ln_bias):
         raise TypeError(f"chunked Hyena kernel takes fp32 or bf16, got {x.dtype}")
     chunk = pick_chunk(v)
     if (not HYENA_WINDOW_MAX_LEN < v <= HYENA_CHUNKED_MAX_LEN or v % HYENA_CHUNK_MIN
-            or c > HYENA_CHUNKED_MAX_CHANNELS or bw == 0 or c % 32 or x.numel() >= 2**31):
-        raise ValueError(f"chunked Hyena kernel needs 64 < V <= 512, V % 64 == 0, C <= 192, "
-                         f"C % 32 == 0 and 0 < BW*V*C < 2^31; got BW={bw}, V={v}, C={c}")
+            or c > HYENA_CHUNKED_MAX_CHANNELS or bw == 0 or c == 0 or x.numel() >= 2**31):
+        raise ValueError(f"chunked Hyena kernel needs 64 < V <= 512, V % 64 == 0, 0 < C <= 192 "
+                         f"and 0 < BW*V*C < 2^31; got BW={bw}, V={v}, C={c}")
     dev = x.device
     check_cuda_operand("x", x, dev, x.dtype, (bw, v, c))
     check_cuda_operand("w_in", w_in, dev, x.dtype, (c, 3 * c))
@@ -372,9 +402,12 @@ def hyena_chunked_fwd(x, w_in, b_in, ws, bs, m, w_out, b_out, ln_scale=None, ln_
     """The K3 forward kernel on CUDA, on prepared short taps and Toeplitz
     blocks (biases and LN parameters fp32): :func:`hyena_chunked_plain`."""
     bw, v, c, chunk = _check_chunked(x, w_in, b_in, ws, bs, m, w_out, b_out, ln_scale, ln_bias)
+    cp, w_in, b_in, ws, bs, w_out, m = _padded_operands(
+        HYENA_CHUNKED_FWD, c, (w_in, (0, 1)), (b_in, (0,)), (ws, (1,)), (bs, (0,)),
+        (w_out, (0, 1)), (m, (1,)))
     out = torch.empty_like(x)
-    g = torch.empty(c, bw, v, device=x.device, dtype=x.dtype)      # g, then v2
-    x2 = torch.empty(c, bw, v, device=x.device, dtype=torch.float32)
+    g = torch.empty(cp, bw, v, device=x.device, dtype=x.dtype)      # g, then v2
+    x2 = torch.empty(cp, bw, v, device=x.device, dtype=torch.float32)
     HYENA_CHUNKED_FWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in), ptr(b_in), ptr(ws),
                       ptr(bs), ptr(m), ptr(w_out), ptr(b_out), ptr(out), ptr(g), ptr(x2),
                       bw, v, c, ws.shape[0], chunk, int(ln_scale is not None),
@@ -386,35 +419,31 @@ def hyena_chunked_bwd_streams(do, x, w_in, b_in, ws, bs, m, w_out, b_out,
                               ln_scale=None, ln_bias=None):
     """The K3 backward kernel on CUDA: (dx, dw_in, db_in, dws, dbs, dw_out,
     db_out [, d ln_scale, d ln_bias]) and the streams (gs, dvl), each
-    (C, BW, V) in x.dtype, from which :func:`hyena_dm` makes dM."""
+    (Cp, BW, V) in x.dtype with Cp = C rounded up to 32 (the padded channels
+    zero), from which :func:`hyena_dm` makes dM."""
     bw, v, c, chunk = _check_chunked(x, w_in, b_in, ws, bs, m, w_out, b_out, ln_scale, ln_bias)
     k = ws.shape[0]
     check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
-    layout, size = slot_layout([("dwin", 3 * c * c), ("dwo", c * c), ("dws", k * 3 * c),
-                                ("dbin", 3 * c), ("dbs", 3 * c), ("dbo", c), ("dg", c),
-                                ("dbln", c)])
+    cp, w_in_p, b_in_p, ws_p, bs_p, w_out_p, m_p = _padded_operands(
+        HYENA_CHUNKED_BWD, c, (w_in, (0, 1)), (b_in, (0,)), (ws, (1,)), (bs, (0,)),
+        (w_out, (0, 1)), (m, (1,)))
+    layout, size = slot_layout([("dwin", 3 * cp * cp), ("dwo", cp * cp), ("dws", k * 3 * cp),
+                                ("dbin", 3 * cp), ("dbs", 3 * cp), ("dbo", cp), ("dg", cp),
+                                ("dbln", cp)])
     slots = torch.empty(slot_count(size, x.device), size, device=x.device, dtype=torch.float32)
     red = torch.empty(size, device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
-    gs, dvl, v2 = (torch.empty(c, bw, v, device=x.device, dtype=x.dtype) for _ in range(3))
-    fa, fb = (torch.empty(c, bw, v, device=x.device, dtype=torch.float32) for _ in range(2))
-    HYENA_CHUNKED_BWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in), ptr(b_in), ptr(ws),
-                      ptr(bs), ptr(m), ptr(w_out), ptr(do), ptr(dx), ptr(gs), ptr(dvl), ptr(v2),
+    gs, dvl, v2 = (torch.empty(cp, bw, v, device=x.device, dtype=x.dtype) for _ in range(3))
+    fa, fb = (torch.empty(cp, bw, v, device=x.device, dtype=torch.float32) for _ in range(2))
+    HYENA_CHUNKED_BWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in_p), ptr(b_in_p), ptr(ws_p),
+                      ptr(bs_p), ptr(m_p), ptr(w_out_p), ptr(do), ptr(dx), ptr(gs), ptr(dvl),
+                      ptr(v2),
                       ptr(fa), ptr(fb), ptr(slots), ptr(red),
                       bw, v, c, k, chunk, int(ln_scale is not None),
                       int(x.dtype == torch.bfloat16), slots.shape[0], size,
                       *(layout[n] for n in ("dwo", "dws", "dbin", "dbs", "dbo", "dg", "dbln")),
                       stream_handle(x.device))
-
-    def grad(name, shape, dtype=torch.float32):
-        return red[layout[name]:layout[name] + math.prod(shape)].view(shape).to(dtype)
-
-    grads = (dx, grad("dwin", (c, 3 * c), w_in.dtype), grad("dbin", (3 * c,)),
-             grad("dws", (k, 3 * c)), grad("dbs", (3 * c,)), grad("dwo", (c, c), w_out.dtype),
-             grad("dbo", (c,)))
-    if ln_scale is not None:
-        grads += (grad("dg", (c,)), grad("dbln", (c,)))
-    return grads, (gs, dvl)
+    return (dx, *_weight_grads(red, layout, c, cp, k, x.dtype, ln_scale is not None)), (gs, dvl)
 
 
 def hyena_dm(gs, dvl, chunk: int):
@@ -445,7 +474,8 @@ def hyena_chunked_bwd(do, x, w_in, b_in, ws, bs, m, w_out, b_out, ln_scale=None,
     dtypes."""
     grads, (gs, dvl) = hyena_chunked_bwd_streams(do, x, w_in, b_in, ws, bs, m, w_out, b_out,
                                                  ln_scale, ln_bias)
-    dm = hyena_dm(gs, dvl, m.shape[-1]).to(m.dtype)
+    c = x.shape[-1]
+    dm = cut_channel_blocks(hyena_dm(gs, dvl, m.shape[-1]), c, gs.shape[0], (1,)).to(m.dtype)
     return grads[:5] + (dm,) + grads[5:]
 
 

@@ -30,7 +30,13 @@ copied. The backward rounds its products' operands where the TPU kernel does
 and returns the projection weights' gradients in their dtype, the rest in fp32.
 
 The kernels take every window length of the gate (:func:`mamba_window_supported`)
-at C % 32 == 0 and a dt rank up to 64. Each kernel sizes its global scratch
+at any even C and a dt rank up to 64. Their tiles run on C rounded up to 32,
+as their library reports (``lcbi_padded_channels``; ``csrc/common.cuh``); the
+rows load at the true C (LayerNorm statistics over C) and only the true
+columns are stored, and the wrappers hand them the weights and per-channel
+operands with each C/2 block padded with zeros (:func:`_padded_operands`, a
+copy only where C % 32 != 0; the activations are never padded) and cut the
+gradients back. Each kernel sizes its global scratch
 itself (the forward's tile moves there, wholly or in part, where it outgrows
 shared memory); the wrappers ask the library
 (``lcbi_mamba_window_{fwd,bwd}_workspace``) and allocate it.
@@ -39,12 +45,11 @@ shared memory); the wrappers ask the library
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
-from .cuda_build import (CudaKernel, check_cuda_operand, ptr, slot_count, slot_layout,
-                         stream_handle)
+from .cuda_build import (CudaKernel, check_cuda_operand, pad_blocks, padded_width, ptr,
+                         slot_count, slot_grad, slot_layout, stream_handle)
 from .fused_mlp import layer_norm_f32, matmul_rounded
 from .selective_scan import selective_scan_cm
 
@@ -126,8 +131,8 @@ def _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out, ln_scal
     bw, v, c = x.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"Mamba window kernel takes fp32 or bf16, got {x.dtype}")
-    if not mamba_window_supported(v) or bw == 0 or c % 32 or x.numel() >= 2**31:
-        raise ValueError(f"Mamba window kernel needs 16 <= V <= 64, V % 8 == 0, C % 32 == 0 "
+    if not mamba_window_supported(v) or bw == 0 or c == 0 or c % 2 or x.numel() >= 2**31:
+        raise ValueError(f"Mamba window kernel needs 16 <= V <= 64, V % 8 == 0, an even C "
                          f"and 0 < BW*V*C < 2^31; got BW={bw}, V={v}, C={c}")
     if at.shape[0] != MAMBA_KERNEL_STATE:
         raise ValueError(f"Mamba window kernel takes d_state {MAMBA_KERNEL_STATE}, "
@@ -151,6 +156,31 @@ def _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out, ln_scal
     return bw, v, c, r
 
 
+# each operand's (dims read as one C-wide block, dims read as C/2-wide blocks):
+# x | z, y | z and the scan's channels are C/2 blocks, w_xz's rows and w_out's
+# columns (the LayerNorm's channels) one C block
+_OPERAND_DIMS = {"w_xz": ((0,), (1,)), "wconv": ((), (1,)), "w_dbl": ((), (0,)),
+                 "w_dt": ((), (1,)), "dtb2": ((), (0,)), "at": ((), (1,)), "dskip": ((), (0,)),
+                 "w_out": ((1,), (0,))}
+
+
+def _blocks(c, cp, name):
+    """The (width, padded width, dims) blocks of operand ``name`` (or its
+    gradient) at C and the padded width cp: C/2 blocks go to cp / 2."""
+    c_dims, dh_dims = _OPERAND_DIMS[name]
+    return [(c, cp, c_dims), (c // 2, cp // 2, dh_dims)]
+
+
+def _padded_operands(kernel, c, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out):
+    """The padded width cp that the kernel's library reports for C (a
+    multiple of 32), then the operands in the kernel's layout: each C/2
+    block padded with zeros to cp / 2, w_xz's rows and w_out's columns to
+    cp."""
+    cp = padded_width(kernel, "lcbi_padded_channels", c)
+    operands = (w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out)
+    return (cp, *(pad_blocks(t, _blocks(c, cp, name)) for name, t in zip(_OPERAND_DIMS, operands)))
+
+
 def _workspace_bytes(kernel, symbol, *shape) -> int:
     """Global scratch the kernel needs, from its library's own query (the
     layout lives in the CUDA source alone); raises where it cannot take the
@@ -168,6 +198,8 @@ def mamba_window_fwd(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
     :func:`mamba_window_plain`."""
     bw, v, c, r = _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
                                   ln_scale, ln_bias)
+    _, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out = _padded_operands(
+        MAMBA_WINDOW_FWD, c, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out)
     bf16 = int(x.dtype == torch.bfloat16)
     nbytes = _workspace_bytes(MAMBA_WINDOW_FWD, "lcbi_mamba_window_fwd_workspace",
                               bw, v, c, r, bf16)
@@ -187,11 +219,14 @@ def mamba_window_bwd(do, x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
     bw, v, c, r = _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
                                   ln_scale, ln_bias)
     check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
-    dh, n = c // 2, MAMBA_KERNEL_STATE
+    n = MAMBA_KERNEL_STATE
     w = r + 2 * n
-    layout, size = slot_layout([("dwxz", c * c), ("dwout", c * c), ("dwconv", 3 * c),
-                                ("dwdbl", dh * w), ("dwdt", r * dh), ("ddtb", dh),
-                                ("dat", n * dh), ("dd", dh), ("dg", c), ("dbln", c)])
+    cp, *padded = _padded_operands(MAMBA_WINDOW_BWD, c, w_xz, wconv, w_dbl, w_dt, dtb2, at,
+                                   dskip, w_out)
+    dhp = cp // 2
+    layout, size = slot_layout([("dwxz", cp * cp), ("dwout", cp * cp), ("dwconv", 3 * cp),
+                                ("dwdbl", dhp * w), ("dwdt", r * dhp), ("ddtb", dhp),
+                                ("dat", n * dhp), ("dd", dhp), ("dg", cp), ("dbln", cp)])
     bf16 = int(x.dtype == torch.bfloat16)
     per_block = _workspace_bytes(MAMBA_WINDOW_BWD, "lcbi_mamba_window_bwd_workspace",
                                  v, c, r, bf16) // 4
@@ -200,21 +235,21 @@ def mamba_window_bwd(do, x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
     red = torch.empty(size, device=x.device, dtype=torch.float32)
     work = torch.empty(n_slots, per_block, device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
-    MAMBA_WINDOW_BWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_xz), ptr(wconv), ptr(w_dbl),
-                     ptr(w_dt), ptr(dtb2), ptr(at), ptr(dskip), ptr(w_out), ptr(do), ptr(dx),
-                     ptr(work), ptr(slots), ptr(red),
+    MAMBA_WINDOW_BWD(*(ptr(t) for t in (x, ln_scale, ln_bias, *padded, do, dx, work, slots,
+                                        red)),
                      bw, v, c, r, int(ln_scale is not None), bf16, n_slots, per_block, size,
                      *(layout[k] for k in ("dwout", "dwconv", "dwdbl", "dwdt", "ddtb", "dat",
                                            "dd", "dg", "dbln")),
                      stream_handle(x.device))
 
-    def grad(name, shape, dtype=torch.float32):
-        return red[layout[name]:layout[name] + math.prod(shape)].view(shape).to(dtype)
+    def grad(name, stored, operand=None, dtype=torch.float32):
+        blocks = () if operand is None else _blocks(c, cp, operand)
+        return slot_grad(red, layout, name, stored, blocks, dtype)
 
-    grads = (dx, grad("dwxz", (c, c), w_xz.dtype), grad("dwconv", (3, c)),
-             grad("dwdbl", (dh, w), w_dbl.dtype), grad("dwdt", (r, dh), w_dt.dtype),
-             grad("ddtb", (dh,)), grad("dat", (n, dh)), grad("dd", (dh,)),
-             grad("dwout", (c, c), w_out.dtype))
+    grads = (dx, grad("dwxz", (cp, cp), "w_xz", x.dtype), grad("dwconv", (3, cp), "wconv"),
+             grad("dwdbl", (dhp, w), "w_dbl", x.dtype), grad("dwdt", (r, dhp), "w_dt", x.dtype),
+             grad("ddtb", (dhp,), "dtb2"), grad("dat", (n, dhp), "at"), grad("dd", (dhp,), "dskip"),
+             grad("dwout", (cp, cp), "w_out", x.dtype))
     if ln_scale is not None:
         grads += (grad("dg", (c,)), grad("dbln", (c,)))
     return grads

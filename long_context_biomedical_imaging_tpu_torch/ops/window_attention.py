@@ -35,13 +35,16 @@ window w's region ids from row w % nW of the (nW, V) table, which is the JAX
 package's ``jnp.tile`` of the table over the batch.
 
 The kernels take every window of 1 to ``MAX_TOKENS`` tokens, as the TPU
-kernel does, at head dim 32, the head dim of every Swin preset; another head
-dim raises ValueError. Windows of 16, 32, 48 or 64 tokens (2D windows 4x4 to
-8x8) take the whole-window path, a block per tile of whole windows; every
-other V (3D windows of up to 8x8x8, shrunk and ragged windows such as 7x7)
-takes the general path, which writes q, k, v (and in the backward do and
-each query row's softmax statistics) to device memory in scratch that the
-wrappers allocate (``csrc/window_attention.cuh``).
+kernel does, at any head dim D = C / H up to ``MAX_HEAD_DIM`` (32 in the
+tiny, small and base presets, 16 in ``unetr``, any in ``custom``); a larger
+head dim raises ValueError (ROADMAP queue 3). Windows of 16, 32, 48 or 64
+tokens (2D windows 4x4 to 8x8) at D of 16, 32 or 64 and C % 16 == 0 take the
+whole-window path, a block per tile of whole windows; every other shape (3D
+windows of up to 8x8x8, shrunk and ragged windows such as 7x7, other head
+dims) takes the general path, which writes q, k, v (and in the backward do
+and each query row's softmax statistics) to device memory in scratch that
+the wrappers allocate (``csrc/window_attention.cuh``). The CUDA library says
+which path takes a shape (``lcbi_window_attention_whole``).
 """
 
 from __future__ import annotations
@@ -57,8 +60,7 @@ from .fused_mlp import matmul_rounded
 
 LOG2E = math.log2(math.e)
 MAX_TOKENS = 512          # the JAX package's single-block ceiling; larger windows: plain
-KERNEL_HEAD_DIM = 32
-WHOLE_WINDOW_TOKENS = (16, 32, 48, 64)   # the whole-window path; other V: the general path
+MAX_HEAD_DIM = 64         # the kernels' largest head dim (their padded head dims: 16, 32, 64)
 
 WINDOW_ATTENTION_FWD = CudaKernel(
     "window_attention.cu", "lcbi_window_attention_fwd",
@@ -111,23 +113,34 @@ def window_attention_bwd_plain(do, x, wqkv, bqkv, wout, bout, rel, heads: int, r
     return vjp(do)
 
 
+def _whole_window(v: int, c: int, heads: int) -> bool:
+    """Whether the whole-window path takes (V, C, H), as the CUDA library
+    decides it (launches nothing)."""
+    return WINDOW_ATTENTION_FWD.query("lcbi_window_attention_whole", [ctypes.c_int] * 3,
+                                      ctypes.c_int, v, c, heads) == 1
+
+
 def _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads):
-    """Raise unless the kernels take these operands; returns (BW, V, C, nW)."""
+    """Raise unless the kernels take these operands; returns (BW, V, C, nW,
+    whole), whole saying which path takes them."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"K8 kernels take fp32 or bf16, got {x.dtype}")
     bw, v, c = x.shape
-    if heads <= 0 or c != heads * KERNEL_HEAD_DIM:
-        raise ValueError(f"K8 kernels take a head dim of {KERNEL_HEAD_DIM} (C = 32 H, every "
-                         f"Swin preset), got C={c} with {heads} heads")
+    if heads <= 0 or c % heads or c == 0:
+        raise ValueError(f"C={c} is not a positive multiple of {heads} heads")
+    if c // heads > MAX_HEAD_DIM:
+        raise ValueError(f"K8 kernels take a head dim of at most {MAX_HEAD_DIM}, got "
+                         f"{c // heads} (C={c}, {heads} heads; ROADMAP queue 3)")
     if not 1 <= v <= MAX_TOKENS:
         raise ValueError(f"K8 kernels take windows of 1 to {MAX_TOKENS} tokens, got V={v} (a "
                          f"larger window takes the plain version, as in the JAX package)")
-    width = 3 * c if v in WHOLE_WINDOW_TOKENS else 4 * c   # the widest stream each path writes
+    if not x.is_cuda:
+        raise ValueError(f"K8 kernels take CUDA tensors, got x on {x.device}")
+    whole = _whole_window(v, c, heads)
+    width = 3 * c if whole else 4 * c   # the widest stream each path writes
     if bw == 0 or bw * v * width >= 2**31:
         raise ValueError(f"K8 kernels take 0 < BW*V*{width // c}C < 2^31, got BW={bw}, V={v}, "
                          f"C={c}")
-    if not x.is_cuda:
-        raise ValueError(f"K8 kernels take CUDA tensors, got x on {x.device}")
     dev = x.device
     check_cuda_operand("x", x, dev, x.dtype, (bw, v, c))
     check_cuda_operand("wqkv", wqkv, dev, x.dtype, (c, 3 * c))
@@ -141,7 +154,7 @@ def _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads):
         check_cuda_operand("rid", rid, dev, torch.int32, (nw, v))
         if bw % nw:
             raise ValueError(f"{bw} windows are not a multiple of the {nw} rows of rid")
-    return bw, v, c, nw
+    return bw, v, c, nw, whole
 
 
 def _scales(scale: float, mask_value: float):
@@ -152,11 +165,10 @@ def window_attention_fwd(x, wqkv, bqkv, wout, bout, rel, heads: int, rid=None,
                          mask_value: float = -100.0, scale: float = 1.0):
     """The K8 forward kernel on CUDA: the output of :func:`window_attention_plain`
     for operands as :func:`windowed_attention_proj` prepares them."""
-    bw, v, c, nw = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads)
+    bw, v, c, nw, whole = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads)
     out = torch.empty_like(x)
     obuf = torch.empty_like(x)       # each head's o, read back by the out projection
-    qkv = (None if v in WHOLE_WINDOW_TOKENS
-           else torch.empty(bw * v, 3 * c, device=x.device, dtype=x.dtype))
+    qkv = None if whole else torch.empty(bw * v, 3 * c, device=x.device, dtype=x.dtype)
     WINDOW_ATTENTION_FWD(ptr(x), ptr(wqkv), ptr(bqkv), ptr(wout), ptr(bout), ptr(rel), ptr(rid),
                          ptr(obuf), ptr(qkv), ptr(out), bw, v, c, heads, nw,
                          *_scales(scale, mask_value), int(x.dtype == torch.bfloat16),
@@ -169,7 +181,7 @@ def window_attention_bwd_streams(do, x, wqkv, bqkv, wout, bout, rel, heads: int,
     """The K8 backward kernel on CUDA: (dx, dqkv (BW V, 3C) and o (BW V, C) in
     x.dtype, dbqkv, dbout, drel in fp32); dqkv and o are the operands of the
     weight gradients (:func:`window_attention_wgrad`)."""
-    bw, v, c, nw = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads)
+    bw, v, c, nw, whole = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads)
     check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
     n, dev = bw * v, x.device
     red = torch.empty(4 * c + heads * v * v, device=dev, dtype=torch.float32)
@@ -178,7 +190,7 @@ def window_attention_bwd_streams(do, x, wqkv, bqkv, wout, bout, rel, heads: int,
     o = torch.empty(n, c, device=dev, dtype=x.dtype)
     qkvu = dob = stats = kslots = ksums = None
     max_gw = 1
-    if v in WHOLE_WINDOW_TOKENS:
+    if whole:
         size = red.numel()
     else:
         # the general path: the row kernel's slots hold its dq and dout column
@@ -191,8 +203,8 @@ def window_attention_bwd_streams(do, x, wqkv, bqkv, wout, bout, rel, heads: int,
         budget = max(1, SLOT_BYTES_BUDGET // (4 * heads * v * v))
         key_tiles = ctypes.c_int(0)
         max_gw = WINDOW_ATTENTION_BWD.query(
-            "lcbi_window_attention_key_ranges", [ctypes.c_int] * 5 + [ctypes.c_void_p],
-            ctypes.c_int, bw, v, heads, budget, int(x.dtype == torch.bfloat16),
+            "lcbi_window_attention_key_ranges", [ctypes.c_int] * 6 + [ctypes.c_void_p],
+            ctypes.c_int, bw, v, c, heads, budget, int(x.dtype == torch.bfloat16),
             ctypes.cast(ctypes.byref(key_tiles), ctypes.c_void_p))
         if max_gw < 1:
             raise RuntimeError("lcbi_window_attention_key_ranges: device query failed")
@@ -222,9 +234,9 @@ def window_attention_wgrad(x, dqkv, o, do):
     dqkv (N, 3C), all in one dtype."""
     c = x.shape[-1]
     n = x.numel() // c
-    if x.dtype not in (torch.float32, torch.bfloat16) or c % 32 or n == 0:
-        raise ValueError(f"K8 weight-gradient kernel takes fp32 or bf16 with C % 32 == 0, got "
-                         f"{x.dtype}, C={c}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or n == 0:
+        raise ValueError(f"K8 weight-gradient kernel takes fp32 or bf16 and N > 0, got "
+                         f"{x.dtype}, N={n}")
     if not x.is_cuda:
         raise ValueError(f"K8 kernels take CUDA tensors, got x on {x.device}")
     dev = x.device

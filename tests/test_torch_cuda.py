@@ -12,7 +12,11 @@ stage shapes at batch 1 among them), K2' (the MLP without LN or residual,
 behind MLPBlock) at ViT-small widths, K9 (the windowed scan) at the
 micro_w7 stage shapes and odd windows, and whole models whose every
 parameter gets a gradient on the card (a ViT-hyena and a ViT-mamba also
-against the host), and the Swin checkpointing's memory. Marked ``cuda``;
+against the host), and the Swin checkpointing's memory. The widths of the
+``unetr`` and ``custom`` presets run in every kernel that takes them: K1,
+K3 and K4 at C = 48 and 24, K2 and K2' at C = 24 with a hidden width of 96,
+K8 at head dims 16 and 8 (and 40) on 16- and 512-token windows, K5 at head
+dims 8 to 256. Marked ``cuda``;
 without a card every test skips. This file imports neither JAX nor flax,
 so that it runs where only PyTorch is installed:
 
@@ -56,7 +60,8 @@ def _randn(gen, shape, scale=0.3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_ln", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bw,v,c", [(5, 24, 64), (3, 64, 128), (9, 1, 32), (300, 16, 96)])
+@pytest.mark.parametrize("bw,v,c", [(5, 24, 64), (3, 64, 128), (9, 1, 32), (300, 16, 96),
+                                    (64, 16, 48), (37, 16, 24)])
 def test_hyena_window_kernel_matches_plain(cuda_device, dtype, bw, v, c, with_ln):
     gen = torch.Generator().manual_seed(bw * 1000 + v)
     w = [_randn(gen, s) for s in ((c, 3 * c), (3 * c,), (3 * c, 5), (3 * c,),
@@ -81,7 +86,7 @@ def test_hyena_window_kernel_matches_plain(cuda_device, dtype, bw, v, c, with_ln
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c", [(37, 16), (300, 96), (70, 768)])
+@pytest.mark.parametrize("n,c", [(37, 16), (300, 96), (70, 768), (300, 24), (37, 48)])
 def test_fused_ln_mlp_kernel_matches_plain(cuda_device, dtype, n, c):
     gen = torch.Generator().manual_seed(n * 1000 + c)
     h = 4 * c
@@ -100,8 +105,10 @@ def test_fused_ln_mlp_kernel_matches_plain(cuda_device, dtype, n, c):
 
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(cuda_device):
-    """Unsupported shapes, dtypes or layouts raise before any launch."""
-    x = torch.zeros(2, 16, 48, device=cuda_device)          # C % 32 != 0
+    """Unsupported shapes, dtypes or layouts raise before any launch: an
+    empty batch of windows and a window no kernel takes (K1, K3), an empty
+    set of rows (K2), fp16 (K2)."""
+    x = torch.zeros(0, 16, 48, device=cuda_device)          # no windows
     w = [torch.zeros(s, device=cuda_device) for s in
          ((48, 144), (144,), (144, 5), (144,), (48, 16), (48,), (48, 48), (48,))]
     before = thw.HYENA_WINDOW_FWD.launches
@@ -113,10 +120,13 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         thw.hyena_window_mixer(long, *w)
     assert thw.HYENA_WINDOW_FWD.launches == before
-    x = torch.zeros(8, 32, device=cuda_device, dtype=torch.float16)
+    mlp = [torch.zeros(s, device=cuda_device) for s in
+           ((24,), (24,), (24, 96), (96,), (96, 24), (24,))]
+    with pytest.raises(ValueError):
+        tmlp.fused_ln_mlp_residual(torch.zeros(0, 24, device=cuda_device), *mlp)
+    x = torch.zeros(8, 24, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
-        tmlp.fused_ln_mlp_residual(x, *[torch.zeros(s, device=cuda_device) for s in
-                                        ((32,), (32,), (32, 128), (128,), (128, 32), (32,))])
+        tmlp.fused_ln_mlp_residual(x, *mlp)
 
 
 def _grad_tol(dtype):
@@ -136,7 +146,7 @@ def _check_grads(kernel_grads, plain_grads, dtype, names):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c", [(37, 16), (300, 96), (70, 768)])
+@pytest.mark.parametrize("n,c", [(37, 16), (300, 96), (70, 768), (300, 24), (37, 48)])
 def test_fused_ln_mlp_backward_kernel_matches_plain(cuda_device, dtype, n, c):
     """K2 backward through the autograd Function against the VJP of the plain
     forward, for x and all six parameters; one launch; inputs unchanged."""
@@ -160,7 +170,7 @@ def test_fused_ln_mlp_backward_kernel_matches_plain(cuda_device, dtype, n, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c", [(37, 16), (32770, 384)])
+@pytest.mark.parametrize("n,c", [(37, 16), (32770, 384), (300, 24)])
 def test_fused_mlp_kernels_match_plain(cuda_device, dtype, n, c):
     """K2' (the MLP without LN or residual) through MLPBlock in eval mode:
     the forward and the gradients of x and the four fp32 parameters against
@@ -200,7 +210,8 @@ def test_fused_mlp_kernels_match_plain(cuda_device, dtype, n, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_ln", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bw,v,c", [(5, 24, 64), (3, 64, 128), (9, 1, 32), (300, 16, 96)])
+@pytest.mark.parametrize("bw,v,c", [(5, 24, 64), (3, 64, 128), (9, 1, 32), (300, 16, 96),
+                                    (64, 16, 48), (37, 16, 24)])
 def test_hyena_window_backward_kernel_matches_plain(cuda_device, dtype, bw, v, c, with_ln):
     """K1 backward through the wrapper (tap flip and skip fold outside the
     kernel) against the VJP of the plain forward in the raw weights; one
@@ -299,7 +310,10 @@ def _chunked_args(gen, bw, v, c, dtype, device, with_ln):
     return args
 
 
-_K3_SHAPES = [(5, 192, 32), (17, 128, 64), (3, 512, 96), (4096, 512, 96), (512, 512, 192)]
+# the last two: unetr's stage-0 width (C = 48) on 512-token windows, custom's
+# (C = 24) on 128-token windows
+_K3_SHAPES = [(5, 192, 32), (17, 128, 64), (3, 512, 96), (4096, 512, 96), (512, 512, 192),
+              (64, 512, 48), (9, 128, 24)]
 
 
 @pytest.mark.cuda
@@ -410,9 +424,10 @@ def _mamba_args(gen, bw, v, c, dtype, device, with_ln, r=None):
 # a ragged tile (5 windows of 16 at C = 32), V = 24 and 40 (tiles padded to 16
 # rows), the three vessel K4 stage shapes at batch 4, micro's stage 3 (1024 windows of
 # 16 at C = 768) and vessel's stage 3 at batch 16 (1024 windows of 64 at C = 768: the
-# forward's fp32 accumulator no longer fits in shared memory and moves to global scratch)
+# forward's fp32 accumulator no longer fits in shared memory and moves to global scratch),
+# unetr's stage 0 (C = 48) and custom's (C = 24, a ragged tile of 64-token windows)
 _K4_SHAPES = [(5, 16, 32), (3, 24, 64), (7, 40, 128), (16384, 64, 96), (4096, 64, 192),
-              (1024, 64, 384), (1024, 16, 768), (1024, 64, 768)]
+              (1024, 64, 384), (1024, 16, 768), (1024, 64, 768), (1024, 16, 48), (37, 64, 24)]
 _K4_NAMES = ("x", "w_xz", "wconv", "w_dbl", "w_dt", "dtb2", "at", "dskip", "w_out",
              "ln_scale", "ln_bias")
 
@@ -637,21 +652,29 @@ def test_flash_attention_kernels_match_plain_at_vit16k(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 128])
-@pytest.mark.parametrize("bh,l", [(3, 63), (2, 1025)])
+@pytest.mark.parametrize("d", [5, 8, 16, 32, 48, 64, 100, 128, 256])
+@pytest.mark.parametrize("bh,l", [(3, 1), (3, 63), (2, 65), (2, 1025)])
 def test_flash_attention_kernels_match_plain_at_head_dims(cuda_device, dtype, d, bh, l):
-    """K5 at head dims 32 (64-row tiles) and 128 (32-row tiles): forward (o,
-    lse), dq and dk/dv against the plain version and its VJP at a short tile
-    and at 16 tiles and one row (ragged at either tile edge)."""
+    """K5 at every padded head dim (16 .. 256) and at true head dims between
+    them (8 on 16-wide tiles, 48 on 64-wide ones, their columns past D
+    zero; 5 and 100, whose rows are not 16-byte multiples, by element
+    rather than by cp.async): forward (o, lse), dq and dk/dv against the
+    plain version and its VJP at the ragged lengths (a lone key, a short tile, a tile and one row,
+    16 tiles and one row), and two launches bitwise equal. At L = 1 dq and
+    dk vanish exactly, so their floor is the inputs' scale, 1."""
     gen = torch.Generator().manual_seed(d * 100000 + bh * 10000 + l)
     q, k, v, do = _flash_args(gen, bh, l, dtype, cuda_device, d)
     scale = d ** -0.5
     o, lse = tfa.flash_attention_fwd(q, k, v, scale)
     grads = tfa.flash_attention_bwd(do, q, k, v, o, lse, scale)
+    again = (*tfa.flash_attention_fwd(q, k, v, scale),
+             *tfa.flash_attention_bwd(do, q, k, v, o, lse, scale))
     torch.cuda.synchronize()
-    _check_flash((o, lse), tfa.flash_attention_plain(q, k, v, scale), dtype, ("o", "lse"), 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip((o, lse, *grads), again))
+    floor = 1.0 if l == 1 else 1e-6
+    _check_flash((o, lse), tfa.flash_attention_plain(q, k, v, scale), dtype, ("o", "lse"), floor)
     _check_flash(grads, tfa.flash_attention_bwd_plain(do, q, k, v, scale), dtype,
-                 ("dq", "dk", "dv"), 1e-6)
+                 ("dq", "dk", "dv"), floor)
 
 
 @pytest.mark.cuda
@@ -659,8 +682,9 @@ def test_flash_attention_kernels_are_deterministic_and_refuse(cuda_device):
     """Two launches of each K5 kernel on the same inputs give the same bits
     (no atomics); D = 32 and 128 sliced from the same inputs match the plain
     version and its VJP, fp32 and bf16, and repeat bitwise; the wrappers
-    refuse a head dim no instance takes (48), fp16, a non-contiguous tensor,
-    operands on two devices or of two dtypes."""
+    refuse a head dim past the kernels' widest (257), an empty sequence, a
+    CPU tensor, fp16, a non-contiguous tensor, operands on two devices or of
+    two dtypes."""
     gen = torch.Generator().manual_seed(5)
     q, k, v, do = _flash_args(gen, 4, 777, torch.bfloat16, cuda_device)
     first = tfa.flash_attention_fwd(q, k, v, 0.125)
@@ -685,9 +709,13 @@ def test_flash_attention_kernels_are_deterministic_and_refuse(cuda_device):
                          1e-6)
             _check_flash(grads, tfa.flash_attention_bwd_plain(sl[3], *sl[:3], scale), dtype,
                          ("dq", "dk", "dv"), 1e-6)
-    odd = [t[..., :48].contiguous() for t in (q, k, v)]
-    with pytest.raises(ValueError, match="D in"):
-        tfa.flash_attention_fwd(*odd, 0.125)
+    wide = [torch.zeros(1, 16, 257, device=cuda_device, dtype=torch.bfloat16)] * 3
+    with pytest.raises(ValueError, match="head dim of at most 256"):
+        tfa.flash_attention_fwd(*wide, 0.125)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(*(t[:, :0] for t in (q, k, v)), 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(*(t.cpu() for t in (q, k, v)), 0.125)
     with pytest.raises(TypeError):
         tfa.flash_attention_fwd(*(t.half() for t in (q, k, v)), 0.125)
     strided = q.transpose(0, 1).contiguous().transpose(0, 1)
@@ -1087,10 +1115,11 @@ def test_vit_mamba_gradients_on_the_card_match_the_host(cuda_device, amp):
 # K8: Swin window attention
 # ---------------------------------------------------------------------------
 
-def _k8_args(gen, bw, v, c, dtype, dev, nw=None):
-    """x, wqkv, bqkv, wout, bout, rel, rid, do of one K8 case (heads of 32):
-    rid with a few regions per window, as the shifted windows have."""
-    heads = c // 32
+def _k8_args(gen, bw, v, c, dtype, dev, nw=None, heads=None):
+    """x, wqkv, bqkv, wout, bout, rel, rid, do of one K8 case (heads of 32
+    unless given): rid with a few regions per window, as the shifted windows
+    have."""
+    heads = heads or c // 32
     t = [_randn(gen, (bw, v, c), 1.0), _randn(gen, (c, 3 * c), c ** -0.5),
          _randn(gen, (3 * c,), 0.1), _randn(gen, (c, c), c ** -0.5), _randn(gen, (c,), 0.1),
          _randn(gen, (heads, v, v), 0.5), _randn(gen, (bw, v, c), 1.0)]
@@ -1139,6 +1168,44 @@ def test_window_attention_kernels_match_plain(cuda_device, dtype, bw, v, c, nw):
         assert torch.isfinite(g).all() and err <= gtol * r.float().abs().max().item(), (name, err)
 
 
+# (BW, V, C, H, nW) at other head dims: unetr (D = 16: C = 48 at stage 0,
+# 384 at stage 3) on the whole-window path (16-token windows) and the general
+# path (512-token windows), custom's D = 8 (C = 24: the general path at every
+# V), a D of 40 on 7x7 windows, and D = 10 at C = 30 (rows that are not
+# 16-byte multiples: element loads) on 16- and 49-token windows
+K8_WIDTH_CASES = [(64, 16, 48, 3, 16), (32, 16, 384, 24, 8), (4, 512, 48, 3, 4),
+                  (37, 16, 24, 3, None), (2, 512, 24, 3, 2), (9, 49, 80, 2, 3),
+                  (8, 16, 30, 3, None), (9, 49, 30, 3, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,v,c,heads,nw", K8_WIDTH_CASES)
+def test_window_attention_kernels_match_plain_at_head_dims(cuda_device, dtype, bw, v, c, heads,
+                                                           nw):
+    """K8 at the head dims of the unetr and custom presets: the output and
+    all six gradients against the plain version and its VJP (tolerances as
+    test_window_attention_kernels_match_plain), the scale D^-0.5 of the true
+    D, and two launches bitwise equal."""
+    x, wq, bq, wo, bo, rel, rid, do, heads = _k8_args(torch.Generator().manual_seed(bw + c),
+                                                      bw, v, c, dtype, cuda_device, nw, heads)
+    args = (x, wq, bq, wo, bo, rel, heads, rid, -100.0, (c // heads) ** -0.5)
+    out = twa.window_attention_fwd(*args)
+    grads = twa.window_attention_bwd(do, *args)
+    again = (twa.window_attention_fwd(*args), *twa.window_attention_bwd(do, *args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((out, *grads), again))
+    ref = twa.window_attention_plain(*args)
+    refs = twa.window_attention_bwd_plain(do, *args)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(out).all() and err <= _tol(dtype) * ref.float().abs().max().item()
+    gtol = 1e-3 if dtype == torch.float32 else 3e-2
+    for name, g, r in zip(("dx", "dwqkv", "dbqkv", "dwout", "dbout", "drel"), grads, refs):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        err = (g.float() - r.float()).abs().max().item()
+        assert torch.isfinite(g).all() and err <= gtol * r.float().abs().max().item(), (name, err)
+
+
 @pytest.mark.cuda
 def test_window_attention_kernels_are_deterministic_and_refuse(cuda_device):
     """Two launches of each K8 kernel give the same bits (the bias and rel
@@ -1146,9 +1213,9 @@ def test_window_attention_kernels_are_deterministic_and_refuse(cuda_device):
     partials, both reduced in a fixed order); the Function launches the
     forward once per call and the backward and weight-gradient kernels once
     per gradient, on both paths (V = 16 and 343); the wrappers refuse a CPU
-    tensor, a head dim other than 32, windows of 0 or 513 tokens (a larger
-    window takes the plain version before the kernels), fp16 and a
-    non-contiguous tensor, and take windows of 8 and 128 tokens."""
+    tensor, a head dim past the kernels' widest (65), windows of 0 or 513
+    tokens (a larger window takes the plain version before the kernels), fp16
+    and a non-contiguous tensor, and take windows of 8 and 128 tokens."""
     kernels = (twa.WINDOW_ATTENTION_FWD, twa.WINDOW_ATTENTION_BWD, twa.WINDOW_ATTENTION_WGRAD)
     for bw, v, nw in ((30, 343, 10), (1000, 16, 250)):
         x, wq, bq, wo, bo, rel, rid, do, heads = _k8_args(
@@ -1168,8 +1235,14 @@ def test_window_attention_kernels_are_deterministic_and_refuse(cuda_device):
         twa.window_attention_fwd(*cpu)
     with pytest.raises(ValueError, match="CUDA"):
         twa.window_attention_bwd(do.cpu(), *cpu)
-    with pytest.raises(ValueError, match="head dim of 32"):
-        twa.window_attention_fwd(x, wq, bq, wo, bo, rel[:3].repeat(2, 1, 1)[:12], 12, rid)
+    wide = torch.zeros(8, 16, 130, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim of at most 64"):
+        twa.window_attention_fwd(wide, torch.zeros(130, 390, device=cuda_device,
+                                                   dtype=torch.bfloat16),
+                                 torch.zeros(390, device=cuda_device),
+                                 torch.zeros(130, 130, device=cuda_device, dtype=torch.bfloat16),
+                                 torch.zeros(130, device=cuda_device),
+                                 torch.zeros(2, 16, 16, device=cuda_device), 2)
     for v in (0, 8, 128, twa.MAX_TOKENS + 1):
         xv = torch.zeros(8, v, 64, device=cuda_device, dtype=torch.bfloat16)
         call = lambda: twa.window_attention_fwd(  # noqa: E731

@@ -83,7 +83,7 @@ def _close(got, ref, tol, name=""):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [8, 16, 48, 64])
 @pytest.mark.parametrize("l", [200, 257])
 def test_flash_attention_plain_matches_jax(rng, l, d, dtype):
     """The port's flash_attention on CPU tensors (the plain version and, for
@@ -93,7 +93,8 @@ def test_flash_attention_plain_matches_jax(rng, l, d, dtype):
     257 = 2 * 128 + 1): the output and dq, dk, dv for one cotangent. fp32:
     1e-5 of max (the online softmax's sum order); bf16: 2e-2 of max (a bf16
     ulp: both round p to bf16, relative to the running max on the JAX side
-    and to the row max here). No kernel launches on the CPU."""
+    and to the row max here). Head dims 8 and 48, which the kernels run on
+    16- and 64-wide tiles, as 16 and 64. No kernel launches on the CPU."""
     b, h = 1, 2
     arrs = [rng.normal(size=(b, h, l, d)).astype(np.float32) for _ in range(4)]
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
