@@ -389,7 +389,9 @@ K5_PLAIN_SLICE = 2
 VIT_BF16_GRAD_FLOOR = 2e-2
 # phase 21, K5 at the other head dims (BH, L, D): 1,025 tokens, ragged at
 # every tile edge; 8 and 48 run on 16- and 64-wide tiles, zero past D
-K5_HEAD_DIMS = [(2, 1025, d) for d in (8, 16, 32, 48, 128, 256)]
+# past 256 the kernels walk D in 64-column chunks: 320 (--ViT.hidden_size 320
+# with one head) and 384 (--ViT.hidden_size 768 --ViT.num_heads 2)
+K5_HEAD_DIMS = [(2, 1025, d) for d in (8, 16, 32, 48, 128, 256, 320, 384)]
 # vit65k_hyena at batch 1: 1024x1024 in 4x4 patches, no cls token; the Hyena
 # long conv of each of ViT-small's 12 layers on (1, 384, 65536)
 H65_BATCH, H65_L, H65_D = 1, 65536, 384
@@ -452,6 +454,12 @@ EMB_VOLUME = (64, 256, 256)
 # 8x8x8 windows at the stage widths, random region ids in 4 rows
 K8_CLASSES = [(256, 16, 96, True), (64, 64, 192, True), (300, 49, 96, True),
               (24, 343, 192, True), (32, 256, 768, True), (16, 512, 384, True)]
+# phase 42, K8's general path past D = 64 (BW, V, C, heads): D = 96, as
+# --Swin.embed_dim 96 --Swin.num_heads 1 2 4 8 gives at stage 0 (emb_attn's
+# 512-token windows at the batch of one volume's 64 windows of 64x64x64
+# tokens), D = 128 (the widest head dim of the mma kernels) and D = 192 (the
+# shared-memory kernels, D walked in 64-column chunks)
+K8_WIDE_HEADS = [(64, 512, 96, 1), (64, 512, 128, 1), (16, 512, 384, 2)]
 # phase 42 holds the plain version at emb_attn's stages on at most this many
 # windows at a time: its fp32 scores and their VJP at stage 0 (4,096 windows
 # of 512 tokens, 3 heads) would take 12.9 GB each
@@ -470,7 +478,13 @@ WIDTH_CONFIGS = [("unetr_attention", ["--Swin.size", "unetr"], "attention"),
                  ("unetr_hyena", ["--Swin.size", "unetr"], "hyena"),
                  ("unetr_mamba", ["--Swin.size", "unetr"], "mamba"),
                  ("custom24_attention", ["--Swin.size", "custom", "--Swin.embed_dim", "24"],
-                  "attention")]
+                  "attention"),
+                 ("custom96_attention", ["--Swin.size", "custom", "--Swin.embed_dim", "96",
+                                         "--Swin.num_heads", "1", "2", "4", "8"], "attention")]
+# phase 47's ViT past K5's widest padded head dim: the CLI's custom size at
+# hidden 768 in 2 heads (D = 384), 1,025 tokens (256x256, patch 8, the cls
+# token) so that every block takes the flash route
+WIDE_VIT_FLAGS = ["--ViT.size", "custom", "--ViT.hidden_size", "768", "--ViT.num_heads", "2"]
 # phase 47's gradients: batch 2 of 256x256 (token grids 128 .. 16: every
 # stage runs 16-token windows; Mamba's K4 gate, 1,024 windows, passes at
 # stage 0 alone), bf16 floor as phase 35's
@@ -2356,16 +2370,22 @@ def phase_k8(torch, wa, dev):
         check(tok, f"K8 table gradient through the gather, {dname}: {trel} > {GRAD_TOL[dname]}")
         print(f"phase 33 K8 table gradient through the gather, BW={x.shape[0]} C=384 {dname}: "
               f"max_abs_err={terr:.3e} max_rel_err={trel:.3e} ok", flush=True)
-    refusals = 0
-    for bad in (lambda: wa.window_attention_fwd(*[a.cpu() if torch.is_tensor(a) else a
-                                                  for a in args]),
-                lambda: wa.window_attention_fwd(*args[:6], 2, *args[7:])):
-        try:
-            bad()
-        except ValueError:
-            refusals += 1
-    check(refusals == 2, "K8 took a CPU tensor or a head dim past 64")
-    print("phase 33 K8: two launches bitwise equal; a CPU tensor and D = 96 refused", flush=True)
+    try:
+        wa.window_attention_fwd(*[a.cpu() if torch.is_tensor(a) else a for a in args])
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "K8 took a CPU tensor")
+    # D = 96 (C = 192 in 2 heads): the general path, as --Swin.embed_dim 96
+    # --Swin.num_heads 1 2 4 8 gives at every stage
+    args96 = (*args[:5], args[5][:2].contiguous(), 2, args[7], -100.0, 96 ** -0.5)
+    with torch.no_grad():
+        out96 = wa.window_attention_fwd(*args96)
+        torch.cuda.synchronize()
+        err96, mag96, ok96 = compare(torch, out96, wa.window_attention_plain(*args96), "bfloat16")
+    check(ok96, f"K8 at D = 96 disagrees with its plain version: {err96} > {mag96}")
+    print(f"phase 33 K8: two launches bitwise equal; a CPU tensor refused; D = 96 taken "
+          f"(max_abs_err={err96:.3e} max|out|={mag96:.3e})", flush=True)
     del base, args, module, x, g
     torch.cuda.empty_cache()
 
@@ -2520,9 +2540,27 @@ def phase_k8_general(torch, wa, dev):
                   -100.0, 48 ** -0.5)
         _k8_hold(torch, wa, args48, small_do.to(dtype), 4, dname,
                  f"BW=4 V=16 C=96 D=48 {dname} rid=False", 42)
+    for bw, v, c, heads in K8_WIDE_HEADS:
+        wide, _, wide_do, heads = _k8_case(torch, gen, bw, v, c, None, dev, 4, heads)
+        d = c // heads
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            args_d = (wide[0].to(dtype), wide[1].to(dtype), wide[2], wide[3].to(dtype), wide[4],
+                      wide[5], heads, None, -100.0, d ** -0.5)
+            _k8_hold(torch, wa, args_d, wide_do.to(dtype), bw, dname,
+                     f"BW={bw} V={v} C={c} D={d} {dname} rid=False", 42)
+        wide_do = wide_do.bfloat16()
+        with torch.no_grad():
+            f_ms = median_ms(torch, lambda: wa.window_attention_fwd(*args_d), warmup=1, reps=3)
+        b_ms = median_ms(torch, lambda: wa.window_attention_bwd_streams(wide_do, *args_d),
+                         warmup=1, reps=3)
+        print(f"phase 42 K8 times BW={bw} V={v} C={c} D={d} bf16: fwd {f_ms:.3f} ms, bwd "
+              f"{b_ms:.3f} ms", flush=True)
+        del wide, wide_do, args_d
+        torch.cuda.empty_cache()
     print("phase 42 K8: two launches of the general path bitwise equal; V = 513 took the plain "
-          "version with no K8 launch; D = 48 taken and held against the plain version; a CPU "
-          "tensor and V = 0 refused", flush=True)
+          "version with no K8 launch; D = 48, 96, 128 and 192 taken and held against the plain "
+          "version; a CPU tensor and V = 0 refused", flush=True)
     del base, do, leaf, out, ref
     torch.cuda.empty_cache()
 
@@ -3245,6 +3283,45 @@ def phase_widths(torch, dev):
                            f"{WIDTH_GRAD_SIZE[0]}x{WIDTH_GRAD_SIZE[1]}", batch=WIDTH_GRAD_BATCH)
 
 
+def phase_wide_vit(torch, dev):
+    """Phase 47's ViT at D = 384 (WIDE_VIT_FLAGS on the vit16k flags): one
+    bf16 train step at batch 2 of 256x256 on the card, through K5's kernels
+    (fwd, dq and dkv launched once per block) and K2; a finite loss and
+    every parameter's gradient finite."""
+    from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.optim import OptimManager
+    from long_context_biomedical_imaging_tpu_torch.ops import flash_attention as fa
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+    from long_context_biomedical_imaging_tpu_torch.trainer import make_train_step
+
+    flags = _vit_flags(8, 2, "attention") + WIDE_VIT_FLAGS + ["--height=256", "--width=256"]
+    cfg = check_args(parse_config(flags))
+    model = build_model(cfg).to(dev)
+    optim = OptimManager(cfg, num_train_samples=1000)
+    optim.build(model.parameters())
+    train = make_train_step(model.train(), cross_entropy_loss, optim, use_amp=True)
+    gen = torch.Generator().manual_seed(48)
+    x = torch.randn(2, 1, 256, 256, 1, generator=gen).to(dev)
+    y = torch.arange(2).to(dev)
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+    before = [k.launches for k in kernels]
+    stats = train([(x, y)], cfg.optim.lr, 2)
+    torch.cuda.synchronize()
+    launches = [k.launches - b for k, b in zip(kernels, before)]
+    layers = cfg.ViT.num_layers
+    check(launches == [layers] * 3, f"phase 47 ViT D=384: K5 launches {launches}, expected "
+                                    f"{layers} each")
+    check(bool(torch.isfinite(stats[0]).all()), "phase 47 ViT D=384: a non-finite loss")
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in model.parameters()), "phase 47 ViT D=384: a missing or non-finite grad")
+    print(f"phase 47 ViT custom hidden 768, 2 heads (D = 384), batch 2 of 256x256 (1,025 "
+          f"tokens), bf16: one train step through K5 (fwd, dq, dkv {launches}), loss "
+          f"{stats[0].item():.4f}, every gradient finite", flush=True)
+    del model, optim, train
+    torch.cuda.empty_cache()
+
+
 def profile_step(torch, fn, label):
     """Device time of one call by kernel, from torch.profiler: the CUDA
     kernel events alone. A CPU event (an aten op, an autograd Function's
@@ -3627,6 +3704,7 @@ def run():
                             volume=EMB_VOLUME)
     k2p, k2p_launches = phase_k2_prime(torch, fused_mlp, dev)
     phase_widths(torch, dev)
+    phase_wide_vit(torch, dev)
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "long_context_biomedical_imaging_tpu")
                   for m in sys.modules), "JAX was imported")
 

@@ -347,17 +347,118 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
                  : launch_fwd_f32<DP>(q, k, v, o, lse, BH, L, D, scale2, s);
 }
 
+// ---------------------------------------------------------------------------
+// D > 256: column chunks (flash_attention.cuh, wide head dims)
+// ---------------------------------------------------------------------------
+
+// grid (query tiles, BH, column chunks); the block writes columns [z 64, z 64
+// + 64) of its query rows of o, and chunk 0 also lse. Scores s = qs k^T are
+// summed over every chunk of D; the online softmax runs on them one warp per
+// row, p is rounded to T before p v as in the other variants.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, float* __restrict__ lse, int L, int D, float scale2) {
+  constexpr int kT = kWideTile, kC = kWideChunk, kLdT = kWideLdT, kLdF = kWideLdF;
+  extern __shared__ __align__(128) unsigned char smem[];
+  SmemCursor cur{smem};
+  T* qs = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* ks = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* vs = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* ps = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  float* s = cur.take<float>(tile_bytes<float>(kT, kLdF));
+  float* acc = cur.take<float>(tile_bytes<float>(kT, kLdF));
+  float* m = cur.take<float>(kT * 4);
+  float* l = cur.take<float>(kT * 4);
+
+  const int q0 = blockIdx.x * kT, c_out = blockIdx.z * kC, nch = wide_chunks(D);
+  const size_t base = (size_t)blockIdx.y * L * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < kT * kLdF; i += kThreads) acc[i] = 0.f;
+  for (int r = threadIdx.x; r < kT; r += kThreads) {
+    m[r] = kFlashNegInf;
+    l[r] = 0.f;
+  }
+  for (int k0 = 0; k0 < L; k0 += kT) {
+    for (int c = 0; c < nch; ++c) {
+      load_wide<T, true>(qs, q + base, q0, L, c * kC, D, scale2);
+      load_wide<T, false>(ks, k + base, k0, L, c * kC, D, 1.f);
+      __syncthreads();
+      gemm<false, true>(s, kLdF, qs, kLdT, ks, kLdT, kT, kT, kC, c > 0);
+      __syncthreads();
+    }
+    load_wide<T, false>(vs, v + base, k0, L, c_out, D, 1.f);
+    // online softmax, one warp per row; lane j holds columns j and j + 32
+    for (int r = warp; r < kT; r += kWarps) {
+      float sv[kT / 32];
+      float mx = kFlashNegInf;
+#pragma unroll
+      for (int i = 0; i < kT / 32; ++i) {
+        const int c = lane + 32 * i;
+        sv[i] = k0 + c < L ? s[r * kLdF + c] : kFlashNegInf;
+        mx = fmaxf(mx, sv[i]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = exp2f(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kT / 32; ++i) {
+        const float p = exp2f(sv[i] - m_new);
+        sum += p;
+        ps[r * kLdT + lane + 32 * i] = from_f32<T>(p);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      for (int c = lane; c < kC; c += 32) acc[r * kLdF + c] *= alpha;
+      __syncwarp();
+      if (lane == 0) {
+        m[r] = m_new;
+        l[r] = l[r] * alpha + sum;
+      }
+    }
+    __syncthreads();
+    gemm<false, false>(acc, kLdF, ps, kLdT, vs, kLdT, kT, kC, kT, true);
+    __syncthreads();
+  }
+  for (int r = threadIdx.x; r < kT; r += kThreads) {
+    const float lr = l[r] == 0.f ? 1.f : l[r];
+    l[r] = lr;
+    if (blockIdx.z == 0 && q0 + r < L) lse[(size_t)blockIdx.y * L + q0 + r] = m[r] + log2f(lr);
+  }
+  __syncthreads();
+  store_wide<T>(o + base, acc, 1.f, l, q0, L, c_out, D);
+}
+
+template <typename T>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+                    int L, int D, float scale2, cudaStream_t stream) {
+  const size_t smem = 4 * tile_bytes<T>(kWideTile, kWideLdT) +
+                      2 * tile_bytes<float>(kWideTile, kWideLdF) + 2 * kWideTile * 4;
+  cudaError_t err = set_smem(flash_fwd_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((L + kWideTile - 1) / kWideTile, BH, wide_chunks(D));
+  flash_fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), L, D, scale2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace lcbi
 
 // q, k, v, o: (BH, L, D) contiguous in T (fp32 if is_bf16 == 0, else bf16);
-// lse: (BH, L) fp32. 1 <= D <= 256, 0 < BH < 65536, all pointers 32-byte
-// aligned. scale2 = scale * log2(e). Returns cudaGetLastError() of the launch
-// (or cudaErrorInvalidValue for a shape it does not take).
+// lse: (BH, L) fp32. D >= 1, 0 < BH < 65536, all pointers 32-byte aligned.
+// scale2 = scale * log2(e). Returns cudaGetLastError() of the launch (or
+// cudaErrorInvalidValue for a shape it does not take).
 extern "C" int lcbi_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int BH, int L, int D, float scale2, int is_bf16, void* stream) {
   (void)cudaGetLastError();
   if (!lcbi::flash_shape_ok(BH, L, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > lcbi::kFlashMaxPadded)
+    return is_bf16 ? lcbi::launch_fwd_wide<lcbi::bf16>(q, k, v, o, lse, BH, L, D, scale2, s)
+                   : lcbi::launch_fwd_wide<float>(q, k, v, o, lse, BH, L, D, scale2, s);
   switch (lcbi::flash_padded_dim(D)) {
     case 16: return lcbi::launch_fwd<16>(q, k, v, o, lse, BH, L, D, scale2, is_bf16, s);
     case 32: return lcbi::launch_fwd<32>(q, k, v, o, lse, BH, L, D, scale2, is_bf16, s);

@@ -13,12 +13,13 @@
 // takes operands in T and sums in fp32. l == 0 is guarded as the TPU kernel
 // guards it (l taken as 1).
 //
-// Head dims: the kernels take any true D from 1 to 256 as a runtime argument;
-// a padded head dim DP in {16, 32, 64, 128, 256} (the least that holds D) is
-// a template argument and sets the tiles. Columns [D, DP) load as zeros, so
+// Head dims: the kernels take any true D as a runtime argument. Up to 256, a
+// padded head dim DP in {16, 32, 64, 128, 256} (the least that holds D) is a
+// template argument and sets the tiles. Columns [D, DP) load as zeros, so
 // they add nothing to q k^T, and the output columns past D are never stored.
+// Above 256 the wide variant below walks D in chunks of 64 columns.
 //
-// Two variants, one per stream type:
+// Two variants up to D = 256, one per stream type:
 //
 // bf16, designed for Hopper (the vit16k path). The products run on the
 // tensor cores through mma.sync.m16n8k16 with operands fed from registers
@@ -43,11 +44,11 @@
 namespace lcbi {
 
 constexpr float kFlashNegInf = -1e30f;  // NEG_INF of the TPU kernel
-constexpr int kFlashMaxHeadDim = 256;
+constexpr int kFlashMaxPadded = 256;    // the largest padded head dim DP
 
 // The shapes every K5 kernel takes.
 inline bool flash_shape_ok(int BH, int L, int D) {
-  return BH > 0 && BH < 65536 && L > 0 && D >= 1 && D <= kFlashMaxHeadDim;
+  return BH > 0 && BH < 65536 && L > 0 && D >= 1;
 }
 
 // The least padded head dim that holds D.
@@ -333,6 +334,69 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// ---------------------------------------------------------------------------
+// Wide head dims (D > 256), both stream types
+// ---------------------------------------------------------------------------
+//
+// No padded head dim holds the whole of D, so the kernels walk D in chunks of
+// kWideChunk columns: a score (q k^T, and in the backward do v^T) is the sum
+// of its chunks' products, taken in chunk order into one fp32 tile; an output
+// (o, dq, dk, dv) is written a chunk of columns at a time, by its own block
+// (grid axis z), which recomputes the scores. That costs D / 64 times the
+// score products for the output columns a block writes, and keeps the
+// per-block state (tiles of kWideTile rows, one column chunk of each operand,
+// fp32 scores and accumulator) within shared memory at any D; the design is
+// the fp32 variant's (shared-memory tiles, common.cuh gemm: WMMA for bf16)
+// and rounds where the other variants round. No model of the repo reaches it
+// (ROADMAP.md: the ViT widths with D > 256 are custom ones).
+
+constexpr int kWideChunk = 64;              // columns of D per chunk
+constexpr int kWideTile = 64;               // query or key rows per tile
+constexpr int kWideLdT = kWideChunk + 8;    // (kWideTile, kWideChunk) tiles in T, and p, ds
+constexpr int kWideLdF = kWideChunk + 4;    // fp32 (kWideTile, kWideChunk) scores, accumulators
+static_assert(kWideChunk == kWideTile, "p and ds tiles share the operand tiles' layout");
+
+__host__ __device__ inline int wide_chunks(int D) { return (D + kWideChunk - 1) / kWideChunk; }
+
+// Rows [r0, r0 + kWideTile) and columns [c0, c0 + kWideChunk) of a row-major
+// (L, D) matrix into dst (ld kWideLdT); zero at or past L and D. With kScaled
+// each element is multiplied by scale in fp32 and rounded to T (the TPU
+// kernel's q * scale2 cast to k's dtype).
+template <typename T, bool kScaled>
+__device__ void load_wide(T* dst, const T* __restrict__ src, int r0, int L, int c0, int D,
+                          float scale) {
+  for (int e = threadIdx.x; e < kWideTile * kWideChunk; e += kThreads) {
+    const int r = e / kWideChunk, c = e % kWideChunk;
+    float v = 0.f;
+    if (r0 + r < L && c0 + c < D) {
+      v = to_f32(src[(size_t)(r0 + r) * D + c0 + c]);
+      if (kScaled) v *= scale;
+    }
+    dst[r * kWideLdT + c] = from_f32<T>(v);
+  }
+}
+
+// kWideTile values of a per-row fp32 vector from row r0 (zero at or past L).
+__device__ __forceinline__ void load_wide_vec(const float* __restrict__ src, int r0, int L,
+                                              float* dst) {
+  for (int r = threadIdx.x; r < kWideTile; r += kThreads) dst[r] = r0 + r < L ? src[r0 + r] : 0.f;
+}
+
+// Columns [c0, c0 + kWideChunk) of rows [r0, r0 + kWideTile) of the row-major
+// (L, D) dst from an fp32 (kWideTile, kWideLdF) tile times mul (row r divided
+// by div[r] if div is given); nothing at or past L or D.
+template <typename T>
+__device__ void store_wide(T* __restrict__ dst, const float* acc, float mul,
+                           const float* div, int r0, int L, int c0, int D) {
+  for (int e = threadIdx.x; e < kWideTile * kWideChunk; e += kThreads) {
+    const int r = e / kWideChunk, c = e % kWideChunk;
+    if (r0 + r >= L || c0 + c >= D) continue;
+    float v = acc[r * kWideLdF + c] * mul;
+    if (div != nullptr) v /= div[r];
+    dst[(size_t)(r0 + r) * D + c0 + c] = from_f32<T>(v);
+  }
 }
 
 // Sets the dynamic shared memory a kernel may use; the launchers call it

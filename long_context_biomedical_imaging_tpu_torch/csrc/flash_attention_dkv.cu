@@ -362,11 +362,93 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                                       scale_out, s);
 }
 
+// ---------------------------------------------------------------------------
+// D > 256: column chunks (flash_attention.cuh, wide head dims)
+// ---------------------------------------------------------------------------
+
+// grid (key tiles, BH, column chunks); the block writes columns [z 64, z 64 +
+// 64) of its keys' rows of dk and dv. s^T = k qs^T and dp^T = v do^T are
+// summed over every chunk of D; p^T and ds^T are rounded to T before dv +=
+// p^T do and dk += ds^T q (the unscaled q), dk scaled once at the end.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                      int L, int D, float scale2, float scale_out) {
+  constexpr int kT = kWideTile, kC = kWideChunk, kLdT = kWideLdT, kLdF = kWideLdF;
+  extern __shared__ __align__(128) unsigned char smem[];
+  SmemCursor cur{smem};
+  T* ks = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* vs = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* qs = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* dos = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* pt = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* dst = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  float* st = cur.take<float>(tile_bytes<float>(kT, kLdF));
+  float* dpt = cur.take<float>(tile_bytes<float>(kT, kLdF));
+  float* dk_acc = cur.take<float>(tile_bytes<float>(kT, kLdF));
+  float* dv_acc = cur.take<float>(tile_bytes<float>(kT, kLdF));
+  float* lse_t = cur.take<float>(kT * 4);
+  float* delta_t = cur.take<float>(kT * 4);
+
+  const int k0 = blockIdx.x * kT, c_out = blockIdx.z * kC, nch = wide_chunks(D);
+  const size_t base = (size_t)blockIdx.y * L * D;
+  for (int i = threadIdx.x; i < kT * kLdF; i += kThreads) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int q0 = 0; q0 < L; q0 += kT) {
+    load_wide_vec(lse + (size_t)blockIdx.y * L, q0, L, lse_t);
+    load_wide_vec(delta + (size_t)blockIdx.y * L, q0, L, delta_t);
+    for (int c = 0; c < nch; ++c) {
+      load_wide<T, false>(ks, k + base, k0, L, c * kC, D, 1.f);
+      load_wide<T, false>(vs, v + base, k0, L, c * kC, D, 1.f);
+      load_wide<T, true>(qs, q + base, q0, L, c * kC, D, scale2);
+      load_wide<T, false>(dos, dout + base, q0, L, c * kC, D, 1.f);
+      __syncthreads();
+      gemm<false, true>(st, kLdF, ks, kLdT, qs, kLdT, kT, kT, kC, c > 0);
+      gemm<false, true>(dpt, kLdF, vs, kLdT, dos, kLdT, kT, kT, kC, c > 0);
+      __syncthreads();
+    }
+    // keys on rows, queries on columns
+    for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
+      const int j = i / kT, r = i % kT;
+      const bool live = k0 + j < L && q0 + r < L;
+      const float p = live ? exp2f(st[j * kLdF + r] - lse_t[r]) : 0.f;
+      pt[j * kLdT + r] = from_f32<T>(p);
+      dst[j * kLdT + r] = from_f32<T>(p * (dpt[j * kLdF + r] - delta_t[r]));
+    }
+    load_wide<T, false>(qs, q + base, q0, L, c_out, D, 1.f);
+    load_wide<T, false>(dos, dout + base, q0, L, c_out, D, 1.f);
+    __syncthreads();
+    gemm<false, false>(dv_acc, kLdF, pt, kLdT, dos, kLdT, kT, kC, kT, true);
+    gemm<false, false>(dk_acc, kLdF, dst, kLdT, qs, kLdT, kT, kC, kT, true);
+    __syncthreads();
+  }
+  store_wide<T>(dk + base, dk_acc, scale_out, nullptr, k0, L, c_out, D);
+  store_wide<T>(dv + base, dv_acc, 1.f, nullptr, k0, L, c_out, D);
+}
+
+template <typename T>
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, int BH, int L, int D,
+                    float scale2, float scale_out, cudaStream_t stream) {
+  const size_t smem = 6 * tile_bytes<T>(kWideTile, kWideLdT) +
+                      4 * tile_bytes<float>(kWideTile, kWideLdF) + 2 * kWideTile * 4;
+  cudaError_t err = set_smem(flash_dkv_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((L + kWideTile - 1) / kWideTile, BH, wide_chunks(D));
+  flash_dkv_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), L, D, scale2,
+      scale_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace lcbi
 
 // q, k, v, dout, dk, dv: (BH, L, D) contiguous in T (fp32 if is_bf16 == 0,
 // else bf16); lse (the forward's) and delta = rowsum(dout * o): (BH, L) fp32.
-// 1 <= D <= 256, 0 < BH < 65536, pointers 32-byte aligned. scale2 = scale *
+// D >= 1, 0 < BH < 65536, pointers 32-byte aligned. scale2 = scale *
 // log2(e), scale_out = scale. Returns cudaGetLastError() of the launch (or
 // cudaErrorInvalidValue for a shape it does not take).
 extern "C" int lcbi_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -376,6 +458,11 @@ extern "C" int lcbi_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   (void)cudaGetLastError();
   if (!lcbi::flash_shape_ok(BH, L, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > lcbi::kFlashMaxPadded)
+    return is_bf16 ? lcbi::launch_dkv_wide<lcbi::bf16>(q, k, v, dout, lse, delta, dk, dv, BH, L,
+                                                       D, scale2, scale_out, s)
+                   : lcbi::launch_dkv_wide<float>(q, k, v, dout, lse, delta, dk, dv, BH, L, D,
+                                                  scale2, scale_out, s);
   switch (lcbi::flash_padded_dim(D)) {
     case 16:
       return lcbi::launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, BH, L, D, scale2, scale_out,

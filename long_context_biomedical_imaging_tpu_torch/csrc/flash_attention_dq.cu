@@ -297,11 +297,84 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
                  : launch_dq_f32<DP>(q, k, v, dout, lse, delta, dq, BH, L, D, scale2, scale_out, s);
 }
 
+// ---------------------------------------------------------------------------
+// D > 256: column chunks (flash_attention.cuh, wide head dims)
+// ---------------------------------------------------------------------------
+
+// grid (query tiles, BH, column chunks); the block writes columns [z 64, z 64
+// + 64) of its rows of dq. s = qs k^T and dp = do v^T are summed over every
+// chunk of D; ds = p (dp - delta) is rounded to T before ds k.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dq, int L, int D,
+                     float scale2, float scale_out) {
+  constexpr int kT = kWideTile, kC = kWideChunk, kLdT = kWideLdT, kLdF = kWideLdF;
+  extern __shared__ __align__(128) unsigned char smem[];
+  SmemCursor cur{smem};
+  T* qs = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* dos = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* ks = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* vs = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  T* dss = cur.take<T>(tile_bytes<T>(kT, kLdT));
+  float* s = cur.take<float>(tile_bytes<float>(kT, kLdF));
+  float* dp = cur.take<float>(tile_bytes<float>(kT, kLdF));
+  float* acc = cur.take<float>(tile_bytes<float>(kT, kLdF));
+  float* lse_t = cur.take<float>(kT * 4);
+  float* delta_t = cur.take<float>(kT * 4);
+
+  const int q0 = blockIdx.x * kT, c_out = blockIdx.z * kC, nch = wide_chunks(D);
+  const size_t base = (size_t)blockIdx.y * L * D;
+  load_wide_vec(lse + (size_t)blockIdx.y * L, q0, L, lse_t);
+  load_wide_vec(delta + (size_t)blockIdx.y * L, q0, L, delta_t);
+  for (int i = threadIdx.x; i < kT * kLdF; i += kThreads) acc[i] = 0.f;
+  for (int k0 = 0; k0 < L; k0 += kT) {
+    for (int c = 0; c < nch; ++c) {
+      load_wide<T, true>(qs, q + base, q0, L, c * kC, D, scale2);
+      load_wide<T, false>(dos, dout + base, q0, L, c * kC, D, 1.f);
+      load_wide<T, false>(ks, k + base, k0, L, c * kC, D, 1.f);
+      load_wide<T, false>(vs, v + base, k0, L, c * kC, D, 1.f);
+      __syncthreads();
+      gemm<false, true>(s, kLdF, qs, kLdT, ks, kLdT, kT, kT, kC, c > 0);
+      gemm<false, true>(dp, kLdF, dos, kLdT, vs, kLdT, kT, kT, kC, c > 0);
+      __syncthreads();
+    }
+    load_wide<T, false>(ks, k + base, k0, L, c_out, D, 1.f);
+    for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
+      const int r = i / kT, c = i % kT;
+      const bool live = q0 + r < L && k0 + c < L;
+      const float p = live ? exp2f(s[r * kLdF + c] - lse_t[r]) : 0.f;
+      dss[r * kLdT + c] = from_f32<T>(p * (dp[r * kLdF + c] - delta_t[r]));
+    }
+    __syncthreads();
+    gemm<false, false>(acc, kLdF, dss, kLdT, ks, kLdT, kT, kC, kT, true);
+    __syncthreads();
+  }
+  store_wide<T>(dq + base, acc, scale_out, nullptr, q0, L, c_out, D);
+}
+
+template <typename T>
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int BH, int L, int D,
+                   float scale2, float scale_out, cudaStream_t stream) {
+  const size_t smem = 5 * tile_bytes<T>(kWideTile, kWideLdT) +
+                      3 * tile_bytes<float>(kWideTile, kWideLdF) + 2 * kWideTile * 4;
+  cudaError_t err = set_smem(flash_dq_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((L + kWideTile - 1) / kWideTile, BH, wide_chunks(D));
+  flash_dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), L, D, scale2, scale_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace lcbi
 
 // q, k, v, dout, dq: (BH, L, D) contiguous in T (fp32 if is_bf16 == 0, else
 // bf16); lse (the forward's) and delta = rowsum(dout * o): (BH, L) fp32.
-// 1 <= D <= 256, 0 < BH < 65536, pointers 32-byte aligned. scale2 = scale *
+// D >= 1, 0 < BH < 65536, pointers 32-byte aligned. scale2 = scale *
 // log2(e), scale_out = scale. Returns cudaGetLastError() of the launch (or
 // cudaErrorInvalidValue for a shape it does not take).
 extern "C" int lcbi_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -311,6 +384,11 @@ extern "C" int lcbi_flash_bwd_dq(const void* q, const void* k, const void* v, co
   (void)cudaGetLastError();
   if (!lcbi::flash_shape_ok(BH, L, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > lcbi::kFlashMaxPadded)
+    return is_bf16 ? lcbi::launch_dq_wide<lcbi::bf16>(q, k, v, dout, lse, delta, dq, BH, L, D,
+                                                      scale2, scale_out, s)
+                   : lcbi::launch_dq_wide<float>(q, k, v, dout, lse, delta, dq, BH, L, D,
+                                                 scale2, scale_out, s);
   switch (lcbi::flash_padded_dim(D)) {
     case 16:
       return lcbi::launch_dq<16>(q, k, v, dout, lse, delta, dq, BH, L, D, scale2, scale_out,

@@ -1,5 +1,5 @@
 // Swin window attention K8, forward: per window of V tokens, H heads of D = C / H
-// (any D up to 64; window_attention.cuh),
+// (any D; window_attention.cuh),
 //     qkv = x Wqkv + bqkv (fp32 sums);  q | k | v head-major column blocks
 //     s_h = (q_h scale) k_h^T + rel[h] + (region ids differ ? mask_value : 0)
 //     o_h = softmax(s_h) v_h;  out = sum_h o_h Wout[hD:(h+1)D, :] + bout
@@ -23,13 +23,16 @@
 // reads the tile's o rows back in 128-column chunks. The scratch keeps the
 // fp32 sum over heads out of shared memory, which at C = 768 would not fit.
 //
-// Windows of other sizes up to 512 tokens take the general path
-// (window_attention.cuh): the q | k | v projection into device memory in T
-// (q scale log2(e) rounded once, as above), the row kernel per (window,
-// head, 64 query rows) on full score rows, and the out projection of o.
-// The projections then cost a write and a read of the (T, 3C) stream, and
-// each query tile stages its window's k and v again (from L2).
-#include "window_attention.cuh"
+// Windows of other sizes up to 512 tokens, and other head dims, take the
+// general path: the q | k | v projection into device memory in T (q scale
+// log2(e) rounded once, as above), the attention per (head, 64 query rows,
+// window), and the out projection of o. In bf16 up to D = 128 those are the
+// kernels of window_attention_mma.cuh, designed for Hopper (a two-pass
+// softmax on register-resident mma.sync fragments, the bias slice in shared
+// memory over many windows, k and v through a cp.async ring); in fp32, and
+// in bf16 above D = 128, the shared-memory kernels of window_attention.cuh
+// (full score rows per query tile, D walked in chunks).
+#include "window_attention_mma.cuh"
 
 namespace lcbi {
 
@@ -118,14 +121,14 @@ int launch_fwd_general(const void* x, const void* wqkv, const float* bqkv, const
                        void* qkv, void* out, int BW, int V, int C, int H, int nW, float scale2,
                        float mask2, cudaStream_t stream) {
   const int N = BW * V;
-  int err = launch_proj<T>(x, C, wqkv, 3 * C, false, bqkv, qkv, 3 * C, N, 3 * C, C, C, scale2,
+  int err = launch_projection<T>(x, C, wqkv, 3 * C, false, bqkv, qkv, 3 * C, N, 3 * C, C, C, scale2,
                            -1, stream);
   if (err != 0) return err;
   int blocks = 0;
   err = launch_rows<T, false, KD>(qkv, 3 * C, rel, rid, nullptr, nullptr, obuf, nullptr, nullptr,
                                   nullptr, 1, BW, V, C, H, nW, 1.f, mask2, &blocks, stream);
   if (err != 0) return err;
-  return launch_proj<T>(obuf, C, wout, C, false, bout, out, C, N, C, C, 0, 1.f, -1, stream);
+  return launch_projection<T>(obuf, C, wout, C, false, bout, out, C, N, C, C, 0, 1.f, -1, stream);
 }
 
 template <typename T, int KD>
@@ -161,12 +164,49 @@ int launch_fwd(const void* x, const void* wqkv, const float* bqkv, const void* w
                                    H, nW, scale2, mask2, s);
 }
 
+// The general path in bf16 at D <= 128 (window_attention_mma.cuh): the q | k
+// | v projection, the mma row kernel, the out projection.
+template <int KD>
+int launch_fwd_mma(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+                   const float* bout, const float* rel, const int* rid, void* obuf, void* qkv,
+                   void* out, int BW, int V, int C, int H, int nW, float scale2, float mask2,
+                   cudaStream_t stream) {
+  const int N = BW * V;
+  int err = launch_projection<bf16>(x, C, wqkv, 3 * C, false, bqkv, qkv, 3 * C, N, 3 * C, C, C,
+                                    scale2, -1, stream);
+  if (err != 0) return err;
+  const int G = mma_row_blocks<false, KD>(BW, V, H);
+  err = launch_rows_mma<false, KD>(qkv, 3 * C, rel, rid, nullptr, nullptr, obuf, nullptr, nullptr,
+                                   nullptr, G, BW, V, C, H, nW, 1.f, mask2, stream);
+  if (err != 0) return err;
+  return launch_projection<bf16>(obuf, C, wout, C, false, bout, out, C, N, C, C, 0, 1.f, -1,
+                                 stream);
+}
+
 template <typename T>
 int launch_fwd_d(const void* x, const void* wqkv, const float* bqkv, const void* wout,
                  const float* bout, const float* rel, const int* rid, void* obuf, void* qkv,
                  void* out, int BW, int V, int C, int H, int nW, float scale2, float mask2,
                  cudaStream_t s) {
-  switch (padded_head_dim(C / H)) {
+  const int D = C / H;
+  if (std::is_same<T, bf16>::value && !whole_window_path(V, C, H) && D <= kMmaMaxHeadDim) {
+    if (qkv == nullptr) return (int)cudaErrorInvalidValue;
+    switch (mma_head_dim(D)) {
+      case 16:
+        return launch_fwd_mma<16>(x, wqkv, bqkv, wout, bout, rel, rid, obuf, qkv, out, BW, V, C,
+                                  H, nW, scale2, mask2, s);
+      case 32:
+        return launch_fwd_mma<32>(x, wqkv, bqkv, wout, bout, rel, rid, obuf, qkv, out, BW, V, C,
+                                  H, nW, scale2, mask2, s);
+      case 64:
+        return launch_fwd_mma<64>(x, wqkv, bqkv, wout, bout, rel, rid, obuf, qkv, out, BW, V, C,
+                                  H, nW, scale2, mask2, s);
+      default:
+        return launch_fwd_mma<128>(x, wqkv, bqkv, wout, bout, rel, rid, obuf, qkv, out, BW, V, C,
+                                   H, nW, scale2, mask2, s);
+    }
+  }
+  switch (launch_head_dim(V, C, H, std::is_same<T, float>::value)) {
     case 16:
       return launch_fwd<T, 16>(x, wqkv, bqkv, wout, bout, rel, rid, obuf, qkv, out, BW, V, C, H,
                                nW, scale2, mask2, s);
@@ -185,7 +225,7 @@ int launch_fwd_d(const void* x, const void* wqkv, const float* bqkv, const void*
 // scratch, and so is qkv (BW V, 3C) in T, which only the general path uses
 // (NULL otherwise). wqkv (C, 3C), wout (C, C) in T; bqkv (3C,), bout (C,), rel
 // (H, V, V) fp32; rid (nW, V) int32 or NULL (then nW is ignored). C = D H
-// with 1 <= D <= 64, 1 <= V <= 512 (lcbi_window_attention_whole says which
+// with any D >= 1, 1 <= V <= 512 (lcbi_window_attention_whole says which
 // path takes the shape), all pointers 32-byte aligned. scale2 = scale
 // log2(e), mask2 = mask_value log2(e). Returns cudaGetLastError() of the
 // launches.

@@ -11,19 +11,23 @@
 // the value products run per window on shared-memory tiles.
 //
 // The general path, for every other V up to 512 (3D windows, shrunk and
-// ragged windows) and every other head dim up to 64: one block cannot hold a
-// window's every head, so the
-// projections run as tiled matrix products (proj_gemm_kernel) that write q,
-// k, v to device memory once, rounded to T where the TPU kernel rounds them;
-// the attention then runs per (window, head, tile of query rows) on
-// full score rows (window_attention_rows_kernel), so the softmax normalises
-// each row before it rounds p, as the TPU kernel does.
+// ragged windows) and every other head dim: one block cannot hold a window's
+// every head, so the projections run as tiled matrix products
+// (proj_gemm_kernel) that write q, k, v to device memory once, rounded to T
+// where the TPU kernel rounds them; the attention then runs per (window,
+// head, tile of query rows). In bf16 up to D = 128 it runs on the
+// register-resident mma.sync kernels of window_attention_mma.cuh (designed
+// for Hopper); in fp32, and in bf16 above D = 128, on the shared-memory
+// kernels below: full score rows per query tile (window_attention_rows_kernel),
+// so the softmax normalises each row before it rounds p, as the TPU kernel
+// does, and a key-tile kernel for dk, dv and drel (window_attention_bwd.cu).
 //
-// Head dims: the true D = C / H is any value from 1 to 64; a padded head dim
-// KD in {16, 32, 64} (the least that holds D) is a template argument and
-// sets the tiles. The general path loads a head's D columns into KD-wide
-// tiles with zeros past D (they add nothing to q k^T) and stores only the D
-// columns of its products; the whole-window path runs where D == KD.
+// Head dims: the true D = C / H is any value from 1 up. The shared-memory
+// kernels take a chunk width KD in {16, 32, 64} (the least that holds D, or
+// 64) as a template argument and walk D in chunks of KD columns: scores are
+// summed over the chunks, outputs written a chunk at a time; a chunk past D
+// loads zeros (they add nothing to q k^T) and stores only its D columns. The
+// whole-window path runs where D is 16, 32 or 64.
 //
 // Products run on the tensor cores (WMMA 16x16x16, fp32 sums) for bf16 and
 // as fp32 FMA loops for fp32 (common.cuh).
@@ -36,7 +40,6 @@
 
 namespace lcbi {
 
-constexpr int kMaxHeadDim = 64;            // the largest padded head dim KD
 constexpr int kTileRows = 64;              // token rows per tile
 constexpr int kOutCols = 128;              // column chunk of the C-wide products
 constexpr int kLdO = kOutCols + 4;         // its fp32 accumulator
@@ -204,22 +207,33 @@ __device__ __forceinline__ Tile tile_of(long long t, int BW, int V) {
   return tl;
 }
 
-// Shapes the kernels take: V in [1, 512], H heads of any D = C / H up to 64.
+// Shapes the kernels take: V in [1, 512], H heads of any D = C / H.
 constexpr int kMaxTokens = 512;
 __host__ __forceinline__ bool attn_shape_ok(int BW, int V, int C, int H) {
-  return BW > 0 && V >= 1 && V <= kMaxTokens && H > 0 && C > 0 && C % H == 0 &&
-         C / H <= kMaxHeadDim;
+  return BW > 0 && V >= 1 && V <= kMaxTokens && H > 0 && C > 0 && C % H == 0;
 }
 
-// The least padded head dim that holds D.
-__host__ __forceinline__ int padded_head_dim(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : 64; }
 
 // Shapes the whole-window path takes; every other shape takes the general
 // path. Its products read x and the weights straight from global memory in
 // 16-column WMMA tiles, so C % 16 == 0 and D must be a padded head dim.
 __host__ __forceinline__ bool whole_window_path(int V, int C, int H) {
   const int D = C / H;
-  return V >= 16 && V <= kTileRows && V % 16 == 0 && C % 16 == 0 && D == padded_head_dim(D);
+  return V >= 16 && V <= kTileRows && V % 16 == 0 && C % 16 == 0 &&
+         (D == 16 || D == 32 || D == 64);
+}
+
+// The chunk width of the shared-memory kernels at head dim D: the least of
+// 16, 32 and 64 that holds D, else 64 (D walked in chunks); in fp32 at most
+// 32, so that a 512-token window's score rows and chunks fit.
+__host__ __forceinline__ int padded_head_dim(int D, bool fp32) {
+  return D <= 16 ? 16 : D <= 32 || fp32 ? 32 : 64;
+}
+
+// The padded head dim a launch takes: D itself on the whole-window path,
+// else the chunk width.
+__host__ __forceinline__ int launch_head_dim(int V, int C, int H, bool fp32) {
+  return whole_window_path(V, C, H) ? C / H : padded_head_dim(C / H, fp32);
 }
 
 // ---------------------------------------------------------------------------
@@ -274,6 +288,8 @@ __device__ __forceinline__ void load_rows16(T* dst, int ldd, const T* __restrict
   }
 }
 
+// The general path's projections in fp32 (bf16: window_attention_mma.cuh
+// proj_mma_kernel, the same function and rounding).
 // out = epilogue(A @ B) over M x N: A (M x K, row-major, ld lda) in T; B (K x
 // N, row-major, ld ldb) or, with B_COL, the transpose of a row-major (N x K)
 // matrix. The epilogue adds bias[n] (if given) in fp32; a column n < nscale
@@ -386,16 +402,19 @@ __device__ __forceinline__ void load_head_rows(T* dst, const T* __restrict__ src
   load_rows16(dst, HeadDims<KD>::kLdT, src + col, ld, rows, n, D, KD);
 }
 
-// The attention of the general path, per item (window w, head h, query tile
-// qt) of R = RowTile<BWD>::rows rows: qkv holds q scale log2(e) at column h D, k at C + h D
-// and v at 2C + h D of each token row (ld ldq), in T. Sweep 1 stages k (and,
-// backward, v) in chunks of kKeyChunk keys and fills the full score rows S
-// = q k^T (and dP = do v^T); then one warp per row takes s = S + rel[h]
+// The shared-memory attention of the general path (fp32; bf16 above D =
+// 128), per item (window w, head h, query tile qt) of R = RowTile<BWD>::rows
+// rows: qkv holds q scale log2(e) at column h D, k at C + h D and v at 2C + h
+// D of each token row (ld ldq), in T. Sweep 1 stages q (and, backward, do)
+// a chunk of KD columns of D at a time, and for each k (and v) in chunks of
+// kKeyChunk keys, summing the full score rows S = q k^T (and dP = do v^T)
+// over the chunks of D; then one warp per row takes s = S + rel[h]
 // log2(e) + (region ids differ ? mask2 : 0), p = exp2(s - max) / sum, and
 // writes p in T over S; backward, also delta = sum_j p dp and ds = p (dp -
 // delta) in T over dP, and keeps (max, sum, delta) in stats. Sweep 2 stages
-// v (and k) again: o = p v, written in T at column h D of o (ld C);
-// backward, dq = ds k scale, written in T at column h D of dqkv (ld 3C).
+// v (and k) again, a chunk of D at a time: o = p v, written in T at column h
+// D of o (ld C); backward, dq = ds k scale, written in T at column h D of
+// dqkv (ld 3C).
 // Keys past V are zero rows and get p = 0; rows past the window are zero
 // rows, never stored. The backward also sums dq (fp32) over its rows into
 // the block's slot at [0, C) and, for h = 0, the rows of dout at [C, 2C).
@@ -411,7 +430,7 @@ window_attention_rows_kernel(const T* __restrict__ qkv, int ldq, const float* __
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kRows = RowTile<BWD>::rows;
   constexpr int kLdT = HeadDims<KD>::kLdT, kLdG = HeadDims<KD>::kLdG;
-  const int D = C / H;
+  const int D = C / H, nch = (D + KD - 1) / KD;
   const RowLayout L = row_layout<KD>(V, sizeof(T), BWD);
   float* S = reinterpret_cast<float*>(smem);
   T* P = reinterpret_cast<T*>(smem);
@@ -441,16 +460,20 @@ window_attention_rows_kernel(const T* __restrict__ qkv, int ldq, const float* __
     const int i0 = qt * kRows, rows = min(kRows, V - i0);
     const size_t row0 = (size_t)w * V;
     const T* qrow = qkv + row0 * ldq;
-    load_head_rows<KD>(Q, qrow + (size_t)i0 * ldq, ldq, h * D, D, rows, kRows);
-    if (BWD) load_head_rows<KD>(DOt, dO + (row0 + i0) * C, C, h * D, D, rows, kRows);
-    for (int j0 = 0; j0 < Vp; j0 += kKeyChunk) {
-      const int kw = min(kKeyChunk, Vp - j0), keys = min(kKeyChunk, V - j0);
-      load_head_rows<KD>(Kc, qrow + (size_t)j0 * ldq, ldq, C + h * D, D, keys, kw);
-      if (BWD) load_head_rows<KD>(Vc, qrow + (size_t)j0 * ldq, ldq, 2 * C + h * D, D, keys, kw);
-      __syncthreads();
-      gemm<false, true>(S + j0, L.lds, Q, kLdT, Kc, kLdT, kRows, kw, KD, false);
-      if (BWD) gemm<false, true>(DP + j0, L.lds, DOt, kLdT, Vc, kLdT, kRows, kw, KD, false);
-      __syncthreads();
+    // S (and dP) summed over the chunks of D
+    for (int c = 0; c < nch; ++c) {
+      const int dc = h * D + c * KD, dw = min(KD, D - c * KD);
+      load_head_rows<KD>(Q, qrow + (size_t)i0 * ldq, ldq, dc, dw, rows, kRows);
+      if (BWD) load_head_rows<KD>(DOt, dO + (row0 + i0) * C, C, dc, dw, rows, kRows);
+      for (int j0 = 0; j0 < Vp; j0 += kKeyChunk) {
+        const int kw = min(kKeyChunk, Vp - j0), keys = min(kKeyChunk, V - j0);
+        load_head_rows<KD>(Kc, qrow + (size_t)j0 * ldq, ldq, C + dc, dw, keys, kw);
+        if (BWD) load_head_rows<KD>(Vc, qrow + (size_t)j0 * ldq, ldq, 2 * C + dc, dw, keys, kw);
+        __syncthreads();
+        gemm<false, true>(S + j0, L.lds, Q, kLdT, Kc, kLdT, kRows, kw, KD, c > 0);
+        if (BWD) gemm<false, true>(DP + j0, L.lds, DOt, kLdT, Vc, kLdT, kRows, kw, KD, c > 0);
+        __syncthreads();
+      }
     }
 
     const int* rr = rid == nullptr ? nullptr : rid + (size_t)(w % nW) * V;
@@ -525,26 +548,32 @@ window_attention_rows_kernel(const T* __restrict__ qkv, int ldq, const float* __
     }
     __syncthreads();
 
-    for (int j0 = 0; j0 < Vp; j0 += kKeyChunk) {
-      const int kw = min(kKeyChunk, Vp - j0), keys = min(kKeyChunk, V - j0);
-      load_head_rows<KD>(Vc, qrow + (size_t)j0 * ldq, ldq, 2 * C + h * D, D, keys, kw);
-      if (BWD) load_head_rows<KD>(Kc, qrow + (size_t)j0 * ldq, ldq, C + h * D, D, keys, kw);
-      __syncthreads();
-      gemm<false, false>(OA, kLdG, P + j0, L.ldp, Vc, kLdT, kRows, KD, kw, j0 > 0);
-      if (BWD) gemm<false, false>(DQA, kLdG, DS + j0, L.ldp, Kc, kLdT, kRows, KD, kw, j0 > 0);
-      __syncthreads();
-    }
-    for (int e = threadIdx.x; e < rows * D; e += kThreads) {
-      const int r = e / D, d = e % D;
-      o[(row0 + i0 + r) * C + h * D + d] = from_f32<T>(OA[r * kLdG + d]);
-      if (BWD) dqkv[(row0 + i0 + r) * 3 * C + h * D + d] = from_f32<T>(DQA[r * kLdG + d] * scale);
+    // o = p v (and dq = ds k) a chunk of D at a time
+    for (int c = 0; c < nch; ++c) {
+      const int dc = h * D + c * KD, dw = min(KD, D - c * KD);
+      for (int j0 = 0; j0 < Vp; j0 += kKeyChunk) {
+        const int kw = min(kKeyChunk, Vp - j0), keys = min(kKeyChunk, V - j0);
+        load_head_rows<KD>(Vc, qrow + (size_t)j0 * ldq, ldq, 2 * C + dc, dw, keys, kw);
+        if (BWD) load_head_rows<KD>(Kc, qrow + (size_t)j0 * ldq, ldq, C + dc, dw, keys, kw);
+        __syncthreads();
+        gemm<false, false>(OA, kLdG, P + j0, L.ldp, Vc, kLdT, kRows, KD, kw, j0 > 0);
+        if (BWD) gemm<false, false>(DQA, kLdG, DS + j0, L.ldp, Kc, kLdT, kRows, KD, kw, j0 > 0);
+        __syncthreads();
+      }
+      for (int e = threadIdx.x; e < rows * dw; e += kThreads) {
+        const int r = e / dw, d = e % dw;
+        o[(row0 + i0 + r) * C + dc + d] = from_f32<T>(OA[r * kLdG + d]);
+        if (BWD) dqkv[(row0 + i0 + r) * 3 * C + dc + d] = from_f32<T>(DQA[r * kLdG + d] * scale);
+      }
+      if (BWD) {
+        for (int d = threadIdx.x; d < dw; d += kThreads) {
+          float acc = 0.f;
+          for (int r = 0; r < rows; ++r) acc += DQA[r * kLdG + d] * scale;
+          slot[dc + d] += acc;
+        }
+      }
     }
     if (BWD) {
-      for (int d = threadIdx.x; d < D; d += kThreads) {
-        float acc = 0.f;
-        for (int r = 0; r < rows; ++r) acc += DQA[r * kLdG + d] * scale;
-        slot[h * D + d] += acc;
-      }
       if (h == 0) {
         for (int c = threadIdx.x; c < C; c += kThreads) {
           float acc = 0.f;

@@ -24,19 +24,24 @@
 // kernel writes dqkv and o in T instead, and the split-K kernel of
 // window_attention_wgrad.cu contracts them.
 //
-// Windows of other sizes up to 512 tokens take the general path
-// (window_attention.cuh). Its backward is six launches: the q | k | v
-// projection recomputed into device memory (q scale log2(e), k, v and the
-// unscaled q, all in T) and do = dout Wout^T per head (T); the row kernel
-// on full score rows, which writes o, dq and each row's (max, sum, delta);
-// the key-tile kernel below, which recomputes p and ds from those statistics
-// for one tile of kKeyTile keys at a time and sums dk, dv over every query
-// row of a window and drel over the windows of its range; dx = dqkv Wqkv^T;
-// and the fixed-order sums of the blocks' slots. drel, H V^2 floats, does
-// not fit a block's shared memory whole at V = 512 (3 MB at 3 heads), so
-// each block keeps the columns of its key tile (V x 32 floats) for all its
-// windows, and the q, do rows of each window are read once per key tile.
-#include "window_attention.cuh"
+// Windows of other sizes up to 512 tokens, and other head dims, take the
+// general path. Its backward: the q | k | v projection recomputed into
+// device memory (q scale log2(e), k, v and the unscaled q, all in T) and do
+// = dout Wout^T per head (T); a row pass, which writes o, dq and each row's
+// softmax statistics; a key pass, which recomputes p and ds from those
+// statistics and sums dk, dv over every query row of a window and drel over
+// windows; dx = dqkv Wqkv^T; and the fixed-order sums of the blocks' slots.
+// In bf16 up to D = 128 the passes and projections are the kernels of
+// window_attention_mma.cuh, designed for Hopper (the key pass keeps drel's
+// columns of a 64-key tile for all query rows in shared memory over its
+// windows and reads each window's q and do once per key tile of 64); in
+// fp32, and in bf16 above D = 128, the shared-memory kernels below (full
+// score rows, a key-tile kernel of 32 keys with drel's columns of its tile,
+// D walked in chunks). drel, H V^2 floats, does not fit a block's shared
+// memory whole at V = 512 (3 MB at 3 heads), hence the key tiles.
+#include <algorithm>
+
+#include "window_attention_mma.cuh"
 
 namespace lcbi {
 
@@ -253,17 +258,21 @@ __host__ __device__ inline KvLayout kv_layout(int V, int elem) {
   return L;
 }
 
-// Block (kt, h, g): keys [kt 32, kt 32 + 32) of head h in the windows [BW g
-// / G, BW (g + 1) / G). For each window it walks the query rows in steps of
-// kQRows: s^T = k q^T, p^T = exp2(s^T + rel^T log2(e) + mask - max) / sum
-// from the row kernel's statistics, dp^T = v do^T, ds^T = p^T (dp^T -
-// delta); dv += p^T do, dk += ds^T qu (unscaled q), and drel's tile += ds.
-// It writes dk scale and dv in T to dqkv (columns C + h D and 2C + h D), the
+// Block (kt + nkt oc, h, g): keys [kt 32, kt 32 + 32) of head h in the
+// windows [BW g / G, BW (g + 1) / G), output columns [oc KD, oc KD + KD) of
+// the head's D. For each window it walks the query rows in steps of kQRows:
+// s^T = k q^T and dp^T = v do^T summed over the chunks of D, p^T =
+// exp2(s^T + rel^T log2(e) + mask - max) / sum from the row kernel's
+// statistics, ds^T = p^T (dp^T - delta); dv += p^T do, dk += ds^T qu
+// (unscaled q) on its output columns, and (oc == 0) drel's tile += ds. It
+// writes dk scale and dv in T to dqkv (columns C + h D and 2C + h D), the
 // column sums of dk scale and dv over its keys and windows to ksums[g nkt +
-// kt] ([dbk | dbv], 2C floats, the head's columns), and the drel tile to
-// rows [0, V) and columns of its keys in kslots[g] (H V V floats). qkvu: q
-// scale log2(e) | k | v | q per token row (ld 4C); dO: do per head (ld C).
-// Head h's D columns sit at h D of each C-wide block; tiles are KD wide.
+// kt] ([dbk | dbv], 2C floats, the head's columns), and (oc == 0) the drel
+// tile to rows [0, V) and columns of its keys in kslots[g] (H V V floats).
+// qkvu: q scale log2(e) | k | v | q per token row (ld 4C); dO: do per head
+// (ld C). Head h's D columns sit at h D of each C-wide block; tiles are KD
+// wide. This is the fp32 path (and bf16 above D = 128); the bf16 path up to
+// D = 128 is window_attention_mma.cuh's.
 template <typename T, int KD>
 __global__ void __launch_bounds__(kThreads)
 window_attention_keys_kernel(const T* __restrict__ qkvu, const T* __restrict__ dO,
@@ -272,7 +281,6 @@ window_attention_keys_kernel(const T* __restrict__ qkvu, const T* __restrict__ d
                              float* __restrict__ kslots, float* __restrict__ ksums, int BW,
                              int V, int C, int H, int nW, float scale, float mask2) {
   constexpr int kLdT = HeadDims<KD>::kLdT, kLdG = HeadDims<KD>::kLdG;
-  const int D = C / H;
   extern __shared__ __align__(128) unsigned char smem[];
   const KvLayout L = kv_layout<KD>(V, sizeof(T));
   float* Dr = reinterpret_cast<float*>(smem);
@@ -291,37 +299,43 @@ window_attention_keys_kernel(const T* __restrict__ qkvu, const T* __restrict__ d
   float* Lst = Mst + kQRows;
   float* Dst = Lst + kQRows;
 
-  const int kt = blockIdx.x, h = blockIdx.y, g = blockIdx.z, G = gridDim.z;
-  const int nkt = gridDim.x;
+  const int D = C / H, nch = (D + KD - 1) / KD;
+  const int nkt = (V + kKeyTile - 1) / kKeyTile;
+  const int kt = blockIdx.x % nkt, oc = blockIdx.x / nkt, h = blockIdx.y, g = blockIdx.z;
+  const int G = gridDim.z;
+  const int oc0 = h * D + oc * KD, ow = min(KD, D - oc * KD);   // this block's output columns
   const int j0 = kt * kKeyTile, keys = min(kKeyTile, V - j0);
   const long long w_begin = (long long)BW * g / G, w_end = (long long)BW * (g + 1) / G;
   const size_t ld = (size_t)4 * C;
   const size_t plane = (size_t)BW * H * V;
   const int nq = (V + kQRows - 1) / kQRows;
   for (int e = threadIdx.x; e < V * kLdDr; e += kThreads) Dr[e] = 0.f;
-  float colsum = 0.f;   // thread t < 2D: column t of [dk | dv] over the block's keys
+  float colsum = 0.f;   // thread t < 2 ow: column t of [dk | dv] over the block's keys
 
   for (long long w = w_begin; w < w_end; ++w) {
     const size_t row0 = (size_t)w * V;
     const T* base = qkvu + row0 * ld;
     const int* rr = rid == nullptr ? nullptr : rid + (size_t)(w % nW) * V;
     const size_t srow = ((size_t)w * H + h) * V;
-    load_head_rows<KD>(Kt, base + (size_t)j0 * ld, ld, C + h * D, D, keys, kKeyTile);
-    load_head_rows<KD>(Vt, base + (size_t)j0 * ld, ld, 2 * C + h * D, D, keys, kKeyTile);
     for (int qs = 0; qs < nq; ++qs) {
       const int i0 = qs * kQRows, rows = min(kQRows, V - i0);
-      load_head_rows<KD>(Q2, base + (size_t)i0 * ld, ld, h * D, D, rows, kQRows);
-      load_head_rows<KD>(QU, base + (size_t)i0 * ld, ld, 3 * C + h * D, D, rows, kQRows);
-      load_head_rows<KD>(DOt, dO + (row0 + i0) * C, C, h * D, D, rows, kQRows);
       for (int r = threadIdx.x; r < kQRows; r += kThreads) {
         Mst[r] = r < rows ? stats[srow + i0 + r] : 0.f;
         Lst[r] = r < rows ? stats[plane + srow + i0 + r] : 1.f;
         Dst[r] = r < rows ? stats[2 * plane + srow + i0 + r] : 0.f;
       }
-      __syncthreads();
-      gemm<false, true>(St, kLdSt, Kt, kLdT, Q2, kLdT, kKeyTile, kQRows, KD, false);
-      gemm<false, true>(DPt, kLdSt, Vt, kLdT, DOt, kLdT, kKeyTile, kQRows, KD, false);
-      __syncthreads();
+      // s^T = k q^T and dp^T = v do^T, summed over the chunks of D
+      for (int c = 0; c < nch; ++c) {
+        const int dc = h * D + c * KD, dw = min(KD, D - c * KD);
+        load_head_rows<KD>(Kt, base + (size_t)j0 * ld, ld, C + dc, dw, keys, kKeyTile);
+        load_head_rows<KD>(Vt, base + (size_t)j0 * ld, ld, 2 * C + dc, dw, keys, kKeyTile);
+        load_head_rows<KD>(Q2, base + (size_t)i0 * ld, ld, dc, dw, rows, kQRows);
+        load_head_rows<KD>(DOt, dO + (row0 + i0) * C, C, dc, dw, rows, kQRows);
+        __syncthreads();
+        gemm<false, true>(St, kLdSt, Kt, kLdT, Q2, kLdT, kKeyTile, kQRows, KD, c > 0);
+        gemm<false, true>(DPt, kLdSt, Vt, kLdT, DOt, kLdT, kKeyTile, kQRows, KD, c > 0);
+        __syncthreads();
+      }
       for (int e = threadIdx.x; e < kKeyTile * kQRows; e += kThreads) {
         const int jj = e % kKeyTile, r = e / kKeyTile;
         const int i = i0 + r, j = j0 + jj;
@@ -331,45 +345,50 @@ window_attention_keys_kernel(const T* __restrict__ qkvu, const T* __restrict__ d
           if (rr != nullptr) s += rr[i] != rr[j] ? mask2 : 0.f;
           p = exp2f(s - Mst[r]) / Lst[r];
           ds = p * (DPt[jj * kLdSt + r] - Dst[r]);
-          Dr[i * kLdDr + jj] += ds;
+          if (oc == 0) Dr[i * kLdDr + jj] += ds;
         }
         Pt[jj * kLdPt + r] = from_f32<T>(p);
         DSt[jj * kLdPt + r] = from_f32<T>(ds);
       }
+      load_head_rows<KD>(QU, base + (size_t)i0 * ld, ld, 3 * C + oc0, ow, rows, kQRows);
+      load_head_rows<KD>(DOt, dO + (row0 + i0) * C, C, oc0, ow, rows, kQRows);
       __syncthreads();
       gemm<false, false>(DVA, kLdG, Pt, kLdPt, DOt, kLdT, kKeyTile, KD, kQRows, qs > 0);
       gemm<false, false>(DKA, kLdG, DSt, kLdPt, QU, kLdT, kKeyTile, KD, kQRows, qs > 0);
       __syncthreads();
     }
-    for (int e = threadIdx.x; e < keys * D; e += kThreads) {
-      const int jj = e / D, d = e % D;
-      T* drow = dqkv + (row0 + j0 + jj) * 3 * C + h * D + d;
+    for (int e = threadIdx.x; e < keys * ow; e += kThreads) {
+      const int jj = e / ow, d = e % ow;
+      T* drow = dqkv + (row0 + j0 + jj) * 3 * C + oc0 + d;
       drow[C] = from_f32<T>(DKA[jj * kLdG + d] * scale);
       drow[2 * C] = from_f32<T>(DVA[jj * kLdG + d]);
     }
-    if (threadIdx.x < 2 * D) {
-      const int d = threadIdx.x % D;
-      const float* A = threadIdx.x < D ? DKA : DVA;
-      const float mul = threadIdx.x < D ? scale : 1.f;
+    if (threadIdx.x < 2 * ow) {
+      const int d = threadIdx.x % ow;
+      const float* A = threadIdx.x < ow ? DKA : DVA;
+      const float mul = threadIdx.x < ow ? scale : 1.f;
       for (int jj = 0; jj < keys; ++jj) colsum += A[jj * kLdG + d] * mul;
     }
     __syncthreads();
   }
-  float* drel = kslots + (size_t)g * H * V * V + (size_t)h * V * V;
-  for (int e = threadIdx.x; e < V * keys; e += kThreads) {
-    const int i = e / keys, jj = e % keys;
-    drel[(size_t)i * V + j0 + jj] = Dr[i * kLdDr + jj];
+  if (oc == 0) {
+    float* drel = kslots + (size_t)g * H * V * V + (size_t)h * V * V;
+    for (int e = threadIdx.x; e < V * keys; e += kThreads) {
+      const int i = e / keys, jj = e % keys;
+      drel[(size_t)i * V + j0 + jj] = Dr[i * kLdDr + jj];
+    }
   }
-  if (threadIdx.x < 2 * D) {
-    const int part = threadIdx.x / D, d = threadIdx.x % D;
-    ksums[((size_t)g * nkt + kt) * 2 * C + part * C + h * D + d] = colsum;
+  if (threadIdx.x < 2 * ow) {
+    const int part = threadIdx.x / ow, d = threadIdx.x % ow;
+    ksums[((size_t)g * nkt + kt) * 2 * C + part * C + oc0 + d] = colsum;
   }
 }
 
-// Window ranges of the key-tile grid: enough that its nkt H blocks per range
-// fill the card's resident blocks four times over, at most max_gw and BW.
+// Window ranges of the key-tile grid: enough that its nkt nch H blocks per
+// range fill the card's resident blocks four times over, at most max_gw and
+// BW. The kernel's shared memory must be set (cudaFuncSetAttribute) first.
 template <typename T, int KD>
-int key_ranges(int BW, int V, int H, int max_gw) {
+int key_ranges(int BW, int V, int C, int H, int max_gw) {
   const size_t bytes = kv_layout<KD>(V, sizeof(T)).bytes;
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
@@ -377,7 +396,9 @@ int key_ranges(int BW, int V, int H, int max_gw) {
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_attention_keys_kernel<T, KD>,
                                                     kThreads, bytes) != cudaSuccess)
     return 0;
-  const long long per_range = (long long)((V + kKeyTile - 1) / kKeyTile) * H;
+  const int D = C / H;
+  const long long per_range =
+      (long long)((V + kKeyTile - 1) / kKeyTile) * ((D + KD - 1) / KD) * H;
   long long g = (4LL * sms * (per_sm > 0 ? per_sm : 1) + per_range - 1) / per_range;
   if (g < 1) g = 1;
   if (g > BW) g = BW;
@@ -385,51 +406,163 @@ int key_ranges(int BW, int V, int H, int max_gw) {
   return (int)g;
 }
 
-// The general path's backward (see the top of this file). red receives
-// [dbqkv (3C) | dbout (C) | drel (H V V)] as the whole-window path's.
+// The grids and scratch of one backward call. The size query
+// (lcbi_window_attention_bwd_scratch) and the launch compute the same plan
+// from the shape, the stream type and the slot budget.
+struct BwdPlan {
+  int path;                          // 0: whole-window; 1: shared-memory general; 2: mma general
+  int G1, G2;                        // row (whole-window) blocks; key blocks or window ranges
+  long long slots, kslots, ksums;    // floats of the three scratch buffers
+};
+
+template <typename T, int KD>
+int plan_smem(int BW, int V, int C, int H, long long budget, int sms, BwdPlan* P) {
+  if (whole_window_path(V, C, H)) {
+    const long long size = 4LL * C + (long long)H * V * V;
+    const long long max_slots = std::max(1LL, std::min(4LL * sms, budget / (4 * size)));
+    const size_t bytes = bwd_layout<KD>(V, sizeof(T)).bytes;
+    if (bytes > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(window_attention_bwd_kernel<T, KD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const int tw = kTileRows / V;
+    P->path = 0;
+    P->G1 = persistent_blocks(window_attention_bwd_kernel<T, KD>, bytes,
+                              ((long long)BW + tw - 1) / tw, (int)max_slots);
+    P->G2 = 0;
+    P->slots = P->G1 * size;
+    P->kslots = P->ksums = 0;
+    return P->G1 > 0 ? 0 : (int)cudaErrorInvalidValue;
+  }
+  const size_t rbytes = row_layout<KD>(V, sizeof(T), true).bytes;
+  const size_t kbytes = kv_layout<KD>(V, sizeof(T)).bytes;
+  if (rbytes > (size_t)max_dynamic_smem() || kbytes > (size_t)max_dynamic_smem())
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(window_attention_rows_kernel<T, true, KD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rbytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(window_attention_keys_kernel<T, KD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kbytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long max_slots = std::max(1LL, std::min(4LL * sms, budget / (8LL * C)));
+  const long long max_gw = std::max(1LL, budget / (4LL * H * V * V));
+  const int nkt = (V + kKeyTile - 1) / kKeyTile;
+  P->path = 1;
+  constexpr int kRows = RowTile<true>::rows;
+  P->G1 = persistent_blocks(window_attention_rows_kernel<T, true, KD>, rbytes,
+                            (long long)BW * H * ((V + kRows - 1) / kRows), (int)max_slots);
+  P->G2 = key_ranges<T, KD>(BW, V, C, H, (int)std::min(max_gw, (long long)BW));
+  P->slots = 2LL * C * P->G1;
+  P->kslots = (long long)P->G2 * H * V * V;
+  P->ksums = (long long)P->G2 * nkt * 2 * C;
+  return P->G1 > 0 && P->G2 > 0 ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int KD> int plan_mma(int BW, int V, int C, int H, BwdPlan* P) {
+  const int nkt = (V + MmaKeyCfg<KD>::kBK - 1) / MmaKeyCfg<KD>::kBK;
+  P->path = 2;
+  P->G1 = mma_row_blocks<true, KD>(BW, V, H);
+  P->G2 = mma_key_blocks<KD>(BW, V, H);
+  P->slots = 2LL * C * P->G1;
+  P->kslots = ((long long)P->G2 + (long long)H * nkt) * V * MmaKeyCfg<KD>::kBK;
+  P->ksums = 2LL * C * P->G2;
+  return P->G1 > 0 && P->G2 > 0 ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int make_plan(int BW, int V, int C, int H, long long budget, BwdPlan* P) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return (int)cudaErrorInvalidValue;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
+  const int D = C / H;
+  if (std::is_same<T, bf16>::value && !whole_window_path(V, C, H) && D <= kMmaMaxHeadDim) {
+    switch (mma_head_dim(D)) {
+      case 16: return plan_mma<16>(BW, V, C, H, P);
+      case 32: return plan_mma<32>(BW, V, C, H, P);
+      case 64: return plan_mma<64>(BW, V, C, H, P);
+      default: return plan_mma<128>(BW, V, C, H, P);
+    }
+  }
+  switch (launch_head_dim(V, C, H, std::is_same<T, float>::value)) {
+    case 16: return plan_smem<T, 16>(BW, V, C, H, budget, sms, P);
+    case 32: return plan_smem<T, 32>(BW, V, C, H, budget, sms, P);
+    default: return plan_smem<T, 64>(BW, V, C, H, budget, sms, P);
+  }
+}
+
+// The shared-memory general path's backward (see the top of this file). red
+// receives [dbqkv (3C) | dbout (C) | drel (H V V)] as the whole-window path's.
 template <typename T, int KD>
 int launch_bwd_general(const void* x, const void* wqkv, const float* bqkv, const void* wout,
                        const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
                        void* o, float* slots, float* red, void* qkvu, void* dob, float* stats,
                        float* kslots, float* ksums, int BW, int V, int C, int H, int nW,
-                       float scale, float scale2, float mask2, int max_slots, int max_gw,
+                       float scale, float scale2, float mask2, const BwdPlan& P,
                        cudaStream_t stream) {
   const int N = BW * V;
-  int err = launch_proj<T>(x, C, wqkv, 3 * C, false, bqkv, qkvu, 4 * C, N, 3 * C, C, C, scale2,
-                           3 * C, stream);
+  int err = launch_projection<T>(x, C, wqkv, 3 * C, false, bqkv, qkvu, 4 * C, N, 3 * C, C, C,
+                                 scale2, 3 * C, stream);
   if (err != 0) return err;
-  err = launch_proj<T>(dout, C, wout, C, true, nullptr, dob, C, N, C, C, 0, 1.f, -1, stream);
+  err = launch_projection<T>(dout, C, wout, C, true, nullptr, dob, C, N, C, C, 0, 1.f, -1, stream);
   if (err != 0) return err;
   int G1 = 0;
-  err = launch_rows<T, true, KD>(qkvu, 4 * C, rel, rid, dob, dout, o, dqkv, stats, slots,
-                                 max_slots, BW, V, C, H, nW, scale, mask2, &G1, stream);
+  err = launch_rows<T, true, KD>(qkvu, 4 * C, rel, rid, dob, dout, o, dqkv, stats, slots, P.G1,
+                                 BW, V, C, H, nW, scale, mask2, &G1, stream);
   if (err != 0) return err;
+  if (G1 != P.G1) return (int)cudaErrorInvalidValue;
   const size_t bytes = kv_layout<KD>(V, sizeof(T)).bytes;
-  if (bytes > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
   cudaError_t cerr = cudaFuncSetAttribute(window_attention_keys_kernel<T, KD>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (cerr != cudaSuccess) return (int)cerr;
-  const int nkt = (V + kKeyTile - 1) / kKeyTile;
-  const int Gw = key_ranges<T, KD>(BW, V, H, max_gw);
-  if (Gw <= 0) return (int)cudaErrorInvalidValue;
-  window_attention_keys_kernel<T, KD><<<dim3((unsigned)nkt, (unsigned)H, (unsigned)Gw), kThreads,
-                                    bytes, stream>>>(
+  const int nkt = (V + kKeyTile - 1) / kKeyTile, nch = (C / H + KD - 1) / KD;
+  const int Gw = P.G2;
+  window_attention_keys_kernel<T, KD><<<dim3((unsigned)(nkt * nch), (unsigned)H, (unsigned)Gw),
+                                        kThreads, bytes, stream>>>(
       static_cast<const T*>(qkvu), static_cast<const T*>(dob), rel, rid, stats,
       static_cast<T*>(dqkv), kslots, ksums, BW, V, C, H, nW, scale, mask2);
   cerr = cudaGetLastError();
   if (cerr != cudaSuccess) return (int)cerr;
-  err = launch_proj<T>(dqkv, 3 * C, wqkv, 3 * C, true, nullptr, dx, C, N, C, 3 * C, 0, 1.f, -1,
-                       stream);
+  err = launch_projection<T>(dqkv, 3 * C, wqkv, 3 * C, true, nullptr, dx, C, N, C, 3 * C, 0, 1.f,
+                             -1, stream);
   if (err != 0) return err;
   // red: dbq from the row slots' [0, C), dbk | dbv from the key sums, dbout
   // from the row slots' [C, 2C), drel from the key slots
   if ((err = launch_reduce(slots, G1, 2 * C, C, red, stream)) != 0) return err;
-  if ((err = launch_reduce(ksums, Gw * nkt, 2 * C, 2 * C, red + C, stream)) != 0)
-    return err;
-  if ((err = launch_reduce(slots + C, G1, 2 * C, C, red + 3 * C, stream)) != 0)
-    return err;
-  return launch_reduce(kslots, Gw, (size_t)H * V * V, (size_t)H * V * V, red + 4 * C,
-                               stream);
+  if ((err = launch_reduce(ksums, Gw * nkt, 2 * C, 2 * C, red + C, stream)) != 0) return err;
+  if ((err = launch_reduce(slots + C, G1, 2 * C, C, red + 3 * C, stream)) != 0) return err;
+  return launch_reduce(kslots, Gw, (size_t)H * V * V, (size_t)H * V * V, red + 4 * C, stream);
+}
+
+// The mma general path's backward (bf16, D <= 128; window_attention_mma.cuh):
+// the projections as the shared-memory path's, the mma row kernel (o, dq,
+// statistics, the dbq and dbout slots), the mma key kernel (dk, dv, the drel
+// segments and their sums, the dbk | dbv slots), dx, the slot sums.
+template <int KD>
+int launch_bwd_mma(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+                   const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
+                   void* o, float* slots, float* red, void* qkvu, void* dob, float* stats,
+                   float* kseg, float* kslots, int BW, int V, int C, int H, int nW, float scale,
+                   float scale2, float mask2, const BwdPlan& P, cudaStream_t stream) {
+  const int N = BW * V;
+  int err = launch_projection<bf16>(x, C, wqkv, 3 * C, false, bqkv, qkvu, 4 * C, N, 3 * C, C, C,
+                                    scale2, 3 * C, stream);
+  if (err != 0) return err;
+  err = launch_projection<bf16>(dout, C, wout, C, true, nullptr, dob, C, N, C, C, 0, 1.f, -1,
+                                stream);
+  if (err != 0) return err;
+  err = launch_rows_mma<true, KD>(qkvu, 4 * C, rel, rid, dob, dout, o, dqkv, stats, slots, P.G1,
+                                  BW, V, C, H, nW, scale, mask2, stream);
+  if (err != 0) return err;
+  err = launch_keys_mma<KD>(qkvu, dob, rel, rid, stats, dqkv, kseg, kslots, red + 4 * C, P.G2, BW,
+                            V, C, H, nW, scale, mask2, stream);
+  if (err != 0) return err;
+  err = launch_projection<bf16>(dqkv, 3 * C, wqkv, 3 * C, true, nullptr, dx, C, N, C, 3 * C, 0,
+                                1.f, -1, stream);
+  if (err != 0) return err;
+  if ((err = launch_reduce(slots, P.G1, 2 * C, C, red, stream)) != 0) return err;
+  if ((err = launch_reduce(kslots, P.G2, 2 * C, 2 * C, red + C, stream)) != 0) return err;
+  return launch_reduce(slots + C, P.G1, 2 * C, C, red + 3 * C, stream);
 }
 
 template <typename T, int KD>
@@ -455,22 +588,19 @@ int launch_bwd(const void* x, const void* wqkv, const float* bqkv, const void* w
   return launch_reduce(slots, G, (size_t)4 * C + (size_t)H * V * V, red, stream);
 }
 
-// The whole-window or the general path at the padded head dim KD.
+// The whole-window or the shared-memory general path at chunk width KD.
 template <typename T, int KD>
 int launch_bwd_path(const void* x, const void* wqkv, const float* bqkv, const void* wout,
                     const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
                     void* o, float* slots, float* red, void* qkvu, void* dob, float* stats,
                     float* kslots, float* ksums, int BW, int V, int C, int H, int nW, float scale,
-                    float scale2, float mask2, int max_slots, int max_gw, cudaStream_t s) {
-  if (whole_window_path(V, C, H))
+                    float scale2, float mask2, const BwdPlan& P, cudaStream_t s) {
+  if (P.path == 0)
     return launch_bwd<T, KD>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red, BW, V,
-                             C, H, nW, scale, scale2, mask2, max_slots, s);
-  if (qkvu == nullptr || dob == nullptr || stats == nullptr || kslots == nullptr ||
-      ksums == nullptr || max_gw < 1)
-    return (int)cudaErrorInvalidValue;
+                             C, H, nW, scale, scale2, mask2, P.G1, s);
   return launch_bwd_general<T, KD>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
                                    qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
-                                   scale2, mask2, max_slots, max_gw, s);
+                                   scale2, mask2, P, s);
 }
 
 template <typename T>
@@ -478,41 +608,78 @@ int launch_bwd_d(const void* x, const void* wqkv, const float* bqkv, const void*
                  const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
                  void* o, float* slots, float* red, void* qkvu, void* dob, float* stats,
                  float* kslots, float* ksums, int BW, int V, int C, int H, int nW, float scale,
-                 float scale2, float mask2, int max_slots, int max_gw, cudaStream_t s) {
-  switch (padded_head_dim(C / H)) {
+                 float scale2, float mask2, const BwdPlan& P, cudaStream_t s) {
+  const int D = C / H;
+  if (P.path == 2) {
+    switch (mma_head_dim(D)) {
+      case 16:
+        return launch_bwd_mma<16>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
+                                  qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale, scale2,
+                                  mask2, P, s);
+      case 32:
+        return launch_bwd_mma<32>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
+                                  qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale, scale2,
+                                  mask2, P, s);
+      case 64:
+        return launch_bwd_mma<64>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
+                                  qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale, scale2,
+                                  mask2, P, s);
+      default:
+        return launch_bwd_mma<128>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
+                                   qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
+                                   scale2, mask2, P, s);
+    }
+  }
+  switch (launch_head_dim(V, C, H, std::is_same<T, float>::value)) {
     case 16:
       return launch_bwd_path<T, 16>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
                                     qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
-                                    scale2, mask2, max_slots, max_gw, s);
+                                    scale2, mask2, P, s);
     case 32:
       return launch_bwd_path<T, 32>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
                                     qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
-                                    scale2, mask2, max_slots, max_gw, s);
+                                    scale2, mask2, P, s);
     default:
       return launch_bwd_path<T, 64>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
                                     qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
-                                    scale2, mask2, max_slots, max_gw, s);
-  }
-}
-
-template <typename T> int key_ranges_d(int BW, int V, int C, int H, int max_gw) {
-  switch (padded_head_dim(C / H)) {
-    case 16: return key_ranges<T, 16>(BW, V, H, max_gw);
-    case 32: return key_ranges<T, 32>(BW, V, H, max_gw);
-    default: return key_ranges<T, 64>(BW, V, H, max_gw);
+                                    scale2, mask2, P, s);
   }
 }
 
 }  // namespace lcbi
 
+static bool bwd_shape_ok(int BW, int V, int C, int H) {
+  return lcbi::attn_shape_ok(BW, V, C, H) &&
+         (long long)BW * V * (lcbi::whole_window_path(V, C, H) ? 3 : 4) * C < (1LL << 31);
+}
+
+// The scratch of a backward call, in floats: sizes[0] for slots, sizes[1]
+// for kslots, sizes[2] for ksums (0: pass NULL), for this shape, stream type
+// and budget (bytes of fp32 slots the caller allows). Returns 0, or a CUDA
+// error code (a shape the kernels do not take, a device query that failed).
+// Launches nothing.
+extern "C" int lcbi_window_attention_bwd_scratch(int BW, int V, int C, int H,
+                                                 long long budget, int is_bf16,
+                                                 long long* sizes) {
+  if (!bwd_shape_ok(BW, V, C, H) || budget < 1) return (int)cudaErrorInvalidValue;
+  lcbi::BwdPlan P;
+  const int err = is_bf16 ? lcbi::make_plan<__nv_bfloat16>(BW, V, C, H, budget, &P)
+                          : lcbi::make_plan<float>(BW, V, C, H, budget, &P);
+  if (err != 0) return err;
+  sizes[0] = P.slots;
+  sizes[1] = P.kslots;
+  sizes[2] = P.ksums;
+  return 0;
+}
+
 // x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); dqkv (BW V,
 // 3C) and o (BW V, C) in T, written; wqkv (C, 3C), wout (C, C) in T; bqkv (3C,),
 // rel (H, V, V) fp32; rid (nW, V) int32 or NULL. red (4C + H V V) fp32
-// receives [dbqkv | dbout | drel]. Whole-window path (lcbi_window_attention_whole):
-// slots max_slots x (4C + H V V) fp32 scratch; the general path's scratch
-// pointers may be NULL. General path (every other shape): slots
-// max_slots x 2C fp32; qkvu (BW V, 4C) and dob (BW V, C) in T; stats 3 BW H V
-// fp32; kslots max_gw x H V V and ksums max_gw ceil(V / 32) x 2C fp32.
+// receives [dbqkv | dbout | drel]. slots, kslots and ksums: fp32 scratch of
+// the sizes lcbi_window_attention_bwd_scratch gives for the same shape,
+// type and budget (NULL where 0). The general paths (every shape but the
+// whole-window path's, lcbi_window_attention_whole) also take qkvu (BW V,
+// 4C) and dob (BW V, C) in T and stats (3 BW H V) fp32 (NULL otherwise).
 // Shapes as lcbi_window_attention_fwd. Returns cudaGetLastError() of the
 // launches.
 extern "C" int lcbi_window_attention_bwd(const void* x, const void* wqkv, const void* bqkv,
@@ -521,12 +688,17 @@ extern "C" int lcbi_window_attention_bwd(const void* x, const void* wqkv, const 
                                          void* slots, void* red, void* qkvu, void* dob,
                                          void* stats, void* kslots, void* ksums, int BW, int V,
                                          int C, int H, int nW, float scale, float scale2,
-                                         float mask2, int max_slots, int max_gw, int is_bf16,
+                                         float mask2, long long budget, int is_bf16,
                                          void* stream) {
   (void)cudaGetLastError();
-  if (!lcbi::attn_shape_ok(BW, V, C, H) || (rid != nullptr && (nW <= 0 || BW % nW != 0)) ||
-      (long long)BW * V * (lcbi::whole_window_path(V, C, H) ? 3 : 4) * C >= (1LL << 31) ||
-      max_slots < 1)
+  if (!bwd_shape_ok(BW, V, C, H) || (rid != nullptr && (nW <= 0 || BW % nW != 0)) || budget < 1)
+    return (int)cudaErrorInvalidValue;
+  lcbi::BwdPlan P;
+  int err = is_bf16 ? lcbi::make_plan<__nv_bfloat16>(BW, V, C, H, budget, &P)
+                    : lcbi::make_plan<float>(BW, V, C, H, budget, &P);
+  if (err != 0) return err;
+  if (P.path != 0 && (qkvu == nullptr || dob == nullptr || stats == nullptr || kslots == nullptr ||
+                      ksums == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b3 = static_cast<const float*>(bqkv);
@@ -540,20 +712,7 @@ extern "C" int lcbi_window_attention_bwd(const void* x, const void* wqkv, const 
   if (is_bf16)
     return lcbi::launch_bwd_d<__nv_bfloat16>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o, sl, rd,
                                              qkvu, dob, st, ks, ku, BW, V, C, H, nW, scale,
-                                             scale2, mask2, max_slots, max_gw, s);
+                                             scale2, mask2, P, s);
   return lcbi::launch_bwd_d<float>(x, wqkv, b3, wout, r, ids, dout, dx, dqkv, o, sl, rd, qkvu, dob,
-                                   st, ks, ku, BW, V, C, H, nW, scale, scale2, mask2, max_slots,
-                                   max_gw, s);
-}
-
-// The number of window ranges (rows of kslots) that the general backward's
-// key-tile grid runs for these shapes, given at most max_gw, and in
-// *key_tiles its key tiles per window (ksums has ranges x key_tiles rows); 0
-// on a device query error. Launches nothing.
-extern "C" int lcbi_window_attention_key_ranges(int BW, int V, int C, int H, int max_gw,
-                                                int is_bf16, int* key_tiles) {
-  if (!lcbi::attn_shape_ok(BW, V, C, H) || max_gw < 1) return 0;
-  *key_tiles = (V + lcbi::kKeyTile - 1) / lcbi::kKeyTile;
-  return is_bf16 ? lcbi::key_ranges_d<__nv_bfloat16>(BW, V, C, H, max_gw)
-                 : lcbi::key_ranges_d<float>(BW, V, C, H, max_gw);
+                                   st, ks, ku, BW, V, C, H, nW, scale, scale2, mask2, P, s);
 }

@@ -18,10 +18,13 @@ which is rounded to k's dtype before q k^T; scores, softmax statistics and
 sums are fp32; the probabilities are rounded to v's dtype before p v; the
 backward rounds ds to k's dtype for dq and to q's for dk, contracts dk against
 the unscaled q and applies the scale once at the end. The kernels take any
-head dim D from 1 to ``FLASH_MAX_HEAD_DIM`` (their tiles are set by the least
-of 16, 32, 64, 128, 256 that holds D, the columns past D loading as zeros),
-fp32 or bf16, contiguous tensors on the card. bf16 runs on the tensor cores
-with register-resident fragments; fp32 on the CUDA cores in full fp32.
+head dim D, as the TPU kernel does: up to 256 their tiles are set by the
+least of 16, 32, 64, 128, 256 that holds D (the columns past D loading as
+zeros); above it they walk D in 64-column chunks, summing the scores over
+the chunks and writing the outputs a chunk at a time
+(``csrc/flash_attention.cuh``). fp32 or bf16, contiguous tensors on the
+card. Up to D = 256, bf16 runs on the tensor cores with register-resident
+fragments and fp32 on the CUDA cores in full fp32.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ import torch
 from .cuda_build import CudaKernel, check_cuda_operand, ptr, stream_handle
 
 LOG2E = math.log2(math.e)
-FLASH_MAX_HEAD_DIM = 256
 
 FLASH_FWD = CudaKernel(
     "flash_attention.cu", "lcbi_flash_fwd",
@@ -78,9 +80,6 @@ def _check_operands(q, k, v):
     if q.dim() != 3:
         raise ValueError(f"flash attention kernel takes (BH, L, D), got {tuple(q.shape)}")
     bh, l, d = q.shape
-    if d > FLASH_MAX_HEAD_DIM:
-        raise ValueError(f"flash attention kernel takes a head dim of at most "
-                         f"{FLASH_MAX_HEAD_DIM}, got {d} (ROADMAP queue 3)")
     if d == 0 or not 0 < bh < 65536 or l == 0 or q.numel() >= 2**31:
         raise ValueError(f"flash attention kernel needs D > 0, 0 < BH < 65536, L > 0 and "
                          f"BH*L*D < 2^31; got {tuple(q.shape)}")

@@ -35,17 +35,22 @@ the TPU kernels do and return dw_in, dw_out (and dM) in their input's dtype,
 the rest in fp32.
 
 Widths: the kernels take any C (K3 up to 192). They walk the channels in
-chunks of 32 over C rounded up to 32, as their library reports
-(``lcbi_padded_channels``; ``csrc/common.cuh``), load the rows at the true C
-(LayerNorm statistics over C, zeros past it) and store only the true
-columns; the wrappers hand them the weights, taps and biases padded with
-zeros per [x1 | x2 | v] block (:func:`_padded_operands`, a copy only where
-C % 32 != 0; the activations are never padded) and cut the gradients back.
+chunks of 32, load the rows at the true C (LayerNorm statistics over C,
+zeros past it) and store only the true columns. K1's backward stages its
+weight slices through shared memory with the tails past C zeroed, so it
+takes the weights, taps and biases as they are. K1's forward and K3 read
+their weights as WMMA tiles from device memory, which cannot mask a tail:
+they run on C rounded up to 32, as their libraries report
+(``lcbi_padded_channels``; ``csrc/common.cuh``), and the wrappers hand them
+the weights, taps and biases padded with zeros per [x1 | x2 | v] block
+(:func:`_padded_operands`, a copy only where C % 32 != 0; the activations
+are never padded) and cut the gradients back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -65,8 +70,8 @@ HYENA_WINDOW_FWD = CudaKernel(
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 HYENA_WINDOW_BWD = CudaKernel(
     "hyena_window_bwd.cu", "lcbi_hyena_window_bwd",
-    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8
-    + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 16 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+    + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 HYENA_CHUNKED_FWD = CudaKernel(
     "hyena_chunked.cu", "lcbi_hyena_chunked_fwd",
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -205,18 +210,16 @@ def _padded_operands(kernel, c, *operands):
     return (cp, *(pad_channel_blocks(t, c, cp, dims) for t, dims in operands))
 
 
-def _weight_grads(red, layout, c, cp, k, w_dtype, has_ln, v=None):
-    """The reduced slot's gradients cut back to the true C: dw_in, db_in,
-    dws, dbs, (K1: dkl), dw_out, db_out (and the LN parameters'), the
-    projections' in w_dtype, the rest fp32."""
+def _weight_grads(red, layout, c, cp, k, w_dtype, has_ln):
+    """K3's reduced slot's gradients cut back to the true C: dw_in, db_in,
+    dws, dbs, dw_out, db_out (and the LN parameters'), the projections' in
+    w_dtype, the rest fp32."""
     def grad(name, stored, dims=(), dtype=torch.float32):
         return slot_grad(red, layout, name, stored, [(c, cp, dims)], dtype)
 
     grads = (grad("dwin", (cp, 3 * cp), (0, 1), w_dtype), grad("dbin", (3 * cp,), (0,)),
-             grad("dws", (k, 3 * cp), (1,)), grad("dbs", (3 * cp,), (0,)))
-    if v is not None:
-        grads += (grad("dkl", (v, cp), (1,)),)
-    grads += (grad("dwo", (cp, cp), (0, 1), w_dtype), grad("dbo", (c,)))
+             grad("dws", (k, 3 * cp), (1,)), grad("dbs", (3 * cp,), (0,)),
+             grad("dwo", (cp, cp), (0, 1), w_dtype), grad("dbo", (c,)))
     if has_ln:
         grads += (grad("dg", (c,)), grad("dbln", (c,)))
     return grads
@@ -238,28 +241,46 @@ def _fwd_cuda(x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale, ln_bias):
 
 def hyena_window_bwd(do, x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale=None, ln_bias=None):
     """The backward kernel on CUDA, on prepared taps (:func:`prepare_taps`;
-    biases and LN parameters fp32): the gradients of
-    :func:`hyena_window_bwd_plain`, in the same order and dtypes."""
+    biases and LN parameters fp32), at the true C (no padded copies): the
+    gradients of :func:`hyena_window_bwd_plain`, in the same order and
+    dtypes. The kernel writes the operands of dw_in = y^T dz and dw_out = v2^T
+    do as streams in x.dtype, which its library's split-K products contract
+    in the same call."""
     _check_operands(x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale, ln_bias)
     bw, v, c = x.shape
-    k = ws.shape[0]
-    check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
-    cp, w_in_p, b_in_p, ws_p, bs_p, w_out_p, kl_p = _padded_operands(
-        HYENA_WINDOW_BWD, c, (w_in, (0, 1)), (b_in, (0,)), (ws, (1,)), (bs, (0,)),
-        (w_out, (0, 1)), (kl, (1,)))
-    layout, size = slot_layout([("dwin", 3 * cp * cp), ("dwo", cp * cp), ("dws", k * 3 * cp),
-                                ("dbin", 3 * cp), ("dbs", 3 * cp), ("dkl", v * cp), ("dbo", cp),
-                                ("dg", cp), ("dbln", cp)])
-    slots = torch.empty(slot_count(size, x.device), size, device=x.device, dtype=torch.float32)
-    red = torch.empty(size, device=x.device, dtype=torch.float32)
+    k, n, dev = ws.shape[0], bw * v, x.device
+    has_ln = ln_scale is not None
+    check_cuda_operand("do", do, dev, x.dtype, (bw, v, c))
+    layout, size = slot_layout([("dws", k * 3 * c), ("dbin", 3 * c), ("dbs", 3 * c),
+                                ("dkl", v * c), ("dbo", c), ("dg", c), ("dbln", c)])
+    slots = torch.empty(slot_count(size, dev), size, device=dev, dtype=torch.float32)
+    red = torch.empty(size, device=dev, dtype=torch.float32)
     dx = torch.empty_like(x)
-    HYENA_WINDOW_BWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in_p), ptr(b_in_p), ptr(ws_p),
-                     ptr(bs_p), ptr(kl_p), ptr(w_out_p), ptr(do), ptr(dx), ptr(slots), ptr(red),
-                     bw, v, c, k, int(ln_scale is not None), int(x.dtype == torch.bfloat16),
-                     slots.shape[0], size, *(layout[n] for n in (
-                         "dwo", "dws", "dbin", "dbs", "dkl", "dbo", "dg", "dbln")),
-                     stream_handle(x.device))
-    return (dx, *_weight_grads(red, layout, c, cp, k, x.dtype, ln_scale is not None, v))
+    ys = torch.empty(n, c, device=dev, dtype=x.dtype) if has_ln else None
+    v2s = torch.empty(n, c, device=dev, dtype=x.dtype)
+    dzs = torch.empty(n, 3 * c, device=dev, dtype=x.dtype)
+    splits = HYENA_WINDOW_BWD.query("lcbi_hyena_window_wgrad_splits",
+                                    [ctypes.c_longlong, ctypes.c_int], ctypes.c_int, n, c)
+    if splits < 1:
+        raise RuntimeError("lcbi_hyena_window_wgrad_splits: device query failed")
+    partials = torch.empty(splits, 4 * c * c, device=dev, dtype=torch.float32)
+    wgrads = torch.empty(4 * c * c, device=dev, dtype=torch.float32)
+    HYENA_WINDOW_BWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in), ptr(b_in), ptr(ws), ptr(bs),
+                     ptr(kl), ptr(w_out), ptr(do), ptr(dx), ptr(ys), ptr(v2s), ptr(dzs),
+                     ptr(partials), ptr(wgrads), splits, ptr(slots), ptr(red), bw, v, c, k,
+                     int(has_ln), int(x.dtype == torch.bfloat16), slots.shape[0], size,
+                     *(layout[name] for name in ("dbin", "dbs", "dkl", "dbo", "dg", "dbln")),
+                     stream_handle(dev))
+
+    def grad(name, shape):
+        return red[layout[name]:layout[name] + math.prod(shape)].view(shape)
+
+    grads = (dx, wgrads[:3 * c * c].view(c, 3 * c).to(x.dtype), grad("dbin", (3 * c,)),
+             grad("dws", (k, 3 * c)), grad("dbs", (3 * c,)), grad("dkl", (v, c)),
+             wgrads[3 * c * c:].view(c, c).to(x.dtype), grad("dbo", (c,)))
+    if has_ln:
+        grads += (grad("dg", (c,)), grad("dbln", (c,)))
+    return grads
 
 
 class _HyenaWindowMixer(torch.autograd.Function):

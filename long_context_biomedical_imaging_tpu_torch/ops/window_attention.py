@@ -35,16 +35,21 @@ window w's region ids from row w % nW of the (nW, V) table, which is the JAX
 package's ``jnp.tile`` of the table over the batch.
 
 The kernels take every window of 1 to ``MAX_TOKENS`` tokens, as the TPU
-kernel does, at any head dim D = C / H up to ``MAX_HEAD_DIM`` (32 in the
-tiny, small and base presets, 16 in ``unetr``, any in ``custom``); a larger
-head dim raises ValueError (ROADMAP queue 3). Windows of 16, 32, 48 or 64
-tokens (2D windows 4x4 to 8x8) at D of 16, 32 or 64 and C % 16 == 0 take the
-whole-window path, a block per tile of whole windows; every other shape (3D
-windows of up to 8x8x8, shrunk and ragged windows such as 7x7, other head
-dims) takes the general path, which writes q, k, v (and in the backward do
-and each query row's softmax statistics) to device memory in scratch that
-the wrappers allocate (``csrc/window_attention.cuh``). The CUDA library says
-which path takes a shape (``lcbi_window_attention_whole``).
+kernel does, at any head dim D = C / H, as it does (32 in the tiny, small
+and base presets, 16 in ``unetr``, any in ``custom``). Windows of 16, 32, 48
+or 64 tokens (2D windows 4x4 to 8x8) at D of 16, 32 or 64 and C % 16 == 0
+take the whole-window path, a block per tile of whole windows; every other
+shape (3D windows of up to 8x8x8, shrunk and ragged windows such as 7x7,
+other head dims) takes the general path, which writes q, k, v (and in the
+backward do and each query row's softmax statistics) to device memory in
+scratch that the wrappers allocate. There, bf16 up to D = 128 runs on the
+mma.sync kernels of ``csrc/window_attention_mma.cuh`` (a two-pass softmax on
+register-resident fragments, the bias slice of a head and query tile kept in
+shared memory over many windows, a key pass that accumulates drel per key
+tile in shared memory); fp32, and bf16 above D = 128, on shared-memory
+kernels that walk D in chunks (``csrc/window_attention.cuh``). The CUDA
+library says which path takes a shape (``lcbi_window_attention_whole``) and
+how much fp32 scratch its backward needs (``lcbi_window_attention_bwd_scratch``).
 """
 
 from __future__ import annotations
@@ -54,13 +59,11 @@ import math
 
 import torch
 
-from .cuda_build import (SLOT_BYTES_BUDGET, CudaKernel, check_cuda_operand, ptr, slot_count,
-                         stream_handle)
+from .cuda_build import SLOT_BYTES_BUDGET, CudaKernel, check_cuda_operand, ptr, stream_handle
 from .fused_mlp import matmul_rounded
 
 LOG2E = math.log2(math.e)
 MAX_TOKENS = 512          # the JAX package's single-block ceiling; larger windows: plain
-MAX_HEAD_DIM = 64         # the kernels' largest head dim (their padded head dims: 16, 32, 64)
 
 WINDOW_ATTENTION_FWD = CudaKernel(
     "window_attention.cu", "lcbi_window_attention_fwd",
@@ -69,7 +72,7 @@ WINDOW_ATTENTION_FWD = CudaKernel(
 WINDOW_ATTENTION_BWD = CudaKernel(
     "window_attention_bwd.cu", "lcbi_window_attention_bwd",
     [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 WINDOW_ATTENTION_WGRAD = CudaKernel(
     "window_attention_wgrad.cu", "lcbi_window_attention_wgrad",
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -128,9 +131,6 @@ def _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads):
     bw, v, c = x.shape
     if heads <= 0 or c % heads or c == 0:
         raise ValueError(f"C={c} is not a positive multiple of {heads} heads")
-    if c // heads > MAX_HEAD_DIM:
-        raise ValueError(f"K8 kernels take a head dim of at most {MAX_HEAD_DIM}, got "
-                         f"{c // heads} (C={c}, {heads} heads; ROADMAP queue 3)")
     if not 1 <= v <= MAX_TOKENS:
         raise ValueError(f"K8 kernels take windows of 1 to {MAX_TOKENS} tokens, got V={v} (a "
                          f"larger window takes the plain version, as in the JAX package)")
@@ -184,39 +184,33 @@ def window_attention_bwd_streams(do, x, wqkv, bqkv, wout, bout, rel, heads: int,
     bw, v, c, nw, whole = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads)
     check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
     n, dev = bw * v, x.device
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    sizes = (ctypes.c_longlong * 3)()
+    code = WINDOW_ATTENTION_BWD.query(
+        "lcbi_window_attention_bwd_scratch", [ctypes.c_int] * 4 + [ctypes.c_longlong,
+                                                                   ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int, bw, v, c, heads, SLOT_BYTES_BUDGET, is_bf16,
+        ctypes.cast(sizes, ctypes.c_void_p))
+    if code != 0:
+        raise RuntimeError(f"lcbi_window_attention_bwd_scratch failed: CUDA error {code}")
+    slots, kslots, ksums = (torch.empty(size, device=dev, dtype=torch.float32) if size else None
+                            for size in sizes)
     red = torch.empty(4 * c + heads * v * v, device=dev, dtype=torch.float32)
     dx = torch.empty_like(x)
     dqkv = torch.empty(n, 3 * c, device=dev, dtype=x.dtype)
     o = torch.empty(n, c, device=dev, dtype=x.dtype)
-    qkvu = dob = stats = kslots = ksums = None
-    max_gw = 1
-    if whole:
-        size = red.numel()
-    else:
-        # the general path: the row kernel's slots hold its dq and dout column
-        # sums; the key-tile kernel's, drel over a range of windows (kslots)
-        # and its dk and dv column sums (ksums)
-        size = 2 * c
+    qkvu = dob = stats = None
+    if not whole:
+        # the general paths: the projections q scale log2(e) | k | v | q, do
+        # per head, and each query row's softmax statistics
         qkvu = torch.empty(n, 4 * c, device=dev, dtype=x.dtype)
         dob = torch.empty(n, c, device=dev, dtype=x.dtype)
         stats = torch.empty(3 * bw * heads * v, device=dev, dtype=torch.float32)
-        budget = max(1, SLOT_BYTES_BUDGET // (4 * heads * v * v))
-        key_tiles = ctypes.c_int(0)
-        max_gw = WINDOW_ATTENTION_BWD.query(
-            "lcbi_window_attention_key_ranges", [ctypes.c_int] * 6 + [ctypes.c_void_p],
-            ctypes.c_int, bw, v, c, heads, budget, int(x.dtype == torch.bfloat16),
-            ctypes.cast(ctypes.byref(key_tiles), ctypes.c_void_p))
-        if max_gw < 1:
-            raise RuntimeError("lcbi_window_attention_key_ranges: device query failed")
-        kslots = torch.empty(max_gw, heads * v * v, device=dev, dtype=torch.float32)
-        ksums = torch.empty(max_gw * key_tiles.value, 2 * c, device=dev, dtype=torch.float32)
-    n_slots = slot_count(size, dev)
-    slots = torch.empty(n_slots, size, device=dev, dtype=torch.float32)
     WINDOW_ATTENTION_BWD(ptr(x), ptr(wqkv), ptr(bqkv), ptr(wout), ptr(rel), ptr(rid), ptr(do),
                          ptr(dx), ptr(dqkv), ptr(o), ptr(slots), ptr(red), ptr(qkvu), ptr(dob),
                          ptr(stats), ptr(kslots), ptr(ksums), bw, v, c, heads, nw,
-                         ctypes.c_float(scale), *_scales(scale, mask_value), n_slots, max_gw,
-                         int(x.dtype == torch.bfloat16), stream_handle(dev))
+                         ctypes.c_float(scale), *_scales(scale, mask_value),
+                         SLOT_BYTES_BUDGET, is_bf16, stream_handle(dev))
     return dx, dqkv, o, red[:3 * c], red[3 * c:4 * c], red[4 * c:].view(heads, v, v)
 
 

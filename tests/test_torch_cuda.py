@@ -15,8 +15,9 @@ parameter gets a gradient on the card (a ViT-hyena and a ViT-mamba also
 against the host), and the Swin checkpointing's memory. The widths of the
 ``unetr`` and ``custom`` presets run in every kernel that takes them: K1,
 K3 and K4 at C = 48 and 24, K2 and K2' at C = 24 with a hidden width of 96,
-K8 at head dims 16 and 8 (and 40) on 16- and 512-token windows, K5 at head
-dims 8 to 256. Marked ``cuda``;
+K8 at head dims 16 and 8 (and 40) on 16- and 512-token windows, and past 64
+(96, 128, 192) on the general path, K5 at head dims 8 to 512. Marked
+``cuda``;
 without a card every test skips. This file imports neither JAX nor flax,
 so that it runs where only PyTorch is installed:
 
@@ -211,11 +212,13 @@ def test_fused_mlp_kernels_match_plain(cuda_device, dtype, n, c):
 @pytest.mark.parametrize("with_ln", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bw,v,c", [(5, 24, 64), (3, 64, 128), (9, 1, 32), (300, 16, 96),
-                                    (64, 16, 48), (37, 16, 24)])
+                                    (64, 16, 48), (37, 16, 24), (16384, 16, 96),
+                                    (4096, 16, 192), (1024, 16, 384), (256, 16, 768)])
 def test_hyena_window_backward_kernel_matches_plain(cuda_device, dtype, bw, v, c, with_ln):
     """K1 backward through the wrapper (tap flip and skip fold outside the
-    kernel) against the VJP of the plain forward in the raw weights; one
-    launch; inputs unchanged."""
+    kernel) against the VJP of the plain forward in the raw weights, at odd
+    shapes, C = 48 and 24 and the four ptx stages at batch 1; one launch;
+    inputs unchanged."""
     gen = torch.Generator().manual_seed(bw * 1000 + v + 11)
     w = [_randn(gen, s) for s in ((c, 3 * c), (3 * c,), (3 * c, 5), (3 * c,),
                                   (c, v), (c,), (c, c), (c,))]
@@ -652,13 +655,14 @@ def test_flash_attention_kernels_match_plain_at_vit16k(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [5, 8, 16, 32, 48, 64, 100, 128, 256])
+@pytest.mark.parametrize("d", [5, 8, 16, 32, 48, 64, 100, 128, 256, 320, 512])
 @pytest.mark.parametrize("bh,l", [(3, 1), (3, 63), (2, 65), (2, 1025)])
 def test_flash_attention_kernels_match_plain_at_head_dims(cuda_device, dtype, d, bh, l):
     """K5 at every padded head dim (16 .. 256) and at true head dims between
     them (8 on 16-wide tiles, 48 on 64-wide ones, their columns past D
     zero; 5 and 100, whose rows are not 16-byte multiples, by element
-    rather than by cp.async): forward (o, lse), dq and dk/dv against the
+    rather than by cp.async), and past them (320 and 512, D walked in
+    64-column chunks): forward (o, lse), dq and dk/dv against the
     plain version and its VJP at the ragged lengths (a lone key, a short tile, a tile and one row,
     16 tiles and one row), and two launches bitwise equal. At L = 1 dq and
     dk vanish exactly, so their floor is the inputs' scale, 1."""
@@ -681,10 +685,10 @@ def test_flash_attention_kernels_match_plain_at_head_dims(cuda_device, dtype, d,
 def test_flash_attention_kernels_are_deterministic_and_refuse(cuda_device):
     """Two launches of each K5 kernel on the same inputs give the same bits
     (no atomics); D = 32 and 128 sliced from the same inputs match the plain
-    version and its VJP, fp32 and bf16, and repeat bitwise; the wrappers
-    refuse a head dim past the kernels' widest (257), an empty sequence, a
-    CPU tensor, fp16, a non-contiguous tensor, operands on two devices or of
-    two dtypes."""
+    version and its VJP, fp32 and bf16, and repeat bitwise; a head dim past
+    the widest padded one (257) is taken and matches the plain version; the
+    wrappers refuse an empty sequence, a CPU tensor, fp16, a non-contiguous
+    tensor, operands on two devices or of two dtypes."""
     gen = torch.Generator().manual_seed(5)
     q, k, v, do = _flash_args(gen, 4, 777, torch.bfloat16, cuda_device)
     first = tfa.flash_attention_fwd(q, k, v, 0.125)
@@ -709,9 +713,15 @@ def test_flash_attention_kernels_are_deterministic_and_refuse(cuda_device):
                          1e-6)
             _check_flash(grads, tfa.flash_attention_bwd_plain(sl[3], *sl[:3], scale), dtype,
                          ("dq", "dk", "dv"), 1e-6)
-    wide = [torch.zeros(1, 16, 257, device=cuda_device, dtype=torch.bfloat16)] * 3
-    with pytest.raises(ValueError, match="head dim of at most 256"):
-        tfa.flash_attention_fwd(*wide, 0.125)
+    # a head dim past the widest padded one is taken (64-column chunks)
+    wide = [_randn(gen, (2, 100, 257), 1.0).to(cuda_device) for _ in range(4)]
+    for dtype in (torch.float32, torch.bfloat16):
+        sl = [t.to(dtype) for t in wide]
+        fwd = tfa.flash_attention_fwd(*sl[:3], 0.125)
+        _check_flash(fwd, tfa.flash_attention_plain(*sl[:3], 0.125), dtype, ("o", "lse"), 1e-6)
+        _check_flash(tfa.flash_attention_bwd(sl[3], *sl[:3], *fwd, 0.125),
+                     tfa.flash_attention_bwd_plain(sl[3], *sl[:3], 0.125), dtype,
+                     ("dq", "dk", "dv"), 1e-6)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(*(t[:, :0] for t in (q, k, v)), 0.125)
     with pytest.raises(ValueError, match="CUDA"):
@@ -1172,10 +1182,14 @@ def test_window_attention_kernels_match_plain(cuda_device, dtype, bw, v, c, nw):
 # 384 at stage 3) on the whole-window path (16-token windows) and the general
 # path (512-token windows), custom's D = 8 (C = 24: the general path at every
 # V), a D of 40 on 7x7 windows, and D = 10 at C = 30 (rows that are not
-# 16-byte multiples: element loads) on 16- and 49-token windows
+# 16-byte multiples: element loads) on 16- and 49-token windows; past 64 (the
+# general path, as --Swin.embed_dim 96 --Swin.num_heads 1 2 4 8 gives): D = 96
+# on 512- and 16-token windows, 128 on 512, 192 on 343, 49 and 64
 K8_WIDTH_CASES = [(64, 16, 48, 3, 16), (32, 16, 384, 24, 8), (4, 512, 48, 3, 4),
                   (37, 16, 24, 3, None), (2, 512, 24, 3, 2), (9, 49, 80, 2, 3),
-                  (8, 16, 30, 3, None), (9, 49, 30, 3, 3)]
+                  (8, 16, 30, 3, None), (9, 49, 30, 3, 3), (4, 512, 96, 1, 2),
+                  (12, 16, 96, 1, 3), (4, 512, 128, 1, 4), (6, 343, 384, 2, 3),
+                  (9, 49, 192, 1, None), (4, 64, 384, 2, 2)]
 
 
 @pytest.mark.cuda
@@ -1213,9 +1227,9 @@ def test_window_attention_kernels_are_deterministic_and_refuse(cuda_device):
     partials, both reduced in a fixed order); the Function launches the
     forward once per call and the backward and weight-gradient kernels once
     per gradient, on both paths (V = 16 and 343); the wrappers refuse a CPU
-    tensor, a head dim past the kernels' widest (65), windows of 0 or 513
-    tokens (a larger window takes the plain version before the kernels), fp16
-    and a non-contiguous tensor, and take windows of 8 and 128 tokens."""
+    tensor, windows of 0 or 513 tokens (a larger window takes the plain
+    version before the kernels), fp16 and a non-contiguous tensor, and take
+    windows of 8 and 128 tokens and a head dim of 65."""
     kernels = (twa.WINDOW_ATTENTION_FWD, twa.WINDOW_ATTENTION_BWD, twa.WINDOW_ATTENTION_WGRAD)
     for bw, v, nw in ((30, 343, 10), (1000, 16, 250)):
         x, wq, bq, wo, bo, rel, rid, do, heads = _k8_args(
@@ -1235,14 +1249,13 @@ def test_window_attention_kernels_are_deterministic_and_refuse(cuda_device):
         twa.window_attention_fwd(*cpu)
     with pytest.raises(ValueError, match="CUDA"):
         twa.window_attention_bwd(do.cpu(), *cpu)
-    wide = torch.zeros(8, 16, 130, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim of at most 64"):
-        twa.window_attention_fwd(wide, torch.zeros(130, 390, device=cuda_device,
-                                                   dtype=torch.bfloat16),
-                                 torch.zeros(390, device=cuda_device),
-                                 torch.zeros(130, 130, device=cuda_device, dtype=torch.bfloat16),
-                                 torch.zeros(130, device=cuda_device),
-                                 torch.zeros(2, 16, 16, device=cuda_device), 2)
+    # a head dim of 65 (past the widest whole-window one) takes the general path
+    x65, wq65, bq65, wo65, bo65, rel65, _, do65, _ = _k8_args(
+        torch.Generator().manual_seed(10), 8, 16, 130, torch.bfloat16, cuda_device, None, 2)
+    args65 = (x65, wq65, bq65, wo65, bo65, rel65, 2, None, -100.0, 65 ** -0.5)
+    out65 = twa.window_attention_fwd(*args65)
+    ref65 = twa.window_attention_plain(*args65)
+    assert (out65.float() - ref65.float()).abs().max() <= 2e-2 * ref65.float().abs().max()
     for v in (0, 8, 128, twa.MAX_TOKENS + 1):
         xv = torch.zeros(8, v, 64, device=cuda_device, dtype=torch.bfloat16)
         call = lambda: twa.window_attention_fwd(  # noqa: E731

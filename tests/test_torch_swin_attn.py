@@ -205,22 +205,21 @@ def test_window_attention_function_runs_its_plain_passes_on_cpu():
 
 
 def test_window_attention_kernel_wrappers_refuse():
-    """The kernel wrappers raise rather than fall back: a head dim past the
-    kernels' widest, 64 (ValueError), windows outside 1 to MAX_TOKENS tokens
-    (V = 0 and 513, ValueError: a larger window takes the plain version
-    before the kernels, as in the JAX package), a CPU tensor (ValueError) at
-    every window and head dim the kernels take (V = 8, 16, 128 and D = 16
-    among them), fp16 (TypeError)."""
+    """The kernel wrappers raise rather than fall back: windows outside 1 to
+    MAX_TOKENS tokens (V = 0 and 513, ValueError: a larger window takes the
+    plain version before the kernels, as in the JAX package), a CPU tensor
+    (ValueError) at every window and head dim the kernels take (V = 8, 16,
+    128, D = 16 and D = 65, past the whole-window path's head dims, among
+    them), fp16 (TypeError)."""
     def call(bw, v, c, heads, dtype=torch.float32):
         args, _, _ = _attn_inputs(np.random.default_rng(0), bw, v, c, heads, None)
         t = [torch.from_numpy(a) for a in args]
         twa.window_attention_fwd(t[0].to(dtype), t[1].to(dtype), t[2], t[3].to(dtype), t[4],
                                  t[5], heads)
 
-    with pytest.raises(ValueError, match="head dim of at most 64"):
-        call(2, 16, 130, 2)
-    with pytest.raises(ValueError, match="CUDA"):
-        call(2, 16, 64, 4)
+    for c, heads in ((130, 2), (64, 4)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call(2, 16, c, heads)
     for v in (0, twa.MAX_TOKENS + 1):
         with pytest.raises(ValueError, match="windows of 1 to 512"):
             call(2, v, 64, 2)

@@ -9,9 +9,12 @@ against the JAX package on the CPU.
   mixer: attention (K8 at D = 16), Hyena (K1 at C = 48) and Mamba.
 * ``--Swin.size custom --Swin.embed_dim 24`` with attention: C = 24 and 48,
   heads 3/6, so D = 8, and the MLP's hidden width 96 (K2 at C = 24, H = 96).
-* ``--ViT.size custom`` at D = 48 (hidden 96, 2 heads) on 128x128 with
-  patch 4: 1,024 patch tokens and the cls token, so every block's attention
-  takes the flash route on both sides (K5 at D = 48; JAX's Pallas kernel in
+* ``--Swin.size custom`` with attention at head dims past 64: embed 96 and
+  192 with heads 1/2 (D = 96 and 192 at both stages; K8's general path).
+* ``--ViT.size custom`` at D = 48 (hidden 96, 2 heads) and D = 320 (hidden
+  320, one head, one layer: past K5's widest padded head dim) on 128x128
+  with patch 4: 1,024 patch tokens and the cls token, so every block's
+  attention takes the flash route on both sides (JAX's Pallas kernel in
   interpret mode).
 
 On the CPU every wrapper runs its kernel's plain version; the JAX side runs
@@ -58,17 +61,30 @@ def _swin_argv(size_flags, mixer):
 UNETR = ["--Swin.size=unetr"]
 CUSTOM_24 = ["--Swin.size=custom", "--Swin.embed_dim=24", "--Swin.depths", "2", "2",
              "--Swin.num_heads", "3", "6"]
+# head dims past 64, as ``--Swin.size custom --Swin.embed_dim 96 --Swin.num_heads 1 2 4 8``
+# gives at every stage (D = 96), and D = 192: one and two heads on two stages
+CUSTOM_96 = ["--Swin.size=custom", "--Swin.embed_dim=96", "--Swin.depths", "2", "2",
+             "--Swin.num_heads", "1", "2"]
+CUSTOM_192 = ["--Swin.size=custom", "--Swin.embed_dim=192", "--Swin.depths", "2", "2",
+              "--Swin.num_heads", "1", "2"]
 # (argv, stage-0 channels, head dim) of each case
 SWIN_CASES = {
     "unetr_attention": (_swin_argv(UNETR, "attention"), 48, 16),
     "unetr_hyena": (_swin_argv(UNETR, "hyena"), 48, 16),
     "unetr_mamba": (_swin_argv(UNETR, "mamba"), 48, 16),
     "custom24_attention": (_swin_argv(CUSTOM_24, "attention"), 24, 8),
+    "custom96_attention": (_swin_argv(CUSTOM_96, "attention"), 96, 96),
+    "custom192_attention": (_swin_argv(CUSTOM_192, "attention"), 192, 192),
 }
 VIT_D48 = ["--task_type=class", "--encoder_name=ViT", "--decoder_name=ViTLinear",
            "--height=128", "--width=128", "--no_in_channel=1", "--no_out_channel=2", "--seed=3",
            "--ViT.size=custom", "--ViT.hidden_size=96", "--ViT.mlp_dim=192",
            "--ViT.num_layers=2", "--ViT.num_heads=2", "--ViT.patch_size", "4"]
+# D = 320, past the widest padded head dim of K5's tiles (256): one head, one layer
+VIT_D320 = ["--task_type=class", "--encoder_name=ViT", "--decoder_name=ViTLinear",
+            "--height=128", "--width=128", "--no_in_channel=1", "--no_out_channel=2", "--seed=3",
+            "--ViT.size=custom", "--ViT.hidden_size=320", "--ViT.mlp_dim=320",
+            "--ViT.num_layers=1", "--ViT.num_heads=1", "--ViT.patch_size", "4"]
 
 
 @pytest.mark.parametrize("case", list(SWIN_CASES))
@@ -122,20 +138,33 @@ def test_vit_head_dim_48_takes_the_flash_route(monkeypatch):
     the flash route on both sides (the port's K5 wrapper, whose kernels run
     D = 48 on 64-wide tiles; JAX's Pallas kernel in interpret mode). Hidden
     states and logits within 1e-4 of max (fp32)."""
-    jm, params = _jax_params(VIT_D48, (1, 1, 128, 128, 1), 45)
-    x = np.random.default_rng(46).normal(size=(1, 1, 128, 128, 1)).astype(np.float32)
+    _vit_flash_route(monkeypatch, VIT_D48, [(1, 2, 1025, 48)] * 4, 45)
+
+
+def test_vit_head_dim_320_takes_the_flash_route(monkeypatch):
+    """A custom ViT at D = 320 (hidden 320, one head, one layer) on 1,025
+    tokens: the attention takes the flash route on both sides (the port's K5
+    wrapper, whose kernels walk D in 64-column chunks past 256; JAX's Pallas
+    kernel in interpret mode, which has no head-dim limit). Hidden states and
+    logits within 1e-4 of max (fp32)."""
+    _vit_flash_route(monkeypatch, VIT_D320, [(1, 1, 1025, 320)] * 2, 47)
+
+
+def _vit_flash_route(monkeypatch, argv, expected_calls, seed):
+    jm, params = _jax_params(argv, (1, 1, 128, 128, 1), seed)
+    x = np.random.default_rng(seed + 1).normal(size=(1, 1, 128, 128, 1)).astype(np.float32)
     ref_h = jm.encoder.apply({"params": params["encoder"]}, jnp.asarray(x))
     ref = jm.apply({"params": params}, jnp.asarray(x), deterministic=True)
     calls = []
     real = tattention.flash_attention
     monkeypatch.setattr(tattention, "flash_attention",
                         lambda *a, **kw: calls.append(tuple(a[0].shape)) or real(*a, **kw))
-    model = build_model(check_args(parse_config(VIT_D48)))
+    model = build_model(check_args(parse_config(argv)))
     model.load_state_dict(params_from_jax(params), strict=True)
     with torch.no_grad():
         got_h = model.encoder(torch.from_numpy(x))
         out = model(torch.from_numpy(x))
-    assert calls == [(1, 2, 1025, 48)] * 4
+    assert calls == expected_calls
     assert len(got_h) == len(ref_h)
     for i, (a, b) in enumerate(zip(got_h, ref_h)):
         b = np.asarray(b)
@@ -221,11 +250,12 @@ def test_hyena_operand_layout_round_trips(c):
     assert cp == -(-c // 32) * 32
     for p, t, d in zip(padded, (w_in, b_in, ws, bs, w_out, kl), dims):
         _blocks_hold(p, t, c, cp, d)
-    names = ("dwin", "dbin", "dws", "dbs", "dwo", "dkl")
+    # the gradient cut of K3's backward (K1's takes the true C, no padding)
+    names = ("dwin", "dbin", "dws", "dbs", "dwo")
     red, layout = _slots(list(zip(names, padded)) + [("dbo", torch.cat([b_out,
                                                                        torch.zeros(cp - c)]))])
-    got = hyena_window._weight_grads(red, layout, c, cp, k, torch.float32, False, v)
-    for a, b in zip(got, (w_in, b_in, ws, bs, kl, w_out, b_out)):
+    got = hyena_window._weight_grads(red, layout, c, cp, k, torch.float32, False)
+    for a, b in zip(got, (w_in, b_in, ws, bs, w_out, b_out)):
         assert torch.equal(a, b)
 
 
