@@ -850,9 +850,11 @@ def phase_k2_bwd(torch, fused_mlp, dev):
                              warmup=1, reps=5)
             p_ms = median_ms(torch, lambda: fused_mlp.fused_ln_mlp_residual_bwd_plain(d, *args),
                              warmup=1, reps=3)
+            b_ms, b_by = k2_bwd_bound(n, c)
             print(f"phase 8 K2 bwd N={n} C={c} H={h} {dname}: max_abs_err={err:.3e} "
                   f"max_rel_err={rel:.3e} kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} "
-                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                  f"bound_ms={b_ms:.3f} ({b_by}, bf16 peak) {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
             check(ok, f"K2 bwd disagrees with its plain VJP at N={n} C={c} {dname}: "
                       f"{rel} > {GRAD_TOL[dname]}")
             results.setdefault(dname, []).append((err, k_ms, p_ms))
@@ -1340,7 +1342,7 @@ def phase_k4(torch, mamba_window, dev):
     gradient."""
     mw = mamba_window
     gen = torch.Generator().manual_seed(13)
-    n = mw.MAMBA_KERNEL_STATE
+    n = 8   # MambaVisionMixer's d_state
 
     def mk(shape, scale):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
@@ -1389,13 +1391,70 @@ def phase_k4(torch, mamba_window, dev):
             k_ms = median_ms(torch, lambda: mw.mamba_window_bwd(d, *args), warmup=1, reps=5)
             p_ms = median_ms(torch, lambda: mw.mamba_window_bwd_plain(d, *args), warmup=1, reps=3)
             res["bwd"].append((err, k_ms, p_ms))
+            b_ms, b_by = k4_bwd_bound(bw, c)
             print(f"phase 17 K4 bwd BW={bw} V={v} C={c} {dname}: max_abs_err={err:.3e} "
-                  f"max_rel_err={rel:.3e} kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} ok", flush=True)
+                  f"max_rel_err={rel:.3e} kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} "
+                  f"bound_ms={b_ms:.3f} ({b_by}, bf16 peak) ok", flush=True)
             del args, d
             torch.cuda.empty_cache()
         del x, do, w, ln
         torch.cuda.empty_cache()
+    phase_k4_states(torch, mw, dev)
     return results
+
+
+def phase_k4_states(torch, mw, dev, states=16):
+    """K4 forward and backward with the folded LN at vessel's stage-1 shape
+    with d_state 16 (run at the padded state count 16), fp32 and bf16,
+    against the plain version and its VJP, and two backward launches bitwise
+    equal; then the bf16 backward's time beside the plain VJP's."""
+    gen = torch.Generator().manual_seed(170)
+    c, bw, _ = VESSEL_K4_STAGES[1]
+    v, dh, r, n = 64, c // 2, -(-c // 16), states
+
+    def mk(shape, scale):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    dt = torch.exp(torch.rand(dh, generator=gen) * math.log(100.0) + math.log(1e-3))
+    wconv, dtb2, at, dskip = mw.prepare_operands(
+        mk((dh, 3), 0.5), mk((dh, 3), 0.5), (dt + torch.log(-torch.expm1(-dt))).to(dev),
+        -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(dh, n),
+        torch.ones(dh, device=dev))
+    w = [mk((c, c), c ** -0.5), mk((dh, r + 2 * n), dh ** -0.5), mk((r, dh), r ** -0.5),
+         mk((c, c), c ** -0.5)]
+    ln = [mk((c,), 0.2) + 1.0, mk((c,), 0.2)]
+    x, do = mk((bw, v, c), 1.0), mk((bw, v, c), 1.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        args = [x.to(dtype), w[0].to(dtype), wconv, w[1].to(dtype), w[2].to(dtype), dtb2, at,
+                dskip, w[3].to(dtype)] + ln
+        d = do.to(dtype)
+        with torch.no_grad():
+            out = mw.mamba_window_fwd(*args)
+            ref = mw.mamba_window_plain(*args)
+            ferr, scale, fok = compare(torch, out, ref, dname)
+            del out, ref
+        check(fok, f"K4 fwd at d_state {n} disagrees with its plain version, {dname}: {ferr} > "
+                   f"{TOL[dname]} * {scale}")
+        runs = [mw.mamba_window_bwd(d, *args) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"K4 bwd at d_state {n} is not bitwise repeatable, {dname}")
+        err, rel, ok = compare_grads(torch, runs[0], mw.mamba_window_bwd_plain(d, *args), dname)
+        del runs
+        check(ok, f"K4 bwd at d_state {n} disagrees with its plain VJP, {dname}: {rel} > "
+                  f"{GRAD_TOL[dname]}")
+        times = ""
+        if dtype == torch.bfloat16:
+            k_ms = median_ms(torch, lambda: mw.mamba_window_bwd(d, *args), warmup=1, reps=5)
+            p_ms = median_ms(torch, lambda: mw.mamba_window_bwd_plain(d, *args), warmup=1,
+                             reps=3)
+            times = f" kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f}"
+        print(f"phase 17 K4 d_state={n} BW={bw} V={v} C={c} {dname}: fwd max_abs_err="
+              f"{ferr:.3e}; bwd max_abs_err={err:.3e} max_rel_err={rel:.3e}{times}; two "
+              f"launches bitwise equal ok", flush=True)
+        del args, d
+    torch.cuda.empty_cache()
 
 
 def phase_vessel_slice(torch, tmp):
@@ -3182,7 +3241,7 @@ def phase_width_kernels(torch, dev, name, mixer, stages, held):
                              lambda: (hw.hyena_window_plain(*raw),
                                       *hw.hyena_window_bwd_plain(do.to(dt), *taps)), dname)
         else:
-            dh, r, n = c // 2, -(-c // 16), mw.MAMBA_KERNEL_STATE
+            dh, r, n = c // 2, -(-c // 16), 8
             x, do = mk((bw, v, c), 1.0), mk((bw, v, c), 1.0)
             dtv = torch.exp(torch.rand(dh, generator=gen) * math.log(100.0) + math.log(1e-3))
             wconv, dtb2, at, dskip = mw.prepare_operands(
@@ -3354,6 +3413,29 @@ def bound(ops_bf16, ops_fp32, nbytes):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def k2_bwd_bound(n, c):
+    """K2's backward per call at N rows of C (H = 4C) in bf16: its five
+    products 40 N C^2 on the tensor cores; bytes x, dout, dx (bf16), the
+    weights (bf16) and their fp32 gradients."""
+    return bound(40 * n * c * c, 0, 6 * n * c + 2 * (8 * c * c) + 32 * c * c)
+
+
+def k4_bwd_bound(bw, c, states=8):
+    """K4's backward per call at BW windows of 64 tokens and C channels in
+    bf16 (Dh = C/2, R = ceil(C/16)): the in_proj recompute, gyz, dxin and
+    the two C x C weight gradients 10 T C^2 and x_proj's, dt_proj's and
+    their backward's 6 T Dh (R + 2N) + 6 T R Dh on the tensor cores; the
+    LN, conv, SiLU and gates about 60 T C, the scan and softplus about 3 (7N
+    + 8) T Dh in fp32; bytes x, dout, dx (bf16), the weights read three
+    times and their gradients."""
+    t, dh, r, n = bw * 64, c // 2, -(-c // 16), states
+    prod = 4 * t * c * c + 2 * t * dh * (r + 2 * n) + 2 * t * r * dh
+    f32 = 20 * t * c + (7 * n + 8) * t * dh
+    w = 2 * (2 * c * c + dh * (r + 2 * n) + r * dh)
+    return bound(prod + 6 * t * c * c + 4 * t * dh * (r + 2 * n) + 4 * t * r * dh, 3 * f32,
+                 6 * t * c + 3 * w)
+
+
 def k6_bounds():
     """K6 per call at the vit65k_hyena shape in bf16, {"conv" | "dk": (ms,
     bound_by)}. The yardstick of a transform is 2.5 n log2 n fp32 operations
@@ -3497,7 +3579,7 @@ def kernel_bounds():
         add("hyena_window_bwd", depth, bound(22 * t * c * c, 3 * conv, 6 * t * c + w + 16 * c * c))
         w2 = 2 * (8 * c * c)
         add("fused_ln_mlp_fwd", depth, bound(16 * t * c * c, 0, 4 * t * c + w2))
-        add("fused_ln_mlp_bwd", depth, bound(40 * t * c * c, 0, 6 * t * c + w2 + 32 * c * c))
+        add("fused_ln_mlp_bwd", depth, k2_bwd_bound(t, c))
     for c, bw, depth in EMB_K3_STAGES:
         v, chunk = 512, 128
         n = v // chunk
@@ -3520,8 +3602,7 @@ def kernel_bounds():
         f32 = 20 * t * c + (7 * n + 8) * t * dh
         w = 2 * (2 * c * c + dh * (r + 2 * n) + r * dh)
         add("mamba_window_fwd", depth, bound(prod, f32, 4 * t * c + w))
-        add("mamba_window_bwd", depth, bound(prod + 6 * t * c * c + 4 * t * dh * (r + 2 * n)
-                                             + 4 * t * r * dh, 3 * f32, 6 * t * c + 3 * w))
+        add("mamba_window_bwd", depth, k4_bwd_bound(bw, c))
     # vit16k K5, per layer: BH head-batches of L tokens at D = 64; each product
     # 2 BH L^2 D, each pass of exp2 BH L^2 in fp32. The forward is 2 products
     # (q k^T, p v) and one exp2 pass. The backward's function is 5 products

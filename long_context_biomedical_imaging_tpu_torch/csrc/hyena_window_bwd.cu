@@ -17,8 +17,8 @@
 //     operands of dwin = y^T dz and dwo = v2^T do as streams in T, rounded
 //     where the TPU kernel rounds them (y, the LN'd rows, only with the
 //     folded LN: without it y is x itself; v2; dz), and the split-K kernel of
-//     wgrad.cuh, K8's, contracts them in the same call: fp32 partials per
-//     split, summed in a fixed order.
+//     wgrad.cuh (mma_gemm.cuh's, shared with K8, K2 and K4) contracts them in
+//     the same call: fp32 partials per split, summed in a fixed order.
 //   - Weights come through shared memory: per channel chunk, slices of
 //     win[:, chunk columns] and wo[chunk rows, :] (64 deep; 32 in fp32) for
 //     z and dv2, and of win[:, chunk columns]^T (as many output columns) for

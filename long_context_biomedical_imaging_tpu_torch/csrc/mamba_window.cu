@@ -16,7 +16,7 @@
 // (convolved and gated in place), x_proj's W columns, then [y | z] in T where
 // the rows were, and out_proj's product back into the fp32 tile. Only x is
 // read and out written. The scan runs one thread per (window, channel) over
-// the window's tokens in order, its N = 8 states in registers, computing
+// the window's tokens in order, its NP (8 or 16) states in registers, computing
 // delta and exp(delta A) per step (no (V, N, Dh) tensor exists). The TPU
 // kernel's 0/1 expander products and channel chunks are a TPU lane-layout
 // device and a VMEM limit, and are not copied. wb starts at 256 / V windows
@@ -74,9 +74,9 @@ struct MambaFwdPlan {
 // (mostly L2-resident); where the rows do not fit either (V = 64 at C > 832 in
 // fp32: Swin-base without AMP), they follow it, and only x_proj's columns stay
 // in shared memory.
-inline MambaFwdPlan mamba_fwd_plan(int BW, int V, int C, int R, int elem) {
+inline MambaFwdPlan mamba_fwd_plan(int BW, int V, int C, int R, int N, int elem) {
   const size_t limit = (size_t)max_dynamic_smem();
-  const int W = R + 2 * kMambaN;
+  const int W = R + 2 * N;
   MambaFwdPlan P{0, 0, 0, 0, 0};
   for (int place = kShared; place <= kRowsGlobal; ++place) {
     auto layout = [&](int nw) { return mamba_fwd_layout(round_up16(nw * V), C, W, elem, place); };
@@ -95,8 +95,8 @@ inline MambaFwdPlan mamba_fwd_plan(int BW, int V, int C, int R, int elem) {
 }
 
 // kPlace (a MambaFwdPlace) is a template argument, so that the shared-memory
-// variant keeps shared-memory addressing.
-template <typename T, int kPlace>
+// variant keeps shared-memory addressing; NP the padded state count.
+template <typename T, int kPlace, int NP>
 __global__ void __launch_bounds__(kThreads)
 mamba_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         const float* __restrict__ ln_b, const T* __restrict__ wxz,
@@ -106,10 +106,9 @@ mamba_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                         const T* __restrict__ wout, T* __restrict__ out,
                         unsigned char* __restrict__ work, int BW, int V, int Ct, int R, int wb,
                         int rows_pad, int has_ln) {
-  constexpr int N = kMambaN;
   const int C = chunk_padded_channels(Ct);  // the padded width (mamba_window.cuh)
   extern __shared__ __align__(128) unsigned char smem[];
-  const int Dh = C / 2, W = R + 2 * N;
+  const int Dh = C / 2, W = R + 2 * NP;
   const MambaFwdLayout L = mamba_fwd_layout(rows_pad, C, W, sizeof(T), kPlace);
   unsigned char* sp = smem;
   unsigned char* gp = kPlace >= kAccGlobal ? work + (size_t)blockIdx.x * L.work : nullptr;
@@ -152,9 +151,9 @@ mamba_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   // the scan: one thread per (window, channel), tokens in order
   for (int p = threadIdx.x; p < nwin * Dh; p += kThreads) {
     const int w = p / Dh, d = p % Dh;
-    float A[N], h[N];
+    float A[NP], h[NP];
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
+    for (int n = 0; n < NP; ++n) {
       A[n] = at[n * Dh + d];
       h[n] = 0.f;
     }
@@ -167,9 +166,9 @@ mamba_window_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
       const float dx = delta * xv;
       float y = 0.f;
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
+      for (int n = 0; n < NP; ++n) {
         h[n] = expf(delta * A[n]) * h[n] + dx * db[R + n];
-        y = fmaf(h[n], db[R + N + n], y);
+        y = fmaf(h[n], db[R + NP + n], y);
       }
       ys[(r0 + t) * L.lds + d] = from_f32<T>(y + xv * D);
     }
@@ -191,12 +190,18 @@ template <typename T>
 int launch(const void* x, const void* ln_g, const void* ln_b, const void* wxz, const void* wconv,
            const void* wdbl, const void* wdt, const void* dtb2, const void* at, const void* dskip,
            const void* wout, void* out, void* work, size_t work_bytes, int BW, int V, int C, int R,
-           int has_ln, cudaStream_t stream) {
-  const MambaFwdPlan P = mamba_fwd_plan(BW, V, chunk_padded_channels(C), R, sizeof(T));
+           int N, int has_ln, cudaStream_t stream) {
+  const MambaFwdPlan P = mamba_fwd_plan(BW, V, chunk_padded_channels(C), R, N, sizeof(T));
   if (P.wb == 0 || P.work_bytes > work_bytes) return (int)cudaErrorInvalidValue;
-  auto kernel = P.place == kShared      ? mamba_window_fwd_kernel<T, kShared>
-                : P.place == kAccGlobal ? mamba_window_fwd_kernel<T, kAccGlobal>
-                                        : mamba_window_fwd_kernel<T, kRowsGlobal>;
+  const bool wide = N == 16;
+  auto kernel =
+      P.place == kShared
+          ? (wide ? mamba_window_fwd_kernel<T, kShared, 16> : mamba_window_fwd_kernel<T, kShared, 8>)
+      : P.place == kAccGlobal
+          ? (wide ? mamba_window_fwd_kernel<T, kAccGlobal, 16>
+                  : mamba_window_fwd_kernel<T, kAccGlobal, 8>)
+          : (wide ? mamba_window_fwd_kernel<T, kRowsGlobal, 16>
+                  : mamba_window_fwd_kernel<T, kRowsGlobal, 8>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.smem);
   if (err != cudaSuccess) return (int)err;
@@ -216,19 +221,23 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* wxz, c
 extern "C" int lcbi_padded_channels(int C) { return lcbi::chunk_padded_channels(C); }
 
 // Bytes of global scratch the forward needs for BW windows of V tokens at C
-// channels and dt rank R (0 where its tiles fit in shared memory), or -1 where
-// it cannot take the shape.
-extern "C" long long lcbi_mamba_window_fwd_workspace(int BW, int V, int C, int R, int is_bf16) {
-  if (!lcbi::mamba_shape_ok(BW, V, C, R)) return -1;
-  const lcbi::MambaFwdPlan P = lcbi::mamba_fwd_plan(BW, V, lcbi::chunk_padded_channels(C), R, is_bf16 ? 2 : 4);
+// channels, dt rank R and N states (0 where its tiles fit in shared memory),
+// or -1 where it cannot take the shape.
+extern "C" long long lcbi_mamba_window_fwd_workspace(int BW, int V, int C, int R, int N,
+                                                     int is_bf16) {
+  if (!lcbi::mamba_shape_ok(BW, V, C, R, N) || N != lcbi::mamba_padded_state(N)) return -1;
+  const lcbi::MambaFwdPlan P =
+      lcbi::mamba_fwd_plan(BW, V, lcbi::chunk_padded_channels(C), R, N, is_bf16 ? 2 : 4);
   return P.wb == 0 ? -1 : (long long)P.work_bytes;
 }
 
 // x, out: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); with Cp = C
 // rounded up to 32 and every C/2 block padded with zeros to Cp/2 (see
-// mamba_window.cuh): wxz, wout: (Cp, Cp), wdbl: (Cp/2, R + 16) and wdt: (R,
-// Cp/2) in T; wconv: (3, Cp), at: (8, Cp/2), dtb2, dskip: (Cp/2,) fp32; if
-// has_ln, ln_g, ln_b: (C,) fp32. work: work_bytes of global scratch, at
+// mamba_window.cuh): wxz, wout: (Cp, Cp), wdbl: (Cp/2, R + 2N) and wdt: (R,
+// Cp/2) in T; wconv: (3, Cp), at: (N, Cp/2), dtb2, dskip: (Cp/2,) fp32; if
+// has_ln, ln_g, ln_b: (C,) fp32. N is the padded state count, 8 or 16: the
+// wrapper pads at's rows and wdbl's B and C blocks with zeros from the true
+// d_state (a padded state stays 0). work: work_bytes of global scratch, at
 // least lcbi_mamba_window_fwd_workspace (NULL where that is 0). 16 <= V <= 64
 // with V % 8 == 0, C even, 1 <= R <= 64, all pointers 32-byte aligned.
 // Returns cudaGetLastError() of the launch (or cudaErrorInvalidValue for a
@@ -237,15 +246,16 @@ extern "C" int lcbi_mamba_window_fwd(const void* x, const void* ln_g, const void
                                      const void* wxz, const void* wconv, const void* wdbl,
                                      const void* wdt, const void* dtb2, const void* at,
                                      const void* dskip, const void* wout, void* out, void* work,
-                                     long long work_bytes, int BW, int V, int C, int R, int has_ln,
-                                     int is_bf16, void* stream) {
+                                     long long work_bytes, int BW, int V, int C, int R, int N,
+                                     int has_ln, int is_bf16, void* stream) {
   (void)cudaGetLastError();
-  if (!lcbi::mamba_shape_ok(BW, V, C, R) || work_bytes < 0) return (int)cudaErrorInvalidValue;
+  if (!lcbi::mamba_shape_ok(BW, V, C, R, N) || N != lcbi::mamba_padded_state(N) || work_bytes < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t wbytes = (size_t)work_bytes;
   if (is_bf16)
     return lcbi::launch<__nv_bfloat16>(x, ln_g, ln_b, wxz, wconv, wdbl, wdt, dtb2, at, dskip, wout,
-                                       out, work, wbytes, BW, V, C, R, has_ln, s);
+                                       out, work, wbytes, BW, V, C, R, N, has_ln, s);
   return lcbi::launch<float>(x, ln_g, ln_b, wxz, wconv, wdbl, wdt, dtb2, at, dskip, wout, out,
-                             work, wbytes, BW, V, C, R, has_ln, s);
+                             work, wbytes, BW, V, C, R, N, has_ln, s);
 }

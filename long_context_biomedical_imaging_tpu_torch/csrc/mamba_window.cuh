@@ -2,7 +2,7 @@
 // mamba_window.cu (forward) and mamba_window_bwd.cu (backward).
 //
 // Per window of V tokens (16 <= V <= 64, V % 8 == 0), C channels, Dh = C / 2,
-// dt rank R, N = 8 states, W = R + 2N columns of x_proj:
+// dt rank R, N <= 16 states, W = R + 2N columns of x_proj:
 //     xz = [LN](x) @ wxz;  u = conv3_same(xz);  s = u * sigmoid(u);  x | z = s
 //     dbl = x @ wdbl = [dt | B | C];  dtv = dt @ wdt + dtb2;  delta = softplus(dtv)
 //     h[t] = exp(delta[t] A) h[t-1] + delta[t] x[t] B[t];  y[t] = C[t] . h[t] + D x[t]
@@ -10,27 +10,39 @@
 // The four products take operands rounded to the stream type T (bf16 under
 // AMP) and sum in fp32; everything else is fp32.
 //
-// Widths: the kernels take any even C. Their tiles and weights run on Cp = C
+// States: the kernels run on a padded state count NP (8 or 16, a template
+// argument) that holds the true N: a padded state has A = 0, B = 0 and C =
+// 0, so its h stays 0 and it adds nothing to y (the pattern of K5's and K8's
+// padded head dims). The forward takes its state blocks padded with zeros by
+// the wrapper, as it takes its channels; the backward takes the true N at
+// run time, reads the padded states as zeros and never stores their
+// gradients.
+//
+// Widths: the forward takes any even C. Its tiles and weights run on Cp = C
 // rounded up to 32 (Dhp = Cp / 2 per half): the rows of x, do and dx load
 // and store at the true C (LayerNorm statistics over C, zeros in columns
 // [C, Cp)), and the weights and per-channel operands arrive with each Dh
 // block padded with zeros to Dhp (the wrapper pads the weights, never the
 // activations), so a padded channel's x and z are SiLU(0) = 0, its scan state
-// stays 0 and it adds nothing to out_proj. Inside a kernel C names the padded
-// width and Ct the true one.
+// stays 0 and it adds nothing to out_proj. Inside the forward C names the
+// padded width and Ct the true one. The backward takes the weights at the
+// true C (mamba_window_bwd.cu).
 #pragma once
 
 #include "common.cuh"
 
 namespace lcbi {
 
-constexpr int kMambaN = 8;        // d_state of MambaVisionMixer
+constexpr int kMambaMaxN = 16;    // the largest d_state the kernels take
 constexpr int kMambaMaxV = 64;
 
+// The padded state count that holds N: 8 (MambaVisionMixer's d_state) or 16.
+__host__ __device__ __forceinline__ int mamba_padded_state(int N) { return N <= 8 ? 8 : 16; }
+
 // The shapes both kernels take (besides the shared-memory fit of the forward).
-inline bool mamba_shape_ok(int BW, int V, int C, int R) {
+inline bool mamba_shape_ok(int BW, int V, int C, int R, int N) {
   return BW > 0 && V >= 16 && V <= kMambaMaxV && V % 8 == 0 && C % 2 == 0 && C > 0 && R >= 1 &&
-         R <= 64;
+         R <= 64 && N >= 1 && N <= kMambaMaxN;
 }
 
 __device__ __forceinline__ float softplusf(float v) { return v > 20.f ? v : log1pf(expf(v)); }

@@ -7,483 +7,819 @@
 // _make_bwd_kernel (launched by _bwd_impl, the custom VJP of _mixer_core and
 // _mixer_core_ln, entry mamba_window_mixer).
 //
-// What bounds it on the H100: the products (in_proj recomputed, dyz, dwout,
-// dwxz, dxin: 10*T*C^2 FLOPs for T tokens) against 6*T*C bytes of x, do in
-// and dx out (bf16), plus about 2*C^2 fp32 of projection gradients that the
-// TPU kernel sums in place over its sequential grid; device memory bounds it,
-// as the forward. A CUDA grid runs in parallel, so as the K1 backward: a
-// persistent grid of G blocks walks contiguous ranges of window tiles, each
-// block accumulating its weight gradients into its own fp32 slot, and
-// reduce_slots_kernel sums the G slots in a fixed order (deterministic).
+// What bounds it on the H100: the products (in_proj recomputed, gyz = do
+// wout^T, dxin = dxz wxz^T and the weight gradients dwxz, dwout: 10 T C^2
+// operations for T tokens on the tensor cores) against about 6 T C bytes of
+// x, do in and dx out (bf16); between them the scan's fp32 work, about 40 T
+// (C/2) N operations. The TPU kernel sums its weight gradients in place over
+// its sequential grid and keeps a tile's intermediates in VMEM. This kernel's
+// first design kept about ten (rows, C) intermediates per tile in a per-block
+// global scratch and summed dwxz and dwout per tile into global slots.
 //
-// A tile is wb whole windows. The backward of one tile holds about ten
-// (rows, C) intermediates (the recomputed xz and s, [y | z], do, dyz, du, dxz
-// and dxin, in T or fp32): at C = 384 and 64 rows that is about 600 KB, more
-// than a block's shared memory. This first design keeps them in a per-block
-// scratch in global memory (the wrapper allocates G blocks' worth; most of it
-// stays in L2), so every tile shape fits and the code stays simple; moving the
-// hot ones into shared memory is later work. The scan's h history of a
-// window is V * N fp32 per channel, too large too: the reverse scan keeps h
-// at the start of every 8 tokens (in per-thread local memory) and recomputes
-// each stretch of 8 into registers before walking it backwards,
-//     dh[t] = C[t] gy[t] + a[t+1] dh[t+1],  a[t] = exp(delta[t] A).
-// One warp runs 32 channels of one window, so the cross-channel sums of dB
-// and dC at each token are warp shuffles in a fixed order, and the warps'
-// partials are summed in order afterwards. Operands of every product are
-// rounded to T where the TPU kernel rounds them; everything else is fp32.
+// The design, for Hopper, in passes on the stream, each keeping what it
+// computes on chip and handing the next pass a stream written once:
+//   1. y = LN(x) in T (with the folded LN; else y is x).
+//   2. xz = y wxz and gyz = do wout^T in fp32 (mma_gemm.cuh gemm_rows: the
+//      tensor cores, weights staged through shared memory with masked tails).
+//   3. The scan pass, per tile of tw whole windows and a chunk of ch of the
+//      C/2 scan channels (grid: a persistent walk over the tiles x the
+//      chunks; tw as many windows as fill 256 threads and shared memory):
+//      xz staged by 32 columns with coalesced loads, x = SiLU(conv(xz)) an
+//      element a thread, and x_proj (dbl = x wdbl, on the tensor cores in
+//      shared memory, W padded to 16) over all channels, dt and dtv
+//      = dt wdt once per token and channel (a product in shared memory, kept
+//      there), then one thread per (window, channel) runs the scan forward
+//      with its NP states in registers, checkpointing h every 16 tokens in
+//      shared memory, and backward by blocks of 8 tokens, each block's h
+//      recomputed from its checkpoint in groups of 8 states (no spill); the
+//      cross-channel sums of dB and dC per token are a warp reduce-scatter
+//      (31 shuffles for 32 values), one partial per warp. Out: y (the left
+//      half of [y | z]), ddtv and x in T (the dwdt and dwdbl operands), dt in
+//      T, the scan's part of dx in fp32, the dB | dC partials. d at, d D and
+//      d dtb2 accumulate in registers across the block's tiles.
+//   4. The gate pass, per tile and chunk of either half: ddbl = [ddtv wdt^T
+//      | sum of the dB | dC partials] (rows, W), dx = dx(scan) + ddbl wdbl^T
+//      (both on the tensor cores in shared memory); the chunk's xz and the
+//      gradient of its SiLU output staged with coalesced loads, then a thread
+//      per (window, channel) walks the tokens once in shared memory,
+//      recomputing the conv and SiLU: du, dxz = conv^T(du) in T; the z half
+//      takes dz from gyz and writes z (the right half of [y | z]). dwconv
+//      accumulates in registers.
+//   5. dxin = dxz wxz^T (gemm_rows), then the LayerNorm backward with the
+//      residual's do (ln_rows.cuh, on every slot's block), or dx = dxin.
+//   6. dwxz = y^T dxz, dwout = [y | z]^T do, dwdt = dt^T ddtv and dwdbl =
+//      x^T ddbl from the streams, split-K (mma_gemm.cuh wgrad).
+// The small gradients (d at, d D, d dtb2, dwconv, d ln_g, d ln_b) go to one
+// fp32 slot per block of a persistent grid, written once per block, summed
+// by reduce_slots_kernel in a fixed order. No atomics: two
+// launches give the same bits. Operands of every product are rounded to T
+// where the TPU kernel rounds them; everything else is fp32. The weights pass
+// at the true C (no padded copy); any d_state N <= 16 runs at NP = 8 or 16.
+#include "ln_rows.cuh"
 #include "mamba_window.cuh"
+#include "mma_gemm.cuh"
 
 namespace lcbi {
 
-constexpr int kSeg = 8;  // tokens between the reverse scan's checkpoints
-constexpr int kMaxTileRows = 512;  // rows of a tile (the LayerNorm statistics' arrays)
+constexpr int kZ = 32;              // channels per staging step of xz, ddtv (and x_proj's depth)
+constexpr int kLdZ = kZ + 4;        // fp32 (rows, 32) staged xz
+constexpr int kLdX = kZ + 8;        // T (rows, 32) staged operands
 
-struct MambaBwdLayout {
-  int Wp, groups;
-  size_t ys, dos, yz, dxz, xz, s, gyz, du, dbl, ddbl, ddtv, dxs, part, dd, da, dconv, bytes;
+__host__ __device__ __forceinline__ int round_up8(int v) { return (v + 7) & ~7; }
+
+// The scan's tiling: nch chunks of ch (of the C/2 channels), ch32 threads per
+// window (ch rounded up to whole warps), tw windows a tile (as many as fill
+// a block's 256 threads and fit both passes' shared memory, mamba_bwd_plan).
+struct MambaTiles {
+  int nch, ch, ch32, tw;
 };
 
-// Offsets (bytes) of the tile's intermediates in one block's scratch.
-__host__ __device__ inline MambaBwdLayout mamba_bwd_layout(int rows_pad, int wb, int C, int R,
-                                                           int elem) {
-  MambaBwdLayout L;
-  const int Dh = C / 2, N = kMambaN;
-  L.Wp = (R + 2 * N + 7) / 8 * 8;
-  L.groups = (Dh + 31) / 32;
-  const size_t RC = (size_t)rows_pad * C;
-  size_t at = 0;
-  auto take = [&](size_t bytes) { const size_t o = at; at += align128(bytes); return o; };
-  L.ys = take(RC * elem);
-  L.dos = take(RC * elem);
-  L.yz = take(RC * elem);
-  L.dxz = take(RC * elem);
-  L.xz = take(RC * 4);
-  L.s = take(RC * 4);
-  L.gyz = take(RC * 4);
-  L.du = take(RC * 4);
-  L.dbl = take((size_t)rows_pad * L.Wp * 4);
-  L.ddbl = take((size_t)rows_pad * L.Wp * 4);
-  L.ddtv = take((size_t)rows_pad * Dh * 4);
-  L.dxs = take((size_t)rows_pad * Dh * 4);
-  L.part = take((size_t)rows_pad * L.groups * 2 * N * 4);
-  L.dd = take((size_t)wb * Dh * 4);
-  L.da = take((size_t)wb * N * Dh * 4);
-  L.dconv = take((size_t)wb * 3 * C * 4);
-  L.bytes = at;
+__host__ __device__ inline MambaTiles mamba_bwd_chunks(int Dh) {
+  MambaTiles t;
+  t.nch = (Dh + 127) / 128;
+  t.ch = round_up8((Dh + t.nch - 1) / t.nch);
+  t.ch32 = round_up32(t.ch);
+  t.tw = 1;
+  return t;
+}
+
+struct ScanLayout {
+  int rows_pad, ld_s, ld_dt, ld_dbl, ld_w, ld_dtt, ld_wt;
+  size_t off_dbl, off_u, off_ck, off_x, off_w, bytes;
+};
+
+// P1's shared memory: S (x of the chunk, fp32) and dbl (fp32) for the whole
+// tile, then a union of the phases' arrays: while x_proj runs, the staged xz
+// (rows, 32) fp32, x in T and the wdbl slice (32, W16); then Dt (dt wdt,
+// fp32) beside, first, dt in T (rows, R16) and the wdt slice (R16, ch16),
+// then the scan's checkpoints.
+template <typename T>
+__host__ __device__ inline ScanLayout scan_layout(const MambaTiles& tl, int V, int R, int W,
+                                                  int NP) {
+  ScanLayout L;
+  const int ch16 = round_up16(tl.ch), w16 = round_up16(W), r16 = round_up16(R);
+  L.rows_pad = round_up16(tl.tw * V);
+  const size_t rp = L.rows_pad;
+  L.ld_s = tl.ch;
+  L.ld_dt = ch16 + 4;
+  L.ld_dbl = w16 + 4;
+  L.ld_w = w16 + 8;
+  L.ld_dtt = r16 + 8;
+  L.ld_wt = ch16 + 8;
+  L.off_dbl = align128(rp * L.ld_s * 4);
+  L.off_u = L.off_dbl + align128(rp * L.ld_dbl * 4);
+  // phase x_proj: xz at off_u, x at off_x, wdbl at off_w
+  L.off_x = L.off_u + align128(rp * kLdZ * 4);
+  L.off_w = L.off_x + align128(rp * kLdX * sizeof(T));
+  const size_t proj_end = L.off_w + align128((size_t)kZ * L.ld_w * sizeof(T));
+  // phases dt and scan: Dt at off_u, then dt and wdt, later the checkpoints
+  L.off_ck = L.off_u + align128(rp * L.ld_dt * 4);
+  const size_t dt_end = L.off_ck + align128(rp * L.ld_dtt * sizeof(T)) +
+                        align128((size_t)r16 * L.ld_wt * sizeof(T));
+  const size_t ck_end = L.off_ck + align128((size_t)3 * NP * tl.tw * tl.ch32 * 4);
+  L.bytes = proj_end > dt_end ? proj_end : dt_end;
+  if (ck_end > L.bytes) L.bytes = ck_end;
+  // the end-of-kernel reduction of (tw ch32, NP + 2) floats goes over S onward
+  const size_t red = (size_t)tl.tw * tl.ch32 * (NP + 2) * 4;
+  if (red > L.bytes) L.bytes = red;
   return L;
 }
 
-// Windows a tile: at least 64 rows, and enough windows that the scan's warps
-// (one per 32 channels of a window) fill the block's warps where the channels
-// are few. At most kMaxTileRows rows (8 windows of 64 at C = 32).
-inline int mamba_bwd_tile_windows(int V, int C) {
-  const int groups = (C / 2 + 31) / 32;
-  const int wb = (kWarps + groups - 1) / groups;
-  return 64 / V > wb ? 64 / V : wb;
-}
-
-// Slot offsets (floats) of each gradient inside one block's slot; dwxz is at 0.
-struct MambaSlots {
-  int dwout, dwconv, dwdbl, dwdt, ddtb, dat, dd, dg, dbln;
+struct GateLayout {
+  int rows_pad, ld_dbl, ld_dblt, ld_dx, ld_wb;
+  size_t off_dblt, off_x, off_wd, off_dx, off_wb, off_zg, bytes;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// dst = (first ? 0 : dst) + v: a block's slot entry, overwritten by its first tile
-__device__ __forceinline__ void slot_add(float* dst, float v, bool first) {
-  *dst = (first ? 0.f : *dst) + v;
-}
-
+// P2's shared memory: ddbl (fp32) and in T, the staged ddtv (rows, 32) and
+// wdt slice (R16, 32), dx of the chunk (fp32, rows x ch16; then the gradient
+// of the chunk's SiLU output), the wdbl slice of the chunk's channels (ch16,
+// W16) and the chunk's xz columns (fp32, rows x ch).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mamba_window_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
-                        const float* __restrict__ ln_b, const T* __restrict__ wxz,
-                        const float* __restrict__ wconv, const T* __restrict__ wdbl,
-                        const T* __restrict__ wdt, const float* __restrict__ dtb2,
-                        const float* __restrict__ at, const float* __restrict__ dskip,
-                        const T* __restrict__ wout, const T* __restrict__ dout,
-                        T* __restrict__ dx, unsigned char* __restrict__ work, size_t work_bytes,
-                        float* __restrict__ slots, size_t P, MambaSlots off, int BW, int V,
-                        int Ct, int R, int wb, int rows_pad, int has_ln, long long tiles) {
-  constexpr int N = kMambaN;
-  const int C = chunk_padded_channels(Ct);  // the padded width (mamba_window.cuh)
-  const int Dh = C / 2, W = R + 2 * N;
-  const MambaBwdLayout L = mamba_bwd_layout(rows_pad, wb, C, R, sizeof(T));
-  const int Wp = L.Wp, G = L.groups;
-  unsigned char* wk = work + (size_t)blockIdx.x * work_bytes;
-  T* ys = reinterpret_cast<T*>(wk + L.ys);          // LN'd rows
-  T* dos = reinterpret_cast<T*>(wk + L.dos);        // do
-  T* yz = reinterpret_cast<T*>(wk + L.yz);          // [y | z]
-  T* dxzT = reinterpret_cast<T*>(wk + L.dxz);       // d xz
-  float* xz = reinterpret_cast<float*>(wk + L.xz);  // in_proj product, later dxin
-  float* s = reinterpret_cast<float*>(wk + L.s);    // SiLU(conv(xz)) = x | z
-  float* gyz = reinterpret_cast<float*>(wk + L.gyz);  // do @ wout^T = [gy | dz]
-  float* du = reinterpret_cast<float*>(wk + L.du);  // d u (before SiLU)
-  float* dbl = reinterpret_cast<float*>(wk + L.dbl);
-  float* ddbl = reinterpret_cast<float*>(wk + L.ddbl);
-  float* ddtv = reinterpret_cast<float*>(wk + L.ddtv);
-  float* dxs = reinterpret_cast<float*>(wk + L.dxs);  // d x, scan part, then total
-  float* part = reinterpret_cast<float*>(wk + L.part);  // (rows, G, 2N) dB | dC per warp
-  float* dd_part = reinterpret_cast<float*>(wk + L.dd);
-  float* da_part = reinterpret_cast<float*>(wk + L.da);
-  float* dconv_part = reinterpret_cast<float*>(wk + L.dconv);
-  __shared__ float mus[kMaxTileRows], rstds[kMaxTileRows];
+__host__ __device__ inline GateLayout gate_layout(const MambaTiles& tl, int V, int R, int W) {
+  GateLayout L;
+  const int ch16 = round_up16(tl.ch), w16 = round_up16(W), r16 = round_up16(R);
+  L.rows_pad = round_up16(tl.tw * V);
+  const size_t rp = L.rows_pad;
+  L.ld_dbl = w16 + 4;
+  L.ld_dblt = w16 + 8;
+  L.ld_dx = ch16 + 4;
+  L.ld_wb = w16 + 8;
+  L.off_dblt = align128(rp * L.ld_dbl * 4);
+  L.off_x = L.off_dblt + align128(rp * L.ld_dblt * sizeof(T));
+  L.off_wd = L.off_x + align128(rp * kLdX * sizeof(T));
+  L.off_dx = L.off_wd + align128((size_t)r16 * kLdX * sizeof(T));
+  L.off_wb = L.off_dx + align128(rp * L.ld_dx * 4);
+  L.off_zg = L.off_wb + align128((size_t)ch16 * L.ld_wb * sizeof(T));
+  L.bytes = L.off_zg + align128(rp * tl.ch * 4);
+  return L;
+}
 
-  float* slot = slots + (size_t)blockIdx.x * P;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// The tiling of both passes: tw from 256 / ch32 windows down until both
+// layouts fit in shared memory (tw = 0: they do not fit at one window).
+template <typename T>
+inline MambaTiles mamba_bwd_plan(int V, int Dh, int R, int W, int NP) {
+  MambaTiles tl = mamba_bwd_chunks(Dh);
+  const size_t limit = (size_t)max_dynamic_smem();
+  for (tl.tw = kThreads / tl.ch32; tl.tw >= 1; --tl.tw) {
+    if (scan_layout<T>(tl, V, R, W, NP).bytes <= limit &&
+        gate_layout<T>(tl, V, R, W).bytes <= limit)
+      return tl;
+  }
+  tl.tw = 0;
+  return tl;
+}
+
+// Slot offsets (floats) of the small gradients inside one block's slot: the
+// scan's and gate's first, the LayerNorm's (dg, dbln) last.
+struct MambaSlots {
+  int dwconv, ddtb, dat, dd, dg, dbln;
+};
+
+// The operands of the passes, and their streams.
+template <typename T> struct MambaArgs {
+  const T* x;
+  const float* ln_g;
+  const float* ln_b;
+  const T* wxz;
+  const float* wconv;
+  const T* wdbl;
+  const T* wdt;
+  const float* dtb2;
+  const float* at;
+  const float* dskip;
+  const T* wout;
+  const T* dout;
+  T* dx;
+  // streams
+  const T* ys;       // (rows, C): LN(x), or x
+  float* xz;         // (rows, C) fp32: y wxz, later dxin
+  float* gyz;        // (rows, C) fp32: do wout^T
+  T* yz;             // (rows, C): [y | z]
+  T* xs;             // (rows, Dh): x = SiLU(conv(xz))[:, :Dh]
+  T* dts;            // (rows, R): dt
+  T* ddtv;           // (rows, Dh)
+  float* dxscan;     // (rows, Dh) fp32: the scan's part of dx
+  float* bc;         // (slices, rows, 2 NP) fp32: dB | dC partials
+  T* dxz;            // (rows, C)
+  T* ddbl;           // (rows, W)
+  float* slots;
+  size_t P;
+  MambaSlots off;
+  int BW, V, C, R, N, has_ln;
+};
+
+// Reduce-scatter of K values (K = 16 or 32) over the 32 lanes of a warp: on
+// return v[0] of lane l holds the warp's sum of value index l (K = 32) or l /
+// 2 (K = 16). Fixed shuffle pattern: the same bits every time.
+template <int K>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[K], int lane) {
+  int n = K;
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) {
+    if (n > 1) {
+      const int half = n / 2;
+      const bool upper = lane & o;
+#pragma unroll
+      for (int i = 0; i < K / 2; ++i) {
+        if (i < half) {
+          const float send = upper ? v[i] : v[i + half];
+          const float keep = upper ? v[i + half] : v[i];
+          v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+      }
+      n = half;
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+    }
+  }
+}
+
+// x = SiLU(conv3_same(xz)) of channel k of window w's V rows, read down a
+// column of the fp32 (rows, C) stream from the window's first row.
+__device__ __forceinline__ float conv_at(const float* col, int t, int V, int C, float w0, float w1,
+                                         float w2) {
+  const float prev = t > 0 ? col[(size_t)(t - 1) * C] : 0.f;
+  const float next = t + 1 < V ? col[(size_t)(t + 1) * C] : 0.f;
+  return col[(size_t)t * C] * w1 + prev * w0 + next * w2;
+}
+
+// P1, the scan pass (the design note's pass 3). blockIdx.y is the chunk.
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads)
+mamba_scan_bwd_kernel(MambaArgs<T> a, MambaTiles tl, long long tiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int V = a.V, C = a.C, Dh = C / 2, R = a.R, N = a.N, W = R + 2 * N;
+  const ScanLayout L = scan_layout<T>(tl, V, R, W, NP);
+  float* S = reinterpret_cast<float*>(smem);
+  float* dbl = reinterpret_cast<float*>(smem + L.off_dbl);
+  float* Zs = reinterpret_cast<float*>(smem + L.off_u);   // x_proj: the staged xz
+  T* Xs = reinterpret_cast<T*>(smem + L.off_x);
+  T* Ws = reinterpret_cast<T*>(smem + L.off_w);
+  float* Dt = reinterpret_cast<float*>(smem + L.off_u);   // then dt wdt
+  T* dtT = reinterpret_cast<T*>(smem + L.off_ck);
+  T* Wt = reinterpret_cast<T*>(smem + L.off_ck + align128((size_t)L.rows_pad * L.ld_dtt * sizeof(T)));
+  float* ck = reinterpret_cast<float*>(smem + L.off_ck);  // then the checkpoints
+  const int w16 = round_up16(W), r16 = round_up16(R), ch16 = round_up16(tl.ch);
+  const int c0 = blockIdx.y * tl.ch, cw = min(tl.ch, Dh - c0);
+  const int nthr = tl.tw * tl.ch32, tid = threadIdx.x;
+  const int sw = tid / tl.ch32, j = tid % tl.ch32, lane = tid % 32;
+  const int c = c0 + j;
+  const size_t nrows = (size_t)a.BW * V;
+  const int slice = blockIdx.y * (tl.ch32 / 32) + j / 32;
+
+  float dA[NP], dD = 0.f, ddtb = 0.f;
+#pragma unroll
+  for (int n = 0; n < NP; ++n) dA[n] = 0.f;
 
   const long long t_begin = tiles * blockIdx.x / gridDim.x;
   const long long t_end = tiles * (blockIdx.x + 1) / gridDim.x;
   for (long long tile = t_begin; tile < t_end; ++tile) {
-    const bool first = tile == t_begin;
-    const int w0 = (int)tile * wb;
-    const int nwin = min(wb, BW - w0);
+    const long long w0 = tile * tl.tw;
+    const int nwin = (int)min((long long)tl.tw, (long long)a.BW - w0);
     const int rows = nwin * V;
-    const size_t base = (size_t)w0 * V * Ct;
-    const T* xt = x + base;
-    const T* dot = dout + base;
+    const size_t row0 = (size_t)w0 * V;
+    const bool active = tid < nthr && sw < nwin && j < cw;
 
-    // ---- recompute the forward up to the scan; do and dyz ------------------
-    layernorm_rows(xt, rows, rows_pad, Ct, ln_g, ln_b, has_ln, ys, C, mus, rstds, C);
-    for (int i = threadIdx.x; i < rows_pad * C; i += kThreads) {
-      const int r = i / C, c = i % C;
-      dos[i] = r < rows && c < Ct ? dot[(size_t)r * Ct + c] : from_f32<T>(0.f);
+    // ---- x = SiLU(conv(xz)) over all channels; dbl = x wdbl ---------------
+    // by 32 channels: xz staged with coalesced loads, then an element each
+    for (int kc = 0; kc < Dh; kc += kZ) {
+      for (int i = tid; i < L.rows_pad * kZ; i += kThreads) {
+        const int r = i / kZ, k = i % kZ;
+        Zs[r * kLdZ + k] = r < rows && kc + k < Dh ? a.xz[(row0 + r) * C + kc + k] : 0.f;
+      }
+      for (int i = tid; i < kZ * w16; i += kThreads) {
+        const int k = i / w16, jj = i % w16;
+        Ws[k * L.ld_w + jj] = kc + k < Dh && jj < W ? a.wdbl[(size_t)(kc + k) * W + jj]
+                                                   : from_f32<T>(0.f);
+      }
+      __syncthreads();
+      for (int i = tid; i < L.rows_pad * kZ; i += kThreads) {
+        const int r = i / kZ, cc = i % kZ, k = kc + cc, t = r % V;
+        float s = 0.f;
+        if (r < rows && k < Dh) {
+          const float u = Zs[r * kLdZ + cc] * a.wconv[C + k] +
+                          (t > 0 ? Zs[(r - 1) * kLdZ + cc] : 0.f) * a.wconv[k] +
+                          (t + 1 < V ? Zs[(r + 1) * kLdZ + cc] : 0.f) * a.wconv[2 * C + k];
+          s = u * sigmoidf(u);
+          if (k >= c0 && k < c0 + cw) {
+            S[r * L.ld_s + k - c0] = s;
+            a.xs[(row0 + r) * Dh + k] = from_f32<T>(s);
+          }
+        }
+        Xs[r * kLdX + cc] = from_f32<T>(s);
+      }
+      __syncthreads();
+      gemm<false, false>(dbl, L.ld_dbl, Xs, kLdX, Ws, L.ld_w, L.rows_pad, w16, kZ, kc > 0);
+      __syncthreads();
+    }
+
+    // ---- dt (T) and Dt = dt wdt[:, chunk] ----------------------------------
+    for (int i = tid; i < L.rows_pad * r16; i += kThreads) {
+      const int r = i / r16, k = i % r16;
+      const T v = from_f32<T>(k < R ? dbl[r * L.ld_dbl + k] : 0.f);
+      dtT[r * L.ld_dtt + k] = v;
+      if (blockIdx.y == 0 && k < R && r < rows) a.dts[(row0 + r) * R + k] = v;
+    }
+    for (int i = tid; i < r16 * ch16; i += kThreads) {
+      const int k = i / ch16, jj = i % ch16;
+      Wt[k * L.ld_wt + jj] =
+          k < R && jj < cw ? a.wdt[(size_t)k * Dh + c0 + jj] : from_f32<T>(0.f);
     }
     __syncthreads();
-    gemm<false, false>(xz, C, ys, C, wxz, C, rows_pad, C, C, false);
-    gemm<false, true>(gyz, C, dos, C, wout, C, rows_pad, C, C, false);
-    __syncthreads();
-    conv3_silu(xz, C, s, C, wconv, nwin, V, C);
-    __syncthreads();
-    x_proj<T>(s, C, wdbl, dbl, Wp, rows, Dh, W);
-    for (int i = threadIdx.x; i < rows_pad * Dh; i += kThreads) {
-      const int r = i / Dh, c = i % Dh;
-      yz[(size_t)r * C + Dh + c] = from_f32<T>(r < rows ? s[(size_t)r * C + Dh + c] : 0.f);
-      if (r >= rows) yz[(size_t)r * C + c] = from_f32<T>(0.f);
-    }
+    gemm<false, false>(Dt, L.ld_dt, dtT, L.ld_dtt, Wt, L.ld_wt, L.rows_pad, ch16, r16, false);
     __syncthreads();
 
-    // ---- the scan, forward then backward: one warp per 32 channels of a window
-    for (int task = warp; task < nwin * G; task += kWarps) {
-      const int w = task / G, g = task % G;
-      const int d = g * 32 + lane;
-      const bool active = d < Dh;
-      const int dc = active ? d : Dh - 1;
-      const size_t r0 = (size_t)w * V;
-      float A[N], h[N], ck[kMambaMaxV / kSeg][N];
+    // ---- the scan: a thread per (window, channel) ---------------------------
+    if (tid < nthr) {
+      const int rw = sw * V;   // the window's first row in the tile
+      float A[NP];
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        A[n] = at[n * Dh + dc];
-        h[n] = 0.f;
-      }
-      const float D = dskip[dc], bias = dtb2[dc];
-      for (int t = 0; t < V; ++t) {
-        if (t % kSeg == 0) {
+      for (int n = 0; n < NP; ++n) A[n] = active && n < N ? a.at[n * Dh + c] : 0.f;
+      const float D = active ? a.dskip[c] : 0.f, bias = active ? a.dtb2[c] : 0.f;
+      const float* dblw = dbl + (size_t)rw * L.ld_dbl;
+      auto Bv = [&](int t, int n) { return n < N ? dblw[t * L.ld_dbl + R + n] : 0.f; };
+      auto Cv = [&](int t, int n) { return n < N ? dblw[t * L.ld_dbl + R + N + n] : 0.f; };
+      // lanes past the chunk read no Dt column (a padded row's tail is not theirs)
+      auto dtv_at = [&](int t) { return (j < cw ? Dt[(rw + t) * L.ld_dt + j] : 0.f) + bias; };
+      auto delta_at = [&](int t) { return softplusf(dtv_at(t)); };
+      auto x_at = [&](int t) { return active ? S[(rw + t) * L.ld_s + j] : 0.f; };
+      auto ckp = [&](int slot, int n) -> float& { return ck[(slot * NP + n) * nthr + tid]; };
+
+      // forward: y, and h every 16 tokens
+      {
+        float h[NP];
 #pragma unroll
-          for (int n = 0; n < N; ++n) ck[t / kSeg][n] = h[n];
+        for (int n = 0; n < NP; ++n) h[n] = 0.f;
+        for (int t = 0; t < V; ++t) {
+          if (t % 16 == 0 && t > 0) {
+#pragma unroll
+            for (int n = 0; n < NP; ++n) ckp(t / 16 - 1, n) = h[n];
+          }
+          const float delta = delta_at(t), xv = x_at(t), dxv = delta * xv;
+          float y = 0.f;
+#pragma unroll
+          for (int n = 0; n < NP; ++n) {
+            h[n] = expf(delta * A[n]) * h[n] + dxv * Bv(t, n);
+            y = fmaf(h[n], Cv(t, n), y);
+          }
+          if (active) a.yz[(row0 + rw + t) * C + c] = from_f32<T>(y + xv * D);
         }
-        const float* db = dbl + (r0 + t) * Wp;
-        const float delta = softplusf(dt_value<T>(db, wdt, R, Dh, dc, bias));
-        const float xv = s[(r0 + t) * C + dc];
-        const float dxv = delta * xv;
-        float y = 0.f;
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          h[n] = expf(delta * A[n]) * h[n] + dxv * db[R + n];
-          y = fmaf(h[n], db[R + N + n], y);
-        }
-        if (active) yz[(r0 + t) * C + d] = from_f32<T>(y + xv * D);
       }
 
-      float dh[N], a_next[N], dA[N], dD = 0.f;
+      // backward by blocks of 8 tokens, last first
+      float dh[NP], an[NP];
 #pragma unroll
-      for (int n = 0; n < N; ++n) dh[n] = a_next[n] = dA[n] = 0.f;
-      for (int seg = V / kSeg - 1; seg >= 0; --seg) {
-        const int t0 = seg * kSeg;
-        float hs[kSeg][N];
+      for (int n = 0; n < NP; ++n) dh[n] = an[n] = 0.f;
+      for (int b = V / 8 - 1; b >= 0; --b) {
+        const int t0 = 8 * b;
+        // h before the block: a checkpoint, or the previous block recomputed
+        float hst[NP];
 #pragma unroll
-        for (int i = 0; i < kSeg; ++i) {
-          const float* db = dbl + (r0 + t0 + i) * Wp;
-          const float delta = softplusf(dt_value<T>(db, wdt, R, Dh, dc, bias));
-          const float dxv = delta * s[(r0 + t0 + i) * C + dc];
+        for (int n = 0; n < NP; ++n) hst[n] = b >= 2 ? ckp(b / 2 - 1, n) : 0.f;
+        if (b % 2 == 1) {
+          for (int t = t0 - 8; t < t0; ++t) {
+            const float delta = delta_at(t), dxv = delta * x_at(t);
 #pragma unroll
-          for (int n = 0; n < N; ++n) {
-            const float hp = i == 0 ? ck[seg][n] : hs[i > 0 ? i - 1 : 0][n];
-            hs[i][n] = expf(delta * A[n]) * hp + dxv * db[R + n];
+            for (int n = 0; n < NP; ++n) hst[n] = expf(delta * A[n]) * hst[n] + dxv * Bv(t, n);
+          }
+        }
+        float ddel[8], dxs[8], gys[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          gys[i] = active ? a.gyz[(row0 + rw + t0 + i) * C + c] : 0.f;
+          ddel[i] = 0.f;
+          dxs[i] = gys[i] * D;
+          dD = fmaf(gys[i], x_at(t0 + i), dD);
+        }
+#pragma unroll
+        for (int ng = 0; ng < NP / 8; ++ng) {
+          float hs[8][8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float delta = delta_at(t0 + i), dxv = delta * x_at(t0 + i);
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+              const float hp = i == 0 ? hst[ng * 8 + n] : hs[i > 0 ? i - 1 : 0][n];
+              hs[i][n] = expf(delta * A[ng * 8 + n]) * hp + dxv * Bv(t0 + i, ng * 8 + n);
+            }
+          }
+#pragma unroll
+          for (int i = 7; i >= 0; --i) {
+            const int t = t0 + i;
+            const float delta = delta_at(t), xv = x_at(t), gy = gys[i];
+            float red[16];
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+              const int nn = ng * 8 + n;
+              const float hp = i == 0 ? hst[nn] : hs[i > 0 ? i - 1 : 0][n];
+              const float av = expf(delta * A[nn]);
+              const float bv = Bv(t, nn);
+              dh[nn] = gy * Cv(t, nn) + an[nn] * dh[nn];
+              const float da = dh[nn] * hp * av;
+              dA[nn] = fmaf(da, delta, dA[nn]);
+              ddel[i] += da * A[nn] + dh[nn] * xv * bv;
+              dxs[i] = fmaf(dh[nn] * delta, bv, dxs[i]);
+              red[n] = dh[nn] * (delta * xv);   // dB
+              red[8 + n] = gy * hs[i][n];        // dC
+              an[nn] = av;
+            }
+            // the warp's sums of dB, dC over its 32 channels, one per lane pair
+            warp_reduce_scatter<16>(red, lane);
+            if (sw < nwin && lane % 2 == 0) {
+              const int idx = lane / 2, k = idx < 8 ? ng * 8 + idx : NP + ng * 8 + idx - 8;
+              a.bc[((size_t)slice * nrows + row0 + rw + t) * 2 * NP + k] = red[0];
+            }
           }
         }
 #pragma unroll
-        for (int i = kSeg - 1; i >= 0; --i) {
-          const size_t r = r0 + t0 + i;
-          const float* db = dbl + r * Wp;
-          const float dtv = dt_value<T>(db, wdt, R, Dh, dc, bias);
-          const float delta = softplusf(dtv);
-          const float xv = s[r * C + dc];
-          const float gy = active ? gyz[r * C + d] : 0.f;
-          dD = fmaf(gy, xv, dD);
-          float dxsv = gy * D, ddelta = 0.f;
-          float red[2 * N];
-#pragma unroll
-          for (int n = 0; n < N; ++n) {
-            const float hp = i == 0 ? ck[seg][n] : hs[i > 0 ? i - 1 : 0][n];
-            const float a = expf(delta * A[n]);
-            const float b = db[R + n];
-            dh[n] = gy * db[R + N + n] + a_next[n] * dh[n];
-            const float da = dh[n] * hp * a;
-            dA[n] = fmaf(da, delta, dA[n]);
-            ddelta += da * A[n] + dh[n] * xv * b;
-            dxsv = fmaf(dh[n] * delta, b, dxsv);
-            red[n] = dh[n] * (delta * xv);            // dB
-            red[N + n] = gy * hs[i][n];               // dC
-            a_next[n] = a;
-          }
+        for (int i = 0; i < 8; ++i) {
+          const int t = t0 + i;
+          const float g = ddel[i] * sigmoidf(dtv_at(t));
           if (active) {
-            ddtv[r * Dh + d] = ddelta * sigmoidf(dtv);
-            dxs[r * Dh + d] = dxsv;
-          }
-#pragma unroll
-          for (int k = 0; k < 2 * N; ++k) red[k] = warp_sum(red[k]);
-          if (lane == 0) {
-#pragma unroll
-            for (int k = 0; k < 2 * N; ++k) part[(r * G + g) * 2 * N + k] = red[k];
+            const size_t at_ = (row0 + rw + t) * Dh + c;
+            a.ddtv[at_] = from_f32<T>(g);
+            a.dxscan[at_] = dxs[i];
+            ddtb += g;
           }
         }
       }
-      if (active) {
-        dd_part[w * Dh + d] = dD;
-#pragma unroll
-        for (int n = 0; n < N; ++n) da_part[((size_t)w * N + n) * Dh + d] = dA[n];
-      }
-    }
-    __syncthreads();
-
-    // ---- d dbl = [d dt | dB | dC]; dt path; dD, dA; dwout ------------------
-    for (int i = threadIdx.x; i < rows * W; i += kThreads) {
-      const int r = i / W, j = i % W;
-      float a = 0.f;
-      if (j < R) {
-        for (int dd = 0; dd < Dh; ++dd)
-          a = fmaf(rnd<T>(ddtv[(size_t)r * Dh + dd]), to_f32(wdt[(size_t)j * Dh + dd]), a);
-      } else {
-        for (int gg = 0; gg < G; ++gg) a += part[((size_t)r * G + gg) * 2 * N + j - R];
-      }
-      ddbl[(size_t)r * Wp + j] = a;
-    }
-    for (int i = threadIdx.x; i < R * Dh; i += kThreads) {
-      const int j = i / Dh, dd = i % Dh;
-      float a = 0.f;
-      for (int r = 0; r < rows; ++r)
-        a = fmaf(rnd<T>(dbl[(size_t)r * Wp + j]), rnd<T>(ddtv[(size_t)r * Dh + dd]), a);
-      slot_add(slot + off.dwdt + i, a, first);
-    }
-    for (int dd = threadIdx.x; dd < Dh; dd += kThreads) {
-      float sb = 0.f, sd = 0.f;
-      for (int r = 0; r < rows; ++r) sb += ddtv[(size_t)r * Dh + dd];
-      for (int w = 0; w < nwin; ++w) sd += dd_part[w * Dh + dd];
-      slot_add(slot + off.ddtb + dd, sb, first);
-      slot_add(slot + off.dd + dd, sd, first);
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        float sa = 0.f;
-        for (int w = 0; w < nwin; ++w) sa += da_part[((size_t)w * N + n) * Dh + dd];
-        slot_add(slot + off.dat + n * Dh + dd, sa, first);
-      }
-    }
-    gemm<true, false>(slot + off.dwout, C, yz, C, dos, C, C, C, rows_pad, !first);
-    __syncthreads();
-
-    // ---- x_proj backward: dwdbl, and dx = dx(scan) + d dbl @ wdbl^T ---------
-    for (int i = threadIdx.x; i < Dh * W; i += kThreads) {
-      const int k = i / W, j = i % W;
-      float a = 0.f;
-      for (int r = 0; r < rows; ++r)
-        a = fmaf(rnd<T>(s[(size_t)r * C + k]), rnd<T>(ddbl[(size_t)r * Wp + j]), a);
-      slot_add(slot + off.dwdbl + i, a, first);
-    }
-    for (int i = threadIdx.x; i < rows * Dh; i += kThreads) {
-      const int r = i / Dh, k = i % Dh;
-      float a = 0.f;
-      for (int j = 0; j < W; ++j)
-        a = fmaf(rnd<T>(ddbl[(size_t)r * Wp + j]), to_f32(wdbl[(size_t)k * W + j]), a);
-      dxs[i] += a;
-    }
-    __syncthreads();
-
-    // ---- SiLU and conv backward, per (window, channel) ----------------------
-    for (int p = threadIdx.x; p < nwin * C; p += kThreads) {
-      const int w = p / C, c = p % C;
-      const float w0c = wconv[c], w1c = wconv[C + c], w2c = wconv[2 * C + c];
-      const size_t r0 = (size_t)w * V;
-      float prev = 0.f, cur = xz[r0 * C + c];
-      for (int t = 0; t < V; ++t) {
-        const size_t r = r0 + t;
-        const float next = t + 1 < V ? xz[(r + 1) * C + c] : 0.f;
-        const float u = cur * w1c + prev * w0c + next * w2c;
-        const float sg = sigmoidf(u);
-        const float ds = c < Dh ? dxs[r * Dh + c] : gyz[r * C + c];
-        du[r * C + c] = ds * (sg * (1.f + u * (1.f - sg)));
-        prev = cur;
-        cur = next;
-      }
-      float g0 = 0.f, g1 = 0.f, g2 = 0.f;
-      for (int t = 0; t < V; ++t) {
-        const size_t r = r0 + t;
-        const float dut = du[r * C + c];
-        g1 = fmaf(dut, xz[r * C + c], g1);
-        if (t > 0) g0 = fmaf(dut, xz[(r - 1) * C + c], g0);
-        if (t + 1 < V) g2 = fmaf(dut, xz[(r + 1) * C + c], g2);
-        float v = dut * w1c;
-        if (t + 1 < V) v += du[(r + 1) * C + c] * w0c;
-        if (t > 0) v += du[(r - 1) * C + c] * w2c;
-        dxzT[r * C + c] = from_f32<T>(v);
-      }
-      dconv_part[((size_t)w * 3 + 0) * C + c] = g0;
-      dconv_part[((size_t)w * 3 + 1) * C + c] = g1;
-      dconv_part[((size_t)w * 3 + 2) * C + c] = g2;
-    }
-    for (int i = rows * C + threadIdx.x; i < rows_pad * C; i += kThreads) dxzT[i] = from_f32<T>(0.f);
-    __syncthreads();
-
-    // ---- dwconv; in_proj backward: dwxz += ys^T dxz, dxin = dxz wxz^T ------
-    for (int i = threadIdx.x; i < 3 * C; i += kThreads) {
-      const int j = i / C, c = i % C;
-      float a = 0.f;
-      for (int w = 0; w < nwin; ++w) a += dconv_part[((size_t)w * 3 + j) * C + c];
-      slot_add(slot + off.dwconv + i, a, first);
-    }
-    gemm<true, false>(slot, C, ys, C, dxzT, C, C, C, rows_pad, !first);
-    gemm<false, true>(xz, C, dxzT, C, wxz, C, rows_pad, C, C, false);
-    __syncthreads();
-
-    // ---- LayerNorm backward (with the residual's do), or dx = dxin ---------
-    const float* dy = xz;
-    if (has_ln) {
-      for (int c = threadIdx.x; c < Ct; c += kThreads) {
-        float sg = 0.f, sb = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          const float d = dy[(size_t)r * C + c];
-          sg += d * (to_f32(xt[(size_t)r * Ct + c]) - mus[r]) * rstds[r];
-          sb += d;
-        }
-        slot_add(slot + off.dg + c, sg, first);
-        slot_add(slot + off.dbln + c, sb, first);
-      }
-    }
-    T* dxt = dx + base;
-    if (has_ln) {
-      const float inv = 1.f / (float)Ct;
-      for (int r = warp; r < rows; r += kWarps) {
-        const float mu = mus[r], rstd = rstds[r];
-        float s1 = 0.f, s2 = 0.f;
-        for (int c = lane; c < Ct; c += 32) {
-          const float xhat = (to_f32(xt[(size_t)r * Ct + c]) - mu) * rstd;
-          const float dxh = dy[(size_t)r * C + c] * ln_g[c];
-          s1 += dxh;
-          s2 += dxh * xhat;
-        }
-        s1 = warp_sum(s1);
-        s2 = warp_sum(s2);
-        const float m1 = s1 * inv, m2 = s2 * inv;
-        for (int c = lane; c < Ct; c += 32) {
-          const float xhat = (to_f32(xt[(size_t)r * Ct + c]) - mu) * rstd;
-          const float dxh = dy[(size_t)r * C + c] * ln_g[c];
-          const float v = rstd * (dxh - m1 - xhat * m2) + to_f32(dos[(size_t)r * C + c]);
-          dxt[(size_t)r * Ct + c] = from_f32<T>(v);
-        }
-      }
-    } else {
-      for (int i = threadIdx.x; i < rows * Ct; i += kThreads)
-        dxt[i] = from_f32<T>(dy[(size_t)(i / Ct) * C + i % Ct]);
     }
     __syncthreads();
   }
+
+  // the block's d at, d D, d dtb2: its windows' threads summed in order
+  float* red = S;   // (tw, ch32, NP + 2) over S, Dt, dbl and the checkpoints, all free
+  if (tid < nthr) {
+#pragma unroll
+    for (int n = 0; n < NP; ++n) red[(size_t)tid * (NP + 2) + n] = dA[n];
+    red[(size_t)tid * (NP + 2) + NP] = dD;
+    red[(size_t)tid * (NP + 2) + NP + 1] = ddtb;
+  }
+  __syncthreads();
+  float* slot = a.slots + (size_t)blockIdx.x * a.P;
+  for (int i = tid; i < cw * (N + 2); i += kThreads) {
+    const int jj = i % cw, k = i / cw;   // k < N: d at[k]; N: d D; N + 1: d dtb2
+    const int kk = k < N ? k : NP + (k - N);
+    float s = 0.f;
+    for (int w = 0; w < tl.tw; ++w) s += red[(size_t)(w * tl.ch32 + jj) * (NP + 2) + kk];
+    const int cc = c0 + jj;
+    if (k < N) slot[a.off.dat + k * Dh + cc] = s;
+    else if (k == N) slot[a.off.dd + cc] = s;
+    else slot[a.off.ddtb + cc] = s;
+  }
+}
+
+// P2, the gate pass (the design note's pass 4). blockIdx.y < nch: a chunk of
+// the x half; else a chunk of the z half.
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads)
+mamba_gate_bwd_kernel(MambaArgs<T> a, MambaTiles tl, long long tiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int V = a.V, C = a.C, Dh = C / 2, R = a.R, N = a.N, W = R + 2 * N;
+  const GateLayout L = gate_layout<T>(tl, V, R, W);
+  float* Dbl = reinterpret_cast<float*>(smem);
+  T* DblT = reinterpret_cast<T*>(smem + L.off_dblt);
+  T* Xs = reinterpret_cast<T*>(smem + L.off_x);
+  T* Wd = reinterpret_cast<T*>(smem + L.off_wd);
+  float* Dx = reinterpret_cast<float*>(smem + L.off_dx);   // dx, then d SiLU-output
+  T* Wb = reinterpret_cast<T*>(smem + L.off_wb);
+  float* Zg = reinterpret_cast<float*>(smem + L.off_zg);   // the chunk's xz columns
+  const int w16 = round_up16(W), r16 = round_up16(R), ch16 = round_up16(tl.ch);
+  const bool zhalf = (int)blockIdx.y >= tl.nch;
+  const int c0 = (zhalf ? blockIdx.y - tl.nch : blockIdx.y) * tl.ch, cw = min(tl.ch, Dh - c0);
+  const int nthr = tl.tw * tl.ch32, tid = threadIdx.x;
+  const int sw = tid / tl.ch32, j = tid % tl.ch32;
+  const size_t nrows = (size_t)a.BW * V;
+  const int nslices = tl.nch * (tl.ch32 / 32);
+  const int c = (zhalf ? Dh : 0) + c0 + j;   // the column of xz, gyz, yz, dxz
+  float g0 = 0.f, g1 = 0.f, g2 = 0.f;        // dwconv of column c
+
+  const long long t_begin = tiles * blockIdx.x / gridDim.x;
+  const long long t_end = tiles * (blockIdx.x + 1) / gridDim.x;
+  for (long long tile = t_begin; tile < t_end; ++tile) {
+    const long long w0 = tile * tl.tw;
+    const int nwin = (int)min((long long)tl.tw, (long long)a.BW - w0);
+    const int rows = nwin * V;
+    const size_t row0 = (size_t)w0 * V;
+    const bool active = tid < nthr && sw < nwin && j < cw;
+
+    if (!zhalf) {
+      // ---- ddbl = [ddtv wdt^T | dB | dC] --------------------------------
+      for (int kc = 0; kc < Dh; kc += kZ) {
+        for (int i = tid; i < L.rows_pad * kZ; i += kThreads) {
+          const int r = i / kZ, k = i % kZ;
+          Xs[r * kLdX + k] = r < rows && kc + k < Dh ? a.ddtv[(row0 + r) * Dh + kc + k]
+                                                     : from_f32<T>(0.f);
+        }
+        for (int i = tid; i < r16 * kZ; i += kThreads) {
+          const int n = i / kZ, k = i % kZ;
+          Wd[n * kLdX + k] = n < R && kc + k < Dh ? a.wdt[(size_t)n * Dh + kc + k]
+                                                  : from_f32<T>(0.f);
+        }
+        __syncthreads();
+        gemm<false, true>(Dbl, L.ld_dbl, Xs, kLdX, Wd, kLdX, L.rows_pad, r16, kZ, kc > 0);
+        __syncthreads();
+      }
+      for (int i = tid; i < L.rows_pad * w16; i += kThreads) {
+        const int r = i / w16, k = i % w16;
+        float v = k < R ? Dbl[r * L.ld_dbl + k] : 0.f;
+        if (k >= R && k < W && r < rows) {
+          const int n = k - R, idx = n < N ? n : NP + n - N;
+          for (int s = 0; s < nslices; ++s)
+            v += a.bc[((size_t)s * nrows + row0 + r) * 2 * NP + idx];
+        }
+        const T vt = from_f32<T>(v);
+        DblT[r * L.ld_dblt + k] = vt;
+        if (blockIdx.y == 0 && r < rows && k < W) a.ddbl[(row0 + r) * W + k] = vt;
+      }
+      for (int i = tid; i < ch16 * w16; i += kThreads) {
+        const int n = i / w16, k = i % w16;
+        Wb[n * L.ld_wb + k] = n < cw && k < W ? a.wdbl[(size_t)(c0 + n) * W + k]
+                                              : from_f32<T>(0.f);
+      }
+      __syncthreads();
+      // the x_proj part of dx: ddbl wdbl[chunk, :]^T
+      gemm<false, true>(Dx, L.ld_dx, DblT, L.ld_dblt, Wb, L.ld_wb, L.rows_pad, ch16, w16, false);
+      __syncthreads();
+    }
+
+    // ---- the chunk's xz and the gradient of its SiLU output, staged --------
+    // with coalesced loads: x half, dx = the scan's part + the x_proj part
+    // (in Dx); z half, dz = gyz
+    for (int i = tid; i < L.rows_pad * tl.ch; i += kThreads) {
+      const int r = i / tl.ch, jj = i % tl.ch, cc = (zhalf ? Dh : 0) + c0 + jj;
+      const bool live = r < rows && jj < cw;
+      Zg[i] = live ? a.xz[(row0 + r) * C + cc] : 0.f;
+      float* d = Dx + r * L.ld_dx + jj;
+      if (zhalf) *d = live ? a.gyz[(row0 + r) * C + cc] : 0.f;
+      else if (live) *d += a.dxscan[(row0 + r) * Dh + c0 + jj];
+    }
+    __syncthreads();
+
+    // ---- SiLU and conv backward, a thread per (window, channel) -----------
+    if (active) {
+      const int rw = sw * V;
+      const float w0c = a.wconv[c], w1c = a.wconv[C + c], w2c = a.wconv[2 * C + c];
+      const float* col = Zg + rw * tl.ch + j;
+      float prev = 0.f, cur = col[0], dprev = 0.f, dcur = 0.f;
+      for (int t = 0; t < V; ++t) {
+        const size_t r = row0 + rw + t;
+        const float next = t + 1 < V ? col[(t + 1) * tl.ch] : 0.f;
+        const float u = cur * w1c + prev * w0c + next * w2c;
+        const float sg = sigmoidf(u);
+        if (zhalf) a.yz[r * C + c] = from_f32<T>(u * sg);
+        const float du = Dx[(rw + t) * L.ld_dx + j] * (sg * (1.f + u * (1.f - sg)));
+        g1 = fmaf(du, cur, g1);
+        g0 = fmaf(du, prev, g0);
+        g2 = fmaf(du, next, g2);
+        if (t > 0) {   // dxz[t - 1] = du[t-1] w1 + du[t] w0 + du[t-2] w2
+          float v = dcur * w1c + du * w0c;
+          if (t > 1) v += dprev * w2c;
+          a.dxz[(r - 1) * C + c] = from_f32<T>(v);
+        }
+        dprev = dcur;
+        dcur = du;
+        prev = cur;
+        cur = next;
+      }
+      float v = dcur * w1c;
+      if (V > 1) v += dprev * w2c;
+      a.dxz[(row0 + rw + V - 1) * C + c] = from_f32<T>(v);
+    }
+    __syncthreads();
+  }
+
+  // the block's dwconv: its windows' threads summed in order
+  float* red = Dx;   // (tw, ch32, 3), Dx is free
+  if (tid < nthr) {
+    red[tid * 3] = g0;
+    red[tid * 3 + 1] = g1;
+    red[tid * 3 + 2] = g2;
+  }
+  __syncthreads();
+  float* slot = a.slots + (size_t)blockIdx.x * a.P;
+  for (int i = tid; i < cw * 3; i += kThreads) {
+    const int jj = i % cw, k = i / cw;
+    float s = 0.f;
+    for (int w = 0; w < tl.tw; ++w) s += red[(w * tl.ch32 + jj) * 3 + k];
+    slot[a.off.dwconv + k * C + (zhalf ? Dh : 0) + c0 + jj] = s;
+  }
+}
+
+// Bytes of each stream in the workspace, in order, each 256-byte aligned.
+struct MambaWork {
+  size_t ys, xz, gyz, yz, xs, dts, ddtv, dxscan, bc, dxz, ddbl, partials, bytes;
+};
+
+inline MambaWork mamba_work(long long rows, int C, int R, int N, int elem, int has_ln, int S,
+                            size_t total) {
+  const int Dh = C / 2, NP = mamba_padded_state(N), W = R + 2 * N;
+  const MambaTiles tl = mamba_bwd_chunks(Dh);
+  const size_t n = (size_t)rows;
+  MambaWork w;
+  size_t at = 0;
+  auto take = [&](size_t b) { const size_t o = at; at += (b + 255) & ~size_t(255); return o; };
+  w.ys = take(has_ln ? n * C * elem : 0);
+  w.xz = take(n * C * 4);
+  w.gyz = take(n * C * 4);
+  w.yz = take(n * C * elem);
+  w.xs = take(n * Dh * elem);
+  w.dts = take(n * R * elem);
+  w.ddtv = take(n * Dh * elem);
+  w.dxscan = take(n * Dh * 4);
+  w.bc = take((size_t)tl.nch * (tl.ch32 / 32) * n * 2 * NP * 4);
+  w.dxz = take(n * C * elem);
+  w.ddbl = take(n * W * elem);
+  w.partials = take((size_t)S * total * 4);
+  w.bytes = at;
+  return w;
+}
+
+// The weight gradients [dwxz (C, C) | dwout (C, C) | dwdt (R, Dh) | dwdbl (Dh, W)].
+inline size_t mamba_wgrad_total(int C, int R, int N) {
+  const int Dh = C / 2;
+  return (size_t)2 * C * C + (size_t)R * Dh + (size_t)Dh * (R + 2 * N);
 }
 
 template <typename T>
-int launch_bwd(const void* x, const void* ln_g, const void* ln_b, const void* wxz,
-               const void* wconv, const void* wdbl, const void* wdt, const void* dtb2,
-               const void* at, const void* dskip, const void* wout, const void* dout, void* dx,
-               void* work, size_t work_bytes, float* slots, float* out, size_t P, MambaSlots off,
-               int max_slots, int BW, int V, int C, int R, int has_ln, cudaStream_t stream) {
-  const int wb = mamba_bwd_tile_windows(V, chunk_padded_channels(C));
-  const int rows_pad = round_up16(wb * V);
-  if (rows_pad > kMaxTileRows) return (int)cudaErrorInvalidValue;
-  if (mamba_bwd_layout(rows_pad, wb, chunk_padded_channels(C), R, sizeof(T)).bytes > work_bytes)
-    return (int)cudaErrorInvalidValue;
-  const long long tiles = (BW + wb - 1) / wb;
-  const int G = persistent_blocks(mamba_window_bwd_kernel<T>, 0, tiles, max_slots);
-  if (G <= 0) return (int)cudaErrorInvalidValue;
-  mamba_window_bwd_kernel<T><<<G, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
-      static_cast<const T*>(wxz), static_cast<const float*>(wconv), static_cast<const T*>(wdbl),
-      static_cast<const T*>(wdt), static_cast<const float*>(dtb2), static_cast<const float*>(at),
-      static_cast<const float*>(dskip), static_cast<const T*>(wout), static_cast<const T*>(dout),
-      static_cast<T*>(dx), static_cast<unsigned char*>(work), work_bytes, slots, P, off, BW, V, C,
-      R, wb, rows_pad, has_ln, tiles);
-  cudaError_t err = cudaGetLastError();
+Products<T> mamba_products(const MambaArgs<T>& a) {
+  const int C = a.C, Dh = C / 2, R = a.R, W = R + 2 * a.N;
+  Products<T> ps{};
+  ps.count = 4;
+  ps.p[0] = Product<T>{a.ys, a.dxz, C, C, C, C, 0};
+  ps.p[1] = Product<T>{a.yz, a.dout, C, C, C, C, (size_t)C * C};
+  ps.p[2] = Product<T>{a.dts, a.ddtv, R, Dh, R, Dh, (size_t)2 * C * C};
+  ps.p[3] = Product<T>{a.xs, a.ddbl, Dh, W, Dh, W, (size_t)2 * C * C + (size_t)R * Dh};
+  return ps;
+}
+
+// Row splits of the four weight-gradient products at output tiles of `tile`.
+inline int mamba_splits(long long rows, int C, int R, int N, int tile) {
+  const int Dh = C / 2, W = R + 2 * N;
+  const long long tiles = 2LL * ceil_div(C, tile) * ceil_div(C, tile) +
+                          (long long)ceil_div(R, tile) * ceil_div(Dh, tile) +
+                          (long long)ceil_div(Dh, tile) * ceil_div(W, tile);
+  return wgrad_splits_for(rows, tiles);
+}
+
+template <typename T, int NP>
+int launch_passes(MambaArgs<T>& a, float* partials, int S, float* wgrads, float* red,
+                  int max_slots, cudaStream_t stream) {
+  const int C = a.C, Dh = C / 2, R = a.R, W = R + 2 * a.N;
+  const long long rows = (long long)a.BW * a.V;
+  const MambaTiles tl = mamba_bwd_plan<T>(a.V, Dh, R, W, NP);
+  if (tl.tw == 0) return (int)cudaErrorInvalidValue;
+  const size_t sbytes = scan_layout<T>(tl, a.V, R, W, NP).bytes;
+  const size_t gbytes = gate_layout<T>(tl, a.V, R, W).bytes;
+  int e = 0;
+  const T* xt = a.x;
+  if (a.has_ln) {
+    if ((e = launch_ln_rows<T>(a.x, a.ln_g, a.ln_b, const_cast<T*>(a.ys), rows, C, stream)) != 0)
+      return e;
+  } else {
+    a.ys = xt;
+  }
+  if ((e = launch_gemm_rows<T, false>(a.ys, C, a.wxz, C, (int)rows, C, C, a.xz, stream)) != 0)
+    return e;
+  if ((e = launch_gemm_rows<T, true>(a.dout, C, a.wout, C, (int)rows, C, C, a.gyz, stream)) != 0)
+    return e;
+  auto scan = mamba_scan_bwd_kernel<T, NP>;
+  auto gate = mamba_gate_bwd_kernel<T, NP>;
+  cudaError_t err = cudaFuncSetAttribute(scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)sbytes);
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(slots, G, P, out, stream);
+  err = cudaFuncSetAttribute(gate, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gbytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (a.BW + tl.tw - 1) / tl.tw;
+  const int sms = device_sms();
+  long long G = 2LL * sms;
+  if (G > tiles) G = tiles;
+  if (G > max_slots) G = max_slots;
+  if (G < 1) return (int)cudaErrorInvalidValue;
+  scan<<<dim3((unsigned)G, (unsigned)tl.nch), kThreads, sbytes, stream>>>(a, tl, tiles);
+  if ((e = (int)cudaGetLastError()) != 0) return e;
+  gate<<<dim3((unsigned)G, (unsigned)(2 * tl.nch)), kThreads, gbytes, stream>>>(a, tl, tiles);
+  if ((e = (int)cudaGetLastError()) != 0) return e;
+  // dxin = dxz wxz^T into xz's space
+  if ((e = launch_gemm_rows<T, true>(a.dxz, C, a.wxz, C, (int)rows, C, C, a.xz, stream)) != 0)
+    return e;
+  // the row pass runs on all max_slots blocks (latency-bound rows want many
+  // warps): its slot columns (dg, dbln, the last) sum over max_slots
+  if ((e = launch_ln_bwd<T>(a.xz, a.x, a.dout, a.ln_g, a.dx, a.slots, a.P,
+                            LnSlots{a.off.dg, a.off.dbln, -1}, max_slots, rows, C, a.has_ln,
+                            stream)) != 0)
+    return e;
+  if ((e = launch_reduce(a.slots, (int)G, a.P, (size_t)a.off.dg, red, stream)) != 0) return e;
+  if ((e = launch_reduce(a.slots + a.off.dg, max_slots, a.P, a.P - a.off.dg, red + a.off.dg,
+                         stream)) != 0)
+    return e;
+  return launch_split_k<T>(mamba_products(a), rows, S, mamba_wgrad_total(C, R, a.N), partials,
+                         wgrads, stream);
+}
+
+template <typename T>
+MambaArgs<T> mamba_args(const void* x, const void* ln_g, const void* ln_b, const void* wxz,
+                        const void* wconv, const void* wdbl, const void* wdt, const void* dtb2,
+                        const void* at, const void* dskip, const void* wout, const void* dout,
+                        void* dx, unsigned char* work, const MambaWork& w, float* slots, size_t P,
+                        MambaSlots off, int BW, int V, int C, int R, int N, int has_ln) {
+  MambaArgs<T> a;
+  a.x = static_cast<const T*>(x);
+  a.ln_g = static_cast<const float*>(ln_g);
+  a.ln_b = static_cast<const float*>(ln_b);
+  a.wxz = static_cast<const T*>(wxz);
+  a.wconv = static_cast<const float*>(wconv);
+  a.wdbl = static_cast<const T*>(wdbl);
+  a.wdt = static_cast<const T*>(wdt);
+  a.dtb2 = static_cast<const float*>(dtb2);
+  a.at = static_cast<const float*>(at);
+  a.dskip = static_cast<const float*>(dskip);
+  a.wout = static_cast<const T*>(wout);
+  a.dout = static_cast<const T*>(dout);
+  a.dx = static_cast<T*>(dx);
+  a.ys = reinterpret_cast<const T*>(work + w.ys);
+  a.xz = reinterpret_cast<float*>(work + w.xz);
+  a.gyz = reinterpret_cast<float*>(work + w.gyz);
+  a.yz = reinterpret_cast<T*>(work + w.yz);
+  a.xs = reinterpret_cast<T*>(work + w.xs);
+  a.dts = reinterpret_cast<T*>(work + w.dts);
+  a.ddtv = reinterpret_cast<T*>(work + w.ddtv);
+  a.dxscan = reinterpret_cast<float*>(work + w.dxscan);
+  a.bc = reinterpret_cast<float*>(work + w.bc);
+  a.dxz = reinterpret_cast<T*>(work + w.dxz);
+  a.ddbl = reinterpret_cast<T*>(work + w.ddbl);
+  a.slots = slots;
+  a.P = P;
+  a.off = off;
+  a.BW = BW;
+  a.V = V;
+  a.C = C;
+  a.R = R;
+  a.N = N;
+  a.has_ln = has_ln;
+  return a;
 }
 
 }  // namespace lcbi
 
-// The padded width this library's kernels run on (common.cuh): the wrapper
-// lays the weights, taps and biases out at it.
-extern "C" int lcbi_padded_channels(int C) { return lcbi::chunk_padded_channels(C); }
-
-// Bytes of global scratch one block of the backward uses (its tile's
-// intermediates, MambaBwdLayout) for windows of V tokens at C channels and dt
-// rank R, or -1 where the kernel cannot take the shape.
-extern "C" long long lcbi_mamba_window_bwd_workspace(int V, int C, int R, int is_bf16) {
-  if (!lcbi::mamba_shape_ok(1, V, C, R)) return -1;
-  const int Cp = lcbi::chunk_padded_channels(C);
-  const int wb = lcbi::mamba_bwd_tile_windows(V, Cp);
-  return (long long)lcbi::mamba_bwd_layout(lcbi::round_up16(wb * V), wb, Cp, R, is_bf16 ? 2 : 4)
+// Row splits of the weight-gradient products and the bytes of workspace the
+// backward needs for BW windows of V tokens at C channels, dt rank R and N
+// states: *splits and the return value (-1 where it cannot take the shape).
+extern "C" long long lcbi_mamba_window_bwd_workspace(int BW, int V, int C, int R, int N,
+                                                     int has_ln, int is_bf16, int* splits) {
+  if (!lcbi::mamba_shape_ok(BW, V, C, R, N)) return -1;
+  const long long rows = (long long)BW * V;
+  const int elem = is_bf16 ? 2 : 4;
+  *splits = lcbi::mamba_splits(rows, C, R, N, is_bf16 ? lcbi::kMmaTile : lcbi::kF32Tile);
+  if (*splits < 1) return -1;
+  return (long long)lcbi::mamba_work(rows, C, R, N, elem, has_ln, *splits,
+                                     lcbi::mamba_wgrad_total(C, R, N))
       .bytes;
 }
 
-// x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); the weights
-// and per-channel operands padded as the forward's (Cp = C rounded up to 32):
-// wxz, wout: (Cp, Cp), wdbl: (Cp/2, R + 16) and wdt: (R, Cp/2) in T; wconv: (3,
-// Cp), at: (8, Cp/2), dtb2, dskip: (Cp/2,) fp32; if has_ln, ln_g, ln_b: (C,)
-// fp32. work: max_slots x work_floats fp32 scratch, work_floats at least
-// lcbi_mamba_window_bwd_workspace / 4 and a multiple of 32. slots: max_slots x
-// P fp32 (P a multiple of 8; offsets in floats inside a block's slot, every
-// gradient in the padded layout: dwxz (Cp, Cp) at 0, dwout (Cp, Cp) at
-// off_dwout, a multiple of 8, then dwconv (3, Cp), dwdbl (Cp/2, R + 16), dwdt
-// (R, Cp/2), ddtb (Cp/2), dat (8, Cp/2), dd (Cp/2), dg, dbln (C, each at least
-// Cp floats apart)). out: (P,) fp32, the slots summed. 16 <= V <= 64 with V %
-// 8 == 0, C even, 1 <= R <= 64, all pointers 32-byte aligned. Returns
-// cudaGetLastError() of the launches.
+// x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); at the true
+// C: wxz, wout: (C, C), wdbl: (C/2, R + 2N) and wdt: (R, C/2) in T; wconv:
+// (3, C), at: (N, C/2), dtb2, dskip: (C/2,) fp32; if has_ln, ln_g, ln_b: (C,)
+// fp32. work: work_bytes of scratch (lcbi_mamba_window_bwd_workspace, which
+// also gives S). wgrads: fp32 receives [dwxz (C, C) | dwout (C, C) | dwdt (R,
+// C/2) | dwdbl (C/2, R + 2N)]. slots: max_slots x P fp32 (P a multiple of 8;
+// offsets in floats inside a block's slot: dwconv (3, C), ddtb (C/2), dat (N,
+// C/2), dd (C/2), dg, dbln (C)). out: (P,) fp32, the slots summed. 16 <= V <=
+// 64 with V % 8 == 0, C even, 1 <= R <= 64, 1 <= N <= 16, all pointers
+// 32-byte aligned. Returns cudaGetLastError() of the launches.
 extern "C" int lcbi_mamba_window_bwd(const void* x, const void* ln_g, const void* ln_b,
                                      const void* wxz, const void* wconv, const void* wdbl,
                                      const void* wdt, const void* dtb2, const void* at,
                                      const void* dskip, const void* wout, const void* dout,
-                                     void* dx, void* work, void* slots, void* out, int BW, int V,
-                                     int C, int R, int has_ln, int is_bf16, int max_slots,
-                                     long long work_floats, long long P, int off_dwout,
-                                     int off_dwconv, int off_dwdbl, int off_dwdt, int off_ddtb,
-                                     int off_dat, int off_dd, int off_dg, int off_dbln,
-                                     void* stream) {
+                                     void* dx, void* work, long long work_bytes, void* wgrads,
+                                     int S, void* slots, void* out, int BW, int V, int C, int R,
+                                     int N, int has_ln, int is_bf16, int max_slots, long long P,
+                                     int off_dwconv, int off_ddtb, int off_dat, int off_dd,
+                                     int off_dg, int off_dbln, void* stream) {
   (void)cudaGetLastError();
-  if (!lcbi::mamba_shape_ok(BW, V, C, R) || max_slots < 1 || work_floats % 32 != 0 ||
-      P % 8 != 0 || off_dwout % 8 != 0)
+  if (!lcbi::mamba_shape_ok(BW, V, C, R, N) || max_slots < 1 || P % 8 != 0 || S < 1)
     return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)BW * V;
+  const lcbi::MambaWork w = lcbi::mamba_work(rows, C, R, N, is_bf16 ? 2 : 4, has_ln, S,
+                                             lcbi::mamba_wgrad_total(C, R, N));
+  if ((long long)w.bytes > work_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const lcbi::MambaSlots off{off_dwout, off_dwconv, off_dwdbl, off_dwdt, off_ddtb,
-                             off_dat,   off_dd,     off_dg,    off_dbln};
+  const lcbi::MambaSlots off{off_dwconv, off_ddtb, off_dat, off_dd, off_dg, off_dbln};
+  unsigned char* wk = static_cast<unsigned char*>(work);
+  float* parts = reinterpret_cast<float*>(wk + w.partials);
   float* sl = static_cast<float*>(slots);
   float* o = static_cast<float*>(out);
-  const size_t wbytes = (size_t)work_floats * 4;
-  if (is_bf16)
-    return lcbi::launch_bwd<__nv_bfloat16>(x, ln_g, ln_b, wxz, wconv, wdbl, wdt, dtb2, at, dskip,
-                                           wout, dout, dx, work, wbytes, sl, o, (size_t)P, off,
-                                           max_slots, BW, V, C, R, has_ln, s);
-  return lcbi::launch_bwd<float>(x, ln_g, ln_b, wxz, wconv, wdbl, wdt, dtb2, at, dskip, wout,
-                                 dout, dx, work, wbytes, sl, o, (size_t)P, off, max_slots, BW, V,
-                                 C, R, has_ln, s);
+  float* wg = static_cast<float*>(wgrads);
+  const bool wide = lcbi::mamba_padded_state(N) == 16;
+  if (is_bf16) {
+    auto a = lcbi::mamba_args<__nv_bfloat16>(x, ln_g, ln_b, wxz, wconv, wdbl, wdt, dtb2, at,
+                                             dskip, wout, dout, dx, wk, w, sl, (size_t)P, off, BW,
+                                             V, C, R, N, has_ln);
+    return wide ? lcbi::launch_passes<__nv_bfloat16, 16>(a, parts, S, wg, o, max_slots, s)
+                : lcbi::launch_passes<__nv_bfloat16, 8>(a, parts, S, wg, o, max_slots, s);
+  }
+  auto a = lcbi::mamba_args<float>(x, ln_g, ln_b, wxz, wconv, wdbl, wdt, dtb2, at, dskip, wout,
+                                   dout, dx, wk, w, sl, (size_t)P, off, BW, V, C, R, N, has_ln);
+  return wide ? lcbi::launch_passes<float, 16>(a, parts, S, wg, o, max_slots, s)
+              : lcbi::launch_passes<float, 8>(a, parts, S, wg, o, max_slots, s);
 }

@@ -8,8 +8,15 @@
 // (dwqkv_ref and dwout_ref, accumulated over its sequential grid in VMEM;
 // pallas_call in _call_bwd): products of the same T operands, fp32 sums.
 //
-// The kernel and its design are in wgrad.cuh (K1's backward runs it too).
+// The kernel and its design are in wgrad.cuh and mma_gemm.cuh (K1's, K2's
+// and K4's backwards run it too).
 #include "wgrad.cuh"
+
+// Row splits of the two products for N rows of C channels: the wrapper
+// allocates that many partials of 4 C^2 floats. 0 on a device query error.
+extern "C" int lcbi_window_attention_wgrad_splits(long long N, int C) {
+  return lcbi::wgrad_splits(N, C);
+}
 
 // x, o, dout: (N, C) and dqkv: (N, 3C) in T (fp32 if is_bf16 == 0, else bf16).
 // partials: S x 4C^2 fp32 scratch; out: 4C^2 fp32 receives [dWqkv (C, 3C) |

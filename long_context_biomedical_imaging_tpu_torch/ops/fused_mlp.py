@@ -5,8 +5,8 @@ Counterpart of ``long_context_biomedical_imaging_tpu/ops/fused_mlp.py``
 a CUDA tensor the wrappers launch the hand-written kernels
 ``csrc/fused_mlp.cu`` (forward) and ``csrc/fused_mlp_bwd.cu`` (backward,
 which recomputes the hidden from x); K2' is the same kernels with the
-LayerNorm and the residual switched off by a template argument, behind their
-own C entry points and launch counters. On a CPU tensor they run
+LayerNorm and the residual switched off, behind their own C entry points
+and launch counters. On a CPU tensor they run
 :func:`fused_ln_mlp_residual_plain` / :func:`fused_mlp_plain` and their
 vector-Jacobian products.
 
@@ -19,14 +19,16 @@ the residual add. The backward kernel rounds the operands of its products
 (y, h, du, do) to ``x.dtype`` as the TPU kernel does and returns dw1, dw2 in
 the weight dtype and the other gradients in fp32.
 
-Widths: the kernels take any C and H. Their tiles run on C rounded up to 16
-and H rounded up to 64, as their library reports (``lcbi_padded_channels``,
-``lcbi_padded_hidden``; ``csrc/common.cuh``); the rows load at the true C
-(LayerNorm statistics over C, zeros past it) and only the true columns are
-stored. The wrappers hand them the weights padded with zeros to those widths
+Widths: the kernels take any C and H. The forward's tiles run on C rounded
+up to 16 and H rounded up to 64, as its library reports
+(``lcbi_padded_channels``, ``lcbi_padded_hidden``; ``csrc/common.cuh``): its
+wrappers hand it the weights padded with zeros to those widths
 (:func:`_padded_weights`, a copy of the weights only where a width is not
-aligned; the activations are never padded) and cut the weight gradients
-back to the true widths.
+aligned; the activations are never padded). The backward stages its weight
+slices through shared memory with the tails masked and takes the weights as
+they are. It writes the operands of its weight gradients as streams (y, h,
+du in ``x.dtype``) and dy in fp32, which the wrapper allocates
+(:func:`_bwd_scratch`) and its library contracts in the same call.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import (CudaKernel, check_cuda_operand, pad_blocks, padded_width, ptr,
-                         slot_count, slot_grad, slot_layout, stream_handle)
+                         slot_count, slot_layout, stream_handle)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, as the TPU kernels
 
@@ -46,15 +48,15 @@ FUSED_LN_MLP_FWD = CudaKernel(
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 FUSED_LN_MLP_BWD = CudaKernel(
     "fused_mlp_bwd.cu", "lcbi_fused_ln_mlp_bwd",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-    + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 13 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 FUSED_MLP_FWD = CudaKernel(
     "fused_mlp.cu", "lcbi_fused_mlp_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_void_p])
 FUSED_MLP_BWD = CudaKernel(
     "fused_mlp_bwd.cu", "lcbi_fused_mlp_bwd",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-    + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def layer_norm_f32(x32, scale, bias):
@@ -141,38 +143,58 @@ def _fwd_cuda(x2, g, b, w1, b1, w2, b2):
     return out
 
 
+def _bwd_scratch(kernel, x2, hidden, small):
+    """The backward's scratch at the true widths: the streams h and du (N,
+    H) in x.dtype, dy (N, C) fp32, the split-K partials of [dw1 | dw2] (as
+    many splits as the library asks for) and their sum, and the slots of the
+    small gradients ``small`` ((name, floats) pairs) with their sum."""
+    n, c = x2.shape
+    dev, dt = x2.device, x2.dtype
+    splits = kernel.query("lcbi_fused_mlp_wgrad_splits", [ctypes.c_longlong] + [ctypes.c_int] * 3,
+                          ctypes.c_int, n, c, hidden, int(dt == torch.bfloat16))
+    if splits < 1:
+        raise RuntimeError("lcbi_fused_mlp_wgrad_splits: device query failed")
+    layout, size = slot_layout(small)
+    f32 = dict(device=dev, dtype=torch.float32)
+    return dict(hs=torch.empty(n, hidden, device=dev, dtype=dt),
+                dus=torch.empty(n, hidden, device=dev, dtype=dt), dy=torch.empty(n, c, **f32),
+                splits=splits, partials=torch.empty(splits, 2 * c * hidden, **f32),
+                wgrads=torch.empty(2 * c * hidden, **f32), layout=layout, size=size,
+                slots=torch.empty(slot_count(size, dev), size, **f32), red=torch.empty(size, **f32))
+
+
+def _bwd_grads(s, c, hidden, leading=(), w_dtype=torch.float32):
+    """The gradients in a backward's scratch ``s``: those named in
+    ``leading`` (each (C,) fp32), then dw1 and dw2 in w_dtype, db1 and db2 in
+    fp32."""
+    red, layout, wg = s["red"], s["layout"], s["wgrads"]
+
+    def small(name, width):
+        return red[layout[name]:layout[name] + width]
+
+    return (*(small(name, c) for name in leading), wg[:c * hidden].view(c, hidden).to(w_dtype),
+            small("db1", hidden), wg[c * hidden:].view(hidden, c).to(w_dtype), small("db2", c))
+
+
 def fused_ln_mlp_residual_bwd(do, x2, g, b, w1, b1, w2, b2):
-    """The backward kernel on CUDA (x2: (N, C); g, b, b1, b2 fp32): the
-    gradients of :func:`fused_ln_mlp_residual_bwd_plain`, in the same order
-    and dtypes."""
+    """The backward kernel on CUDA (x2: (N, C); g, b, b1, b2 fp32), at the
+    true widths (no padded copies): the gradients of
+    :func:`fused_ln_mlp_residual_bwd_plain`, in the same order and dtypes."""
     _check_operands(x2, (g, b, b1, b2), w1, w2)
     n, c = x2.shape
+    hidden = w1.shape[1]
     check_cuda_operand("do", do, x2.device, x2.dtype, (n, c))
-    w1p, b1, w2p, cw, hw = _padded_weights(FUSED_LN_MLP_BWD, w1, b1, w2)
-    cp, hp = cw[1], hw[1]
-    layout, size = slot_layout([("dw1", cp * hp), ("dw2", hp * cp), ("db1", hp),
-                                ("db2", cp), ("dg", cp), ("dbln", cp)])
-    slots = torch.empty(slot_count(size, x2.device), size, device=x2.device,
-                        dtype=torch.float32)
-    red = torch.empty(size, device=x2.device, dtype=torch.float32)
+    s = _bwd_scratch(FUSED_LN_MLP_BWD, x2, hidden,
+                     [("db1", hidden), ("db2", c), ("dg", c), ("dbln", c)])
+    ys = torch.empty_like(x2)
     dx = torch.empty_like(x2)
-    FUSED_LN_MLP_BWD(ptr(x2), ptr(g), ptr(b), ptr(w1p), ptr(b1), ptr(w2p), ptr(do), ptr(dx),
-                     ptr(slots), ptr(red), n, c, hp, int(x2.dtype == torch.bfloat16),
-                     slots.shape[0], size, layout["dw2"], layout["db1"], layout["db2"],
-                     layout["dg"], layout["dbln"], stream_handle(x2.device))
-    return (dx, *_mlp_grads(red, layout, cw, hw, ("dg", "dbln"), w1.dtype))
-
-
-def _mlp_grads(red, layout, cw, hw, leading=(), w_dtype=torch.float32):
-    """The reduced slot's gradients at the true widths (cw, hw: C's and H's
-    (width, padded width)): those named in ``leading`` (each (C,) fp32),
-    then dw1 and dw2 in w_dtype, db1 and db2 in fp32."""
-    (c, cp), (hidden, hp) = cw, hw
-    return (*(slot_grad(red, layout, n, (c,)) for n in leading),
-            slot_grad(red, layout, "dw1", (cp, hp), [(*cw, (0,)), (*hw, (1,))], w_dtype),
-            slot_grad(red, layout, "db1", (hidden,)),
-            slot_grad(red, layout, "dw2", (hp, cp), [(*hw, (0,)), (*cw, (1,))], w_dtype),
-            slot_grad(red, layout, "db2", (c,)))
+    FUSED_LN_MLP_BWD(*(ptr(t) for t in (x2, g, b, w1, b1, w2, do, dx, ys, s["hs"], s["dus"],
+                                        s["dy"], s["partials"])),
+                     s["splits"], ptr(s["wgrads"]), ptr(s["slots"]), ptr(s["red"]), n, c, hidden,
+                     int(x2.dtype == torch.bfloat16), s["slots"].shape[0], s["size"],
+                     *(s["layout"][k] for k in ("db1", "db2", "dg", "dbln")),
+                     stream_handle(x2.device))
+    return (dx, *_bwd_grads(s, c, hidden, ("dg", "dbln"), w1.dtype))
 
 
 class _FusedLnMlpResidual(torch.autograd.Function):
@@ -265,23 +287,21 @@ def fused_mlp_fwd(x2, w1, b1, w2, b2):
 
 
 def fused_mlp_bwd(do, x2, w1, b1, w2, b2):
-    """The K2' backward kernel on CUDA (operands as :func:`fused_mlp_fwd`):
-    (dx in x2.dtype, dw1, db1, dw2, db2 in fp32), summed over the rows in
-    K2's fixed order."""
+    """The K2' backward kernel on CUDA (operands as :func:`fused_mlp_fwd`,
+    at the true widths): (dx in x2.dtype, dw1, db1, dw2, db2 in fp32),
+    summed over the rows in K2's fixed order."""
     _check_mlp_operands(x2, w1, b1, w2, b2)
     n, c = x2.shape
+    hidden = w1.shape[1]
     check_cuda_operand("do", do, x2.device, x2.dtype, (n, c))
-    w1p, b1, w2p, cw, hw = _padded_weights(FUSED_MLP_BWD, w1, b1, w2)
-    cp, hp = cw[1], hw[1]
-    layout, size = slot_layout([("dw1", cp * hp), ("dw2", hp * cp), ("db1", hp), ("db2", cp)])
-    slots = torch.empty(slot_count(size, x2.device), size, device=x2.device,
-                        dtype=torch.float32)
-    red = torch.empty(size, device=x2.device, dtype=torch.float32)
+    s = _bwd_scratch(FUSED_MLP_BWD, x2, hidden, [("db1", hidden), ("db2", c)])
     dx = torch.empty_like(x2)
-    FUSED_MLP_BWD(ptr(x2), ptr(w1p), ptr(b1), ptr(w2p), ptr(do), ptr(dx), ptr(slots), ptr(red),
-                  n, c, hp, int(x2.dtype == torch.bfloat16), slots.shape[0], size,
-                  layout["dw2"], layout["db1"], layout["db2"], stream_handle(x2.device))
-    return (dx, *_mlp_grads(red, layout, cw, hw))
+    FUSED_MLP_BWD(*(ptr(t) for t in (x2, w1, b1, w2, do, dx, s["hs"], s["dus"], s["dy"],
+                                     s["partials"])),
+                  s["splits"], ptr(s["wgrads"]), ptr(s["slots"]), ptr(s["red"]), n, c, hidden,
+                  int(x2.dtype == torch.bfloat16), s["slots"].shape[0], s["size"],
+                  s["layout"]["db1"], s["layout"]["db2"], stream_handle(x2.device))
+    return (dx, *_bwd_grads(s, c, hidden))
 
 
 class _FusedMlp(torch.autograd.Function):

@@ -30,39 +30,45 @@ copied. The backward rounds its products' operands where the TPU kernel does
 and returns the projection weights' gradients in their dtype, the rest in fp32.
 
 The kernels take every window length of the gate (:func:`mamba_window_supported`)
-at any even C and a dt rank up to 64. Their tiles run on C rounded up to 32,
-as their library reports (``lcbi_padded_channels``; ``csrc/common.cuh``); the
-rows load at the true C (LayerNorm statistics over C) and only the true
-columns are stored, and the wrappers hand them the weights and per-channel
-operands with each C/2 block padded with zeros (:func:`_padded_operands`, a
-copy only where C % 32 != 0; the activations are never padded) and cut the
-gradients back. Each kernel sizes its global scratch
-itself (the forward's tile moves there, wholly or in part, where it outgrows
-shared memory); the wrappers ask the library
+at any even C, a dt rank up to 64 and a d_state N up to 16 (run at a padded
+state count of 8 or 16, whose padded states stay zero: the forward's wrapper
+pads the state blocks, :func:`_padded_states`; a larger N raises).
+The forward's tiles run on C rounded up to 32, as its library reports
+(``lcbi_padded_channels``; ``csrc/common.cuh``); the rows load at the true C
+(LayerNorm statistics over C) and only the true columns are stored, and the
+wrapper hands it the weights and per-channel operands with each C/2 block
+padded with zeros (:func:`_padded_operands`, a copy only where C % 32 != 0;
+the activations are never padded). The backward stages its weight tiles
+through shared memory with the tails masked and takes every operand at the
+true C. Each kernel sizes its global scratch itself (the forward's tile
+moves there, wholly or in part, where it outgrows shared memory; the
+backward's passes hand each other streams); the wrappers ask the library
 (``lcbi_mamba_window_{fwd,bwd}_workspace``) and allocate it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from .cuda_build import (CudaKernel, check_cuda_operand, pad_blocks, padded_width, ptr,
-                         slot_count, slot_grad, slot_layout, stream_handle)
+                         slot_count, slot_layout, stream_handle)
 from .fused_mlp import layer_norm_f32, matmul_rounded
 from .selective_scan import selective_scan_cm
 
 MAMBA_WINDOW_MAX_LEN = 64
-MAMBA_KERNEL_STATE = 8          # the kernels' d_state (MambaVisionMixer's)
+MAMBA_MAX_STATE = 16            # the largest d_state the kernels take
 
 MAMBA_WINDOW_FWD = CudaKernel(
     "mamba_window.cu", "lcbi_mamba_window_fwd",
-    [ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 MAMBA_WINDOW_BWD = CudaKernel(
     "mamba_window_bwd.cu", "lcbi_mamba_window_bwd",
-    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
-    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_void_p] + [ctypes.c_int]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+    + [ctypes.c_void_p])
 
 
 def mamba_window_supported(v: int) -> bool:
@@ -134,9 +140,10 @@ def _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out, ln_scal
     if not mamba_window_supported(v) or bw == 0 or c == 0 or c % 2 or x.numel() >= 2**31:
         raise ValueError(f"Mamba window kernel needs 16 <= V <= 64, V % 8 == 0, an even C "
                          f"and 0 < BW*V*C < 2^31; got BW={bw}, V={v}, C={c}")
-    if at.shape[0] != MAMBA_KERNEL_STATE:
-        raise ValueError(f"Mamba window kernel takes d_state {MAMBA_KERNEL_STATE}, "
-                         f"got {at.shape[0]}")
+    n = at.shape[0]
+    if not 1 <= n <= MAMBA_MAX_STATE:
+        raise ValueError(f"Mamba window kernel takes a d_state of 1 to {MAMBA_MAX_STATE}, got "
+                         f"{n} (a wider state is ROADMAP.md queue 2, 'Still to port')")
     dh, r = c // 2, w_dt.shape[0]
     if not 1 <= r <= 64:
         raise ValueError(f"Mamba window kernel takes a dt rank of 1 to 64, got {r}")
@@ -144,16 +151,16 @@ def _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out, ln_scal
     check_cuda_operand("x", x, dev, x.dtype, (bw, v, c))
     check_cuda_operand("w_xz", w_xz, dev, x.dtype, (c, c))
     check_cuda_operand("w_out", w_out, dev, x.dtype, (c, c))
-    check_cuda_operand("w_dbl", w_dbl, dev, x.dtype, (dh, r + 2 * MAMBA_KERNEL_STATE))
+    check_cuda_operand("w_dbl", w_dbl, dev, x.dtype, (dh, r + 2 * n))
     check_cuda_operand("w_dt", w_dt, dev, x.dtype, (r, dh))
     check_cuda_operand("wconv", wconv, dev, torch.float32, (3, c))
-    check_cuda_operand("at", at, dev, torch.float32, (MAMBA_KERNEL_STATE, dh))
+    check_cuda_operand("at", at, dev, torch.float32, (n, dh))
     check_cuda_operand("dtb2", dtb2, dev, torch.float32, (dh,))
     check_cuda_operand("dskip", dskip, dev, torch.float32, (dh,))
     if ln_scale is not None:
         check_cuda_operand("ln_scale", ln_scale, dev, torch.float32, (c,))
         check_cuda_operand("ln_bias", ln_bias, dev, torch.float32, (c,))
-    return bw, v, c, r
+    return bw, v, c, r, n
 
 
 # each operand's (dims read as one C-wide block, dims read as C/2-wide blocks):
@@ -172,13 +179,25 @@ def _blocks(c, cp, name):
 
 
 def _padded_operands(kernel, c, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out):
-    """The padded width cp that the kernel's library reports for C (a
-    multiple of 32), then the operands in the kernel's layout: each C/2
-    block padded with zeros to cp / 2, w_xz's rows and w_out's columns to
-    cp."""
+    """The padded width cp that the forward's library reports for C (a
+    multiple of 32), then the operands in its layout: each C/2 block padded
+    with zeros to cp / 2, w_xz's rows and w_out's columns to cp."""
     cp = padded_width(kernel, "lcbi_padded_channels", c)
     operands = (w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out)
     return (cp, *(pad_blocks(t, _blocks(c, cp, name)) for name, t in zip(_OPERAND_DIMS, operands)))
+
+
+def _padded_states(w_dbl, at, r):
+    """w_dbl and at with d_state N padded with zeros to the forward's state
+    count (8 or 16): at's rows and w_dbl's B and C column blocks. A padded
+    state has A = B = C = 0, so its h stays 0 and it adds nothing to y."""
+    n = at.shape[0]
+    pad = (8 if n <= 8 else 16) - n
+    if pad == 0:
+        return w_dbl, at
+    zeros = w_dbl.new_zeros(w_dbl.shape[0], pad)
+    return (torch.cat([w_dbl[:, :r + n], zeros, w_dbl[:, r + n:], zeros], dim=1),
+            torch.cat([at, at.new_zeros(pad, at.shape[1])]))
 
 
 def _workspace_bytes(kernel, symbol, *shape) -> int:
@@ -187,8 +206,8 @@ def _workspace_bytes(kernel, symbol, *shape) -> int:
     shape."""
     n = kernel.query(symbol, [ctypes.c_int] * len(shape), ctypes.c_longlong, *shape)
     if n < 0:
-        raise ValueError(f"{symbol}: the Mamba window kernel cannot take (V, C, R, bf16) = "
-                         f"{shape[-4:]}")
+        raise ValueError(f"{symbol}: the Mamba window kernel cannot take (V, C, R, N, bf16) = "
+                         f"{shape[-5:]}")
     return n
 
 
@@ -196,62 +215,69 @@ def mamba_window_fwd(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
                      ln_scale=None, ln_bias=None):
     """The K4 forward kernel on CUDA, on prepared operands: the output of
     :func:`mamba_window_plain`."""
-    bw, v, c, r = _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
-                                  ln_scale, ln_bias)
+    bw, v, c, r, _ = _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
+                                     ln_scale, ln_bias)
+    w_dbl, at = _padded_states(w_dbl, at, r)
+    n = at.shape[0]
     _, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out = _padded_operands(
         MAMBA_WINDOW_FWD, c, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out)
     bf16 = int(x.dtype == torch.bfloat16)
     nbytes = _workspace_bytes(MAMBA_WINDOW_FWD, "lcbi_mamba_window_fwd_workspace",
-                              bw, v, c, r, bf16)
+                              bw, v, c, r, n, bf16)
     work = torch.empty(nbytes // 4, device=x.device, dtype=torch.float32) if nbytes else None
     out = torch.empty_like(x)
     MAMBA_WINDOW_FWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_xz), ptr(wconv), ptr(w_dbl),
                      ptr(w_dt), ptr(dtb2), ptr(at), ptr(dskip), ptr(w_out), ptr(out), ptr(work),
-                     nbytes, bw, v, c, r, int(ln_scale is not None), bf16,
+                     nbytes, bw, v, c, r, n, int(ln_scale is not None), bf16,
                      stream_handle(x.device))
     return out
 
 
 def mamba_window_bwd(do, x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
                      ln_scale=None, ln_bias=None):
-    """The K4 backward kernel on CUDA, on prepared operands: the gradients of
-    :func:`mamba_window_bwd_plain`, in the same order and dtypes."""
-    bw, v, c, r = _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
-                                  ln_scale, ln_bias)
-    check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
-    n = MAMBA_KERNEL_STATE
-    w = r + 2 * n
-    cp, *padded = _padded_operands(MAMBA_WINDOW_BWD, c, w_xz, wconv, w_dbl, w_dt, dtb2, at,
-                                   dskip, w_out)
-    dhp = cp // 2
-    layout, size = slot_layout([("dwxz", cp * cp), ("dwout", cp * cp), ("dwconv", 3 * cp),
-                                ("dwdbl", dhp * w), ("dwdt", r * dhp), ("ddtb", dhp),
-                                ("dat", n * dhp), ("dd", dhp), ("dg", cp), ("dbln", cp)])
+    """The K4 backward kernel on CUDA, on prepared operands at the true C (no
+    padded copies): the gradients of :func:`mamba_window_bwd_plain`, in the
+    same order and dtypes. Its library sizes the workspace of its passes'
+    streams and split-K partials and the number of splits."""
+    bw, v, c, r, n = _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
+                                     ln_scale, ln_bias)
+    dev = x.device
+    check_cuda_operand("do", do, dev, x.dtype, (bw, v, c))
+    dh, w, has_ln = c // 2, r + 2 * n, ln_scale is not None
     bf16 = int(x.dtype == torch.bfloat16)
-    per_block = _workspace_bytes(MAMBA_WINDOW_BWD, "lcbi_mamba_window_bwd_workspace",
-                                 v, c, r, bf16) // 4
-    n_slots = slot_count(size, x.device)
-    slots = torch.empty(n_slots, size, device=x.device, dtype=torch.float32)
-    red = torch.empty(size, device=x.device, dtype=torch.float32)
-    work = torch.empty(n_slots, per_block, device=x.device, dtype=torch.float32)
+    splits = ctypes.c_int(0)
+    nbytes = MAMBA_WINDOW_BWD.query(
+        "lcbi_mamba_window_bwd_workspace", [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)],
+        ctypes.c_longlong, bw, v, c, r, n, int(has_ln), bf16, ctypes.byref(splits))
+    if nbytes < 0:
+        raise ValueError(f"lcbi_mamba_window_bwd_workspace: the Mamba window kernel cannot take "
+                         f"(BW, V, C, R, N) = {(bw, v, c, r, n)}")
+    layout, size = slot_layout([("dwconv", 3 * c), ("ddtb", dh), ("dat", n * dh), ("dd", dh),
+                                ("dg", c), ("dbln", c)])
+    f32 = dict(device=dev, dtype=torch.float32)
+    slots = torch.empty(slot_count(size, dev), size, **f32)
+    red = torch.empty(size, **f32)
+    work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+    wgrads = torch.empty(2 * c * c + r * dh + dh * w, **f32)
     dx = torch.empty_like(x)
-    MAMBA_WINDOW_BWD(*(ptr(t) for t in (x, ln_scale, ln_bias, *padded, do, dx, work, slots,
-                                        red)),
-                     bw, v, c, r, int(ln_scale is not None), bf16, n_slots, per_block, size,
-                     *(layout[k] for k in ("dwout", "dwconv", "dwdbl", "dwdt", "ddtb", "dat",
-                                           "dd", "dg", "dbln")),
-                     stream_handle(x.device))
+    MAMBA_WINDOW_BWD(*(ptr(t) for t in (x, ln_scale, ln_bias, w_xz, wconv, w_dbl, w_dt, dtb2, at,
+                                        dskip, w_out, do, dx, work)),
+                     nbytes, ptr(wgrads), splits.value, ptr(slots), ptr(red), bw, v, c, r, n,
+                     int(has_ln), bf16, slots.shape[0], size,
+                     *(layout[k] for k in ("dwconv", "ddtb", "dat", "dd", "dg", "dbln")),
+                     stream_handle(dev))
 
-    def grad(name, stored, operand=None, dtype=torch.float32):
-        blocks = () if operand is None else _blocks(c, cp, operand)
-        return slot_grad(red, layout, name, stored, blocks, dtype)
+    def small(name, shape):
+        return red[layout[name]:layout[name] + math.prod(shape)].view(shape)
 
-    grads = (dx, grad("dwxz", (cp, cp), "w_xz", x.dtype), grad("dwconv", (3, cp), "wconv"),
-             grad("dwdbl", (dhp, w), "w_dbl", x.dtype), grad("dwdt", (r, dhp), "w_dt", x.dtype),
-             grad("ddtb", (dhp,), "dtb2"), grad("dat", (n, dhp), "at"), grad("dd", (dhp,), "dskip"),
-             grad("dwout", (cp, cp), "w_out", x.dtype))
-    if ln_scale is not None:
-        grads += (grad("dg", (c,)), grad("dbln", (c,)))
+    def wgrad(at_, shape):
+        return wgrads[at_:at_ + math.prod(shape)].view(shape).to(x.dtype)
+
+    grads = (dx, wgrad(0, (c, c)), small("dwconv", (3, c)), wgrad(2 * c * c + r * dh, (dh, w)),
+             wgrad(2 * c * c, (r, dh)), small("ddtb", (dh,)), small("dat", (n, dh)),
+             small("dd", (dh,)), wgrad(c * c, (c, c)))
+    if has_ln:
+        grads += (small("dg", (c,)), small("dbln", (c,)))
     return grads
 
 

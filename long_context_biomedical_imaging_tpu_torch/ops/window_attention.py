@@ -214,12 +214,15 @@ def window_attention_bwd_streams(do, x, wqkv, bqkv, wout, bout, rel, heads: int,
     return dx, dqkv, o, red[:3 * c], red[3 * c:4 * c], red[4 * c:].view(heads, v, v)
 
 
-def wgrad_splits(n: int, c: int, device) -> int:
-    """Row splits of the weight-gradient kernel: enough blocks for four per SM
-    over its 64 x 64 output tiles, each split at least 512 rows."""
-    tiles = -(-c // 64) * (-(-3 * c // 64) + -(-c // 64))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-4 * sms // tiles), n // 512, 65535))
+def wgrad_splits(n: int, c: int) -> int:
+    """Row splits of the weight-gradient kernel, as its library picks them
+    (``lcbi_window_attention_wgrad_splits``: about four blocks per SM over
+    its output tiles)."""
+    splits = WINDOW_ATTENTION_WGRAD.query("lcbi_window_attention_wgrad_splits",
+                                          [ctypes.c_longlong, ctypes.c_int], ctypes.c_int, n, c)
+    if splits < 1:
+        raise RuntimeError("lcbi_window_attention_wgrad_splits: device query failed")
+    return splits
 
 
 def window_attention_wgrad(x, dqkv, o, do):
@@ -238,7 +241,7 @@ def window_attention_wgrad(x, dqkv, o, do):
         check_cuda_operand(name, t, dev, x.dtype, (*t.shape[:-1], width))
         if t.numel() != n * width:
             raise ValueError(f"{name} has {t.numel() // width} rows, x has {n}")
-    splits = wgrad_splits(n, c, dev)
+    splits = wgrad_splits(n, c)
     partials = torch.empty(splits, 4 * c * c, device=dev, dtype=torch.float32)
     out = torch.empty(4 * c * c, device=dev, dtype=torch.float32)
     WINDOW_ATTENTION_WGRAD(ptr(x), ptr(dqkv), ptr(o), ptr(do), ptr(partials), ptr(out), n, c,

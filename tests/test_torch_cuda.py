@@ -169,6 +169,40 @@ def test_fused_ln_mlp_backward_kernel_matches_plain(cuda_device, dtype, n, c):
                  ("x", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2"))
 
 
+# K2's and K2''s backward at the ptx stages (batch 4: N rows, C, H = 4C) and
+# the unaligned widths of custom (C = 24) and unetr (C = 48), H = 96 and 4C
+_K2_BWD_SHAPES = [(1048576, 96, 384), (262144, 192, 768), (65536, 384, 1536),
+                  (16384, 768, 3072), (300, 24, 96), (300, 48, 96), (37, 48, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_ln", [True, False])
+@pytest.mark.parametrize("n,c,h", _K2_BWD_SHAPES)
+def test_mlp_backward_kernels_match_plain_at_stage_widths(cuda_device, dtype, with_ln, n, c, h):
+    """K2's backward (with_ln) and K2''s against the VJPs of their plain
+    forwards, every gradient, and two launches bitwise equal."""
+    gen = torch.Generator().manual_seed(n + c + h + with_ln)
+    x, do = (_randn(gen, (n, c), 1.0).to(cuda_device, dtype) for _ in range(2))
+    w1, w2 = _randn(gen, (c, h)).to(cuda_device, dtype), _randn(gen, (h, c)).to(cuda_device, dtype)
+    b1, b2 = _randn(gen, (h,)).to(cuda_device), _randn(gen, (c,)).to(cuda_device)
+    if with_ln:
+        ln = [(_randn(gen, (c,)) + 1).to(cuda_device), _randn(gen, (c,)).to(cuda_device)]
+        args = (x, *ln, w1, b1, w2, b2)
+        runs = [tmlp.fused_ln_mlp_residual_bwd(do, *args) for _ in range(2)]
+        plain = tmlp.fused_ln_mlp_residual_bwd_plain(do, *args)
+        names = ("x", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2")
+    else:
+        args = (x, w1, b1, w2, b2)
+        runs = [tmlp.fused_mlp_bwd(do, *args) for _ in range(2)]
+        plain = tmlp.fused_mlp_bwd_plain(do, *args)
+        runs = [[g.to(r.dtype) for g, r in zip(run, plain)] for run in runs]
+        names = ("x", "w1", "b1", "w2", "b2")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    _check_grads(runs[0], plain, dtype, names)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,c", [(37, 16), (32770, 384), (300, 24)])
@@ -406,10 +440,11 @@ def test_chunked_kernels_are_deterministic(cuda_device):
 # K4, the fused Mamba window mixer (vessel)
 # ---------------------------------------------------------------------------
 
-def _mamba_args(gen, bw, v, c, dtype, device, with_ln, r=None):
+def _mamba_args(gen, bw, v, c, dtype, device, with_ln, r=None, n=8):
     """K4 operands on prepared operands: x, w_xz, wconv, w_dbl, w_dt, dtb2,
-    at, dskip, w_out [, ln_scale, ln_bias]; projection weights in dtype."""
-    dh, n = c // 2, tmw.MAMBA_KERNEL_STATE
+    at, dskip, w_out [, ln_scale, ln_bias]; projection weights in dtype; n
+    states (MambaVisionMixer's 8 by default)."""
+    dh = c // 2
     r = r or -(-c // 16)
     wconv, dtb2, at, dskip = tmw.prepare_operands(
         _randn(gen, (dh, 3)), _randn(gen, (dh, 3)), _randn(gen, (dh,), 0.5),
@@ -522,10 +557,12 @@ def test_mamba_window_mixer_goes_through_both_kernels(cuda_device):
 def test_mamba_window_kernels_are_deterministic_and_refuse(cuda_device):
     """Two K4 backward launches on the same inputs at the vessel stage-1
     shape give bitwise-equal gradients (ordered slot and warp sums); a
-    launch the kernel refuses (V = 72) raises and the wrapper refuses what
-    it cannot take (d_state 4). fp32 windows of 64 tokens at C = 864, whose
-    rows alone outgrow a block's shared memory, run with the rows in global
-    scratch and match the plain version."""
+    launch the kernel refuses (V = 72) raises and the wrappers refuse what
+    they cannot take (d_state 32). d_state 4 and 16 run at the padded state
+    counts 8 and 16 and match the plain version, forward and backward. fp32
+    windows of 64 tokens at C = 864, whose rows alone outgrow a block's
+    shared memory, run (the forward with the rows in global scratch, the
+    backward's passes split along C) and match the plain version."""
     gen = torch.Generator().manual_seed(11)
     args = _mamba_args(gen, 4096, 64, 192, torch.bfloat16, cuda_device, True)
     do = _randn(gen, (4096, 64, 192), 1.0).to(cuda_device, torch.bfloat16)
@@ -537,17 +574,60 @@ def test_mamba_window_kernels_are_deterministic_and_refuse(cuda_device):
     x, out = args[0][:1], torch.empty_like(args[0][:1])
     with pytest.raises(RuntimeError, match="lcbi_mamba_window_fwd"):
         tmw.MAMBA_WINDOW_FWD(*(ptr(a) for a in [x, None, None] + args[1:9] + [out, None]),
-                             0, 1, 72, 192, 12, 0, 1, stream_handle(cuda_device))
+                             0, 1, 72, 192, 12, 8, 0, 1, stream_handle(cuda_device))
     edge = _mamba_args(gen, 2, 64, 832, torch.float32, cuda_device, False)
     assert tmw.mamba_window_fwd(*edge).shape == (2, 64, 832)
     wide = _mamba_args(gen, 2, 64, 864, torch.float32, cuda_device, False)
     got = tmw.mamba_window_fwd(*wide)
     ref = tmw.mamba_window_plain(*wide)
     assert (got - ref).abs().max().item() <= _tol(torch.float32) * ref.abs().max().item()
-    small = _mamba_args(gen, 2, 16, 64, torch.float32, cuda_device, False)
-    small[6] = small[6][:4].contiguous()
-    with pytest.raises(ValueError):
-        tmw.mamba_window_fwd(*small)
+    do = _randn(gen, (2, 64, 864), 1.0).to(cuda_device)
+    _check_grads(tmw.mamba_window_bwd(do, *wide), tmw.mamba_window_bwd_plain(do, *wide),
+                 torch.float32, _K4_NAMES)
+    for n in (4, 16):
+        small = _mamba_args(gen, 2, 16, 64, torch.float32, cuda_device, True, n=n)
+        got = tmw.mamba_window_fwd(*small)
+        ref = tmw.mamba_window_plain(*small)
+        assert (got - ref).abs().max().item() <= _tol(torch.float32) * ref.abs().max().item(), n
+        do = _randn(gen, (2, 16, 64), 1.0).to(cuda_device)
+        _check_grads(tmw.mamba_window_bwd(do, *small), tmw.mamba_window_bwd_plain(do, *small),
+                     torch.float32, _K4_NAMES)
+    big = _mamba_args(gen, 2, 16, 64, torch.float32, cuda_device, False, n=32)
+    before = (tmw.MAMBA_WINDOW_FWD.launches, tmw.MAMBA_WINDOW_BWD.launches)
+    with pytest.raises(ValueError, match="d_state"):
+        tmw.mamba_window_fwd(*big)
+    with pytest.raises(ValueError, match="d_state"):
+        tmw.mamba_window_bwd(torch.zeros_like(big[0]), *big)
+    assert (tmw.MAMBA_WINDOW_FWD.launches, tmw.MAMBA_WINDOW_BWD.launches) == before
+
+
+# K4's backward at the vessel stages (batch 4), the unaligned widths of
+# unetr (C = 48) and custom (C = 24), and d_state 4 and 16 (BW, V, C, N)
+_K4_BWD_CASES = [(16384, 64, 96, 8), (4096, 64, 192, 8), (1024, 64, 384, 8), (37, 64, 24, 8),
+                 (1024, 16, 48, 8), (256, 64, 48, 4), (4096, 64, 192, 16), (300, 16, 96, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,v,c,n", _K4_BWD_CASES)
+def test_mamba_window_backward_matches_plain_at_stage_widths_and_states(cuda_device, dtype, bw,
+                                                                       v, c, n):
+    """K4 (folded LN) forward and backward against the plain version and its
+    VJP, every gradient, and two backward launches bitwise equal, at the
+    vessel stage shapes, the unaligned widths and d_state 4 and 16."""
+    gen = torch.Generator().manual_seed(bw + v + c + n)
+    args = _mamba_args(gen, bw, v, c, dtype, cuda_device, True, n=n)
+    do = _randn(gen, (bw, v, c), 1.0).to(cuda_device, dtype)
+    out = tmw.mamba_window_fwd(*args)
+    ref = tmw.mamba_window_plain(*args).float()
+    assert (out.float() - ref).abs().max().item() <= _tol(dtype) * ref.abs().max().item()
+    del out, ref
+    got = tmw.mamba_window_bwd(do, *args)
+    again = tmw.mamba_window_bwd(do, *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    _check_grads(got, tmw.mamba_window_bwd_plain(do, *args), dtype, _K4_NAMES)
 
 
 @pytest.mark.cuda

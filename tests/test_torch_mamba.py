@@ -114,16 +114,20 @@ def _mixer_inputs(rng, bw, v, c, n, r):
     return x, weights, ln
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("with_ln", [False, True])
-def test_mamba_window_mixer_matches_jax(rng, with_ln, dtype):
-    """K4 at the JAX test's size (BW 16, V 16, C 24, N 4): the port's mixer
-    (plain version and its VJP on the CPU) against the JAX mixer's Pallas
-    kernels in interpret mode, forward and the gradient of every argument.
-    fp32: 1e-4 of max. bf16 (x and the four projection weights in bf16): 2e-2
-    of max (the TPU kernel also rounds the scan's B and C to bf16 and sums
-    in another order; the VJP rounds cotangents at other points)."""
-    bw, v, c, n, r = 16, 16, 24, 4, 3
+@pytest.mark.parametrize(
+    "with_ln,dtype,n", [(False, "float32", 4), (True, "float32", 4), (False, "bfloat16", 4),
+                        (True, "bfloat16", 4), (True, "float32", 16)],
+    ids=["False-float32", "True-float32", "False-bfloat16", "True-bfloat16",
+         "True-float32-d_state16"])
+def test_mamba_window_mixer_matches_jax(rng, with_ln, dtype, n):
+    """K4 at the JAX test's size (BW 16, V 16, C 24, N 4), and at d_state 16
+    (BW 2, V 16, C 32, the widest state the port's kernels take): the port's
+    mixer (plain version and its VJP on the CPU) against the JAX mixer's
+    Pallas kernels in interpret mode, forward and the gradient of every
+    argument. fp32: 1e-4 of max. bf16 (x and the four projection weights in
+    bf16): 2e-2 of max (the TPU kernel also rounds the scan's B and C to bf16
+    and sums in another order; the VJP rounds cotangents at other points)."""
+    bw, v, c, r = (16, 16, 24, 3) if n == 4 else (2, 16, 32, 2)
     x, w, ln = _mixer_inputs(rng, bw, v, c, n, r)
     do = _mk(rng, (bw, v, c), 1.0)
 
