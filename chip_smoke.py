@@ -92,8 +92,9 @@ Phases, each printing one line of numbers (or a few):
      on 1024x1024 in bf16, steady state, with peak memory and one-step
      profiles;
  25. K6, the spectral long conv of the vit65k_hyena path: the convolution
-     (forward, and with the conjugate spectrum the du of its backward), dk
-     and dbias against the plain version and its VJP at the vit65k_hyena
+     (forward, which keeps the filter's spectrum, and with its conjugate the
+     du of the backward), dk and dbias against the plain version and its
+     VJP at the vit65k_hyena
      shape (1, 384, 65536), the odd batch at the gate's floor (3, 8, 8192)
      and the gate's ceiling (1, 4, 131072), with and without the skip bias,
      fp32 and bf16, two launches bitwise equal; the refusals; then the times
@@ -2098,12 +2099,15 @@ def phase_k6(torch, sc, dev):
     dk and dbias = dk[:, 0] against the plain version and its VJP at
     K6_SHAPES, with and without the bias, fp32 and bf16; two launches of each
     must give the same bits. Then the refusals, and the times at the
-    vit65k_hyena shape in bf16. Returns {"conv" | "dk": (max abs err at
-    (1, 384, 65536) in bf16, kernel ms, plain ms)} per call: the conv row's
-    kernel time is the forward and the du call, its plain time the plain
-    forward and du's share of the plain VJP; the dk row's the dk call and
-    dk's share (the VJP computes du, dk and dbias in one call: it is split as
-    the two rows' bounds split the backward's work)."""
+    vit65k_hyena shape in bf16. The forward transforms the filter into a
+    kept spectrum and du reads it, as the autograd Function runs them; the
+    same calls, each transforming the filter anew, must give the same bits.
+    Returns {"conv" | "dk": (max abs err at (1, 384, 65536) in bf16, kernel ms, plain ms)}
+    per call: the conv row's kernel time is the forward and the du call,
+    its plain time the plain forward and du's share of the plain VJP; the dk
+    row's the dk call and dk's share (the VJP computes du, dk and dbias in
+    one call: it is split as the two rows' bounds split the backward's
+    work)."""
     gen = torch.Generator().manual_seed(25)
     worst = {"conv": 0.0, "dk": 0.0}
     for shape in K6_SHAPES:
@@ -2111,10 +2115,11 @@ def phase_k6(torch, sc, dev):
             dname = str(dtype).split(".")[-1]
             for with_bias in (False, True):
                 u, k, bias, g = _k6_inputs(torch, gen, shape, dtype, dev, with_bias)
-                got = [sc.spectral_conv_fwd(u, k, bias), sc.spectral_conv_fwd(g, k, bias, True),
+                y, ks = sc.spectral_conv_fwd(u, k, bias)
+                got = [y, sc.spectral_conv_fwd(g, None, bias, True, kspec=ks)[0],
                        sc.spectral_conv_dk(g, u)]
-                again = [sc.spectral_conv_fwd(u, k, bias), sc.spectral_conv_fwd(g, k, bias, True),
-                         sc.spectral_conv_dk(g, u)]
+                again = [sc.spectral_conv_fwd(u, k, bias)[0],
+                         sc.spectral_conv_fwd(g, k, bias, True)[0], sc.spectral_conv_dk(g, u)]
                 torch.cuda.synchronize()
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
                       f"K6 {shape} {dname} bias={with_bias}: two launches gave different bits")
@@ -2140,7 +2145,7 @@ def phase_k6(torch, sc, dev):
                 if shape == K6_SHAPES[0] and dtype == torch.bfloat16:
                     worst["conv"] = max(worst["conv"], errs["y"], errs["du"])
                     worst["dk"] = max(worst["dk"], errs["dk"], errs.get("dbias", 0.0))
-                del u, k, bias, g, got, again, ref
+                del u, k, bias, g, got, again, ref, ks
                 torch.cuda.empty_cache()
     for args, exc in (((torch.zeros(1, 2, 4096, device=dev), torch.zeros(2, 4096, device=dev)),
                        ValueError),
@@ -2156,13 +2161,15 @@ def phase_k6(torch, sc, dev):
     print("phase 25 K6 refusals: L = 4096, a CPU tensor, fp16: refused", flush=True)
 
     u, k, bias, g = _k6_inputs(torch, gen, K6_SHAPES[0], torch.bfloat16, dev, True)
+    ks = sc.spectral_conv_fwd(u, k, bias)[1]
     k_fwd = median_ms(torch, lambda: sc.spectral_conv_fwd(u, k, bias), warmup=1, reps=5)
-    k_du = median_ms(torch, lambda: sc.spectral_conv_fwd(g, k, bias, True), warmup=1, reps=5)
+    k_du = median_ms(torch, lambda: sc.spectral_conv_fwd(g, None, bias, True, kspec=ks),
+                     warmup=1, reps=5)
     k_dk = median_ms(torch, lambda: sc.spectral_conv_dk(g, u), warmup=1, reps=5)
     p_fwd = median_ms(torch, lambda: sc.spectral_causal_conv_plain(u, k, bias), warmup=1, reps=5)
     p_vjp = median_ms(torch, lambda: sc.spectral_causal_conv_bwd_plain(g, u, k, bias), warmup=1,
                       reps=5)
-    del u, k, bias, g
+    del u, k, bias, g, ks
     torch.cuda.empty_cache()
     bounds = k6_bounds()
     share = bounds["conv"][0] / (bounds["conv"][0] + bounds["dk"][0])

@@ -38,11 +38,11 @@ __host__ __device__ __forceinline__ int round_up32(int v) { return (v + 31) & ~3
 
 // The padded widths of the kernels whose WMMA tiles read weights straight
 // from global memory (a fragment load cannot mask a tail): K2's and K2''s
-// forward run on C rounded up to 16 and H to 64 (their hidden chunk); K1's
-// forward, K3 and K4's forward on C rounded up to 32 (their channel chunk;
-// K4's two C/2 halves each to 16). The backwards of K1, K2 (and K2') and K4
-// stage their weight slices through shared memory with the tails masked and
-// take the true widths.
+// forward run on C rounded up to 16 and H to 64 (their hidden chunk); the
+// forwards of K1, K3 and K4 on C rounded up to 32 (their channel chunk;
+// K4's two C/2 halves each to 16). The backwards of K1, K2 (and K2'), K3 and
+// K4 stage their weight slices through shared memory with the tails masked
+// and take the true widths.
 // The rows, the LayerNorm statistics and the stores keep the true C. This is
 // the one place the rounding is decided: each of those libraries reports it
 // through lcbi_padded_channels (and K2's lcbi_padded_hidden), and the

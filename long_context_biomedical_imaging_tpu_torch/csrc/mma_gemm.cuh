@@ -8,7 +8,8 @@
 //               for a W that maps n -> k) or (K, N) ("NN", x @ W).
 //   wgrad:      out[m][n] = sum_r A[r][m] B[r][n]           (fp32 partials)
 //               over the rows r of one of S splits; A (rows, M), B (rows, N)
-//               row-major streams; up to kMaxProducts products in one grid;
+//               row-major streams (or A stored (M, rows), a channel-major
+//               stream: a_mk); up to kMaxProducts products in one grid;
 //               reduce_slots_kernel then sums the S partials in a fixed order.
 //
 // What bounds them on the H100: the tensor cores. A product of M x N x K moves
@@ -52,12 +53,14 @@ __host__ __device__ __forceinline__ int ceil_div(long long a, int b) {
 
 // One product of a launch: A and B with their leading dimensions (elements),
 // the output's M x N, and where its fp32 result starts in each split's block
-// of partials (or, for gemm_rows, in out).
+// of partials (or, for gemm_rows, in out). a_mk (wgrad only): A is stored
+// (M, rows) instead of (rows, M).
 template <typename T> struct Product {
   const T* A;
   const T* B;
   int lda, ldb, M, N;
   size_t out_off;
+  bool a_mk = false;
 };
 
 template <typename T> struct Products {
@@ -114,41 +117,21 @@ __device__ __forceinline__ void frag_a_trans(uint32_t (&a)[4], const bf16* tile,
                              ((lane >> 3) & 1) * 8));
 }
 
-// The bf16 block: a 128 x 128 tile of out (fp32, leading dimension ldo) at
-// (m0, n0) from depth [k_begin, k_end). A_T: A is stored (depth, M) (the
-// weight gradients' A^T); else (M, depth). B_NK: B is stored (N, depth); else
-// (depth, N). The depth axis of an operand stored (depth, width) is its row
-// axis: for A_T and !B_NK a depth index is a row of the stream.
-template <bool A_T, bool B_NK>
-__device__ void mma_tile(const Product<bf16>& pr, long long k_begin, long long k_end, int m0,
-                         int n0, float* __restrict__ out, int ldo, unsigned char* smem) {
+// The bf16 block's loop: a 128 x 128 tile of out (fp32, leading dimension
+// ldo, rows below M and columns below N stored) at (m0, n0) from nk slices of
+// depth kMmaDepth, which prefetch(i, a, b) stages (cp.async, committed by the
+// loop) into the ring's slots a and b. A_T: A's slices are (depth, M) (the
+// weight gradients' A^T); else (M, depth). B_NK: B's are (N, depth); else
+// (depth, N).
+template <bool A_T, bool B_NK, class Prefetch>
+__device__ void mma_tile_run(Prefetch prefetch, int nk, int m0, int n0, int M, int N,
+                             float* __restrict__ out, int ldo, unsigned char* smem) {
   constexpr int kAsz = A_T ? kMmaDepth * kMmaLdT : kMmaTile * kMmaLdK;
   constexpr int kBsz = B_NK ? kMmaTile * kMmaLdK : kMmaDepth * kMmaLdT;
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + kMmaStages * kAsz;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4, wn = warp % 4;   // warp tile 64 x 32
-  const bool avec = pr.lda % 8 == 0 && reinterpret_cast<size_t>(pr.A) % 16 == 0;
-  const bool bvec = pr.ldb % 8 == 0 && reinterpret_cast<size_t>(pr.B) % 16 == 0;
-  const int nk = ceil_div(k_end - k_begin, kMmaDepth);
-
-  auto prefetch = [&](int i) {
-    const long long k0 = k_begin + (long long)i * kMmaDepth;
-    bf16* a = As + (i % kMmaStages) * kAsz;
-    bf16* b = Bs + (i % kMmaStages) * kBsz;
-    if (A_T) {
-      stage_slice<false>(a, pr.A, pr.lda, k0, k_end, m0, pr.M, avec);
-    } else {
-      // rows m of A, depth columns [k0, k0 + 32): the depth is A's column
-      // axis, bounded by k_end (gemm_rows runs one split, k_begin = 0)
-      stage_slice<true>(a, pr.A, pr.lda, m0, pr.M, (int)k0, (int)k_end, avec);
-    }
-    if (B_NK) {
-      stage_slice<true>(b, pr.B, pr.ldb, n0, pr.N, (int)k0, (int)k_end, bvec);
-    } else {
-      stage_slice<false>(b, pr.B, pr.ldb, k0, k_end, n0, pr.N, bvec);
-    }
-  };
 
   float acc[4][4][4];
 #pragma unroll
@@ -160,13 +143,16 @@ __device__ void mma_tile(const Product<bf16>& pr, long long k_begin, long long k
 
 #pragma unroll
   for (int s = 0; s < kMmaStages - 1; ++s) {
-    if (s < nk) prefetch(s);
+    if (s < nk) prefetch(s, As + s * kAsz, Bs + s * kBsz);
     cp_async_commit();
   }
   for (int i = 0; i < nk; ++i) {
     cp_async_wait<kMmaStages - 2>();
     __syncthreads();
-    if (i + kMmaStages - 1 < nk) prefetch(i + kMmaStages - 1);
+    if (i + kMmaStages - 1 < nk) {
+      const int slot = (i + kMmaStages - 1) % kMmaStages;
+      prefetch(i + kMmaStages - 1, As + slot * kAsz, Bs + slot * kBsz);
+    }
     cp_async_commit();
     const bf16* a = As + (i % kMmaStages) * kAsz;
     const bf16* b = Bs + (i % kMmaStages) * kBsz;
@@ -200,7 +186,10 @@ __device__ void mma_tile(const Product<bf16>& pr, long long k_begin, long long k
   cp_async_wait<0>();
   __syncthreads();   // the ring is free for the block's next tile
 
+  // a thread's two neighbouring columns go as one 8-byte store where the
+  // rows keep 8-byte alignment
   const int g = lane / 4, t = lane % 4;
+  const bool pair = ldo % 2 == 0 && reinterpret_cast<size_t>(out) % 8 == 0;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
@@ -209,13 +198,48 @@ __device__ void mma_tile(const Product<bf16>& pr, long long k_begin, long long k
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + wm * 64 + mi * 16 + g + 8 * h;
-        if (row >= pr.M) continue;
+        if (row >= M) continue;
         float* o = out + (size_t)row * ldo;
-        if (col < pr.N) o[col] = acc[mi][nj][2 * h];
-        if (col + 1 < pr.N) o[col + 1] = acc[mi][nj][2 * h + 1];
+        if (pair && col + 1 < N) {
+          *reinterpret_cast<float2*>(o + col) =
+              make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+          continue;
+        }
+        if (col < N) o[col] = acc[mi][nj][2 * h];
+        if (col + 1 < N) o[col + 1] = acc[mi][nj][2 * h + 1];
       }
     }
   }
+}
+
+// The bf16 block of a product: a 128 x 128 tile of out (fp32, leading
+// dimension ldo) at (m0, n0) from depth [k_begin, k_end). A_T: A is stored
+// (depth, M) (the weight gradients' A^T); else (M, depth). B_NK: B is stored
+// (N, depth); else (depth, N). The depth axis of an operand stored (depth,
+// width) is its row axis: for A_T and !B_NK a depth index is a row of the
+// stream.
+template <bool A_T, bool B_NK>
+__device__ void mma_tile(const Product<bf16>& pr, long long k_begin, long long k_end, int m0,
+                         int n0, float* __restrict__ out, int ldo, unsigned char* smem) {
+  const bool avec = pr.lda % 8 == 0 && reinterpret_cast<size_t>(pr.A) % 16 == 0;
+  const bool bvec = pr.ldb % 8 == 0 && reinterpret_cast<size_t>(pr.B) % 16 == 0;
+  auto prefetch = [&](int i, bf16* a, bf16* b) {
+    const long long k0 = k_begin + (long long)i * kMmaDepth;
+    if (A_T) {
+      stage_slice<false>(a, pr.A, pr.lda, k0, k_end, m0, pr.M, avec);
+    } else {
+      // rows m of A, depth columns [k0, k0 + 32): the depth is A's column
+      // axis, bounded by k_end (gemm_rows runs one split, k_begin = 0)
+      stage_slice<true>(a, pr.A, pr.lda, m0, pr.M, (int)k0, (int)k_end, avec);
+    }
+    if (B_NK) {
+      stage_slice<true>(b, pr.B, pr.ldb, n0, pr.N, (int)k0, (int)k_end, bvec);
+    } else {
+      stage_slice<false>(b, pr.B, pr.ldb, k0, k_end, n0, pr.N, bvec);
+    }
+  };
+  mma_tile_run<A_T, B_NK>(prefetch, ceil_div(k_end - k_begin, kMmaDepth), m0, n0, pr.M, pr.N,
+                          out, ldo, smem);
 }
 
 // The fp32 block: a 64 x 64 tile, operands staged whole per 32-deep slice in
@@ -299,9 +323,20 @@ wgrad_kernel(Products<T> ps, long long rows, int S, size_t total, float* __restr
   const Product<T>& pr = ps.p[q];
   const int t = blockIdx.x - ps.tile_start[q], tn = ceil_div(pr.N, kTile);
   const int s = blockIdx.y;
-  const long long r_begin = rows * s / S, r_end = rows * (s + 1) / S;
-  product_tile<T, true, false>(pr, r_begin, r_end, (t / tn) * kTile, (t % tn) * kTile,
-                               partials + (size_t)s * total + pr.out_off, pr.N, smem);
+  long long r_begin = rows * s / S, r_end = rows * (s + 1) / S;
+  if (pr.a_mk) {
+    // the rows are A's columns: splits start on 16-byte boundaries
+    r_begin &= ~7LL;
+    if (s + 1 < S) r_end &= ~7LL;
+  }
+  float* out = partials + (size_t)s * total + pr.out_off;
+  if (pr.a_mk) {
+    product_tile<T, false, false>(pr, r_begin, r_end, (t / tn) * kTile, (t % tn) * kTile, out,
+                                  pr.N, smem);
+  } else {
+    product_tile<T, true, false>(pr, r_begin, r_end, (t / tn) * kTile, (t % tn) * kTile, out,
+                                 pr.N, smem);
+  }
 }
 
 template <typename T> constexpr size_t product_smem() {

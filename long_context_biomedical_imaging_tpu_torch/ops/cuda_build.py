@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import math
 import os
 import shutil
 import subprocess
@@ -191,35 +190,12 @@ def pad_channel_blocks(t, c: int, cp: int, dims):
     return t
 
 
-def cut_channel_blocks(t, c: int, cp: int, dims):
-    """The inverse of :func:`pad_channel_blocks`: the first c entries of each
-    block of cp along each dimension in ``dims`` (a gradient in the kernels'
-    padded layout back to the true widths)."""
-    if cp == c:
-        return t
-    for d in dims:
-        t = t.unflatten(d, (t.shape[d] // cp, cp)).narrow(d + 1, 0, c).flatten(d, d + 1)
-    return t
-
-
 def pad_blocks(t, blocks):
     """t padded by :func:`pad_channel_blocks` along every (width, padded
     width, dims) of ``blocks``."""
     for c, cp, dims in blocks:
         t = pad_channel_blocks(t, c, cp, dims)
     return t
-
-
-def slot_grad(red, layout, name: str, stored, blocks=(), dtype=torch.float32):
-    """The gradient ``name`` of a backward kernel's reduced slot ``red``
-    (offsets ``layout``, :func:`slot_layout`), stored there with the shape
-    ``stored`` in the kernel's padded layout, cut back by
-    :func:`cut_channel_blocks` along every (width, padded width, dims) of
-    ``blocks``, in ``dtype``."""
-    g = red[layout[name]:layout[name] + math.prod(stored)].view(stored)
-    for c, cp, dims in blocks:
-        g = cut_channel_blocks(g, c, cp, dims)
-    return g.to(dtype)
 
 
 def check_cuda_operand(name: str, t, device, dtype, shape) -> None:

@@ -37,14 +37,15 @@ the rest in fp32.
 Widths: the kernels take any C (K3 up to 192). They walk the channels in
 chunks of 32, load the rows at the true C (LayerNorm statistics over C,
 zeros past it) and store only the true columns. K1's backward stages its
-weight slices through shared memory with the tails past C zeroed, so it
-takes the weights, taps and biases as they are. K1's forward and K3 read
-their weights as WMMA tiles from device memory, which cannot mask a tail:
-they run on C rounded up to 32, as their libraries report
-(``lcbi_padded_channels``; ``csrc/common.cuh``), and the wrappers hand them
-the weights, taps and biases padded with zeros per [x1 | x2 | v] block
-(:func:`_padded_operands`, a copy only where C % 32 != 0; the activations
-are never padded) and cut the gradients back.
+weight slices through shared memory with the tails past C zeroed, and K3's
+backward runs its products in the shared kernels of ``csrc/mma_gemm.cuh``,
+which mask every tail, so both take the weights, taps, biases (and
+Toeplitz blocks) as they are. The forwards of K1 and K3 read their weights
+as WMMA tiles from device memory, which cannot mask a tail: they run on C
+rounded up to 32, as their libraries report (``lcbi_padded_channels``;
+``csrc/common.cuh``), and the wrappers hand them the weights, taps and
+biases padded with zeros per [x1 | x2 | v] block (:func:`_padded_operands`,
+a copy only where C % 32 != 0; the activations are never padded).
 """
 
 from __future__ import annotations
@@ -55,8 +56,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import (CudaKernel, check_cuda_operand, cut_channel_blocks, pad_channel_blocks,
-                         padded_width, ptr, slot_count, slot_grad, slot_layout, stream_handle)
+from .cuda_build import (CudaKernel, check_cuda_operand, pad_channel_blocks, padded_width, ptr,
+                         slot_count, slot_layout, stream_handle)
 from .fftconv import diagonal_sums, lag_sums
 from .fused_mlp import layer_norm_f32, matmul_rounded
 
@@ -77,7 +78,7 @@ HYENA_CHUNKED_FWD = CudaKernel(
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 HYENA_CHUNKED_BWD = CudaKernel(
     "hyena_chunked_bwd.cu", "lcbi_hyena_chunked_bwd",
-    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+    [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 5
     + [ctypes.c_void_p])
 HYENA_DM = CudaKernel(
     "hyena_dm.cu", "lcbi_hyena_dm", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -210,16 +211,17 @@ def _padded_operands(kernel, c, *operands):
     return (cp, *(pad_channel_blocks(t, c, cp, dims) for t, dims in operands))
 
 
-def _weight_grads(red, layout, c, cp, k, w_dtype, has_ln):
-    """K3's reduced slot's gradients cut back to the true C: dw_in, db_in,
-    dws, dbs, dw_out, db_out (and the LN parameters'), the projections' in
-    w_dtype, the rest fp32."""
-    def grad(name, stored, dims=(), dtype=torch.float32):
-        return slot_grad(red, layout, name, stored, [(c, cp, dims)], dtype)
+def _chunked_bwd_grads(red, layout, wgrads, c, k, w_dtype, has_ln):
+    """K3's backward gradients at the true C: dw_in, db_in, dws, dbs, dw_out,
+    db_out (and the LN parameters'), the projections' from the split-K
+    product's [dw_in | dw_out] in w_dtype, the rest from the reduced slot
+    ``red`` (offsets ``layout``) in fp32."""
+    def grad(name, shape):
+        return red[layout[name]:layout[name] + math.prod(shape)].view(shape)
 
-    grads = (grad("dwin", (cp, 3 * cp), (0, 1), w_dtype), grad("dbin", (3 * cp,), (0,)),
-             grad("dws", (k, 3 * cp), (1,)), grad("dbs", (3 * cp,), (0,)),
-             grad("dwo", (cp, cp), (0, 1), w_dtype), grad("dbo", (c,)))
+    grads = (wgrads[:3 * c * c].view(c, 3 * c).to(w_dtype), grad("dbin", (3 * c,)),
+             grad("dws", (k, 3 * c)), grad("dbs", (3 * c,)),
+             wgrads[3 * c * c:].view(c, c).to(w_dtype), grad("dbo", (c,)))
     if has_ln:
         grads += (grad("dg", (c,)), grad("dbln", (c,)))
     return grads
@@ -440,31 +442,32 @@ def hyena_chunked_bwd_streams(do, x, w_in, b_in, ws, bs, m, w_out, b_out,
                               ln_scale=None, ln_bias=None):
     """The K3 backward kernel on CUDA: (dx, dw_in, db_in, dws, dbs, dw_out,
     db_out [, d ln_scale, d ln_bias]) and the streams (gs, dvl), each
-    (Cp, BW, V) in x.dtype with Cp = C rounded up to 32 (the padded channels
-    zero), from which :func:`hyena_dm` makes dM."""
+    (C, BW, V) in x.dtype, from which :func:`hyena_dm` makes dM. The
+    weights, taps and Toeplitz blocks go to the kernels as they are."""
     bw, v, c, chunk = _check_chunked(x, w_in, b_in, ws, bs, m, w_out, b_out, ln_scale, ln_bias)
     k = ws.shape[0]
+    has_ln = ln_scale is not None
     check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
-    cp, w_in_p, b_in_p, ws_p, bs_p, w_out_p, m_p = _padded_operands(
-        HYENA_CHUNKED_BWD, c, (w_in, (0, 1)), (b_in, (0,)), (ws, (1,)), (bs, (0,)),
-        (w_out, (0, 1)), (m, (1,)))
-    layout, size = slot_layout([("dwin", 3 * cp * cp), ("dwo", cp * cp), ("dws", k * 3 * cp),
-                                ("dbin", 3 * cp), ("dbs", 3 * cp), ("dbo", cp), ("dg", cp),
-                                ("dbln", cp)])
+    layout, size = slot_layout([("dws", k * 3 * c), ("dbin", 3 * c), ("dbs", 3 * c),
+                                ("dbo", c), ("dg", c), ("dbln", c)])
     slots = torch.empty(slot_count(size, x.device), size, device=x.device, dtype=torch.float32)
     red = torch.empty(size, device=x.device, dtype=torch.float32)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    nbytes = HYENA_CHUNKED_BWD.query("lcbi_hyena_chunked_bwd_workspace", [ctypes.c_int] * 5,
+                                     ctypes.c_size_t, bw, v, c, int(has_ln), is_bf16)
+    if nbytes == 0:
+        raise RuntimeError("lcbi_hyena_chunked_bwd_workspace: device query failed")
+    work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
+    wgrads = torch.empty(4 * c * c, device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
-    gs, dvl, v2 = (torch.empty(cp, bw, v, device=x.device, dtype=x.dtype) for _ in range(3))
-    fa, fb = (torch.empty(cp, bw, v, device=x.device, dtype=torch.float32) for _ in range(2))
-    HYENA_CHUNKED_BWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in_p), ptr(b_in_p), ptr(ws_p),
-                      ptr(bs_p), ptr(m_p), ptr(w_out_p), ptr(do), ptr(dx), ptr(gs), ptr(dvl),
-                      ptr(v2),
-                      ptr(fa), ptr(fb), ptr(slots), ptr(red),
-                      bw, v, c, k, chunk, int(ln_scale is not None),
-                      int(x.dtype == torch.bfloat16), slots.shape[0], size,
-                      *(layout[n] for n in ("dwo", "dws", "dbin", "dbs", "dbo", "dg", "dbln")),
+    gs, dvl = (torch.empty(c, bw, v, device=x.device, dtype=x.dtype) for _ in range(2))
+    HYENA_CHUNKED_BWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in), ptr(b_in), ptr(ws),
+                      ptr(bs), ptr(m), ptr(w_out), ptr(do), ptr(dx), ptr(gs), ptr(dvl),
+                      ptr(work), ptr(wgrads), ptr(slots), ptr(red),
+                      bw, v, c, k, chunk, int(has_ln), is_bf16, slots.shape[0], size,
+                      *(layout[n] for n in ("dbin", "dbs", "dbo", "dg", "dbln")),
                       stream_handle(x.device))
-    return (dx, *_weight_grads(red, layout, c, cp, k, x.dtype, ln_scale is not None)), (gs, dvl)
+    return (dx, *_chunked_bwd_grads(red, layout, wgrads, c, k, x.dtype, has_ln)), (gs, dvl)
 
 
 def hyena_dm(gs, dvl, chunk: int):
@@ -481,7 +484,9 @@ def hyena_dm(gs, dvl, chunk: int):
     check_cuda_operand("dvl", dvl, gs.device, gs.dtype, (c, bw, v))
     n = v // chunk
     sms = torch.cuda.get_device_properties(gs.device).multi_processor_count
-    splits = max(1, min(bw, -(-4 * sms // (n * c))))
+    # output tiles of a (d, c) block: one 128-wide tile in bf16, 64-wide ones in fp32
+    tiles = 1 if gs.dtype == torch.bfloat16 else (chunk // 64) ** 2
+    splits = max(1, min(bw, 65535, -(-4 * sms // (n * c * tiles))))
     partials = torch.empty(splits, n, c, chunk, chunk, device=gs.device, dtype=torch.float32)
     dm = torch.empty(n, c, chunk, chunk, device=gs.device, dtype=torch.float32)
     HYENA_DM(ptr(gs), ptr(dvl), ptr(partials), ptr(dm), bw, v, c, chunk, splits,
@@ -495,8 +500,7 @@ def hyena_chunked_bwd(do, x, w_in, b_in, ws, bs, m, w_out, b_out, ln_scale=None,
     dtypes."""
     grads, (gs, dvl) = hyena_chunked_bwd_streams(do, x, w_in, b_in, ws, bs, m, w_out, b_out,
                                                  ln_scale, ln_bias)
-    c = x.shape[-1]
-    dm = cut_channel_blocks(hyena_dm(gs, dvl, m.shape[-1]), c, gs.shape[0], (1,)).to(m.dtype)
+    dm = hyena_dm(gs, dvl, m.shape[-1]).to(m.dtype)
     return grads[:5] + (dm,) + grads[5:]
 
 

@@ -172,8 +172,8 @@ _OPERAND_DIMS = {"w_xz": ((0,), (1,)), "wconv": ((), (1,)), "w_dbl": ((), (0,)),
 
 
 def _blocks(c, cp, name):
-    """The (width, padded width, dims) blocks of operand ``name`` (or its
-    gradient) at C and the padded width cp: C/2 blocks go to cp / 2."""
+    """The (width, padded width, dims) blocks of operand ``name`` at C and
+    the padded width cp: C/2 blocks go to cp / 2."""
     c_dims, dh_dims = _OPERAND_DIMS[name]
     return [(c, cp, c_dims), (c // 2, cp // 2, dh_dims)]
 

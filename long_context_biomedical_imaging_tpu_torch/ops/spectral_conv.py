@@ -7,8 +7,10 @@ k[d, tau] u[b, d, t - tau] + bias[d] u[b, d, t], in u's dtype. On a CUDA
 tensor :func:`spectral_causal_conv` launches ``csrc/spectral_conv.cu`` (the
 convolution; with ``conj`` the correlation that gives du) and, for the
 gradient, ``csrc/spectral_conv_dk.cu`` (dk, summed over the batch in a fixed
-order); dbias is dk's lag 0, as in the TPU kernel's backward. On a CPU tensor
-it runs :func:`spectral_causal_conv_plain` and its ``torch.func.vjp``.
+order); dbias is dk's lag 0, as in the TPU kernel's backward. The forward
+keeps the filter's spectrum, (D, L) complex fp32, for the du call of the
+backward, so the filter is transformed once per layer. On a CPU tensor it
+runs :func:`spectral_causal_conv_plain` and its ``torch.func.vjp``.
 
 The TPU kernel computes its DFTs as bf16 matrix products (a TPU has a matrix
 unit and no FFT), 1e-3 to 1e-2 from an fp32 FFT by its own account. This port
@@ -32,7 +34,7 @@ SPECTRAL_MAX_LEN = 131072
 
 SPECTRAL_CONV = CudaKernel(
     "spectral_conv.cu", "lcbi_spectral_conv",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 SPECTRAL_CONV_DK = CudaKernel(
     "spectral_conv_dk.cu", "lcbi_spectral_conv_dk",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -98,21 +100,31 @@ def _workspace(kernel, symbol, b, d, length, device):
     return torch.empty(nbytes // 4, device=device, dtype=torch.float32)
 
 
-def spectral_conv_fwd(u, k, bias=None, conj: bool = False):
+def spectral_conv_fwd(u, k, bias=None, conj: bool = False, kspec=None):
     """The K6 convolution kernel on CUDA: :func:`spectral_causal_conv_plain`
     of (u, k, bias); with ``conj`` the correlation y[t] = sum_tau k[tau]
     u[t + tau] + bias u[t], which is du for the cotangent u. u (B, D, L) fp32
-    or bf16, k (D, L) fp32, bias (D,) fp32 or None; returns (B, D, L) in
-    u.dtype."""
+    or bf16, k (D, L) fp32, bias (D,) fp32 or None. Returns (y, kspec): y
+    (B, D, L) in u.dtype, and the filter's spectrum as the kernel lays it out
+    (L complex fp32 values per channel), which a later call takes as
+    ``kspec`` with k None instead of transforming the filter again."""
     b, d, length = _check_stream(u)
-    check_cuda_operand("k", k, u.device, torch.float32, (d, length))
+    if (k is None) == (kspec is None):
+        raise ValueError("spectral conv kernel takes one of the filter k and its spectrum "
+                         "kspec")
+    if k is not None:
+        check_cuda_operand("k", k, u.device, torch.float32, (d, length))
+        nbytes = SPECTRAL_CONV.query("lcbi_spectral_conv_spectrum_bytes", [ctypes.c_int] * 2,
+                                     ctypes.c_size_t, d, length)
+        kspec = torch.empty(nbytes // 4, device=u.device, dtype=torch.float32)
+    check_cuda_operand("kspec", kspec, u.device, torch.float32, (2 * d * length,))
     if bias is not None:
         check_cuda_operand("bias", bias, u.device, torch.float32, (d,))
     work = _workspace(SPECTRAL_CONV, "lcbi_spectral_conv_workspace", b, d, length, u.device)
     y = torch.empty_like(u)
-    SPECTRAL_CONV(ptr(u), ptr(k), ptr(bias), ptr(y), ptr(work), b, d, length, int(conj),
-                  int(u.dtype == torch.bfloat16), stream_handle(u.device))
-    return y
+    SPECTRAL_CONV(ptr(u), ptr(k), ptr(kspec), ptr(bias), ptr(y), ptr(work), b, d, length,
+                  int(conj), int(u.dtype == torch.bfloat16), stream_handle(u.device))
+    return y, kspec
 
 
 def spectral_conv_dk(g, u):
@@ -132,23 +144,25 @@ def spectral_conv_dk(g, u):
 class _SpectralConv(torch.autograd.Function):
     """The causal convolution on (B, D, L). The backward is the TPU kernel's
     (_spec_bwd): du from the conv kernel with the conjugate filter spectrum
-    plus bias * g, dk from the dk kernel, dbias = dk[:, 0]. On the CPU both
-    directions are the plain version's."""
+    (the forward's, kept) plus bias * g, dk from the dk kernel, dbias =
+    dk[:, 0]. On the CPU both directions are the plain version's."""
 
     @staticmethod
     def forward(ctx, u, k, bias):
-        ctx.save_for_backward(u, k, bias)
-        if u.is_cuda:
-            return spectral_conv_fwd(u, k, bias)
-        return spectral_causal_conv_plain(u, k, bias)
+        if not u.is_cuda:
+            ctx.save_for_backward(u, k, bias, None)
+            return spectral_causal_conv_plain(u, k, bias)
+        y, kspec = spectral_conv_fwd(u, k, bias)
+        ctx.save_for_backward(u, k, bias, kspec)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        u, k, bias = ctx.saved_tensors
+        u, k, bias, kspec = ctx.saved_tensors
         g = g.to(u.dtype).contiguous()
         if not g.is_cuda:
             return spectral_causal_conv_bwd_plain(g, u, k, bias)
-        du = spectral_conv_fwd(g, k, bias, conj=True)
+        du, _ = spectral_conv_fwd(g, None, bias, conj=True, kspec=kspec)
         dk = spectral_conv_dk(g, u)
         return du, dk, None if bias is None else dk[:, 0].clone()
 

@@ -2,23 +2,31 @@
 commit, say) on one card, in turns: parent, this tree, this tree, parent.
 
     git archive <parent> | tar -x -C build/parent
-    python3 -m long_context_biomedical_imaging_tpu_torch.utils.ab_parent build/parent
+    python3 -m long_context_biomedical_imaging_tpu_torch.utils.ab_parent build/parent [config ...]
 
 Each turn is a fresh process started in that tree's root, which imports the
-tree's own ``chip_smoke.py`` and runs its train-step phases for ptx (Hyena,
-K1 and K2), vessel (Mamba, K4 and K2), ptx_attn (K8's whole-window path) and
-emb_attn (K8's general path), then its K2 backward phase (8: each ptx stage
-in fp32 and bf16), its K4 phase (17: each vessel stage) and its K2' phase
-(46), from which it prints K2's backward per ptx step and K4's per vessel
-step (the bf16 times per stage times the stage's depth) and K2''s backward
-per call, and last K1's backward per ptx step and K8's weight gradients per
-ptx_attn step (the other users of the split-K weight-gradient kernel): the
-same functions in both trees, so the turns differ only in the
-package they import. Kernels build at their first launch into each tree's
-own ``build/kernels/``. Every line a turn prints is echoed with the turn's
-label; a summary of the step times, the backward times and the profiled
-device time per step of the kernels named in ``KERNELS`` ends the output.
-Needs one card.
+tree's own ``chip_smoke.py`` and runs its train-step phases for every
+configuration: ptx (12: Hyena, K1 and K2), emb (16: K3), vessel (20: Mamba,
+K4), vit16k (24: K5), vit65k_hyena (28: K6), vit65k_mamba (32: K7),
+ptx_attn (36: K8's whole-window path), micro_w7 (40: K9) and emb_attn (45:
+K8's general path). Then its K3 phase (13) and its K6 phase (25), from which
+it prints K3's backward with dM per emb step (phase 13's bf16 times per
+stage, backward and dM, times the stage's depth) and K6 per vit65k_hyena
+step (phase 25's per-call times at the vit65k_hyena shape: 12 convolution
+calls and 12 du calls, 24 in all, and 12 dk calls), and K3's forward per
+emb step (phase 13's bf16 times per stage times its depth, which shares its
+Toeplitz products with the backward); and last K1's backward
+per ptx step and K8's weight gradients per ptx_attn step (the other users of
+the split-K weight-gradient kernel): the same functions in both trees, so
+the turns differ only in the package they import. Configurations named
+after the checkout limit the turns to those configurations' train steps
+(to read a step's spread again); the name ``k3`` runs K3's phase 13 alone. The per-call K2, K2' and
+K4 backward phases (8, 46, 17) left the turn for time; their kernels run in
+the train steps. Kernels build at their first launch into each tree's own
+``build/kernels/``. Every line a turn prints is echoed with the turn's
+label; a summary of the step times, the per-step kernel times and the
+profiled device time per step of the kernels named in ``KERNELS`` ends the
+output. Needs one card.
 """
 
 from __future__ import annotations
@@ -29,30 +37,50 @@ import subprocess
 import sys
 import time
 
-# what a turn runs, in that tree's root; the phases are chip_smoke.py's
-TURN = r"""
+# what a turn runs, in that tree's root; the phases are chip_smoke.py's:
+# the head, one train-step phase per configuration, then the kernel phases
+HEAD = r"""
 import sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
 dev = torch.device("cuda", 0)
 t0 = time.time()
-cs.phase_train_throughput(torch, dev)
-cs.phase_vessel_throughput(torch, dev)
-cs.phase_config_throughput(torch, dev, cs.ptx_attn_flags(), 36, "ptx_attn", batch=cs.BATCH)
-cs.phase_config_throughput(torch, dev, cs.emb_attn_flags(), 45, "emb_attn", batch=cs.BATCH,
-                           volume=cs.EMB_VOLUME)
-from long_context_biomedical_imaging_tpu_torch.ops import fused_mlp, mamba_window
-k2 = cs.phase_k2_bwd(torch, fused_mlp, dev)["bfloat16"]
-k2_step = sum(depth * ms for (_, ms, _), (_, _, depth) in zip(k2, cs.STAGES))
-k4 = cs.phase_k4(torch, mamba_window, dev)["bfloat16"]["bwd"]
-k4_step = sum(depth * ms for (_, ms, _), (_, _, depth) in zip(k4, cs.VESSEL_K4_STAGES))
-k2p = cs.phase_k2_prime(torch, fused_mlp, dev)[0]["bwd"]
-print(f"backward times: K2 bwd {k2_step:.3f} ms per ptx step; K4 bwd {k4_step:.3f} ms per "
-      f"vessel step; K2' bwd {k2p[1]:.3f} ms per call (plain VJP {k2p[2]:.3f} ms)", flush=True)
+"""
+STEP_PHASES = {
+    "ptx": "cs.phase_train_throughput(torch, dev)",
+    "emb": "cs.phase_emb_throughput(torch, dev)",
+    "vessel": "cs.phase_vessel_throughput(torch, dev)",
+    "vit16k": "cs.phase_vit_throughput(torch, dev)",
+    "vit65k_hyena": 'cs.phase_config_throughput(torch, dev, cs.vit65k_hyena_flags(), 28, '
+                    '"vit65k_hyena")',
+    "vit65k_mamba": 'cs.phase_config_throughput(torch, dev, cs.vit65k_mamba_flags(), 32, '
+                    '"vit65k_mamba")',
+    "ptx_attn": 'cs.phase_config_throughput(torch, dev, cs.ptx_attn_flags(), 36, "ptx_attn", '
+                'batch=cs.BATCH)',
+    "micro_w7": 'cs.phase_config_throughput(torch, dev, cs.micro_w7_flags(), 40, "micro_w7", '
+                'batch=cs.BATCH)',
+    "emb_attn": 'cs.phase_config_throughput(torch, dev, cs.emb_attn_flags(), 45, "emb_attn", '
+                'batch=cs.BATCH, volume=cs.EMB_VOLUME)',
+    # not a train step: K3's kernel phase alone (forward, backward, dM per
+    # call at the emb stage shapes, fp32 and bf16)
+    "k3": "from long_context_biomedical_imaging_tpu_torch.ops import hyena_window\n"
+          "cs.phase_k3(torch, hyena_window, dev)",
+}
+KERNEL_PHASES = r"""
+from long_context_biomedical_imaging_tpu_torch.ops import hyena_window, spectral_conv
+k3 = cs.phase_k3(torch, hyena_window, dev)["bfloat16"]
+k3_step = sum(depth * (b[1] + m[1])
+              for b, m, (_, _, depth) in zip(k3["bwd"], k3["dm"], cs.EMB_K3_STAGES))
+k6 = cs.phase_k6(torch, spectral_conv, dev)
+k6_step = 12 * k6["conv"][1] + 12 * k6["dk"][1]
+k3_fwd = sum(depth * f[1] for f, (_, _, depth) in zip(k3["fwd"], cs.EMB_K3_STAGES))
+print(f"per-step kernels: K3 bwd+dM {k3_step:.3f} ms per emb step; K6 {k6_step:.3f} ms per "
+      f"vit65k_hyena step (conv+du {12 * k6['conv'][1]:.3f}, dk {12 * k6['dk'][1]:.3f}); "
+      f"K3 fwd {k3_fwd:.3f} ms per emb step", flush=True)
 # the other users of the split-K weight gradients, bf16 at the ptx and
 # ptx_attn stage shapes: K1's backward with the folded LN, K8's weight gradients
-from long_context_biomedical_imaging_tpu_torch.ops import hyena_window, window_attention
+from long_context_biomedical_imaging_tpu_torch.ops import window_attention
 gen = torch.Generator().manual_seed(7)
 def mk(shape, scale=0.3):
     return (torch.randn(shape, generator=gen) * scale).to(dev)
@@ -71,35 +99,42 @@ for c, grid, depth in cs.STAGES:
     del a, d, s
 print(f"split-K users: K1 bwd {k1_step:.3f} ms per ptx step; K8 weight gradients "
       f"{k8w_step:.3f} ms per ptx_attn step", flush=True)
-print(f"turn seconds {time.time() - t0:.1f}", flush=True)
 """
+TAIL = 'print(f"turn seconds {time.time() - t0:.1f}", flush=True)\n'
 
-STEP = re.compile(r"phase (12|20|36|45) (?:train throughput: ptx|vessel|ptx_attn|emb_attn) train "
-                  r"step .*?: ([0-9.]+) ms/step")
-PROFILE = re.compile(r"phase (12|20|36|45) (?:ptx_attn |emb_attn |vessel )?profile: one step, "
-                     r"device time ([0-9.]+) ms; top: (.*)")
-BACKWARDS = re.compile(r"backward times: K2 bwd ([0-9.]+) ms per ptx step; K4 bwd ([0-9.]+) ms "
-                       r"per vessel step; K2' bwd ([0-9.]+) ms per call")
+
+def turn_code(configs=None) -> str:
+    """A turn's program: every configuration's train step and the kernel
+    phases, or (configs given) only those configurations' train steps."""
+    names = list(STEP_PHASES) if not configs else configs
+    return (HEAD + "".join(STEP_PHASES[n] + "\n" for n in names)
+            + ("" if configs else KERNEL_PHASES) + TAIL)
+
+
+STEP = re.compile(r"phase (\d+) (?:train throughput: )?(\S+) train step .*?: ([0-9.]+) ms/step")
+PROFILE = re.compile(r"phase (\d+) ((?:\S+ )*?)profile: one step, device time ([0-9.]+) ms; "
+                     r"top: (.*)")
+PER_STEP = re.compile(r"per-step kernels: K3 bwd\+dM ([0-9.]+) ms per emb step; K6 ([0-9.]+) "
+                      r"ms per vit65k_hyena step")
+K3_FWD = re.compile(r"K3 fwd ([0-9.]+) ms per emb step")
 SPLIT_K = re.compile(r"split-K users: K1 bwd ([0-9.]+) ms per ptx step; K8 weight gradients "
                      r"([0-9.]+) ms per ptx_attn step")
-# kernel names whose device time per step the summary reports: K1's and K8's
-# backward kernels; K2's and K4's (the parent's one kernel each, this tree's
-# passes: the row, scan and gate kernels, the shared row-tiled and split-K
-# products and row passes)
-KERNELS = ("hyena_window_bwd_kernel", "window_attention_wgrad_kernel", "wattn_rows_mma_kernel",
-           "wattn_keys_mma_kernel", "window_attention_rows_kernel",
-           "window_attention_keys_kernel", "proj_gemm_kernel", "fused_ln_mlp_bwd_kernel",
-           "mamba_window_bwd_kernel", "mlp_rows_mma_kernel", "mamba_scan_bwd_kernel",
-           "mamba_gate_bwd_kernel", "gemm_rows_kernel", "lcbi::wgrad_kernel", "ln_bwd_kernel",
-           "ln_rows_kernel", "reduce_slots_kernel")
-NAMES = {"12": "ptx", "20": "vessel", "36": "ptx_attn", "45": "emb_attn"}
+# kernel names (substrings) whose device time per step the summary reports:
+# K3's backward and dM (the parent's row and Toeplitz kernels, this tree's
+# gates, dz and dM kernels; the Toeplitz kernels of both directions), K6's passes (spec_*), and the shared row-tiled
+# and split-K products and row passes that K3's backward now runs too
+KERNELS = ("k3_rows_bwd_kernel", "k3_rows_in_kernel", "k3_toeplitz",
+           "k3_gates_kernel", "k3_dz_kernel", "hyena_dm", "spec_", "gemm_rows_kernel",
+           "lcbi::wgrad_kernel", "ln_bwd_kernel", "ln_rows_kernel", "reduce_slots_kernel")
+NAMES = {"12": "ptx", "16": "emb", "20": "vessel", "24": "vit16k", "28": "vit65k_hyena",
+         "32": "vit65k_mamba", "36": "ptx_attn", "40": "micro_w7", "45": "emb_attn"}
 
 
-def run_turn(label: str, root: str, env: dict) -> dict:
-    """One turn: its step times {config: ms} and kernel times {config:
-    {kernel: ms}}, after echoing its output."""
+def run_turn(label: str, root: str, env: dict, code: str) -> dict:
+    """One turn of the program ``code``: its step times {config: ms} and
+    kernel times {config: {kernel: ms}}, after echoing its output."""
     t0 = time.time()
-    proc = subprocess.run([sys.executable, "-c", TURN], cwd=root, env=env, capture_output=True,
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True,
                           text=True)
     for line in (proc.stdout + proc.stderr).splitlines():
         print(f"[{label}] {line}", flush=True)
@@ -107,22 +142,24 @@ def run_turn(label: str, root: str, env: dict) -> dict:
         raise SystemExit(f"turn {label} failed (exit {proc.returncode})")
     steps, kernels = {}, {}
     for line in proc.stdout.splitlines():
-        m = BACKWARDS.search(line)
+        m = PER_STEP.search(line)
         if m:
-            steps.update({"K2 bwd/ptx step": float(m.group(1)),
-                          "K4 bwd/vessel step": float(m.group(2)),
-                          "K2' bwd/call": float(m.group(3))})
+            steps.update({"K3 bwd+dM/emb step": float(m.group(1)),
+                          "K6/vit65k_hyena step": float(m.group(2))})
+        m = K3_FWD.search(line)
+        if m:
+            steps["K3 fwd/emb step"] = float(m.group(1))
         m = SPLIT_K.search(line)
         if m:
             steps.update({"K1 bwd/ptx step": float(m.group(1)),
                           "K8 wgrad/ptx_attn step": float(m.group(2))})
         m = STEP.search(line)
         if m:
-            steps[NAMES[m.group(1)]] = float(m.group(2))
+            steps[m.group(2)] = float(m.group(3))
         m = PROFILE.search(line)
-        if m:
+        if m and "eval" not in m.group(2) and m.group(1) in NAMES:
             per = kernels.setdefault(NAMES[m.group(1)], {})
-            for part in m.group(3).split("; "):
+            for part in m.group(4).split("; "):
                 km = re.match(r"(.*?) ([0-9.]+) ms \(", part)
                 if km:
                     for name in KERNELS:
@@ -134,8 +171,11 @@ def run_turn(label: str, root: str, env: dict) -> dict:
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1 or not os.path.isfile(os.path.join(argv[0], "chip_smoke.py")):
-        raise SystemExit("usage: ab_parent <parent checkout holding chip_smoke.py>")
+    if (not argv or not os.path.isfile(os.path.join(argv[0], "chip_smoke.py"))
+            or any(n not in STEP_PHASES for n in argv[1:])):
+        raise SystemExit("usage: ab_parent <parent checkout holding chip_smoke.py> [config ...] "
+                         f"(configs: {' '.join(STEP_PHASES)}; none: all, and the kernel phases)")
+    code = turn_code(argv[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -149,9 +189,9 @@ def main(argv=None) -> None:
     results = []
     for label, root in (("parent", parent), ("change", here), ("change", here),
                         ("parent", parent)):
-        results.append((label, run_turn(label, root, env)))
-    print("summary (ms per train step, bf16, batch 4, and the backwards' ms; kernels: profiled "
-          "device ms per step):")
+        results.append((label, run_turn(label, root, env, code)))
+    print("summary (ms per train step, bf16, each configuration at its batch, and the kernels' "
+          "ms per step; kernels: profiled device ms per step):")
     for label, r in results:
         steps = ", ".join(f"{k} {v:.2f}" for k, v in r["steps"].items())
         kern = "; ".join(f"{cfg}: " + ", ".join(f"{k} {v:.2f}" for k, v in ks.items())

@@ -333,10 +333,10 @@ def test_backward_kernels_are_deterministic(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def _chunked_args(gen, bw, v, c, dtype, device, with_ln):
-    """K3 operands on prepared taps: x, w_in, b_in, ws, bs, m (Toeplitz
-    blocks in x.dtype), w_out, b_out [, ln_scale, ln_bias]."""
-    ws, kl = thw.prepare_taps(_randn(gen, (3 * c, 5)), _randn(gen, (c, v), 0.1),
+def _chunked_args(gen, bw, v, c, dtype, device, with_ln, taps=5):
+    """K3 operands on prepared taps: x, w_in, b_in, ws (``taps`` short taps),
+    bs, m (Toeplitz blocks in x.dtype), w_out, b_out [, ln_scale, ln_bias]."""
+    ws, kl = thw.prepare_taps(_randn(gen, (3 * c, taps)), _randn(gen, (c, v), 0.1),
                               _randn(gen, (c,)))
     m = thw.build_chunk_toeplitz(kl, thw.pick_chunk(v))
     args = [_randn(gen, (bw, v, c), 1.0).to(device, dtype), _randn(gen, (c, 3 * c)).to(device, dtype),
@@ -347,10 +347,11 @@ def _chunked_args(gen, bw, v, c, dtype, device, with_ln):
     return args
 
 
-# the last two: unetr's stage-0 width (C = 48) on 512-token windows, custom's
-# (C = 24) on 128-token windows
+# then unetr's stage-0 width (C = 48) on 512-token windows, custom's (C = 24)
+# on 128-token windows, and C = 80 on a ragged group of 13 windows: widths
+# that are not a multiple of 32 (the backward takes them unpadded)
 _K3_SHAPES = [(5, 192, 32), (17, 128, 64), (3, 512, 96), (4096, 512, 96), (512, 512, 192),
-              (64, 512, 48), (9, 128, 24)]
+              (64, 512, 48), (9, 128, 24), (13, 256, 80)]
 
 
 @pytest.mark.cuda
@@ -389,15 +390,23 @@ def test_hyena_chunked_kernel_matches_plain(cuda_device, dtype, bw, v, c, with_l
 _K3_NAMES = ("x", "w_in", "b_in", "ws", "bs", "m", "w_out", "b_out", "ln_scale", "ln_bias")
 
 
+# short-conv tap counts other than the models' 5: the ends of the dz
+# kernel's two register variants (up to 8 taps and up to 16) and the entry's
+# floor and ceiling
+_K3_TAPS = [(17, 128, 64, 1), (13, 256, 80, 1), (17, 128, 64, 8), (13, 256, 80, 8),
+            (17, 128, 64, 9), (13, 256, 80, 9), (17, 128, 64, 16), (13, 256, 80, 16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_ln", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bw,v,c", _K3_SHAPES)
-def test_hyena_chunked_backward_kernels_match_plain(cuda_device, dtype, bw, v, c, with_ln):
+@pytest.mark.parametrize("bw,v,c,taps", [(*s, 5) for s in _K3_SHAPES] + _K3_TAPS)
+def test_hyena_chunked_backward_kernels_match_plain(cuda_device, dtype, bw, v, c, taps, with_ln):
     """K3 backward and dM (hyena_chunked_bwd: one launch of each) against the
     VJP of the plain forward, every gradient including dM."""
-    gen = torch.Generator().manual_seed(bw + v + c + 3)
-    args = _chunked_args(gen, bw, v, c, dtype, cuda_device, with_ln)
+    gen = torch.Generator().manual_seed(bw + v + c + taps - 2)
+    args = _chunked_args(gen, bw, v, c, dtype, cuda_device, with_ln, taps)
+    assert args[3].shape == (taps, 3 * c)
     do = _randn(gen, (bw, v, c), 1.0).to(cuda_device, dtype)
     before = (thw.HYENA_CHUNKED_BWD.launches, thw.HYENA_DM.launches)
     got = thw.hyena_chunked_bwd(do, *args)
@@ -410,7 +419,8 @@ def test_hyena_chunked_backward_kernels_match_plain(cuda_device, dtype, bw, v, c
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bw,v,c,chunk", [(7, 192, 8, 64), (4096, 512, 96, 128),
-                                          (512, 512, 192, 128)])
+                                          (512, 512, 192, 128), (9, 128, 24, 64),
+                                          (33, 512, 48, 128), (13, 256, 80, 128)])
 def test_hyena_dm_kernel_matches_plain(cuda_device, dtype, bw, v, c, chunk):
     """The dM kernel alone on random streams against its plain version:
     fp32 sums over up to 16384 chunk rows, 1e-4 of max in fp32 and 2e-3 in
@@ -885,12 +895,16 @@ def _check_spec(got, ref, dtype, names):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 8, 8192), (1, 4, 131072), (1, 384, 65536)])
+@pytest.mark.parametrize("shape", [(3, 8, 8192), (1, 4, 131072), (1, 384, 65536),
+                                   (1, 5, 8192), (3, 4, 65536), (3, 2, 131072),
+                                   (2, 3, 16384), (1, 6, 32768)])
 def test_spectral_conv_kernels_match_plain(cuda_device, dtype, shape, with_bias):
     """K6 through its autograd Function: the forward (one conv launch) and
-    du, dk, dbias (one conv launch with the conjugate spectrum, one dk
+    du, dk, dbias (one conv launch with the forward's filter spectrum, one dk
     launch) against the plain version and its VJP, at the vit65k_hyena shape,
-    the odd batch at the gate's floor and one channel block at its ceiling."""
+    batches of 1 and 3 at the gate's floor, at 65,536 and at its ceiling, and
+    at 16,384 and 32,768, whose (n1, n2) splits of the half-length transform
+    (128 x 128, 256 x 128) the other lengths do not reach."""
     gen = torch.Generator().manual_seed(sum(shape) + with_bias)
     u, k, bias, g = _spec_args(gen, shape, dtype, cuda_device, with_bias)
     leaves = [t.clone().requires_grad_(True) if t is not None else None for t in (u, k, bias)]
@@ -912,12 +926,15 @@ def test_spectral_conv_kernels_are_deterministic_and_refuse(cuda_device):
     """Two launches of each K6 kernel give the same bits (the dk kernel sums
     the batch in a fixed order); the wrappers refuse a length outside the gate
     (4096, 262144) or not a power of two (12288), a CPU tensor, fp16, a filter
-    that is not fp32, a non-contiguous tensor."""
+    that is not fp32, a non-contiguous tensor, and both or neither of the
+    filter and its spectrum."""
     gen = torch.Generator().manual_seed(6)
     u, k, bias, g = _spec_args(gen, (3, 8, 8192), torch.bfloat16, cuda_device, True)
     for conj in (False, True):
-        assert torch.equal(tsc.spectral_conv_fwd(u, k, bias, conj),
-                           tsc.spectral_conv_fwd(u, k, bias, conj))
+        (y, ks), (y2, ks2) = (tsc.spectral_conv_fwd(u, k, bias, conj) for _ in range(2))
+        assert torch.equal(y, y2) and torch.equal(ks, ks2)
+        # from the kept spectrum, as the backward's du call runs
+        assert torch.equal(tsc.spectral_conv_fwd(u, None, bias, conj, kspec=ks)[0], y)
     assert torch.equal(tsc.spectral_conv_dk(g, u), tsc.spectral_conv_dk(g, u))
     for length in (4096, 12288, 262144):
         with pytest.raises(ValueError, match="8192"):
@@ -933,6 +950,10 @@ def test_spectral_conv_kernels_are_deterministic_and_refuse(cuda_device):
         tsc.spectral_conv_fwd(u, k.bfloat16(), bias)
     with pytest.raises(ValueError, match="contiguous"):
         tsc.spectral_conv_fwd(u.transpose(0, 1).contiguous().transpose(0, 1), k, bias)
+    with pytest.raises(ValueError, match="one of"):
+        tsc.spectral_conv_fwd(u, k, bias, kspec=ks)
+    with pytest.raises(ValueError, match="one of"):
+        tsc.spectral_conv_fwd(u, None, bias)
 
 
 @pytest.mark.cuda

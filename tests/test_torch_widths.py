@@ -204,15 +204,21 @@ def _slots(named):
     return red, layout
 
 
-def _blocks_hold(padded, true, c, cp, dims):
-    """padded holds true's c-wide blocks along dims at the start of cp-wide
-    blocks, zeros after them."""
+def _cut_checked(padded, c, cp, dims):
+    """The first c entries of each cp-wide block of padded along dims, after
+    checking that the rest of each block is zero."""
     t = padded
     for d in dims:
         t = t.unflatten(d, (t.shape[d] // cp, cp))
         assert bool((t.narrow(d + 1, c, cp - c) == 0).all())
         t = t.narrow(d + 1, 0, c).flatten(d, d + 1)
-    assert torch.equal(t, true)
+    return t
+
+
+def _blocks_hold(padded, true, c, cp, dims):
+    """padded holds true's c-wide blocks along dims at the start of cp-wide
+    blocks, zeros after them."""
+    assert torch.equal(_cut_checked(padded, c, cp, dims), true)
 
 
 @pytest.mark.parametrize("c, hidden", [(24, 96), (48, 192), (64, 256)])
@@ -252,11 +258,11 @@ def test_hyena_operand_layout_round_trips(c):
     assert cp == -(-c // 32) * 32
     for p, t, d in zip(padded, (w_in, b_in, ws, bs, w_out, kl), dims):
         _blocks_hold(p, t, c, cp, d)
-    # the gradient cut of K3's backward (K1's takes the true C, no padding)
-    names = ("dwin", "dbin", "dws", "dbs", "dwo")
-    red, layout = _slots(list(zip(names, padded)) + [("dbo", torch.cat([b_out,
-                                                                       torch.zeros(cp - c)]))])
-    got = hyena_window._weight_grads(red, layout, c, cp, k, torch.float32, False)
+    # the backwards of K1 and K3 take the true C: K3's gradients come out of
+    # [dw_in | dw_out] and the small gradients' reduced slot as they are
+    red, layout = _slots([("dws", ws), ("dbin", b_in), ("dbs", bs), ("dbo", b_out)])
+    wgrads = torch.cat([w_in.reshape(-1), w_out.reshape(-1)])
+    got = hyena_window._chunked_bwd_grads(red, layout, wgrads, c, k, torch.float32, False)
     for a, b in zip(got, (w_in, b_in, ws, bs, w_out, b_out)):
         assert torch.equal(a, b)
 
@@ -264,7 +270,6 @@ def test_hyena_operand_layout_round_trips(c):
 @pytest.mark.parametrize("c", [24, 48, 64])
 def test_mamba_operand_layout_round_trips(c):
     from long_context_biomedical_imaging_tpu_torch.ops import mamba_window
-    from long_context_biomedical_imaging_tpu_torch.ops.cuda_build import slot_grad
 
     dh, r, n = c // 2, -(-c // 16), 8
     g = torch.Generator().manual_seed(c)
@@ -273,8 +278,9 @@ def test_mamba_operand_layout_round_trips(c):
     ops = {name: torch.randn(s, generator=g) for name, s in shapes.items()}
     cp, *padded = mamba_window._padded_operands(_Widths(32), c, *ops.values())
     assert cp == -(-c // 32) * 32
-    red, layout = _slots(list(zip(ops, padded)))
-    for name, t in ops.items():
-        stored = padded[list(ops).index(name)].shape
-        got = slot_grad(red, layout, name, stored, mamba_window._blocks(c, cp, name))
-        assert torch.equal(got, t), name
+    # each operand holds its C blocks and its C/2 blocks at the start of
+    # blocks of cp and cp / 2, zeros after them (the backward takes the true C)
+    for (name, t), p in zip(ops.items(), padded):
+        for bc, bcp, dims in mamba_window._blocks(c, cp, name):
+            p = _cut_checked(p, bc, bcp, dims)
+        assert torch.equal(p, t), name
