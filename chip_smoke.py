@@ -11,7 +11,7 @@ Phases, each printing one line of numbers (or a few):
      the four ptx stage shapes (V = 16), fp32 and bf16, with and without the
      folded pre-LN;
   4. K2, the fused LN + MLP + residual, against its plain version at the four
-     ptx stage shapes, fp32 and bf16;
+     ptx stage shapes, fp32 and bf16, the weights at their true widths;
   5. slice: run_torch.main evaluates a synthetic ptx dataset (1024x1024
      float32 images) with the ptx flags of projects/run_ptx.sh, on the card,
      eval only; checks the metrics files and that every forward batch went
@@ -142,7 +142,9 @@ Phases, each printing one line of numbers (or a few):
      its VJP at the four ptx_attn stage shapes (batch 4: 65,536 .. 1,024
      windows of 16 tokens, C = 96 .. 768), at 64-token windows and at a
      window count no tile divides, with and without the shifted windows'
-     region ids, fp32 and bf16; two launches bitwise equal; the
+     region ids, fp32 and bf16 (the bf16 backward through the whole-window
+     core, the fp32 one through the general path); two launches bitwise
+     equal; the
      relative-position table's gradient through the gather; the refusals
      (a CPU tensor, a head dim of 96); then the times of the kernels and the
      plain version at the stage shapes in bf16;

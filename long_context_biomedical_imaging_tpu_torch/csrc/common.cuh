@@ -1,13 +1,13 @@
-// Shared device code of the fused block kernels (fused_mlp.cu, hyena_window.cu,
-// fused_mlp_bwd.cu, hyena_window_bwd.cu).
+// Shared device code of the fused block kernels (K1-K4 and K8's shared-memory
+// paths, and every kernel library's error string).
 //
-// Both kernels keep one tile of token rows in shared memory for their whole
-// chain: a pre-LayerNorm writes the normalised rows once, cast to the matmul
-// type T; matrix products read those rows from shared memory and the weights
-// straight from global memory (they stay resident in L2), and accumulate in
-// fp32 into a shared-memory tile. T = __nv_bfloat16 runs the products on the
-// tensor cores through WMMA 16x16x16 fragments; T = float runs them as fp32
-// FMA loops, so that fp32 inputs keep full fp32 precision (no TF32).
+// The fused block kernels keep one tile of token rows in shared memory for
+// their whole chain: a pre-LayerNorm writes the normalised rows once, cast to
+// the matmul type T; matrix products read those rows from shared memory and
+// the weights from global memory (resident in L2) or from staged slices, and
+// accumulate in fp32. T = __nv_bfloat16 runs the products of these helpers on
+// the tensor cores through WMMA 16x16x16 fragments; T = float runs them as
+// fp32 FMA loops, so that fp32 inputs keep full fp32 precision (no TF32).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,19 +36,16 @@ __host__ __device__ __forceinline__ size_t align128(size_t bytes) {
 __host__ __device__ __forceinline__ int round_up16(int v) { return (v + 15) & ~15; }
 __host__ __device__ __forceinline__ int round_up32(int v) { return (v + 31) & ~31; }
 
-// The padded widths of the kernels whose WMMA tiles read weights straight
-// from global memory (a fragment load cannot mask a tail): K2's and K2''s
-// forward run on C rounded up to 16 and H to 64 (their hidden chunk); the
-// forwards of K1, K3 and K4 on C rounded up to 32 (their channel chunk;
-// K4's two C/2 halves each to 16). The backwards of K1, K2 (and K2'), K3 and
-// K4 stage their weight slices through shared memory with the tails masked
-// and take the true widths.
+// The padded width of the forwards whose WMMA tiles read weights straight
+// from global memory (a fragment load cannot mask a tail): the forwards of
+// K1, K3 and K4 run on C rounded up to 32 (their channel chunk; K4's two C/2
+// halves each to 16). Every other kernel (K2's and K2''s forward and
+// backward, the backwards of K1, K3 and K4) stages its weight slices through
+// shared memory with the tails masked and takes the true widths.
 // The rows, the LayerNorm statistics and the stores keep the true C. This is
 // the one place the rounding is decided: each of those libraries reports it
-// through lcbi_padded_channels (and K2's lcbi_padded_hidden), and the
-// wrappers lay the weights out at the widths reported.
-__host__ __device__ __forceinline__ int mlp_padded_channels(int C) { return round_up16(C); }
-__host__ __device__ __forceinline__ int mlp_padded_hidden(int H) { return (H + 63) / 64 * 64; }
+// through lcbi_padded_channels, and the wrappers lay the weights out at the
+// width reported.
 __host__ __device__ __forceinline__ int chunk_padded_channels(int C) { return round_up32(C); }
 
 // Rows [0, rows) of the (rows, C) tile x -> ys (leading dimension lds) in T:

@@ -48,33 +48,12 @@
 // fp32 tensors (the tests' path) take the same passes with FMA products in
 // shared memory (common.cuh), no TF32. Any C and any H.
 #include "ln_rows.cuh"
-#include "mma_gemm.cuh"
+#include "mlp_common.cuh"
 
 namespace lcbi {
 
-constexpr int kHidChunk = 64;                 // hidden columns per chunk
-constexpr int kSliceK = 64;                   // depth of a staged bf16 weight slice
-constexpr int kLdW = kHidChunk + 8;           // staged slices' leading dimension
-constexpr int kSlice = kSliceK * kLdW;        // elements of one staged slice
-constexpr int kRing = 3;                      // stages of the bf16 slice ring
 constexpr int kF32SliceK = 32;                // depth of a staged fp32 slice
 constexpr int kLdU = kHidChunk + 4;           // fp32 (BM, 64) tiles
-
-constexpr float kTanhC0 = 0.79788456080286536f;   // sqrt(2 / pi)
-constexpr float kTanhC1 = 0.044715f;
-
-template <typename T> __device__ __forceinline__ void gelu_and_grad(float u, float& g, float& dg);
-template <> __device__ __forceinline__ void gelu_and_grad<float>(float u, float& g, float& dg) {
-  const float cdf = 0.5f * (1.f + erff(u * 0.70710678118654752f));
-  g = u * cdf;
-  dg = cdf + u * 0.39894228040143268f * expf(-0.5f * u * u);
-}
-template <> __device__ __forceinline__ void gelu_and_grad<__nv_bfloat16>(float u, float& g,
-                                                                          float& dg) {
-  const float th = tanhf(kTanhC0 * (u + kTanhC1 * u * u * u));
-  g = 0.5f * u * (1.f + th);
-  dg = 0.5f * (1.f + th) + 0.5f * u * (1.f - th * th) * kTanhC0 * (1.f + 3.f * kTanhC1 * u * u);
-}
 
 // Slot offsets (floats) of each small gradient inside one block's slot; -1
 // where the variant has none. db1 comes first, written by the row kernel;
@@ -156,11 +135,8 @@ mlp_rows_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_g,
     const int h0 = (it / nks) * kHidChunk, k0 = (it % nks) * kSliceK;
     bf16* w1s = ring + (it % kRing) * 2 * kSlice;
     bf16* w2s = w1s + kSlice;
-    for (int e = threadIdx.x; e < kSliceK * (kHidChunk / 8); e += kThreads) {
-      const int r = e / (kHidChunk / 8), c = (e % (kHidChunk / 8)) * 8;
-      stage16(w1s + r * kLdW + c, w1, k0 + r, C, h0 + c, H, H, vec_h);  // w1[k][h]
-      stage16(w2s + r * kLdW + c, w2, h0 + r, H, k0 + c, C, C, vec_c);  // w2[h][k]
-    }
+    stage_slice16<kSliceK, kHidChunk>(w1s, kLdW, w1, k0, C, h0, H, H, vec_h);   // w1[k][h]
+    stage_slice16<kHidChunk, kSliceK>(w2s, kLdW, w2, h0, H, k0, C, C, vec_c);   // w2[h][k]
   };
 
   const long long t_begin = tiles * blockIdx.x / gridDim.x;

@@ -117,15 +117,16 @@ __device__ __forceinline__ void frag_a_trans(uint32_t (&a)[4], const bf16* tile,
                              ((lane >> 3) & 1) * 8));
 }
 
-// The bf16 block's loop: a 128 x 128 tile of out (fp32, leading dimension
-// ldo, rows below M and columns below N stored) at (m0, n0) from nk slices of
-// depth kMmaDepth, which prefetch(i, a, b) stages (cp.async, committed by the
-// loop) into the ring's slots a and b. A_T: A's slices are (depth, M) (the
-// weight gradients' A^T); else (M, depth). B_NK: B's are (N, depth); else
-// (depth, N).
-template <bool A_T, bool B_NK, class Prefetch>
-__device__ void mma_tile_run(Prefetch prefetch, int nk, int m0, int n0, int M, int N,
-                             float* __restrict__ out, int ldo, unsigned char* smem) {
+// The bf16 block's loop: a 128 x 128 output tile at (m0, n0) from nk slices
+// of depth kMmaDepth, which prefetch(i, a, b) stages (cp.async, committed by
+// the loop) into the ring's slots a and b; its fp32 sums leave through
+// store(row, col, v0, v1), v0 at (row, col) and v1 at (row, col + 1), for
+// every row below M and even col below N (col + 1 may be N). A_T: A's slices
+// are (depth, M) (the weight gradients' A^T); else (M, depth). B_NK: B's are
+// (N, depth); else (depth, N).
+template <bool A_T, bool B_NK, class Prefetch, class Store>
+__device__ void mma_tile_run(Prefetch prefetch, int nk, int m0, int n0, int M, int N, Store store,
+                             unsigned char* smem) {
   constexpr int kAsz = A_T ? kMmaDepth * kMmaLdT : kMmaTile * kMmaLdK;
   constexpr int kBsz = B_NK ? kMmaTile * kMmaLdK : kMmaDepth * kMmaLdT;
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -186,10 +187,7 @@ __device__ void mma_tile_run(Prefetch prefetch, int nk, int m0, int n0, int M, i
   cp_async_wait<0>();
   __syncthreads();   // the ring is free for the block's next tile
 
-  // a thread's two neighbouring columns go as one 8-byte store where the
-  // rows keep 8-byte alignment
   const int g = lane / 4, t = lane % 4;
-  const bool pair = ldo % 2 == 0 && reinterpret_cast<size_t>(out) % 8 == 0;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
@@ -198,29 +196,48 @@ __device__ void mma_tile_run(Prefetch prefetch, int nk, int m0, int n0, int M, i
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + wm * 64 + mi * 16 + g + 8 * h;
-        if (row >= M) continue;
-        float* o = out + (size_t)row * ldo;
-        if (pair && col + 1 < N) {
-          *reinterpret_cast<float2*>(o + col) =
-              make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
-          continue;
-        }
-        if (col < N) o[col] = acc[mi][nj][2 * h];
-        if (col + 1 < N) o[col + 1] = acc[mi][nj][2 * h + 1];
+        if (row < M && col < N) store(row, col, acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
       }
     }
   }
 }
 
-// The bf16 block of a product: a 128 x 128 tile of out (fp32, leading
-// dimension ldo) at (m0, n0) from depth [k_begin, k_end). A_T: A is stored
+// The store of a tile into out (fp32, leading dimension ldo, N columns): a
+// thread's two neighbouring columns go as one 8-byte store where the rows
+// keep 8-byte alignment.
+struct F32Store {
+  float* out;
+  int ldo, N;
+  bool pair;
+  __device__ F32Store(float* o, int ld, int n)
+      : out(o), ldo(ld), N(n), pair(ld % 2 == 0 && reinterpret_cast<size_t>(o) % 8 == 0) {}
+  __device__ void operator()(int row, int col, float v0, float v1) const {
+    float* o = out + (size_t)row * ldo;
+    if (pair && col + 1 < N) {
+      *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
+      return;
+    }
+    o[col] = v0;
+    if (col + 1 < N) o[col + 1] = v1;
+  }
+};
+
+// The same loop into out (fp32, leading dimension ldo).
+template <bool A_T, bool B_NK, class Prefetch>
+__device__ void mma_tile_run(Prefetch prefetch, int nk, int m0, int n0, int M, int N,
+                             float* __restrict__ out, int ldo, unsigned char* smem) {
+  mma_tile_run<A_T, B_NK>(prefetch, nk, m0, n0, M, N, F32Store(out, ldo, N), smem);
+}
+
+// The bf16 block of a product: a 128 x 128 output tile at (m0, n0) from depth
+// [k_begin, k_end), stored through store (mma_tile_run). A_T: A is stored
 // (depth, M) (the weight gradients' A^T); else (M, depth). B_NK: B is stored
 // (N, depth); else (depth, N). The depth axis of an operand stored (depth,
 // width) is its row axis: for A_T and !B_NK a depth index is a row of the
 // stream.
-template <bool A_T, bool B_NK>
+template <bool A_T, bool B_NK, class Store>
 __device__ void mma_tile(const Product<bf16>& pr, long long k_begin, long long k_end, int m0,
-                         int n0, float* __restrict__ out, int ldo, unsigned char* smem) {
+                         int n0, Store store, unsigned char* smem) {
   const bool avec = pr.lda % 8 == 0 && reinterpret_cast<size_t>(pr.A) % 16 == 0;
   const bool bvec = pr.ldb % 8 == 0 && reinterpret_cast<size_t>(pr.B) % 16 == 0;
   auto prefetch = [&](int i, bf16* a, bf16* b) {
@@ -239,7 +256,14 @@ __device__ void mma_tile(const Product<bf16>& pr, long long k_begin, long long k
     }
   };
   mma_tile_run<A_T, B_NK>(prefetch, ceil_div(k_end - k_begin, kMmaDepth), m0, n0, pr.M, pr.N,
-                          out, ldo, smem);
+                          store, smem);
+}
+
+// The same block into out (fp32, leading dimension ldo).
+template <bool A_T, bool B_NK>
+__device__ void mma_tile(const Product<bf16>& pr, long long k_begin, long long k_end, int m0,
+                         int n0, float* __restrict__ out, int ldo, unsigned char* smem) {
+  mma_tile<A_T, B_NK>(pr, k_begin, k_end, m0, n0, F32Store(out, ldo, pr.N), smem);
 }
 
 // The fp32 block: a 64 x 64 tile, operands staged whole per 32-deep slice in

@@ -2,13 +2,14 @@
 // (window_attention.cu, window_attention_bwd.cu). Two paths:
 //
 // The whole-window path, for V = 16, 32, 48 or 64 tokens (2D windows 4x4 to
-// 8x8) at a head dim D of 16, 32 or 64 and C % 16 == 0: a block takes a tile
-// of whole windows, 64 token rows (64 / V windows), and walks the heads one
-// by one. Per head it projects its q, k, v columns (a C x 3D slice of Wqkv)
-// from the tile's token rows,
-// read straight from global memory, into fp32 shared memory, adds the bias
-// and rounds them to the stream type T; then scores, the base-2 softmax and
-// the value products run per window on shared-memory tiles.
+// 8x8) at a head dim D of 16, 32 or 64 and C % 16 == 0. Its forward: a block
+// takes a tile of whole windows, 64 token rows (64 / V windows), and walks
+// the heads one by one. Per head it projects its q, k, v columns (a C x 3D
+// slice of Wqkv) from the tile's token rows, read straight from global
+// memory, into fp32 shared memory, adds the bias and rounds them to the
+// stream type T; then scores, the base-2 softmax and the value products run
+// per window on shared-memory tiles. Its backward (bf16) runs as passes over
+// streams, a warp per (head, window): window_attention_bwd.cu.
 //
 // The general path, for every other V up to 512 (3D windows, shrunk and
 // ragged windows) and every other head dim: one block cannot hold a window's
@@ -289,7 +290,7 @@ __device__ __forceinline__ void load_rows16(T* dst, int ldd, const T* __restrict
 }
 
 // The general path's projections in fp32 (bf16: window_attention_mma.cuh
-// proj_mma_kernel, the same function and rounding).
+// proj_rows_kernel, the same function and rounding).
 // out = epilogue(A @ B) over M x N: A (M x K, row-major, ld lda) in T; B (K x
 // N, row-major, ld ldb) or, with B_COL, the transpose of a row-major (N x K)
 // matrix. The epilogue adds bias[n] (if given) in fp32; a column n < nscale

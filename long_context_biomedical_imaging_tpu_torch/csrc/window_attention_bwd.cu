@@ -8,214 +8,77 @@
 //
 // Replaces the TPU kernel long_context_biomedical_imaging_tpu/ops/window_attention.py
 // _bwd_kernel (pallas_call in _call_bwd). It recomputes the softmax from the
-// inputs (no saved statistics) and rounds where that kernel rounds: q, k, v,
-// p, o, do and ds to T before their products, dqkv to T, which is also the
-// operand of dWqkv = x^T dqkv and of dx = dqkv Wqkv^T (and o of dWout =
-// o^T dout); dbqkv sums the fp32 dqkv, drel the fp32 ds (natural units).
+// inputs (no saved statistics) and rounds where that kernel rounds: q (times
+// scale log2(e)), the unscaled q, k, v, p, o, do and ds to T before their
+// products, dqkv to T, which is also the operand of dWqkv = x^T dqkv and of
+// dx = dqkv Wqkv^T (and o of dWout = o^T dout); dbqkv sums the fp32 dqkv,
+// drel the fp32 ds (natural units). The TPU kernel sums the weight and bias
+// gradients into one VMEM block over its sequential grid; here the (C, 3C)
+// and (C, C) weight gradients leave as the streams dqkv and o for the split-K
+// kernel, and the small gradients go to per-block (or per-warp) fp32 slots
+// summed in a fixed order: no atomics, two launches give the same bits.
 //
-// What bounds it on the H100: operations, 14 T C^2 + 12 T V C of products
-// here (the q | k | v projection recomputed, do, dx) against 6 T C bytes of
-// streams in and out. The TPU kernel sums the weight and bias gradients into
-// one VMEM block over its sequential grid. Here a persistent grid of G blocks
-// walks contiguous ranges of 64-row tiles; dbqkv, dbout and drel, small, go to
-// each block's own fp32 slot, summed by reduce_slots_kernel in a fixed order
-// (no atomics: two launches give the same bits). The (C, 3C) and (C, C)
-// weight gradients would need megabyte slots per block at C = 768, so this
-// kernel writes dqkv and o in T instead, and the split-K kernel of
-// window_attention_wgrad.cu contracts them.
+// Every path runs as passes over streams: the q | k | v projection
+// recomputed into device memory (q scale log2(e), k, v and the unscaled q,
+// all in T: qkvu, 4C wide) and do = dout Wout^T (T), both with the bias,
+// scale and duplicate in the projection's epilogue (in bf16
+// window_attention_mma.cuh proj_rows_kernel, on mma_gemm.cuh's row-tiled
+// product); the attention core; dx = dqkv Wqkv^T by the same projection
+// kernel; and the fixed-order sums of the slots. What bounds the whole call
+// on the H100 is bytes at the models' widths (14 T C of streams at T = BW V
+// tokens against 14 T C^2 + 12 T V C operations); the streams add 10 T C
+// more bytes, written and read once.
 //
-// Windows of other sizes up to 512 tokens, and other head dims, take the
-// general path. Its backward: the q | k | v projection recomputed into
-// device memory (q scale log2(e), k, v and the unscaled q, all in T) and do
-// = dout Wout^T per head (T); a row pass, which writes o, dq and each row's
-// softmax statistics; a key pass, which recomputes p and ds from those
-// statistics and sums dk, dv over every query row of a window and drel over
-// windows; dx = dqkv Wqkv^T; and the fixed-order sums of the blocks' slots.
-// In bf16 up to D = 128 the passes and projections are the kernels of
-// window_attention_mma.cuh, designed for Hopper (the key pass keeps drel's
-// columns of a 64-key tile for all query rows in shared memory over its
-// windows and reads each window's q and do once per key tile of 64); in
-// fp32, and in bf16 above D = 128, the shared-memory kernels below (full
-// score rows, a key-tile kernel of 32 keys with drel's columns of its tile,
-// D walked in chunks). drel, H V^2 floats, does not fit a block's shared
-// memory whole at V = 512 (3 MB at 3 heads), hence the key tiles.
+// The whole-window path (bf16; V = 16, 32, 48 or 64 at D = 16, 32 or 64 and
+// C % 16 == 0, the ptx_attn windows) runs the attention core in one kernel,
+// wattn_whole_bwd_kernel, in which one warp owns one (head, window) item:
+//   - Its five (V, D) tiles (q scaled, q, k, v, do) arrive by cp.async 16-byte
+//     copies into the warp's own shared memory, the next item's while this
+//     one computes (two buffers, at V = 16; one above).
+//   - Per 16 query rows: s = q k^T on mma.sync.m16n8k16 fragments, the bias
+//     rel[h] log2(e) and the region-id mask added on the fragments, the
+//     base-2 softmax over the V keys held in the warp's registers (a row's
+//     max and sum by two shuffles), dp = do v^T, delta = sum p dp, ds = p (dp
+//     - delta), all fp32 in registers; p and ds pass from the accumulator
+//     fragments to A fragments (rounded to bf16 once) for o = p v and dq = ds
+//     k, which are stored from their fragments.
+//   - The same rounded p and ds go to the warp's shared memory (V x V bf16
+//     each), from which dv = p^T do and dk = ds^T q (unscaled) read them
+//     transposed through ldmatrix.trans: the transposed scores are not
+//     recomputed, and both products take exactly the p and ds of o and dq.
+//   - drel accumulates the fp32 ds in the warp's shared memory (each element
+//     owned by one lane), and the bias gradients' column sums in registers,
+//     over the warp's items of one head. Items are ordered head, window, and
+//     a warp walks a contiguous range of them, so where its range leaves a
+//     head it writes one segment [drel (V, V) | dbq | dbk | dbv (D each)];
+//     wattn_whole_reduce_kernel sums each head's segments in warp order.
+//     dbout, the column sums of dout, comes from col_sums_kernel's per-block
+//     slots.
+//   - No __syncthreads: a warp shares nothing with the other warps of its
+//     block. Blocks of up to 4 warps, as many as fit an SM; at V = 16, D = 32
+//     (ptx_attn) a warp takes 15.6 KB of shared memory and 72 registers,
+//     so 3 blocks (12 warps) an SM, each warp with its next item's copies
+//     in flight.
+//
+// fp32 at those shapes, and every other shape, take the general path:
+// windows of other sizes up to 512 tokens and other head dims (and fp32
+// everywhere). After the projections, a row pass writes o, dq and each row's
+// softmax statistics; a key pass recomputes p and ds from those statistics
+// and sums dk, dv over every query row of a window and drel over windows. In
+// bf16 up to D = 128 the passes are the kernels of window_attention_mma.cuh,
+// designed for Hopper (the key pass keeps drel's columns of a 64-key tile for
+// all query rows in shared memory over its windows and reads each window's q
+// and do once per key tile of 64); in fp32, and in bf16 above D = 128, the
+// shared-memory kernels below (full score rows, a key-tile kernel of 32 keys
+// with drel's columns of its tile, D walked in chunks). drel, H V^2 floats,
+// does not fit a block's shared memory whole at V = 512 (3 MB at 3 heads),
+// hence the key tiles.
 #include <algorithm>
+#include <type_traits>
 
 #include "window_attention_mma.cuh"
 
 namespace lcbi {
-
-struct BwdLayout {
-  int lds, ldp;
-  size_t off_g, off_q, off_qu, off_k, off_v, off_do, off_s, off_dp, off_p, off_ds, bytes;
-};
-
-template <int KD> __host__ __device__ inline BwdLayout bwd_layout(int V, int elem) {
-  BwdLayout L;
-  L.lds = ld_scores(V);
-  L.ldp = ld_probs(V);
-  const size_t t = align128((size_t)kTileRows * HeadDims<KD>::kLdT * elem);
-  const size_t s = align128((size_t)kTileRows * L.lds * 4);
-  const size_t p = align128((size_t)kTileRows * L.ldp * elem);
-  L.off_g = align128((size_t)kTileRows * ld_wide<KD>() * 4);
-  L.off_q = L.off_g + align128((size_t)kTileRows * HeadDims<KD>::kLdG * 4);
-  L.off_qu = L.off_q + t;
-  L.off_k = L.off_qu + t;
-  L.off_v = L.off_k + t;
-  L.off_do = L.off_v + t;
-  L.off_s = L.off_do + t;
-  L.off_dp = L.off_s + s;
-  L.off_p = L.off_dp + s;
-  L.off_ds = L.off_p + p;
-  L.bytes = L.off_ds + p;
-  return L;
-}
-
-// Slot layout (floats): dbqkv [0, 3C), dbout [3C, 4C), drel [4C, 4C + H V V).
-// The whole-window path: D = KD.
-template <typename T, int KD>
-__global__ void __launch_bounds__(kThreads)
-window_attention_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
-                            const float* __restrict__ bqkv, const T* __restrict__ wout,
-                            const float* __restrict__ rel, const int* __restrict__ rid,
-                            const T* __restrict__ dout, T* __restrict__ dx, T* dqkv,
-                            T* __restrict__ o, float* __restrict__ slots, int BW, int V, int C,
-                            int H, int nW, float scale, float scale2, float mask2) {
-  constexpr int kLdT = HeadDims<KD>::kLdT, kLdF = HeadDims<KD>::kLdF;
-  constexpr int kLdG = HeadDims<KD>::kLdG, kLdO = kOutCols + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout L = bwd_layout<KD>(V, sizeof(T));
-  float* F = reinterpret_cast<float*>(smem);
-  float* G = reinterpret_cast<float*>(smem + L.off_g);
-  T* Q = reinterpret_cast<T*>(smem + L.off_q);
-  T* QU = reinterpret_cast<T*>(smem + L.off_qu);
-  T* K = reinterpret_cast<T*>(smem + L.off_k);
-  T* Vt = reinterpret_cast<T*>(smem + L.off_v);
-  T* DO = reinterpret_cast<T*>(smem + L.off_do);
-  float* S = reinterpret_cast<float*>(smem + L.off_s);
-  float* DP = reinterpret_cast<float*>(smem + L.off_dp);
-  T* P = reinterpret_cast<T*>(smem + L.off_p);
-  T* DS = reinterpret_cast<T*>(smem + L.off_ds);
-
-  const size_t slot_floats = (size_t)4 * C + (size_t)H * V * V;
-  float* slot = slots + (size_t)blockIdx.x * slot_floats;
-  for (size_t e = threadIdx.x; e < slot_floats; e += kThreads) slot[e] = 0.f;
-  __syncthreads();
-
-  const int tw = kTileRows / V;
-  const long long tiles = ((long long)BW + tw - 1) / tw;
-  const long long t_begin = tiles * blockIdx.x / gridDim.x;
-  const long long t_end = tiles * (blockIdx.x + 1) / gridDim.x;
-  for (long long t = t_begin; t < t_end; ++t) {
-    const Tile tl = tile_of(t, BW, V);
-    const int M = tl.M, nb = tl.nwin;
-    const T* xr = x + tl.row0 * C;
-    const T* gr = dout + tl.row0 * C;
-    T* dr = dqkv + tl.row0 * 3 * C;
-    T* orow = o + tl.row0 * C;
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      float acc = 0.f;
-      for (int r = 0; r < M; ++r) acc += to_f32(gr[(size_t)r * C + c]);
-      slot[3 * C + c] += acc;
-    }
-
-    for (int h = 0; h < H; ++h) {
-      project_head<KD>(F, xr, wqkv, M, C, h);
-      for (int e = threadIdx.x; e < M * 3 * KD; e += kThreads) {
-        const int r = e / (3 * KD), j = e % (3 * KD);
-        const int part = j / KD, d = j % KD;
-        const float v = F[r * kLdF + j] + bqkv[part * C + h * KD + d];
-        if (part == 0) {
-          Q[r * kLdT + d] = from_f32<T>(v * scale2);
-          QU[r * kLdT + d] = from_f32<T>(v);
-        } else {
-          (part == 1 ? K : Vt)[r * kLdT + d] = from_f32<T>(v);
-        }
-      }
-      __syncthreads();
-      gemm_batched<false, true>(nb, S, L.lds, V * L.lds, Q, kLdT, V * kLdT, K, kLdT, V * kLdT,
-                                V, V, KD);
-      // do_h = dout Wout[hD:(h+1)D, :]^T over the tile's rows
-      gemm<false, true>(F, kLdF, gr, C, wout + (size_t)h * KD * C, C, M, KD, C,
-                        false);
-      __syncthreads();
-      softmax_rows(S, L.lds, P, L.ldp, M, V, rel + (size_t)h * V * V, rid, nW, tl.w0, mask2);
-      for (int e = threadIdx.x; e < M * KD; e += kThreads) {
-        const int r = e / KD, d = e % KD;
-        DO[r * kLdT + d] = from_f32<T>(F[r * kLdF + d]);
-      }
-      __syncthreads();
-      // o_h = p v; dv = p^T do; dp = do v^T
-      gemm_batched<false, false>(nb, G, kLdG, V * kLdG, P, L.ldp, V * L.ldp, Vt, kLdT, V * kLdT,
-                                 V, KD, V);
-      gemm_batched<true, false>(nb, F + 2 * KD, kLdF, V * kLdF, P, L.ldp, V * L.ldp, DO,
-                                kLdT, V * kLdT, V, KD, V);
-      gemm_batched<false, true>(nb, DP, L.lds, V * L.lds, DO, kLdT, V * kLdT, Vt, kLdT,
-                                V * kLdT, V, V, KD);
-      __syncthreads();
-      for (int e = threadIdx.x; e < M * KD; e += kThreads) {
-        const int r = e / KD, d = e % KD;
-        orow[(size_t)r * C + h * KD + d] = from_f32<T>(G[r * kLdG + d]);
-      }
-      // ds = p (dp - rowsum(dp p)), one warp per row
-      {
-        const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-        for (int r = warp; r < M; r += kWarps) {
-          float delta = 0.f;
-          for (int j = lane; j < V; j += 32) delta += DP[r * L.lds + j] * S[r * L.lds + j];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            delta += __shfl_xor_sync(0xffffffffu, delta, off);
-          for (int j = lane; j < V; j += 32) {
-            const float ds = S[r * L.lds + j] * (DP[r * L.lds + j] - delta);
-            DP[r * L.lds + j] = ds;
-            DS[r * L.ldp + j] = from_f32<T>(ds);
-          }
-        }
-      }
-      __syncthreads();
-      float* drel = slot + 4 * C + (size_t)h * V * V;
-      for (int e = threadIdx.x; e < V * V; e += kThreads) {
-        const int i = e / V, j = e % V;
-        float acc = 0.f;
-        for (int w = 0; w < nb; ++w) acc += DP[(w * V + i) * L.lds + j];
-        drel[e] += acc;
-      }
-      // dq = ds k, dk = ds^T q (unscaled q; both times scale below)
-      gemm_batched<false, false>(nb, F, kLdF, V * kLdF, DS, L.ldp, V * L.ldp, K, kLdT, V * kLdT,
-                                 V, KD, V);
-      gemm_batched<true, false>(nb, F + KD, kLdF, V * kLdF, DS, L.ldp, V * L.ldp, QU, kLdT,
-                                V * kLdT, V, KD, V);
-      __syncthreads();
-      for (int j = threadIdx.x; j < 3 * KD; j += kThreads) {
-        const float mul = j < 2 * KD ? scale : 1.f;
-        const int col = (j / KD) * C + h * KD + j % KD;
-        float acc = 0.f;
-        for (int r = 0; r < M; ++r) {
-          const float v = F[r * kLdF + j] * mul;
-          acc += v;
-          dr[(size_t)r * 3 * C + col] = from_f32<T>(v);
-        }
-        slot[col] += acc;
-      }
-      __syncthreads();
-    }
-
-    // dx = dqkv Wqkv^T over the tile's rows, in column chunks
-    T* dxr = dx + tl.row0 * C;
-    for (int n0 = 0; n0 < C; n0 += kOutCols) {
-      const int nc = min(kOutCols, C - n0);
-      gemm<false, true>(F, kLdO, dr, 3 * C, wqkv + (size_t)n0 * 3 * C, 3 * C, M, nc, 3 * C,
-                        false);
-      __syncthreads();
-      for (int e = threadIdx.x; e < M * nc; e += kThreads) {
-        const int r = e / nc, j = e % nc;
-        dxr[(size_t)r * C + n0 + j] = from_f32<T>(F[r * kLdO + j]);
-      }
-      __syncthreads();
-    }
-  }
-}
 
 constexpr int kKeyTile = 32;   // keys of a key-tile block
 constexpr int kQRows = 64;     // query rows per step of a key-tile block
@@ -406,34 +269,448 @@ int key_ranges(int BW, int V, int C, int H, int max_gw) {
   return (int)g;
 }
 
+// ---------------------------------------------------------------------------
+// The whole-window path's attention core (bf16)
+// ---------------------------------------------------------------------------
+
+// V = 16 NQ tokens a window, head dim KD. Per warp: the tiles of its item(s)
+// [q scaled | q | k | v | do] (V x (KD + 8) bf16 each), p and ds (V x (V +
+// 8) bf16 each), the drel accumulator (V x (V + 8) fp32).
+template <int NQ, int KD> struct WholeCfg {
+  static constexpr int kV = 16 * NQ;
+  static constexpr int kLd = KD + 8;
+  static constexpr int kLdP = kV + 8;
+  static constexpr int kLdR = kV + 8;   // float2 accesses of a fragment row: no bank conflicts
+  static constexpr int kTile = kV * kLd;
+  static constexpr int kStage = 5 * kTile;
+  static constexpr int kBufs = NQ == 1 ? 2 : 1;   // the next item's copies in flight
+  static constexpr size_t kOffP = (size_t)kBufs * kStage * 2;
+  static constexpr size_t kOffR = kOffP + (size_t)2 * kV * kLdP * 2;
+  static constexpr size_t kWarpBytes = (kOffR + (size_t)kV * kLdR * 4 + 127) / 128 * 128;
+  static constexpr int kFit = (int)((200 * 1024) / kWarpBytes);
+  static constexpr int kWarps = kFit < 1 ? 1 : kFit > 4 ? 4 : kFit;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kSeg = kV * kV + 3 * KD;   // a segment: drel (V, V) | dbq | dbk | dbv
+};
+
+// qkvu: q scale log2(e) | k | v | q per token row (ld 4C); dO: do per head
+// (ld C); D = KD, C % 16 == 0. Warp gw of GW walks items [N gw / GW, N (gw +
+// 1) / GW) of the N = H BW items (head h = it / BW, window w = it % BW).
+// Writes o (ld C) and dq scale, dk scale, dv at columns h D, C + h D, 2C + h D
+// of dqkv (ld 3C), and a segment gw + h of seg for each head of its range.
+template <int NQ, int KD>
+__global__ void __launch_bounds__(WholeCfg<NQ, KD>::kThreads)
+wattn_whole_bwd_kernel(const bf16* __restrict__ qkvu, const bf16* __restrict__ dO,
+                       const float* __restrict__ rel, const int* __restrict__ rid,
+                       bf16* __restrict__ o, bf16* __restrict__ dqkv, float* __restrict__ seg,
+                       int BW, int C, int H, int nW, int GW, float scale, float mask2) {
+  using Cf = WholeCfg<NQ, KD>;
+  constexpr int V = Cf::kV, kLd = Cf::kLd, kLdP = Cf::kLdP, kLdR = Cf::kLdR, kTile = Cf::kTile;
+  constexpr int kNT = V / 8, kKT = V / 16, kDT = KD / 8, kKK = KD / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int gw = blockIdx.x * Cf::kWarps + warp;
+  if (gw >= GW) return;
+  unsigned char* mine = smem + (size_t)warp * Cf::kWarpBytes;
+  bf16* bufs = reinterpret_cast<bf16*>(mine);
+  bf16* Ps = reinterpret_cast<bf16*>(mine + Cf::kOffP);
+  bf16* DSs = Ps + V * kLdP;
+  float* dr = reinterpret_cast<float*>(mine + Cf::kOffR);
+  const long long N = (long long)H * BW;
+  const int it_begin = (int)(N * gw / GW), it_end = (int)(N * (gw + 1) / GW);
+  const size_t ld = (size_t)4 * C;
+
+  // item it's five tiles into buffer b, 16 bytes a copy (C % 16 == 0: every
+  // row of a head is 16-byte aligned)
+  auto prefetch = [&](int it, int b) {
+    const int h = it / BW, w = it % BW;
+    bf16* S = bufs + b * Cf::kStage;
+    const bf16* base = qkvu + (size_t)w * V * ld + h * KD;
+    const bf16* dbase = dO + (size_t)w * V * C + h * KD;
+    constexpr int kCh = KD / 8;
+    for (int e = lane; e < V * kCh; e += 32) {
+      const int r = e / kCh, c = (e % kCh) * 8;
+      const bf16* src = base + (size_t)r * ld + c;
+      bf16* d = S + r * kLd + c;
+      cp_async16(smem_addr(d), src, 16);                                   // q scale log2(e)
+      cp_async16(smem_addr(d + kTile), src + 3 * C, 16);                   // q
+      cp_async16(smem_addr(d + 2 * kTile), src + C, 16);                   // k
+      cp_async16(smem_addr(d + 3 * kTile), src + 2 * C, 16);               // v
+      cp_async16(smem_addr(d + 4 * kTile), dbase + (size_t)r * C + c, 16);  // do
+    }
+  };
+
+  for (int e = lane; e < V * kLdR; e += 32) dr[e] = 0.f;
+  float cs[3][kDT][2];   // this lane's column sums of dq, dk, dv (its rows or keys)
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt) cs[part][dt][0] = cs[part][dt][1] = 0.f;
+  if (Cf::kBufs == 2) {
+    prefetch(it_begin, 0);
+    cp_async_commit();
+  }
+  __syncwarp();
+
+  for (int it = it_begin; it < it_end; ++it) {
+    int b = 0;
+    if constexpr (Cf::kBufs == 2) {
+      b = (it - it_begin) & 1;
+      if (it + 1 < it_end) prefetch(it + 1, b ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      prefetch(it, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const int h = it / BW, w = it % BW;
+    const bf16* Q = bufs + b * Cf::kStage;
+    const bf16* QU = Q + kTile;
+    const bf16* K = Q + 2 * kTile;
+    const bf16* Vt = Q + 3 * kTile;
+    const bf16* DOt = Q + 4 * kTile;
+    const int* rr = rid == nullptr ? nullptr : rid + (size_t)(w % nW) * V;
+    const float* relh = rel + (size_t)h * V * V;
+    const size_t row0 = (size_t)w * V;
+
+    // the query rows, 16 at a time: s, p, dp, ds in registers; o and dq
+#pragma unroll
+    for (int qt = 0; qt < NQ; ++qt) {
+      const int i0 = qt * 16 + g;   // this lane's rows: i0 and i0 + 8
+      float sc[kNT][4], dp[kNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKK; ++kk) {
+        uint32_t qa[4], da[4];
+        frag_a(qa, Q, kLd, qt * 16, kk * 16, lane);
+        frag_a(da, DOt, kLd, qt * 16, kk * 16, lane);
+#pragma unroll
+        for (int n2 = 0; n2 < kKT; ++n2) {
+          uint32_t bk[4], bv[4];
+          frag_b_rows(bk, K, kLd, n2 * 16, kk * 16, lane);
+          frag_b_rows(bv, Vt, kLd, n2 * 16, kk * 16, lane);
+          mma_bf16(sc[2 * n2], qa, bk[0], bk[1]);
+          mma_bf16(sc[2 * n2 + 1], qa, bk[2], bk[3]);
+          mma_bf16(dp[2 * n2], da, bv[0], bv[1]);
+          mma_bf16(dp[2 * n2 + 1], da, bv[2], bv[3]);
+        }
+      }
+      // s += rel[h] log2(e) + mask; p = exp2(s - max) / sum over the V keys
+      int rq[2] = {0, 0};
+      if (rr != nullptr) {
+        rq[0] = rr[i0];
+        rq[1] = rr[i0 + 8];
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int j = nt * 8 + 2 * t;
+        int rk[2] = {0, 0};
+        if (rr != nullptr) {
+          rk[0] = rr[j];
+          rk[1] = rr[j + 1];
+        }
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const float2 bb = *reinterpret_cast<const float2*>(relh + (i0 + 8 * h2) * V + j);
+          float v0 = sc[nt][2 * h2] + bb.x * kLog2e, v1 = sc[nt][2 * h2 + 1] + bb.y * kLog2e;
+          if (rr != nullptr) {
+            v0 += rq[h2] != rk[0] ? mask2 : 0.f;
+            v1 += rq[h2] != rk[1] ? mask2 : 0.f;
+          }
+          sc[nt][2 * h2] = v0;
+          sc[nt][2 * h2 + 1] = v1;
+          mx[h2] = fmaxf(mx[h2], fmaxf(v0, v1));
+        }
+      }
+      float il[2], delta[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
+        mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
+        float l = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          sc[nt][2 * h2] = fast_exp2(sc[nt][2 * h2] - mx[h2]);
+          sc[nt][2 * h2 + 1] = fast_exp2(sc[nt][2 * h2 + 1] - mx[h2]);
+          l += sc[nt][2 * h2] + sc[nt][2 * h2 + 1];
+        }
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        il[h2] = 1.f / l;
+        float dl = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          sc[nt][2 * h2] *= il[h2];
+          sc[nt][2 * h2 + 1] *= il[h2];
+          dl += sc[nt][2 * h2] * dp[nt][2 * h2] + sc[nt][2 * h2 + 1] * dp[nt][2 * h2 + 1];
+        }
+        dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+        dl += __shfl_xor_sync(0xffffffffu, dl, 2);
+        delta[h2] = dl;
+      }
+      // ds = p (dp - delta) in fp32 (into dp), drel += ds
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const float d0 = sc[nt][2 * h2] * (dp[nt][2 * h2] - delta[h2]);
+          const float d1 = sc[nt][2 * h2 + 1] * (dp[nt][2 * h2 + 1] - delta[h2]);
+          dp[nt][2 * h2] = d0;
+          dp[nt][2 * h2 + 1] = d1;
+          float2* acc = reinterpret_cast<float2*>(dr + (i0 + 8 * h2) * kLdR + nt * 8 + 2 * t);
+          const float2 a = *acc;
+          *acc = make_float2(a.x + d0, a.y + d1);
+        }
+      // p and ds rounded once: A fragments here, and to shared memory for
+      // the transposed products
+      uint32_t pa[kKT][4], sa[kKT][4];
+#pragma unroll
+      for (int kk = 0; kk < kKT; ++kk) {
+        acc_to_a(pa[kk], sc[2 * kk], sc[2 * kk + 1]);
+        acc_to_a(sa[kk], dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int at = (i0 + 8 * (q & 1)) * kLdP + kk * 16 + 8 * (q >> 1) + 2 * t;
+          *reinterpret_cast<uint32_t*>(Ps + at) = pa[kk][q];
+          *reinterpret_cast<uint32_t*>(DSs + at) = sa[kk][q];
+        }
+      }
+      // o = p v, then dq = ds k (scale)
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {
+        const bf16* Bt = pass == 0 ? Vt : K;
+        float acc[kDT][4];
+#pragma unroll
+        for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kKT; ++kk)
+#pragma unroll
+          for (int d2 = 0; d2 < KD / 16; ++d2) {
+            uint32_t bf[4];
+            frag_b_cols(bf, Bt, kLd, kk * 16, d2 * 16, lane);
+            mma_bf16(acc[2 * d2], pass == 0 ? pa[kk] : sa[kk], bf[0], bf[1]);
+            mma_bf16(acc[2 * d2 + 1], pass == 0 ? pa[kk] : sa[kk], bf[2], bf[3]);
+          }
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const size_t row = row0 + i0 + 8 * h2;
+#pragma unroll
+          for (int dt = 0; dt < kDT; ++dt) {
+            const int col = h * KD + dt * 8 + 2 * t;
+            float v0 = acc[dt][2 * h2], v1 = acc[dt][2 * h2 + 1];
+            if (pass == 0) {
+              *reinterpret_cast<uint32_t*>(o + row * C + col) = pack_bf16(v0, v1);
+            } else {
+              v0 *= scale;
+              v1 *= scale;
+              *reinterpret_cast<uint32_t*>(dqkv + row * 3 * C + col) = pack_bf16(v0, v1);
+              cs[0][dt][0] += v0;
+              cs[0][dt][1] += v1;
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();   // p and ds are in shared memory
+
+    // the keys, 16 at a time: dv = p^T do, then dk = ds^T q (scale)
+#pragma unroll
+    for (int kt = 0; kt < NQ; ++kt) {
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {
+        const bf16* At = pass == 0 ? Ps : DSs;
+        const bf16* Bt = pass == 0 ? DOt : QU;
+        float acc[kDT][4];
+#pragma unroll
+        for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kKT; ++kk) {
+          uint32_t a[4];
+          frag_a_trans(a, At, kLdP, kk * 16, kt * 16, lane);
+#pragma unroll
+          for (int d2 = 0; d2 < KD / 16; ++d2) {
+            uint32_t bf[4];
+            frag_b_cols(bf, Bt, kLd, kk * 16, d2 * 16, lane);
+            mma_bf16(acc[2 * d2], a, bf[0], bf[1]);
+            mma_bf16(acc[2 * d2 + 1], a, bf[2], bf[3]);
+          }
+        }
+        const float mul = pass == 0 ? 1.f : scale;
+        const int part = pass == 0 ? 2 : 1;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const size_t row = row0 + kt * 16 + g + 8 * h2;
+#pragma unroll
+          for (int dt = 0; dt < kDT; ++dt) {
+            const int col = part * C + h * KD + dt * 8 + 2 * t;
+            const float v0 = acc[dt][2 * h2] * mul, v1 = acc[dt][2 * h2 + 1] * mul;
+            *reinterpret_cast<uint32_t*>(dqkv + row * 3 * C + col) = pack_bf16(v0, v1);
+            cs[part][dt][0] += v0;
+            cs[part][dt][1] += v1;
+          }
+        }
+      }
+    }
+    __syncwarp();   // the item's buffer, p and ds are free
+
+    // where the range leaves head h: its segment
+    if (it + 1 == it_end || (it + 1) / BW != h) {
+      float* sg = seg + (size_t)(gw + h) * Cf::kSeg;
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+#pragma unroll
+        for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = cs[part][dt][e];
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+            if (g == 0) sg[V * V + part * KD + dt * 8 + 2 * t + e] = v;
+            cs[part][dt][e] = 0.f;
+          }
+      for (int e = lane; e < V * V; e += 32) {
+        float* a = dr + (e / V) * kLdR + e % V;
+        sg[e] = *a;
+        *a = 0.f;
+      }
+      __syncwarp();
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// red [dbqkv (3C) | . | drel (H V V)] from the whole-window segments: an
+// element of head h sums the segments gw + h of the warps gw whose range
+// holds an item of h, in warp order.
+__global__ void __launch_bounds__(kThreads)
+wattn_whole_reduce_kernel(const float* __restrict__ seg, float* __restrict__ red, int BW, int V,
+                          int C, int H, int KD, int GW) {
+  const long long N = (long long)H * BW;
+  const int vv = V * V, sz = vv + 3 * KD;
+  const size_t total = (size_t)3 * C + (size_t)H * vv;
+  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * kThreads) {
+    int h, off;
+    float* dst;
+    if (e < (size_t)3 * C) {
+      const int part = (int)(e / C), col = (int)(e % C);
+      h = col / KD;
+      off = vv + part * KD + col % KD;
+      dst = red + e;
+    } else {
+      const size_t f = e - (size_t)3 * C;
+      h = (int)(f / vv);
+      off = (int)(f % vv);
+      dst = red + 4 * (size_t)C + f;
+    }
+    const int g_lo = block_of((long long)h * BW, N, GW);
+    const int g_hi = block_of((long long)h * BW + BW - 1, N, GW);
+    float a = 0.f;
+    for (int gg = g_lo; gg <= g_hi; ++gg) a += seg[((size_t)gg + h) * sz + off];
+    *dst = a;
+  }
+}
+
+// The column sums of a (N, C) bf16 stream, C even: block b sums rows [N b /
+// G, N (b + 1) / G) into slots[b C, (b + 1) C), its row groups combined in
+// order (reduce_slots_kernel then sums the G slots).
+__global__ void __launch_bounds__(kThreads)
+col_sums_kernel(const bf16* __restrict__ x, long long N, int C, float* __restrict__ slots) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* part = reinterpret_cast<float*>(smem);   // (groups, C)
+  const int pairs = C / 2, width = pairs < kThreads ? pairs : kThreads;
+  const int groups = kThreads / width;
+  const long long r_begin = N * blockIdx.x / gridDim.x, r_end = N * (blockIdx.x + 1) / gridDim.x;
+  const int grp = threadIdx.x / width;
+  if (grp < groups) {
+    for (int p = threadIdx.x % width; p < pairs; p += width) {
+      float sx = 0.f, sy = 0.f;
+      for (long long r = r_begin + grp; r < r_end; r += groups) {
+        const float2 v =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + r * C + 2 * p));
+        sx += v.x;
+        sy += v.y;
+      }
+      part[grp * C + 2 * p] = sx;
+      part[grp * C + 2 * p + 1] = sy;
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float a = 0.f;
+    for (int gi = 0; gi < groups; ++gi) a += part[gi * C + c];
+    slots[(size_t)blockIdx.x * C + c] = a;
+  }
+}
+
+inline size_t col_sums_smem(int C) {
+  const int pairs = C / 2, width = pairs < kThreads ? pairs : kThreads;
+  return (size_t)(kThreads / width) * C * sizeof(float);
+}
+
 // The grids and scratch of one backward call. The size query
 // (lcbi_window_attention_bwd_scratch) and the launch compute the same plan
 // from the shape, the stream type and the slot budget.
 struct BwdPlan {
-  int path;                          // 0: whole-window; 1: shared-memory general; 2: mma general
-  int G1, G2;                        // row (whole-window) blocks; key blocks or window ranges
-  long long slots, kslots, ksums;    // floats of the three scratch buffers
+  int path;                       // 0: whole-window (bf16); 1: shared-memory general; 2: mma general
+  int G1, G2;                     // path 0: warps of the core, column-sum blocks; else row
+                                  // blocks, key blocks or window ranges
+  long long slots, kslots, ksums, stats;   // floats of the four scratch buffers
 };
+
+template <int N> using Ic = std::integral_constant<int, N>;
+
+// f(Ic<NQ>, Ic<KD>) at the whole-window path's V = 16 NQ and D = KD.
+template <class F> int whole_dispatch(int V, int D, F&& f) {
+  auto by_d = [&](auto nq) {
+    switch (D) {
+      case 16: return f(nq, Ic<16>{});
+      case 32: return f(nq, Ic<32>{});
+      default: return f(nq, Ic<64>{});
+    }
+  };
+  switch (V / 16) {
+    case 1: return by_d(Ic<1>{});
+    case 2: return by_d(Ic<2>{});
+    case 3: return by_d(Ic<3>{});
+    default: return by_d(Ic<4>{});
+  }
+}
+
+template <int NQ, int KD> int plan_whole(int BW, int V, int C, int H, int sms, BwdPlan* P) {
+  using Cf = WholeCfg<NQ, KD>;
+  const size_t bytes = (size_t)Cf::kWarps * Cf::kWarpBytes;
+  if (bytes > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
+  auto kernel = wattn_whole_bwd_kernel<NQ, KD>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Cf::kThreads, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long items = (long long)H * BW;
+  const long long gw = std::min((long long)sms * std::max(per_sm, 1) * Cf::kWarps, items);
+  P->path = 0;
+  P->G1 = (int)gw;
+  P->G2 = (int)std::min(4LL * sms, (long long)BW * V);
+  P->slots = (long long)P->G2 * C;
+  P->kslots = (gw + H) * Cf::kSeg;
+  P->ksums = P->stats = 0;
+  return 0;
+}
 
 template <typename T, int KD>
 int plan_smem(int BW, int V, int C, int H, long long budget, int sms, BwdPlan* P) {
-  if (whole_window_path(V, C, H)) {
-    const long long size = 4LL * C + (long long)H * V * V;
-    const long long max_slots = std::max(1LL, std::min(4LL * sms, budget / (4 * size)));
-    const size_t bytes = bwd_layout<KD>(V, sizeof(T)).bytes;
-    if (bytes > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(window_attention_bwd_kernel<T, KD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    const int tw = kTileRows / V;
-    P->path = 0;
-    P->G1 = persistent_blocks(window_attention_bwd_kernel<T, KD>, bytes,
-                              ((long long)BW + tw - 1) / tw, (int)max_slots);
-    P->G2 = 0;
-    P->slots = P->G1 * size;
-    P->kslots = P->ksums = 0;
-    return P->G1 > 0 ? 0 : (int)cudaErrorInvalidValue;
-  }
   const size_t rbytes = row_layout<KD>(V, sizeof(T), true).bytes;
   const size_t kbytes = kv_layout<KD>(V, sizeof(T)).bytes;
   if (rbytes > (size_t)max_dynamic_smem() || kbytes > (size_t)max_dynamic_smem())
@@ -455,6 +732,7 @@ int plan_smem(int BW, int V, int C, int H, long long budget, int sms, BwdPlan* P
   P->slots = 2LL * C * P->G1;
   P->kslots = (long long)P->G2 * H * V * V;
   P->ksums = (long long)P->G2 * nkt * 2 * C;
+  P->stats = 3LL * BW * H * V;
   return P->G1 > 0 && P->G2 > 0 ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -466,6 +744,7 @@ template <int KD> int plan_mma(int BW, int V, int C, int H, BwdPlan* P) {
   P->slots = 2LL * C * P->G1;
   P->kslots = ((long long)P->G2 + (long long)H * nkt) * V * MmaKeyCfg<KD>::kBK;
   P->ksums = 2LL * C * P->G2;
+  P->stats = 3LL * BW * H * V;
   return P->G1 > 0 && P->G2 > 0 ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -476,23 +755,84 @@ int make_plan(int BW, int V, int C, int H, long long budget, BwdPlan* P) {
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return (int)cudaErrorInvalidValue;
   const int D = C / H;
-  if (std::is_same<T, bf16>::value && !whole_window_path(V, C, H) && D <= kMmaMaxHeadDim) {
-    switch (mma_head_dim(D)) {
-      case 16: return plan_mma<16>(BW, V, C, H, P);
-      case 32: return plan_mma<32>(BW, V, C, H, P);
-      case 64: return plan_mma<64>(BW, V, C, H, P);
-      default: return plan_mma<128>(BW, V, C, H, P);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (whole_window_path(V, C, H))
+      return whole_dispatch(V, D, [&](auto nq, auto kd) {
+        return plan_whole<decltype(nq)::value, decltype(kd)::value>(BW, V, C, H, sms, P);
+      });
+    if (D <= kMmaMaxHeadDim) {
+      switch (mma_head_dim(D)) {
+        case 16: return plan_mma<16>(BW, V, C, H, P);
+        case 32: return plan_mma<32>(BW, V, C, H, P);
+        case 64: return plan_mma<64>(BW, V, C, H, P);
+        default: return plan_mma<128>(BW, V, C, H, P);
+      }
     }
   }
-  switch (launch_head_dim(V, C, H, std::is_same<T, float>::value)) {
+  switch (padded_head_dim(D, std::is_same<T, float>::value)) {
     case 16: return plan_smem<T, 16>(BW, V, C, H, budget, sms, P);
     case 32: return plan_smem<T, 32>(BW, V, C, H, budget, sms, P);
     default: return plan_smem<T, 64>(BW, V, C, H, budget, sms, P);
   }
 }
 
+// The projection streams of every path: qkvu = [q scale log2(e) | k | v | q]
+// (x Wqkv + bqkv, ld 4C) and dob = dout Wout^T (ld C), both in T.
+template <typename T>
+int launch_streams(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+                   const void* dout, void* qkvu, void* dob, int N, int C, float scale2,
+                   cudaStream_t stream) {
+  const int err = launch_projection<T>(x, C, wqkv, 3 * C, false, bqkv, qkvu, 4 * C, N, 3 * C, C,
+                                       C, scale2, 3 * C, stream);
+  if (err != 0) return err;
+  return launch_projection<T>(dout, C, wout, C, true, nullptr, dob, C, N, C, C, 0, 1.f, -1,
+                              stream);
+}
+
+// dx = dqkv Wqkv^T, in T.
+template <typename T>
+int launch_dx(const void* dqkv, const void* wqkv, void* dx, int N, int C, cudaStream_t stream) {
+  return launch_projection<T>(dqkv, 3 * C, wqkv, 3 * C, true, nullptr, dx, C, N, C, 3 * C, 0, 1.f,
+                              -1, stream);
+}
+
+// The whole-window path's backward (bf16): the streams, the core
+// (wattn_whole_bwd_kernel on G1 warps), dx, the column sums of dout on G2
+// blocks, the sums of the slots and segments into red.
+template <int NQ, int KD>
+int launch_bwd_whole(const void* x, const void* wqkv, const float* bqkv, const void* wout,
+                     const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
+                     void* o, float* slots, float* red, void* qkvu, void* dob, float* seg,
+                     int BW, int C, int H, int nW, float scale, float scale2, float mask2,
+                     const BwdPlan& P, cudaStream_t stream) {
+  using Cf = WholeCfg<NQ, KD>;
+  constexpr int V = Cf::kV;
+  const int N = BW * V;
+  int err = launch_streams<bf16>(x, wqkv, bqkv, wout, dout, qkvu, dob, N, C, scale2, stream);
+  if (err != 0) return err;
+  const size_t bytes = (size_t)Cf::kWarps * Cf::kWarpBytes;
+  cudaError_t cerr = cudaFuncSetAttribute(wattn_whole_bwd_kernel<NQ, KD>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (cerr != cudaSuccess) return (int)cerr;
+  wattn_whole_bwd_kernel<NQ, KD><<<(unsigned)((P.G1 + Cf::kWarps - 1) / Cf::kWarps),
+                                   Cf::kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(qkvu), static_cast<const bf16*>(dob), rel, rid,
+      static_cast<bf16*>(o), static_cast<bf16*>(dqkv), seg, BW, C, H, nW, P.G1, scale, mask2);
+  if ((cerr = cudaGetLastError()) != cudaSuccess) return (int)cerr;
+  if ((err = launch_dx<bf16>(dqkv, wqkv, dx, N, C, stream)) != 0) return err;
+  col_sums_kernel<<<P.G2, kThreads, col_sums_smem(C), stream>>>(static_cast<const bf16*>(dout),
+                                                                  N, C, slots);
+  if ((cerr = cudaGetLastError()) != cudaSuccess) return (int)cerr;
+  if ((err = launch_reduce(slots, P.G2, C, C, red + 3 * C, stream)) != 0) return err;
+  size_t blocks = ((size_t)3 * C + (size_t)H * V * V + kThreads - 1) / kThreads;
+  if (blocks > 1024) blocks = 1024;
+  wattn_whole_reduce_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(seg, red, BW, V, C, H, KD,
+                                                                      P.G1);
+  return (int)cudaGetLastError();
+}
+
 // The shared-memory general path's backward (see the top of this file). red
-// receives [dbqkv (3C) | dbout (C) | drel (H V V)] as the whole-window path's.
+// receives [dbqkv (3C) | dbout (C) | drel (H V V)], as every path's.
 template <typename T, int KD>
 int launch_bwd_general(const void* x, const void* wqkv, const float* bqkv, const void* wout,
                        const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
@@ -501,10 +841,7 @@ int launch_bwd_general(const void* x, const void* wqkv, const float* bqkv, const
                        float scale, float scale2, float mask2, const BwdPlan& P,
                        cudaStream_t stream) {
   const int N = BW * V;
-  int err = launch_projection<T>(x, C, wqkv, 3 * C, false, bqkv, qkvu, 4 * C, N, 3 * C, C, C,
-                                 scale2, 3 * C, stream);
-  if (err != 0) return err;
-  err = launch_projection<T>(dout, C, wout, C, true, nullptr, dob, C, N, C, C, 0, 1.f, -1, stream);
+  int err = launch_streams<T>(x, wqkv, bqkv, wout, dout, qkvu, dob, N, C, scale2, stream);
   if (err != 0) return err;
   int G1 = 0;
   err = launch_rows<T, true, KD>(qkvu, 4 * C, rel, rid, dob, dout, o, dqkv, stats, slots, P.G1,
@@ -523,9 +860,7 @@ int launch_bwd_general(const void* x, const void* wqkv, const float* bqkv, const
       static_cast<T*>(dqkv), kslots, ksums, BW, V, C, H, nW, scale, mask2);
   cerr = cudaGetLastError();
   if (cerr != cudaSuccess) return (int)cerr;
-  err = launch_projection<T>(dqkv, 3 * C, wqkv, 3 * C, true, nullptr, dx, C, N, C, 3 * C, 0, 1.f,
-                             -1, stream);
-  if (err != 0) return err;
+  if ((err = launch_dx<T>(dqkv, wqkv, dx, N, C, stream)) != 0) return err;
   // red: dbq from the row slots' [0, C), dbk | dbv from the key sums, dbout
   // from the row slots' [C, 2C), drel from the key slots
   if ((err = launch_reduce(slots, G1, 2 * C, C, red, stream)) != 0) return err;
@@ -545,11 +880,7 @@ int launch_bwd_mma(const void* x, const void* wqkv, const float* bqkv, const voi
                    float* kseg, float* kslots, int BW, int V, int C, int H, int nW, float scale,
                    float scale2, float mask2, const BwdPlan& P, cudaStream_t stream) {
   const int N = BW * V;
-  int err = launch_projection<bf16>(x, C, wqkv, 3 * C, false, bqkv, qkvu, 4 * C, N, 3 * C, C, C,
-                                    scale2, 3 * C, stream);
-  if (err != 0) return err;
-  err = launch_projection<bf16>(dout, C, wout, C, true, nullptr, dob, C, N, C, C, 0, 1.f, -1,
-                                stream);
+  int err = launch_streams<bf16>(x, wqkv, bqkv, wout, dout, qkvu, dob, N, C, scale2, stream);
   if (err != 0) return err;
   err = launch_rows_mma<true, KD>(qkvu, 4 * C, rel, rid, dob, dout, o, dqkv, stats, slots, P.G1,
                                   BW, V, C, H, nW, scale, mask2, stream);
@@ -557,50 +888,10 @@ int launch_bwd_mma(const void* x, const void* wqkv, const float* bqkv, const voi
   err = launch_keys_mma<KD>(qkvu, dob, rel, rid, stats, dqkv, kseg, kslots, red + 4 * C, P.G2, BW,
                             V, C, H, nW, scale, mask2, stream);
   if (err != 0) return err;
-  err = launch_projection<bf16>(dqkv, 3 * C, wqkv, 3 * C, true, nullptr, dx, C, N, C, 3 * C, 0,
-                                1.f, -1, stream);
-  if (err != 0) return err;
+  if ((err = launch_dx<bf16>(dqkv, wqkv, dx, N, C, stream)) != 0) return err;
   if ((err = launch_reduce(slots, P.G1, 2 * C, C, red, stream)) != 0) return err;
   if ((err = launch_reduce(kslots, P.G2, 2 * C, 2 * C, red + C, stream)) != 0) return err;
   return launch_reduce(slots + C, P.G1, 2 * C, C, red + 3 * C, stream);
-}
-
-template <typename T, int KD>
-int launch_bwd(const void* x, const void* wqkv, const float* bqkv, const void* wout,
-               const float* rel, const int* rid, const void* dout, void* dx, void* dqkv, void* o,
-               float* slots, float* red, int BW, int V, int C, int H, int nW, float scale,
-               float scale2, float mask2, int max_slots, cudaStream_t stream) {
-  const size_t bytes = bwd_layout<KD>(V, sizeof(T)).bytes;
-  if (bytes > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(window_attention_bwd_kernel<T, KD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int tw = kTileRows / V;
-  const long long tiles = ((long long)BW + tw - 1) / tw;
-  const int G = persistent_blocks(window_attention_bwd_kernel<T, KD>, bytes, tiles, max_slots);
-  if (G <= 0) return (int)cudaErrorInvalidValue;
-  window_attention_bwd_kernel<T, KD><<<G, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wqkv), bqkv, static_cast<const T*>(wout),
-      rel, rid, static_cast<const T*>(dout), static_cast<T*>(dx), static_cast<T*>(dqkv),
-      static_cast<T*>(o), slots, BW, V, C, H, nW, scale, scale2, mask2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_reduce(slots, G, (size_t)4 * C + (size_t)H * V * V, red, stream);
-}
-
-// The whole-window or the shared-memory general path at chunk width KD.
-template <typename T, int KD>
-int launch_bwd_path(const void* x, const void* wqkv, const float* bqkv, const void* wout,
-                    const float* rel, const int* rid, const void* dout, void* dx, void* dqkv,
-                    void* o, float* slots, float* red, void* qkvu, void* dob, float* stats,
-                    float* kslots, float* ksums, int BW, int V, int C, int H, int nW, float scale,
-                    float scale2, float mask2, const BwdPlan& P, cudaStream_t s) {
-  if (P.path == 0)
-    return launch_bwd<T, KD>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red, BW, V,
-                             C, H, nW, scale, scale2, mask2, P.G1, s);
-  return launch_bwd_general<T, KD>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
-                                   qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
-                                   scale2, mask2, P, s);
 }
 
 template <typename T>
@@ -610,6 +901,13 @@ int launch_bwd_d(const void* x, const void* wqkv, const float* bqkv, const void*
                  float* kslots, float* ksums, int BW, int V, int C, int H, int nW, float scale,
                  float scale2, float mask2, const BwdPlan& P, cudaStream_t s) {
   const int D = C / H;
+  if (P.path == 0) {
+    return whole_dispatch(V, D, [&](auto nq, auto kd) {
+      return launch_bwd_whole<decltype(nq)::value, decltype(kd)::value>(
+          x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red, qkvu, dob, kslots, BW, C,
+          H, nW, scale, scale2, mask2, P, s);
+    });
+  }
   if (P.path == 2) {
     switch (mma_head_dim(D)) {
       case 16:
@@ -630,34 +928,34 @@ int launch_bwd_d(const void* x, const void* wqkv, const float* bqkv, const void*
                                    scale2, mask2, P, s);
     }
   }
-  switch (launch_head_dim(V, C, H, std::is_same<T, float>::value)) {
+  switch (padded_head_dim(D, std::is_same<T, float>::value)) {
     case 16:
-      return launch_bwd_path<T, 16>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
-                                    qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
-                                    scale2, mask2, P, s);
+      return launch_bwd_general<T, 16>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots,
+                                       red, qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW,
+                                       scale, scale2, mask2, P, s);
     case 32:
-      return launch_bwd_path<T, 32>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
-                                    qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
-                                    scale2, mask2, P, s);
+      return launch_bwd_general<T, 32>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots,
+                                       red, qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW,
+                                       scale, scale2, mask2, P, s);
     default:
-      return launch_bwd_path<T, 64>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots, red,
-                                    qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW, scale,
-                                    scale2, mask2, P, s);
+      return launch_bwd_general<T, 64>(x, wqkv, bqkv, wout, rel, rid, dout, dx, dqkv, o, slots,
+                                       red, qkvu, dob, stats, kslots, ksums, BW, V, C, H, nW,
+                                       scale, scale2, mask2, P, s);
   }
 }
 
 }  // namespace lcbi
 
+// Every path writes the 4C-wide stream qkvu.
 static bool bwd_shape_ok(int BW, int V, int C, int H) {
-  return lcbi::attn_shape_ok(BW, V, C, H) &&
-         (long long)BW * V * (lcbi::whole_window_path(V, C, H) ? 3 : 4) * C < (1LL << 31);
+  return lcbi::attn_shape_ok(BW, V, C, H) && (long long)BW * V * 4 * C < (1LL << 31);
 }
 
 // The scratch of a backward call, in floats: sizes[0] for slots, sizes[1]
-// for kslots, sizes[2] for ksums (0: pass NULL), for this shape, stream type
-// and budget (bytes of fp32 slots the caller allows). Returns 0, or a CUDA
-// error code (a shape the kernels do not take, a device query that failed).
-// Launches nothing.
+// for kslots, sizes[2] for ksums, sizes[3] for stats (0: pass NULL), for this
+// shape, stream type and budget (bytes of fp32 slots the caller allows).
+// Returns 0, or a CUDA error code (a shape the kernels do not take, a device
+// query that failed). Launches nothing.
 extern "C" int lcbi_window_attention_bwd_scratch(int BW, int V, int C, int H,
                                                  long long budget, int is_bf16,
                                                  long long* sizes) {
@@ -669,19 +967,18 @@ extern "C" int lcbi_window_attention_bwd_scratch(int BW, int V, int C, int H,
   sizes[0] = P.slots;
   sizes[1] = P.kslots;
   sizes[2] = P.ksums;
+  sizes[3] = P.stats;
   return 0;
 }
 
 // x, dout, dx: (BW, V, C) in T (fp32 if is_bf16 == 0, else bf16); dqkv (BW V,
 // 3C) and o (BW V, C) in T, written; wqkv (C, 3C), wout (C, C) in T; bqkv (3C,),
 // rel (H, V, V) fp32; rid (nW, V) int32 or NULL. red (4C + H V V) fp32
-// receives [dbqkv | dbout | drel]. slots, kslots and ksums: fp32 scratch of
-// the sizes lcbi_window_attention_bwd_scratch gives for the same shape,
-// type and budget (NULL where 0). The general paths (every shape but the
-// whole-window path's, lcbi_window_attention_whole) also take qkvu (BW V,
-// 4C) and dob (BW V, C) in T and stats (3 BW H V) fp32 (NULL otherwise).
-// Shapes as lcbi_window_attention_fwd. Returns cudaGetLastError() of the
-// launches.
+// receives [dbqkv | dbout | drel]. Scratch: qkvu (BW V, 4C) and dob (BW V,
+// C) in T; slots, kslots, ksums and stats fp32 of the sizes
+// lcbi_window_attention_bwd_scratch gives for the same shape, type and budget
+// (NULL where 0). Shapes as lcbi_window_attention_fwd. Returns
+// cudaGetLastError() of the launches.
 extern "C" int lcbi_window_attention_bwd(const void* x, const void* wqkv, const void* bqkv,
                                          const void* wout, const void* rel, const void* rid,
                                          const void* dout, void* dx, void* dqkv, void* o,
@@ -697,8 +994,8 @@ extern "C" int lcbi_window_attention_bwd(const void* x, const void* wqkv, const 
   int err = is_bf16 ? lcbi::make_plan<__nv_bfloat16>(BW, V, C, H, budget, &P)
                     : lcbi::make_plan<float>(BW, V, C, H, budget, &P);
   if (err != 0) return err;
-  if (P.path != 0 && (qkvu == nullptr || dob == nullptr || stats == nullptr || kslots == nullptr ||
-                      ksums == nullptr))
+  if (qkvu == nullptr || dob == nullptr || slots == nullptr || kslots == nullptr ||
+      (P.ksums > 0 && ksums == nullptr) || (P.stats > 0 && stats == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b3 = static_cast<const float*>(bqkv);

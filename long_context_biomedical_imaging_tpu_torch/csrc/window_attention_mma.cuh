@@ -72,6 +72,7 @@
 #include <type_traits>
 
 #include "flash_attention.cuh"
+#include "mma_gemm.cuh"
 #include "window_attention.cuh"
 
 namespace lcbi {
@@ -990,166 +991,88 @@ wattn_drel_reduce_kernel(const float* __restrict__ kseg, float* __restrict__ out
 }
 
 // ---------------------------------------------------------------------------
-// The projections of the mma path (bf16)
+// The projections of the bf16 paths
 // ---------------------------------------------------------------------------
 
 // out = epilogue(A @ B) as proj_gemm_kernel (window_attention.cuh) computes
-// it, and rounding where it rounds, for the bf16 general path: a block per
-// 128 x 64 output tile, 8 warps of 32 x 32, the WMMA accumulators in
-// registers over the whole depth, which comes through two stages of 32-deep
-// slices (cp.async where the rows are 16-byte aligned, zeros past K and the
-// tile), the next slice's copies in flight while this one's products run.
-constexpr int kPM = 128, kPN = 64, kPK = 32;
-constexpr int kPLdA = kPK + 8;     // A slice (kPM x kPK), and a B_COL slice (kPN x kPK)
-constexpr int kPLdB = kPN + 8;     // row-major B slice (kPK x kPN)
-constexpr int kPLdC = kPN + 4;     // the fp32 output tile
-constexpr size_t kPStageA = ((size_t)kPM * kPLdA * 2 + 127) & ~size_t(127);
-constexpr size_t kPStageB = (size_t)kPN * kPLdA * 2 > (size_t)kPK * kPLdB * 2
-                                ? (size_t)kPN * kPLdA * 2 : (size_t)kPK * kPLdB * 2;
-constexpr size_t kPStage = kPStageA + ((kPStageB + 127) & ~size_t(127));
-constexpr size_t kPBytes = 2 * kPStage > (size_t)kPM * kPLdC * 4 ? 2 * kPStage
-                                                                 : (size_t)kPM * kPLdC * 4;
-
-// 8 elements of a bf16 row from src (valid: the first `valid` of them, zeros
-// after) to dst, as one cp.async (src-size cut at valid; the copy reads
-// nothing and takes the valid address base when valid <= 0) where vec, else
-// by element.
-__device__ __forceinline__ void load_vec8(bf16* dst, const bf16* __restrict__ src, int valid,
-                                          bool vec, const bf16* base) {
-  if (vec) {
-    const int bytes = valid <= 0 ? 0 : (valid >= 8 ? 16 : 2 * valid);
-    cp_async16(smem_addr(dst), bytes > 0 ? src : base, bytes);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i] = i < valid ? src[i] : __float2bfloat16(0.f);
-  }
-}
-
-template <bool B_COL>
+// it, and rounding where it rounds, for the bf16 paths: mma_gemm.cuh's
+// row-tiled product (128 x 128 output tiles, 8 warps of 64 x 32 on mma.sync
+// fragments, a three-stage cp.async ring of 32-deep slices with the tails
+// masked), the epilogue on the fragments: bias in fp32, columns n < nscale
+// stored as bf16(v scale) (and bf16(v) at column dup + n), the rest as
+// bf16(v), two neighbouring columns in one 4-byte store. B_NK: B is stored
+// (N, K) (x W^T); else (K, N). The block walks output tiles, columns fastest.
+template <bool B_NK>
 __global__ void __launch_bounds__(kThreads)
-proj_mma_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
-                const float* __restrict__ bias, bf16* __restrict__ out, int ldo, int M, int N,
-                int K, int nscale, float scale, int dup) {
-  using namespace nvcuda;
+proj_rows_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
+                 const float* __restrict__ bias, bf16* __restrict__ out, int ldo, int M, int N,
+                 int K, int nscale, float scale, int dup) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const long long m0 = (long long)blockIdx.x * kPM;
-  const int n0 = blockIdx.y * kPN;
-  const int rows_a = (int)min((long long)kPM, (long long)M - m0), cols_b = min(kPN, N - n0);
-  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-  const bool vec = lda % 8 == 0 && ldb % 8 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(B) % 16 == 0;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  auto stage = [&](int k0, int st) {
-    bf16* As = reinterpret_cast<bf16*>(smem + st * kPStage);
-    bf16* Bs = reinterpret_cast<bf16*>(smem + st * kPStage + kPStageA);
-    const int kw = min(kPK, K - k0);
-    for (int e = threadIdx.x; e < kPM * (kPK / 8); e += kThreads) {
-      const int r = e / (kPK / 8), c = (e % (kPK / 8)) * 8;
-      load_vec8(As + r * kPLdA + c, A + (size_t)(m0 + r) * lda + k0 + c,
-                r < rows_a ? kw - c : 0, vec, A);
-    }
-    if (B_COL) {
-      for (int e = threadIdx.x; e < kPN * (kPK / 8); e += kThreads) {
-        const int n = e / (kPK / 8), c = (e % (kPK / 8)) * 8;
-        load_vec8(Bs + n * kPLdA + c, B + (size_t)(n0 + n) * ldb + k0 + c,
-                  n < cols_b ? kw - c : 0, vec, B);
-      }
+  const Product<bf16> pr{A, B, lda, ldb, M, N, 0};
+  const bool pair = ldo % 2 == 0 && (dup < 0 || dup % 2 == 0) &&
+                    reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  auto put = [&](bf16* o, int c, float v0, float v1, bool two) {
+    if (two && pair) {
+      *reinterpret_cast<uint32_t*>(o + c) = pack_bf16(v0, v1);
     } else {
-      for (int e = threadIdx.x; e < kPK * (kPN / 8); e += kThreads) {
-        const int k = e / (kPN / 8), c = (e % (kPN / 8)) * 8;
-        load_vec8(Bs + k * kPLdB + c, B + (size_t)(k0 + k) * ldb + n0 + c,
-                  k < kw ? cols_b - c : 0, vec, B);
-      }
+      o[c] = __float2bfloat16(v0);
+      if (two) o[c + 1] = __float2bfloat16(v1);
     }
   };
-
-  const int nk = (K + kPK - 1) / kPK;
-  stage(0, 0);
-  cp_async_commit();
-  for (int i = 0; i < nk; ++i) {
-    if (i + 1 < nk) {
-      stage((i + 1) * kPK, (i + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  auto store = [&](int row, int col, float v0, float v1) {
+    const bool two = col + 1 < N;
+    if (bias != nullptr) {
+      v0 += bias[col];
+      if (two) v1 += bias[col + 1];
     }
-    __syncthreads();
-    const bf16* As = reinterpret_cast<const bf16*>(smem + (i & 1) * kPStage);
-    const bf16* Bs = reinterpret_cast<const bf16*>(smem + (i & 1) * kPStage + kPStageA);
-#pragma unroll
-    for (int kk = 0; kk < kPK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        wmma::load_matrix_sync(a[mi], As + (wm * 32 + mi * 16) * kPLdA + kk * 16, kPLdA);
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, typename WmmaLayout<B_COL>::type> b;
-        if (B_COL)
-          wmma::load_matrix_sync(b, Bs + (wn * 32 + ni * 16) * kPLdA + kk * 16, kPLdA);
-        else
-          wmma::load_matrix_sync(b, Bs + (kk * 16) * kPLdB + wn * 32 + ni * 16, kPLdB);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) wmma::mma_sync(acc[mi][ni], a[mi], b, acc[mi][ni]);
+    bf16* o = out + (size_t)row * ldo;
+    if (col + 1 < nscale || !two) {
+      if (col < nscale) {
+        put(o, col, v0 * scale, v1 * scale, two);
+        if (dup >= 0) put(o + dup, col, v0, v1, two);
+      } else {
+        put(o, col, v0, v1, two);
       }
+    } else if (col >= nscale) {
+      put(o, col, v0, v1, two);
+    } else {   // the pair straddles nscale
+      put(o, col, v0 * scale, 0.f, false);
+      if (dup >= 0) put(o + dup, col, v0, 0.f, false);
+      put(o, col + 1, v1, 0.f, false);
     }
-    __syncthreads();
-  }
-  // the epilogue of proj_gemm_kernel: bias in fp32, columns n < nscale
-  // stored as T(v scale) (and T(v) at column dup + n), the rest as T(v)
-  float* Cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-      wmma::store_matrix_sync(Cs + (wm * 32 + mi * 16) * kPLdC + wn * 32 + ni * 16, acc[mi][ni],
-                              kPLdC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kPM * kPN; e += kThreads) {
-    const int r = e / kPN, n = n0 + e % kPN;
-    if (r >= rows_a || n >= N) continue;
-    const float v = Cs[r * kPLdC + e % kPN] + (bias != nullptr ? bias[n] : 0.f);
-    bf16* orow = out + (size_t)(m0 + r) * ldo;
-    if (n < nscale) {
-      orow[n] = __float2bfloat16(v * scale);
-      if (dup >= 0) orow[dup + n] = __float2bfloat16(v);
-    } else {
-      orow[n] = __float2bfloat16(v);
-    }
-  }
+  };
+  const int tn = ceil_div(N, kMmaTile);
+  const long long tiles = (long long)ceil_div(M, kMmaTile) * tn;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x)
+    mma_tile<false, B_NK>(pr, 0, K, (int)(t / tn) * kMmaTile, (int)(t % tn) * kMmaTile, store,
+                          smem);
 }
 
-inline int launch_proj_mma(const void* A, int lda, const void* B, int ldb, bool b_col,
-                           const float* bias, void* out, int ldo, int M, int N, int K, int nscale,
-                           float scale, int dup, cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + kPM - 1) / kPM), (unsigned)((N + kPN - 1) / kPN));
-  const bf16* a = static_cast<const bf16*>(A);
-  const bf16* b = static_cast<const bf16*>(B);
-  bf16* o = static_cast<bf16*>(out);
-  if (b_col)
-    proj_mma_kernel<true><<<grid, kThreads, kPBytes, stream>>>(a, lda, b, ldb, bias, o, ldo, M, N,
-                                                               K, nscale, scale, dup);
-  else
-    proj_mma_kernel<false><<<grid, kThreads, kPBytes, stream>>>(a, lda, b, ldb, bias, o, ldo, M,
-                                                                N, K, nscale, scale, dup);
+inline int launch_proj_rows(const void* A, int lda, const void* B, int ldb, bool b_nk,
+                            const float* bias, void* out, int ldo, int M, int N, int K,
+                            int nscale, float scale, int dup, cudaStream_t stream) {
+  constexpr size_t bytes = product_smem<bf16>();
+  auto kernel = b_nk ? proj_rows_kernel<true> : proj_rows_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)ceil_div(M, kMmaTile) * ceil_div(N, kMmaTile);
+  const long long grid = tiles < 65535LL * 16 ? tiles : 65535LL * 16;
+  kernel<<<(unsigned)grid, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(A), lda, static_cast<const bf16*>(B), ldb, bias,
+      static_cast<bf16*>(out), ldo, M, N, K, nscale, scale, dup);
   return (int)cudaGetLastError();
 }
 
-// The general path's projections: proj_mma_kernel in bf16, proj_gemm_kernel
+// The projections: proj_rows_kernel in bf16, proj_gemm_kernel
 // (window_attention.cuh) in fp32.
 template <typename T>
 int launch_projection(const void* A, int lda, const void* B, int ldb, bool b_col,
                       const float* bias, void* out, int ldo, int M, int N, int K, int nscale,
                       float scale, int dup, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value)
-    return launch_proj_mma(A, lda, B, ldb, b_col, bias, out, ldo, M, N, K, nscale, scale, dup,
-                           stream);
+    return launch_proj_rows(A, lda, B, ldb, b_col, bias, out, ldo, M, N, K, nscale, scale, dup,
+                            stream);
   else
     return launch_proj<T>(A, lda, B, ldb, b_col, bias, out, ldo, M, N, K, nscale, scale, dup,
                           stream);

@@ -19,16 +19,13 @@ the residual add. The backward kernel rounds the operands of its products
 (y, h, du, do) to ``x.dtype`` as the TPU kernel does and returns dw1, dw2 in
 the weight dtype and the other gradients in fp32.
 
-Widths: the kernels take any C and H. The forward's tiles run on C rounded
-up to 16 and H rounded up to 64, as its library reports
-(``lcbi_padded_channels``, ``lcbi_padded_hidden``; ``csrc/common.cuh``): its
-wrappers hand it the weights padded with zeros to those widths
-(:func:`_padded_weights`, a copy of the weights only where a width is not
-aligned; the activations are never padded). The backward stages its weight
-slices through shared memory with the tails masked and takes the weights as
-they are. It writes the operands of its weight gradients as streams (y, h,
-du in ``x.dtype``) and dy in fp32, which the wrapper allocates
-(:func:`_bwd_scratch`) and its library contracts in the same call.
+Widths: the kernels take any C and H, and the weights as they are: the
+forward and the backward stage their weight slices through shared memory
+with the tails past C and H masked (``csrc/mlp_common.cuh``), so no wrapper
+pads or copies a weight. The backward writes the operands of its weight
+gradients as streams (y, h, du in ``x.dtype``) and dy in fp32, which the
+wrapper allocates (:func:`_bwd_scratch`) and its library contracts in the
+same call.
 """
 
 from __future__ import annotations
@@ -38,8 +35,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import (CudaKernel, check_cuda_operand, pad_blocks, padded_width, ptr,
-                         slot_count, slot_layout, stream_handle)
+from .cuda_build import (CudaKernel, check_cuda_operand, ptr, slot_count, slot_layout,
+                         stream_handle)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, as the TPU kernels
 
@@ -105,18 +102,6 @@ def fused_ln_mlp_residual_bwd_plain(do, x, ln_scale, ln_bias, w1, b1, w2, b2):
     return vjp(do)
 
 
-def _padded_weights(kernel, w1, b1, w2):
-    """The kernel's weight layout: w1 (Cp, Hp), b1 (Hp,) and w2 (Hp, Cp) at
-    the widths its library reports, zero past the true widths, and the
-    (width, padded width) pairs of C and H. The activations stay at their
-    true width; the kernels mask them. Aligned widths pass as they are."""
-    c, hidden = w1.shape
-    cw = (c, padded_width(kernel, "lcbi_padded_channels", c))
-    hw = (hidden, padded_width(kernel, "lcbi_padded_hidden", hidden))
-    return (pad_blocks(w1, [(*cw, (0,)), (*hw, (1,))]), pad_blocks(b1, [(*hw, (0,))]),
-            pad_blocks(w2, [(*hw, (0,)), (*cw, (1,))]), cw, hw)
-
-
 def _check_operands(x2, f32, w1, w2):
     n, c = x2.shape
     hidden = w1.shape[-1]
@@ -136,7 +121,6 @@ def _check_operands(x2, f32, w1, w2):
 def _fwd_cuda(x2, g, b, w1, b1, w2, b2):
     _check_operands(x2, (g, b, b1, b2), w1, w2)
     n, c = x2.shape
-    w1, b1, w2, _, _ = _padded_weights(FUSED_LN_MLP_FWD, w1, b1, w2)
     out = torch.empty_like(x2)
     FUSED_LN_MLP_FWD(ptr(x2), ptr(g), ptr(b), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(out),
                      n, c, w1.shape[1], int(x2.dtype == torch.bfloat16), stream_handle(x2.device))
@@ -275,11 +259,10 @@ def _check_mlp_operands(x2, w1, b1, w2, b2):
 
 
 def fused_mlp_fwd(x2, w1, b1, w2, b2):
-    """The K2' forward kernel on CUDA: x2 (N, C) and w1, w2 in x2.dtype, b1,
-    b2 fp32; the output of :func:`fused_mlp_plain`."""
+    """The K2' forward kernel on CUDA: x2 (N, C) and w1, w2 in x2.dtype at
+    the true widths, b1, b2 fp32; the output of :func:`fused_mlp_plain`."""
     _check_mlp_operands(x2, w1, b1, w2, b2)
     n, c = x2.shape
-    w1, b1, w2, _, _ = _padded_weights(FUSED_MLP_FWD, w1, b1, w2)
     out = torch.empty_like(x2)
     FUSED_MLP_FWD(ptr(x2), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(out), n, c, w1.shape[1],
                   int(x2.dtype == torch.bfloat16), stream_handle(x2.device))

@@ -38,18 +38,27 @@ The kernels take every window of 1 to ``MAX_TOKENS`` tokens, as the TPU
 kernel does, at any head dim D = C / H, as it does (32 in the tiny, small
 and base presets, 16 in ``unetr``, any in ``custom``). Windows of 16, 32, 48
 or 64 tokens (2D windows 4x4 to 8x8) at D of 16, 32 or 64 and C % 16 == 0
-take the whole-window path, a block per tile of whole windows; every other
-shape (3D windows of up to 8x8x8, shrunk and ragged windows such as 7x7,
-other head dims) takes the general path, which writes q, k, v (and in the
-backward do and each query row's softmax statistics) to device memory in
-scratch that the wrappers allocate. There, bf16 up to D = 128 runs on the
-mma.sync kernels of ``csrc/window_attention_mma.cuh`` (a two-pass softmax on
+take the whole-window path: in the forward a block per tile of whole
+windows; in the bf16 backward the projection streams (q, k, v, the unscaled
+q and do, written to device memory), then a core kernel in which one warp
+owns a (head, window) on register-resident mma.sync fragments, then dx. In
+fp32 those shapes take the general path's backward. Every other shape (3D
+windows of up to 8x8x8, shrunk and ragged windows such as 7x7, other head
+dims) takes the general path, which writes q, k, v (and in the backward do
+and each query row's softmax statistics) to device memory in scratch that
+the wrappers allocate. There, bf16 up to D = 128 runs on the mma.sync
+kernels of ``csrc/window_attention_mma.cuh`` (a two-pass softmax on
 register-resident fragments, the bias slice of a head and query tile kept in
 shared memory over many windows, a key pass that accumulates drel per key
 tile in shared memory); fp32, and bf16 above D = 128, on shared-memory
 kernels that walk D in chunks (``csrc/window_attention.cuh``). The CUDA
-library says which path takes a shape (``lcbi_window_attention_whole``) and
-how much fp32 scratch its backward needs (``lcbi_window_attention_bwd_scratch``).
+library says which path takes a shape's forward
+(``lcbi_window_attention_whole``) and how much fp32 scratch its backward
+needs (``lcbi_window_attention_bwd_scratch``).
+
+:func:`window_attention_bwd_passes_plain` composes the whole-window
+backward's passes in plain PyTorch, in the kernels' rounding order: the CPU
+tests hold that decomposition against the VJP and against JAX.
 """
 
 from __future__ import annotations
@@ -116,6 +125,59 @@ def window_attention_bwd_plain(do, x, wqkv, bqkv, wout, bout, rel, heads: int, r
     return vjp(do)
 
 
+def window_attention_bwd_passes_plain(do, x, wqkv, bqkv, wout, bout, rel, heads: int, rid=None,
+                                      mask_value: float = -100.0, scale: float | None = None):
+    """The whole-window backward's passes (``csrc/window_attention_bwd.cu``)
+    composed in plain PyTorch, in the kernels' rounding order: the projection
+    streams (q scale log2(e), k, v and the unscaled q, each rounded to
+    x.dtype; do = dout Wout^T per head, rounded); the attention core per
+    (window, head), with p and ds rounded once and shared by o = p v, dq = ds
+    k scale, dv = p^T do and dk = ds^T q scale, dbqkv the column sums of the
+    fp32 dqkv and drel the fp32 ds summed over the windows; dx = dqkv Wqkv^T;
+    and the weight gradients x^T dqkv and o^T dout as the split-K kernel forms
+    them. Operands and the returned (dx, dwqkv, dbqkv, dwout, dbout, drel) as
+    :func:`window_attention_bwd_plain`."""
+    bw, v, c = x.shape
+    d = c // heads
+    dt = x.dtype
+    scale = d ** -0.5 if scale is None else scale
+    n = bw * v
+    x2, do2 = x.reshape(n, c), do.reshape(n, c)
+
+    def per_head(t):      # (N, C) -> (BW, H, V, D)
+        return t.reshape(bw, v, heads, d).permute(0, 2, 1, 3)
+
+    def per_row(t):       # (BW, H, V, D) -> (N, C)
+        return t.permute(0, 2, 1, 3).reshape(n, c)
+
+    # pass 1: the projection streams
+    qkv = matmul_rounded(x2, wqkv, dt) + bqkv.float()
+    qs = per_head((qkv[:, :c] * (scale * LOG2E)).to(dt)).float()
+    qu, k, val = (per_head(qkv[:, i * c:(i + 1) * c].to(dt)).float() for i in range(3))
+    dob = per_head(matmul_rounded(do2, wout.t(), dt).to(dt)).float()
+    # pass 2: the attention core
+    s = qs @ k.transpose(-1, -2) + rel.float() * LOG2E
+    if rid is not None:
+        nw = rid.shape[0]
+        mask = torch.where(rid[:, :, None] != rid[:, None, :], mask_value * LOG2E, 0.0).float()
+        s = (s.reshape(bw // nw, nw, heads, v, v) + mask[None, :, None]).reshape(bw, heads, v, v)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    dp = dob @ val.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    pr, dsr = p.to(dt).float(), ds.to(dt).float()
+    o = per_row((pr @ val).to(dt))
+    dqkv = torch.cat([per_row(dsr @ k) * scale, per_row(dsr.transpose(-1, -2) @ qu) * scale,
+                      per_row(pr.transpose(-1, -2) @ dob)], dim=1)
+    # pass 3: dx; the weight gradients of the split-K kernel
+    dqkv_r = dqkv.to(dt)
+    dx = matmul_rounded(dqkv_r, wqkv.t(), dt).to(dt).reshape(bw, v, c)
+    dwqkv = matmul_rounded(x2.t(), dqkv_r, dt)
+    dwout = matmul_rounded(o.t(), do2, dt)
+    return (dx, dwqkv.to(wqkv.dtype), dqkv.sum(dim=0), dwout.to(wout.dtype),
+            do2.float().sum(dim=0), ds.sum(dim=0))
+
+
 def _whole_window(v: int, c: int, heads: int) -> bool:
     """Whether the whole-window path takes (V, C, H), as the CUDA library
     decides it (launches nothing)."""
@@ -123,9 +185,10 @@ def _whole_window(v: int, c: int, heads: int) -> bool:
                                       ctypes.c_int, v, c, heads) == 1
 
 
-def _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads):
+def _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads, bwd=False):
     """Raise unless the kernels take these operands; returns (BW, V, C, nW,
-    whole), whole saying which path takes them."""
+    whole), whole saying which path takes the forward (the backward writes a
+    4C-wide stream on every path)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"K8 kernels take fp32 or bf16, got {x.dtype}")
     bw, v, c = x.shape
@@ -137,7 +200,7 @@ def _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads):
     if not x.is_cuda:
         raise ValueError(f"K8 kernels take CUDA tensors, got x on {x.device}")
     whole = _whole_window(v, c, heads)
-    width = 3 * c if whole else 4 * c   # the widest stream each path writes
+    width = 4 * c if bwd or not whole else 3 * c   # the widest stream the call writes
     if bw == 0 or bw * v * width >= 2**31:
         raise ValueError(f"K8 kernels take 0 < BW*V*{width // c}C < 2^31, got BW={bw}, V={v}, "
                          f"C={c}")
@@ -178,14 +241,14 @@ def window_attention_fwd(x, wqkv, bqkv, wout, bout, rel, heads: int, rid=None,
 
 def window_attention_bwd_streams(do, x, wqkv, bqkv, wout, bout, rel, heads: int, rid=None,
                                  mask_value: float = -100.0, scale: float = 1.0):
-    """The K8 backward kernel on CUDA: (dx, dqkv (BW V, 3C) and o (BW V, C) in
+    """The K8 backward kernels on CUDA: (dx, dqkv (BW V, 3C) and o (BW V, C) in
     x.dtype, dbqkv, dbout, drel in fp32); dqkv and o are the operands of the
     weight gradients (:func:`window_attention_wgrad`)."""
-    bw, v, c, nw, whole = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads)
+    bw, v, c, nw, _ = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads, bwd=True)
     check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
     n, dev = bw * v, x.device
     is_bf16 = int(x.dtype == torch.bfloat16)
-    sizes = (ctypes.c_longlong * 3)()
+    sizes = (ctypes.c_longlong * 4)()
     code = WINDOW_ATTENTION_BWD.query(
         "lcbi_window_attention_bwd_scratch", [ctypes.c_int] * 4 + [ctypes.c_longlong,
                                                                    ctypes.c_int, ctypes.c_void_p],
@@ -193,19 +256,16 @@ def window_attention_bwd_streams(do, x, wqkv, bqkv, wout, bout, rel, heads: int,
         ctypes.cast(sizes, ctypes.c_void_p))
     if code != 0:
         raise RuntimeError(f"lcbi_window_attention_bwd_scratch failed: CUDA error {code}")
-    slots, kslots, ksums = (torch.empty(size, device=dev, dtype=torch.float32) if size else None
-                            for size in sizes)
+    slots, kslots, ksums, stats = (torch.empty(size, device=dev, dtype=torch.float32) if size
+                                   else None for size in sizes)
     red = torch.empty(4 * c + heads * v * v, device=dev, dtype=torch.float32)
     dx = torch.empty_like(x)
     dqkv = torch.empty(n, 3 * c, device=dev, dtype=x.dtype)
     o = torch.empty(n, c, device=dev, dtype=x.dtype)
-    qkvu = dob = stats = None
-    if not whole:
-        # the general paths: the projections q scale log2(e) | k | v | q, do
-        # per head, and each query row's softmax statistics
-        qkvu = torch.empty(n, 4 * c, device=dev, dtype=x.dtype)
-        dob = torch.empty(n, c, device=dev, dtype=x.dtype)
-        stats = torch.empty(3 * bw * heads * v, device=dev, dtype=torch.float32)
+    # the projection streams of every path: q scale log2(e) | k | v | q, and
+    # do per head
+    qkvu = torch.empty(n, 4 * c, device=dev, dtype=x.dtype)
+    dob = torch.empty(n, c, device=dev, dtype=x.dtype)
     WINDOW_ATTENTION_BWD(ptr(x), ptr(wqkv), ptr(bqkv), ptr(wout), ptr(rel), ptr(rid), ptr(do),
                          ptr(dx), ptr(dqkv), ptr(o), ptr(slots), ptr(red), ptr(qkvu), ptr(dob),
                          ptr(stats), ptr(kslots), ptr(ksums), bw, v, c, heads, nw,

@@ -9,20 +9,19 @@ tree's own ``chip_smoke.py`` and runs its train-step phases for every
 configuration: ptx (12: Hyena, K1 and K2), emb (16: K3), vessel (20: Mamba,
 K4), vit16k (24: K5), vit65k_hyena (28: K6), vit65k_mamba (32: K7),
 ptx_attn (36: K8's whole-window path), micro_w7 (40: K9) and emb_attn (45:
-K8's general path). Then its K3 phase (13) and its K6 phase (25), from which
-it prints K3's backward with dM per emb step (phase 13's bf16 times per
-stage, backward and dM, times the stage's depth) and K6 per vit65k_hyena
-step (phase 25's per-call times at the vit65k_hyena shape: 12 convolution
-calls and 12 du calls, 24 in all, and 12 dk calls), and K3's forward per
-emb step (phase 13's bf16 times per stage times its depth, which shares its
-Toeplitz products with the backward); and last K1's backward
-per ptx step and K8's weight gradients per ptx_attn step (the other users of
-the split-K weight-gradient kernel): the same functions in both trees, so
-the turns differ only in the package they import. Configurations named
-after the checkout limit the turns to those configurations' train steps
-(to read a step's spread again); the name ``k3`` runs K3's phase 13 alone. The per-call K2, K2' and
-K4 backward phases (8, 46, 17) left the turn for time; their kernels run in
-the train steps. Kernels build at their first launch into each tree's own
+K8's general path). Then its K2 phase (4), its K8 phase (33) and its K2'
+phase (46), from which it prints K2's forward per ptx step (phase 4's bf16
+times per stage times the stage's depth), K8's whole-window backward per
+ptx_attn step (phase 33's ``bwd`` per stage times the depth: the
+projection streams, the attention core and dx, without the weight
+gradients) and K2''s forward per call at 32,770 x 384 beside its plain
+version; and last K1's backward per ptx step and K8's weight gradients per
+ptx_attn step (the users of the split-K weight-gradient kernel, whose
+row-tiled product the projections now share): the same functions in both
+trees, so the turns differ only in the package they import. Configurations
+named after the checkout limit the turns to those configurations' train
+steps (to read a step's spread again); the name ``k3`` runs K3's phase 13
+alone. Kernels build at their first launch into each tree's own
 ``build/kernels/``. Every line a turn prints is echoed with the turn's
 label; a summary of the step times, the per-step kernel times and the
 profiled device time per step of the kernels named in ``KERNELS`` ends the
@@ -68,19 +67,18 @@ STEP_PHASES = {
           "cs.phase_k3(torch, hyena_window, dev)",
 }
 KERNEL_PHASES = r"""
-from long_context_biomedical_imaging_tpu_torch.ops import hyena_window, spectral_conv
-k3 = cs.phase_k3(torch, hyena_window, dev)["bfloat16"]
-k3_step = sum(depth * (b[1] + m[1])
-              for b, m, (_, _, depth) in zip(k3["bwd"], k3["dm"], cs.EMB_K3_STAGES))
-k6 = cs.phase_k6(torch, spectral_conv, dev)
-k6_step = 12 * k6["conv"][1] + 12 * k6["dk"][1]
-k3_fwd = sum(depth * f[1] for f, (_, _, depth) in zip(k3["fwd"], cs.EMB_K3_STAGES))
-print(f"per-step kernels: K3 bwd+dM {k3_step:.3f} ms per emb step; K6 {k6_step:.3f} ms per "
-      f"vit65k_hyena step (conv+du {12 * k6['conv'][1]:.3f}, dk {12 * k6['dk'][1]:.3f}); "
-      f"K3 fwd {k3_fwd:.3f} ms per emb step", flush=True)
-# the other users of the split-K weight gradients, bf16 at the ptx and
-# ptx_attn stage shapes: K1's backward with the folded LN, K8's weight gradients
-from long_context_biomedical_imaging_tpu_torch.ops import window_attention
+from long_context_biomedical_imaging_tpu_torch.ops import fused_mlp, window_attention
+k2 = cs.phase_k2(torch, fused_mlp, dev)["bfloat16"]
+k2_step = sum(depth * r[1] for r, (_, _, depth) in zip(k2, cs.STAGES))
+k8 = cs.phase_k8(torch, window_attention, dev)
+k8_step = sum(depth * r[1] for r, (*_, depth) in zip(k8["bwd"], cs.ATTN_STAGES))
+k2p = cs.phase_k2_prime(torch, fused_mlp, dev)[0]["fwd"]
+print(f"per-step kernels: K2 fwd {k2_step:.3f} ms per ptx step; K8 whole-window bwd "
+      f"{k8_step:.3f} ms per ptx_attn step; K2' fwd {k2p[1]:.3f} ms per call (plain "
+      f"{k2p[2]:.3f})", flush=True)
+# the users of the split-K weight gradients, bf16 at the ptx and ptx_attn
+# stage shapes: K1's backward with the folded LN, K8's weight gradients
+from long_context_biomedical_imaging_tpu_torch.ops import hyena_window
 gen = torch.Generator().manual_seed(7)
 def mk(shape, scale=0.3):
     return (torch.randn(shape, generator=gen) * scale).to(dev)
@@ -114,18 +112,20 @@ def turn_code(configs=None) -> str:
 STEP = re.compile(r"phase (\d+) (?:train throughput: )?(\S+) train step .*?: ([0-9.]+) ms/step")
 PROFILE = re.compile(r"phase (\d+) ((?:\S+ )*?)profile: one step, device time ([0-9.]+) ms; "
                      r"top: (.*)")
-PER_STEP = re.compile(r"per-step kernels: K3 bwd\+dM ([0-9.]+) ms per emb step; K6 ([0-9.]+) "
-                      r"ms per vit65k_hyena step")
-K3_FWD = re.compile(r"K3 fwd ([0-9.]+) ms per emb step")
+PER_STEP = re.compile(r"per-step kernels: K2 fwd ([0-9.]+) ms per ptx step; K8 whole-window bwd "
+                      r"([0-9.]+) ms per ptx_attn step; K2' fwd ([0-9.]+) ms per call")
 SPLIT_K = re.compile(r"split-K users: K1 bwd ([0-9.]+) ms per ptx step; K8 weight gradients "
                      r"([0-9.]+) ms per ptx_attn step")
 # kernel names (substrings) whose device time per step the summary reports:
-# K3's backward and dM (the parent's row and Toeplitz kernels, this tree's
-# gates, dz and dM kernels; the Toeplitz kernels of both directions), K6's passes (spec_*), and the shared row-tiled
-# and split-K products and row passes that K3's backward now runs too
-KERNELS = ("k3_rows_bwd_kernel", "k3_rows_in_kernel", "k3_toeplitz",
-           "k3_gates_kernel", "k3_dz_kernel", "hyena_dm", "spec_", "gemm_rows_kernel",
-           "lcbi::wgrad_kernel", "ln_bwd_kernel", "ln_rows_kernel", "reduce_slots_kernel")
+# K2's forward (the parent's fused_ln_mlp_fwd_kernel, this tree's
+# mlp_fwd_mma_kernel), K8's backward (the parent's whole-window kernel, this
+# tree's core, column sums and segment sums), the projections (the parent's
+# proj_mma_kernel, this tree's proj_rows_kernel), and the shared row-tiled
+# and split-K products and row passes
+KERNELS = ("fused_ln_mlp_fwd_kernel", "mlp_fwd_mma_kernel", "window_attention_bwd_kernel",
+           "wattn_whole_bwd_kernel", "col_sums_kernel", "wattn_whole_reduce", "proj_mma_kernel",
+           "proj_rows_kernel", "gemm_rows_kernel", "lcbi::wgrad_kernel", "ln_bwd_kernel",
+           "reduce_slots_kernel")
 NAMES = {"12": "ptx", "16": "emb", "20": "vessel", "24": "vit16k", "28": "vit65k_hyena",
          "32": "vit65k_mamba", "36": "ptx_attn", "40": "micro_w7", "45": "emb_attn"}
 
@@ -144,11 +144,9 @@ def run_turn(label: str, root: str, env: dict, code: str) -> dict:
     for line in proc.stdout.splitlines():
         m = PER_STEP.search(line)
         if m:
-            steps.update({"K3 bwd+dM/emb step": float(m.group(1)),
-                          "K6/vit65k_hyena step": float(m.group(2))})
-        m = K3_FWD.search(line)
-        if m:
-            steps["K3 fwd/emb step"] = float(m.group(1))
+            steps.update({"K2 fwd/ptx step": float(m.group(1)),
+                          "K8 whole-window bwd/ptx_attn step": float(m.group(2)),
+                          "K2' fwd/call": float(m.group(3))})
         m = SPLIT_K.search(line)
         if m:
             steps.update({"K1 bwd/ptx step": float(m.group(1)),

@@ -242,6 +242,50 @@ def test_fused_mlp_kernels_match_plain(cuda_device, dtype, n, c):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+# K2's and K2''s forward at the weights' true widths (no padded copy): C =
+# 24, 30, 48 at H = 4C, H = 1 at C = 30; ptx's four stages at batch 1
+# (N rows, C, H = 4C); one row; row counts no row tile (128, 64 or 32 rows)
+# divides at the stages' widths; C = 200 (two column groups, a ragged one),
+# C = 1000 (two passes of the output columns) and C = 1536 (16-row tiles)
+# at H not a multiple of 64
+_K2_FWD_SHAPES = [(300, 24, 96), (300, 30, 120), (37, 48, 192), (300, 30, 1),
+                  (262144, 96, 384), (65536, 192, 768), (16384, 384, 1536), (4096, 768, 3072),
+                  (1, 96, 384), (1000, 192, 768), (1000, 384, 1536), (1000, 768, 3072),
+                  (130, 200, 100), (70, 1000, 72), (50, 1536, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_ln", [True, False])
+@pytest.mark.parametrize("n,c,h", _K2_FWD_SHAPES)
+def test_mlp_forward_kernels_match_plain_at_true_widths(cuda_device, dtype, with_ln, n, c, h):
+    """K2's forward (with_ln) and K2''s on weights at their true widths
+    against their plain versions (within _tol of max|out|): one launch, the
+    weights not copied or changed, and two launches bitwise equal."""
+    gen = torch.Generator().manual_seed(n + c + h + 11 * with_ln)
+    x = _randn(gen, (n, c), 1.0).to(cuda_device, dtype)
+    w1, w2 = _randn(gen, (c, h)).to(cuda_device, dtype), _randn(gen, (h, c)).to(cuda_device, dtype)
+    b1, b2 = _randn(gen, (h,)).to(cuda_device), _randn(gen, (c,)).to(cuda_device)
+    kept = [w1.clone(), w2.clone()]
+    if with_ln:
+        ln = [(_randn(gen, (c,)) + 1).to(cuda_device), _randn(gen, (c,)).to(cuda_device)]
+        kernel, args = tmlp.FUSED_LN_MLP_FWD, (x, *ln, w1, b1, w2, b2)
+        run, plain = (lambda: tmlp._fwd_cuda(*args)), tmlp.fused_ln_mlp_residual_plain
+    else:
+        kernel, args = tmlp.FUSED_MLP_FWD, (x, w1, b1, w2, b2)
+        run, plain = (lambda: tmlp.fused_mlp_fwd(*args)), tmlp.fused_mlp_plain
+    before = kernel.launches
+    outs = [run() for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip((w1, w2), kept))
+    out, ref = outs[0], plain(*args).float()
+    assert out.dtype == dtype and out.shape == (n, c) and torch.isfinite(out).all()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= _tol(dtype) * ref.abs().max().item(), err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_ln", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1316,6 +1360,54 @@ def test_window_attention_kernels_match_plain_at_head_dims(cuda_device, dtype, b
     assert torch.isfinite(out).all() and err <= _tol(dtype) * ref.float().abs().max().item()
     gtol = 1e-3 if dtype == torch.float32 else 3e-2
     for name, g, r in zip(("dx", "dwqkv", "dbqkv", "dwout", "dbout", "drel"), grads, refs):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        err = (g.float() - r.float()).abs().max().item()
+        assert torch.isfinite(g).all() and err <= gtol * r.float().abs().max().item(), (name, err)
+
+
+def _k8_bwd_scratch(bw, v, c, heads, dtype):
+    """The floats of each scratch buffer the backward's plan asks for
+    (slots, kslots, ksums, stats), as the wrapper queries them."""
+    import ctypes
+
+    from long_context_biomedical_imaging_tpu_torch.ops.cuda_build import SLOT_BYTES_BUDGET
+
+    sizes = (ctypes.c_longlong * 4)()
+    code = twa.WINDOW_ATTENTION_BWD.query(
+        "lcbi_window_attention_bwd_scratch", [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                                                   ctypes.c_void_p],
+        ctypes.c_int, bw, v, c, heads, SLOT_BYTES_BUDGET, int(dtype == torch.bfloat16),
+        ctypes.cast(sizes, ctypes.c_void_p))
+    assert code == 0
+    return list(sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_rid", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("v", [16, 32, 48, 64])
+def test_window_attention_backward_at_whole_window_classes(cuda_device, dtype, with_rid, v, d):
+    """K8's backward at every whole-window class (V = 16 to 64, D = 16, 32,
+    64; two heads, 36 windows, region ids in 6 rows or none): all six
+    gradients against the plain VJP (tolerances as
+    test_window_attention_kernels_match_plain) and two launches bitwise
+    equal. bf16 takes the whole-window core (no softmax statistics in its
+    scratch), fp32 the general path (which keeps them)."""
+    heads, bw = 2, 36
+    c = heads * d
+    x, wq, bq, wo, bo, rel, rid, do, heads = _k8_args(
+        torch.Generator().manual_seed(v * 100 + d), bw, v, c, dtype, cuda_device,
+        6 if with_rid else None, heads)
+    stats = _k8_bwd_scratch(bw, v, c, heads, dtype)[3]
+    assert (stats == 0) == (dtype == torch.bfloat16)
+    args = (x, wq, bq, wo, bo, rel, heads, rid, -100.0, d ** -0.5)
+    runs = [twa.window_attention_bwd(do, *args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    refs = twa.window_attention_bwd_plain(do, *args)
+    gtol = 1e-3 if dtype == torch.float32 else 3e-2
+    for name, g, r in zip(("dx", "dwqkv", "dbqkv", "dwout", "dbout", "drel"), runs[0], refs):
         assert g.dtype == r.dtype and g.shape == r.shape, name
         err = (g.float() - r.float()).abs().max().item()
         assert torch.isfinite(g).all() and err <= gtol * r.float().abs().max().item(), (name, err)

@@ -168,6 +168,35 @@ def test_window_attention_bf16_matches_jax():
         assert _rel_err(a, b) <= 3e-2, name
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bw,v,c,heads,nw", [
+    (8, 16, 32, 2, 4), (4, 16, 64, 2, None), (3, 64, 32, 2, 3), (2, 64, 64, 2, None)],
+    ids=["v16_d16_rid", "v16_d32", "v64_d16_rid", "v64_d32"])
+def test_window_attention_backward_passes_match_vjp_and_jax(dtype, bw, v, c, heads, nw):
+    """The whole-window backward's pass decomposition in the kernels'
+    rounding order (window_attention_bwd_passes_plain: projection streams,
+    the attention core with p and ds rounded once, dx, the weight gradients)
+    against the plain VJP and JAX's Pallas VJP in interpret mode, all six
+    gradients: fp32 within 1e-5 of each one's max (sum order), bf16 within
+    3e-2 (a few bf16 ulps: the VJP rounds its cotangents where autograd of
+    the rounded forward does)."""
+    args, rid, g = _attn_inputs(np.random.default_rng(v + c + bw), bw, v, c, heads, nw)
+    tdt = getattr(torch, dtype)
+    t = [torch.from_numpy(a) for a in args]
+    targs = (t[0].to(tdt), t[1].to(tdt), *t[2:])   # wout stays fp32, as JAX's test call
+    r = None if rid is None else torch.from_numpy(rid)
+    scale = (c // heads) ** -0.5
+    gt = torch.from_numpy(g).to(tdt)
+    got = twa.window_attention_bwd_passes_plain(gt, *targs, heads, r, -100.0, scale)
+    ref = twa.window_attention_bwd_plain(gt, *targs, heads, r, -100.0, scale)
+    _, jgrads = _jax_attention(args, rid, g, heads, getattr(jnp, dtype))
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    for name, a, b, j in zip(NAMES[1:], got, ref, jgrads):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b.float().numpy()) <= tol, name
+        assert _rel_err(a, j) <= tol, name
+
+
 def test_window_attention_past_max_tokens_takes_the_plain_version():
     """V = 576 > MAX_TOKENS: JAX's XLA route and the port's plain version on
     every device, fp32 within 1e-5 of max, output and gradients; the K8

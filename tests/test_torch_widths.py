@@ -181,12 +181,11 @@ def _vit_flash_route(monkeypatch, argv, expected_calls, seed):
 # --------------------------------------------------------------------------- #
 
 class _Widths:
-    """Stands in for a kernel library's width queries (``lcbi_padded_channels``
-    and ``lcbi_padded_hidden``): C rounded up to ``channels``, H to
-    ``hidden``, as ``csrc/common.cuh`` rounds them."""
+    """Stands in for a kernel library's width query (``lcbi_padded_channels``):
+    C rounded up to ``channels``, as ``csrc/common.cuh`` rounds it."""
 
-    def __init__(self, channels: int, hidden: int = 64):
-        self.round = {"lcbi_padded_channels": channels, "lcbi_padded_hidden": hidden}
+    def __init__(self, channels: int):
+        self.round = {"lcbi_padded_channels": channels}
 
     def query(self, symbol, argtypes, restype, width):
         m = self.round[symbol]
@@ -223,21 +222,15 @@ def _blocks_hold(padded, true, c, cp, dims):
 
 @pytest.mark.parametrize("c, hidden", [(24, 96), (48, 192), (64, 256)])
 def test_mlp_weight_layout_round_trips(c, hidden):
+    """K2's kernels take the weights at their true widths (no padded copy):
+    the backward's gradients come out of [dw1 | dw2] and the small
+    gradients' reduced slot as they are."""
     from long_context_biomedical_imaging_tpu_torch.ops import fused_mlp
 
     g = torch.Generator().manual_seed(c)
     w1, b1, w2, b2 = (torch.randn(s, generator=g) for s in ((c, hidden), (hidden,),
                                                             (hidden, c), (c,)))
-    w1p, b1p, w2p, cw, hw = fused_mlp._padded_weights(_Widths(16, 64), w1, b1, w2)
-    (_, cp), (_, hp) = cw, hw
-    assert (cp, hp) == (-(-c // 16) * 16, -(-hidden // 64) * 64)
-    assert w1p.shape == (cp, hp) and w2p.shape == (hp, cp) and b1p.shape == (hp,)
-    _blocks_hold(w1p[:, :hidden], w1, c, cp, (0,))
-    _blocks_hold(w1p[:c], w1, hidden, hp, (1,))
-    _blocks_hold(w2p[:hidden], w2, c, cp, (1,))
-    _blocks_hold(b1p, b1, hidden, hp, (0,))
-    # the backward takes the true widths: its gradients come out of [dw1 |
-    # dw2] and the small gradients' reduced slot as they are
+    assert not hasattr(fused_mlp, "_padded_weights")
     red, layout = _slots([("db1", b1), ("db2", b2)])
     scratch = {"red": red, "layout": layout, "wgrads": torch.cat([w1.reshape(-1), w2.reshape(-1)])}
     for got, want in zip(fused_mlp._bwd_grads(scratch, c, hidden), (w1, b1, w2, b2)):
