@@ -7,9 +7,9 @@ Phases, each printing one line of numbers (or a few):
   2. build: the hand-written kernels from csrc/ with nvcc, in parallel (one
      nvcc per source: twenty-two sources behind twenty-four entry points, K2'
      sharing K2's), with their build seconds and ptxas register/spill lines;
-  3. K1, the fused Hyena window mixer, against its plain PyTorch version at
-     the four ptx stage shapes (V = 16), fp32 and bf16, with and without the
-     folded pre-LN;
+  3. K1, the fused Hyena window mixer (its weights at their true widths),
+     against its plain PyTorch version at the four ptx stage shapes (V =
+     16), fp32 and bf16, with and without the folded pre-LN;
   4. K2, the fused LN + MLP + residual, against its plain version at the four
      ptx stage shapes, fp32 and bf16, the weights at their true widths;
   5. slice: run_torch.main evaluates a synthetic ptx dataset (1024x1024
@@ -142,9 +142,9 @@ Phases, each printing one line of numbers (or a few):
      its VJP at the four ptx_attn stage shapes (batch 4: 65,536 .. 1,024
      windows of 16 tokens, C = 96 .. 768), at 64-token windows and at a
      window count no tile divides, with and without the shifted windows'
-     region ids, fp32 and bf16 (the bf16 backward through the whole-window
-     core, the fp32 one through the general path); two launches bitwise
-     equal; the
+     region ids, fp32 and bf16 (bf16 through the whole-window cores, fp32
+     through the general path); two launches bitwise equal; the backward's
+     o bitwise the forward's; the
      relative-position table's gradient through the gather; the refusals
      (a CPU tensor, a head dim of 96); then the times of the kernels and the
      plain version at the stage shapes in bf16;
@@ -1562,6 +1562,32 @@ def _no_dropout(model):
     return model
 
 
+def vessel_grad_case(torch, seed, flags=None, channels=3, enhance=False):
+    """phase_vessel_grads' operands from one seed: (x, y, loss_func, model,
+    amp_model), 512x512 images at batch 4 in spread scales and offsets (see
+    there), the model and its AMP twin built from ``flags`` (vessel's by
+    default) with dropout off and the same weights."""
+    from long_context_biomedical_imaging_tpu_torch.losses import get_loss_func
+    from long_context_biomedical_imaging_tpu_torch.models import build_model
+    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
+
+    argv = ([a for a in (flags or vessel_flags()) if a != "--use_amp"]
+            + ["--height=512", "--width=512", f"--seed={seed}"])
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(BATCH, 1, 512, 512, channels, generator=gen)
+    x = (x * torch.tensor([0.5, 1.0, 1.5, 2.0]).view(BATCH, 1, 1, 1, 1)
+         + torch.tensor([-1.0, -0.3, 0.3, 1.0]).view(BATCH, 1, 1, 1, 1))
+    if enhance:
+        y = x - 0.3 * torch.randn(x.shape, generator=gen)
+    else:
+        y = (x[..., 0] > 0.5).long()
+    loss_func = get_loss_func(check_args(parse_config(argv)).loss_func)
+    model = _no_dropout(build_model(check_args(parse_config(argv))))
+    amp_model = _no_dropout(build_model(check_args(parse_config(argv + ["--use_amp"]))))
+    amp_model.load_state_dict(model.state_dict())
+    return x, y, loss_func, model, amp_model
+
+
 def phase_vessel_grads(torch, dev, seed=20, flags=None, channels=3, enhance=False, phase=19,
                        name="vessel", path_kernels=None):
     """One train step's gradients of the full-width vessel model on 512x512x3
@@ -1600,22 +1626,9 @@ def phase_vessel_grads(torch, dev, seed=20, flags=None, channels=3, enhance=Fals
     host against the card's fp32."""
     from torch.func import functional_call
 
-    from long_context_biomedical_imaging_tpu_torch.losses import get_loss_func
-    from long_context_biomedical_imaging_tpu_torch.models import build_model
-    from long_context_biomedical_imaging_tpu_torch.setup import check_args, parse_config
     from long_context_biomedical_imaging_tpu_torch.trainer import amp_params
 
-    argv = ([a for a in (flags or vessel_flags()) if a != "--use_amp"]
-            + ["--height=512", "--width=512", f"--seed={seed}"])
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn(BATCH, 1, 512, 512, channels, generator=gen)
-    x = (x * torch.tensor([0.5, 1.0, 1.5, 2.0]).view(BATCH, 1, 1, 1, 1)
-         + torch.tensor([-1.0, -0.3, 0.3, 1.0]).view(BATCH, 1, 1, 1, 1))
-    if enhance:
-        y = x - 0.3 * torch.randn(x.shape, generator=gen)
-    else:
-        y = (x[..., 0] > 0.5).long()
-    loss_func = get_loss_func(check_args(parse_config(argv)).loss_func)
+    x, y, loss_func, model, amp_model = vessel_grad_case(torch, seed, flags, channels, enhance)
     kernels = [all_kernels()[i] for i in (path_kernels or {})]
 
     def grads(model, amp, device):
@@ -1642,9 +1655,6 @@ def phase_vessel_grads(torch, dev, seed=20, flags=None, channels=3, enhance=Fals
         at = max((k for k in errs if k.startswith(prefix)), key=errs.get)
         return errs[at], at
 
-    model = _no_dropout(build_model(check_args(parse_config(argv))))
-    amp_model = _no_dropout(build_model(check_args(parse_config(argv + ["--use_amp"]))))
-    amp_model.load_state_dict(model.state_dict())
     host32 = grads(model, False, "cpu")
     host16 = grads(amp_model, True, "cpu")
     card32 = grads(model, False, dev)
@@ -2412,7 +2422,12 @@ def phase_k8(torch, wa, dev):
             for _ in range(2)]
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(*runs)), "K8 launches are not bitwise repeatable")
-    del runs
+    # the whole-window cores share their score and softmax code: the backward
+    # recomputes the forward's every o_h bit for bit from the same streams
+    fwd_o = wa.window_attention_fwd_streams(*args)[2]
+    check(torch.equal(fwd_o, wa.window_attention_bwd_streams(do.bfloat16(), *args)[2]),
+          "K8's backward does not recompute the forward's o")
+    del runs, fwd_o
     module = WindowAttention(384, 12, window_size=(1, 4, 4))
     module.init_params(gen)
     module.to(dev)
@@ -2452,7 +2467,8 @@ def phase_k8(torch, wa, dev):
         torch.cuda.synchronize()
         err96, mag96, ok96 = compare(torch, out96, wa.window_attention_plain(*args96), "bfloat16")
     check(ok96, f"K8 at D = 96 disagrees with its plain version: {err96} > {mag96}")
-    print(f"phase 33 K8: two launches bitwise equal; a CPU tensor refused; D = 96 taken "
+    print(f"phase 33 K8: two launches bitwise equal; the backward's o bitwise the forward's; "
+          f"a CPU tensor refused; D = 96 taken "
           f"(max_abs_err={err96:.3e} max|out|={mag96:.3e})", flush=True)
     del base, args, module, x, g
     torch.cuda.empty_cache()
@@ -3766,6 +3782,16 @@ def run():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     grad_k9 = sum(depth for *_, depth in micro_k9_shapes(MICRO_GRAD_BATCH, height=512))
+    # phase 39's bf16 check is rounding-sensitive, not a kernel fault: on an
+    # NVIDIA H100 80GB HBM3 at 700 W (utils/micro_w7_seeds.py), the tree
+    # before K1's forward redesign passed it at seeds 39, 40, 42 and 44 and
+    # failed at 41, 43, 45, 46 and 47, each time at one parameter whose card
+    # bf16 gradient lay 0.11-0.48 of max from the card's fp32 one against the
+    # host's 0.02-0.10; there the card's and the host's fp32 gradients both
+    # lay within 2.6e-4 to 7e-3 of a float64 host step, and with K2 and K9 on
+    # their plain versions on the card the failing parameters kept their
+    # distance (seed 41, PSP's bin-1 conv: 0.481 -> 0.482; seed 46, a stage-1
+    # x_proj: 0.450 -> 0.383): the card's own bf16 torch ops, not the kernels
     phase_vessel_grads(torch, dev, seed=39, flags=micro_w7_flags(), channels=1, enhance=True,
                        phase=39, name="micro_w7", path_kernels={20: grad_k9, 21: grad_k9})
     phase_config_throughput(torch, dev, micro_w7_flags(), 40, "micro_w7", batch=BATCH)

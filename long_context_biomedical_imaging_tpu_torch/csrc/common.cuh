@@ -38,9 +38,9 @@ __host__ __device__ __forceinline__ int round_up32(int v) { return (v + 31) & ~3
 
 // The padded width of the forwards whose WMMA tiles read weights straight
 // from global memory (a fragment load cannot mask a tail): the forwards of
-// K1, K3 and K4 run on C rounded up to 32 (their channel chunk; K4's two C/2
-// halves each to 16). Every other kernel (K2's and K2''s forward and
-// backward, the backwards of K1, K3 and K4) stages its weight slices through
+// K3 and K4 run on C rounded up to 32 (their channel chunk; K4's two C/2
+// halves each to 16). Every other kernel (K1's, K2's and K2''s forward and
+// backward, the backwards of K3 and K4) stages its weight slices through
 // shared memory with the tails masked and takes the true widths.
 // The rows, the LayerNorm statistics and the stores keep the true C. This is
 // the one place the rounding is decided: each of those libraries reports it

@@ -2,36 +2,34 @@
 // (window_attention.cu, window_attention_bwd.cu). Two paths:
 //
 // The whole-window path, for V = 16, 32, 48 or 64 tokens (2D windows 4x4 to
-// 8x8) at a head dim D of 16, 32 or 64 and C % 16 == 0. Its forward: a block
-// takes a tile of whole windows, 64 token rows (64 / V windows), and walks
-// the heads one by one. Per head it projects its q, k, v columns (a C x 3D
-// slice of Wqkv) from the tile's token rows, read straight from global
-// memory, into fp32 shared memory, adds the bias and rounds them to the
-// stream type T; then scores, the base-2 softmax and the value products run
-// per window on shared-memory tiles. Its backward (bf16) runs as passes over
-// streams, a warp per (head, window): window_attention_bwd.cu.
+// 8x8) at a head dim D of 16, 32 or 64 and C % 16 == 0, in bf16: passes over
+// streams, the projections written to device memory, then a core kernel in
+// which one warp owns a (head, window) (window_attention_whole.cuh; the
+// forward's in window_attention.cu, the backward's in
+// window_attention_bwd.cu). fp32 at those shapes takes the general path.
 //
 // The general path, for every other V up to 512 (3D windows, shrunk and
-// ragged windows) and every other head dim: one block cannot hold a window's
-// every head, so the projections run as tiled matrix products
-// (proj_gemm_kernel) that write q, k, v to device memory once, rounded to T
-// where the TPU kernel rounds them; the attention then runs per (window,
-// head, tile of query rows). In bf16 up to D = 128 it runs on the
-// register-resident mma.sync kernels of window_attention_mma.cuh (designed
-// for Hopper); in fp32, and in bf16 above D = 128, on the shared-memory
-// kernels below: full score rows per query tile (window_attention_rows_kernel),
-// so the softmax normalises each row before it rounds p, as the TPU kernel
-// does, and a key-tile kernel for dk, dv and drel (window_attention_bwd.cu).
+// ragged windows), every other head dim and fp32: one block cannot hold a
+// window's every head, so the projections run as tiled matrix products
+// (proj_gemm_kernel, in bf16 window_attention_mma.cuh proj_rows_kernel)
+// that write q, k, v to device memory once, rounded to T where the TPU
+// kernel rounds them; the attention then runs per (window, head, tile of
+// query rows). In bf16 up to D = 128 it runs on the register-resident
+// mma.sync kernels of window_attention_mma.cuh (designed for Hopper); in
+// fp32, and in bf16 above D = 128, on the shared-memory kernels below: full
+// score rows per query tile (window_attention_rows_kernel), so the softmax
+// normalises each row before it rounds p, as the TPU kernel does, and a
+// key-tile kernel for dk, dv and drel (window_attention_bwd.cu).
 //
 // Head dims: the true D = C / H is any value from 1 up. The shared-memory
 // kernels take a chunk width KD in {16, 32, 64} (the least that holds D, or
-// 64) as a template argument and walk D in chunks of KD columns: scores are
-// summed over the chunks, outputs written a chunk at a time; a chunk past D
-// loads zeros (they add nothing to q k^T) and stores only its D columns. The
-// whole-window path runs where D is 16, 32 or 64.
+// 64; 32 in fp32) as a template argument and walk D in chunks of KD
+// columns: scores are summed over the chunks, outputs written a chunk at a
+// time; a chunk past D loads zeros (they add nothing to q k^T) and stores
+// only its D columns.
 //
-// Products run on the tensor cores (WMMA 16x16x16, fp32 sums) for bf16 and
-// as fp32 FMA loops for fp32 (common.cuh).
+// The shared-memory kernels' products run on the tensor cores (WMMA
+// 16x16x16, fp32 sums) for bf16 and as fp32 FMA loops for fp32 (common.cuh).
 #pragma once
 
 #include <math.h>
@@ -41,173 +39,13 @@
 
 namespace lcbi {
 
-constexpr int kTileRows = 64;              // token rows per tile
-constexpr int kOutCols = 128;              // column chunk of the C-wide products
-constexpr int kLdO = kOutCols + 4;         // its fp32 accumulator
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Leading dimensions of the tiles at padded head dim KD.
 template <int KD> struct HeadDims {
   static constexpr int kLdT = KD + 8;       // q, k, v, do tiles (T)
-  static constexpr int kLdF = 3 * KD + 4;   // the head's fp32 q | k | v product
   static constexpr int kLdG = KD + 4;       // a head's fp32 (rows x KD) product
 };
-// The whole-window path's fp32 tiles of C-wide products share the q | k | v
-// product's buffer, which must hold 64 x kOutCols.
-template <int KD> constexpr int ld_wide() {
-  return HeadDims<KD>::kLdF > kOutCols + 4 ? HeadDims<KD>::kLdF : kOutCols + 4;
-}
-
-// Scores and probabilities of a window: fp32 (V x V, ld V + 4) and T (ld V + 8).
-__host__ __device__ __forceinline__ int ld_scores(int V) { return V + 4; }
-__host__ __device__ __forceinline__ int ld_probs(int V) { return V + 8; }
-
-// C_b = A_b @ B_b for b in [0, nb): M x N outputs (fp32, ld ldc, batch stride
-// sc) over depth K; A_b and B_b in T with leading dimensions lda, ldb and
-// batch strides sa, sb, each row- or (with *_COL) column-major as in
-// common.cuh gemm. bf16: one warp per 16x16 output tile, M, N, K multiples
-// of 16.
-template <bool A_COL, bool B_COL>
-__device__ __forceinline__ void gemm_batched(int nb, float* Cp, int ldc, int sc,
-                                             const __nv_bfloat16* A, int lda, int sa,
-                                             const __nv_bfloat16* B, int ldb, int sb, int M,
-                                             int N, int K) {
-  using namespace nvcuda;
-  using LA = typename WmmaLayout<A_COL>::type;
-  using LB = typename WmmaLayout<B_COL>::type;
-  const int warp = threadIdx.x / 32;
-  const int tn = N / 16, per = (M / 16) * tn, tiles = nb * per;
-  for (int t = warp; t < tiles; t += kWarps) {
-    const int b = t / per, i = (t % per) / tn, j = t % tn;
-    const __nv_bfloat16* Ab = A + (size_t)b * sa;
-    const __nv_bfloat16* Bb = B + (size_t)b * sb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> bf;
-      const __nv_bfloat16* ap =
-          A_COL ? Ab + (size_t)k * lda + i * 16 : Ab + (size_t)i * 16 * lda + k;
-      const __nv_bfloat16* bp =
-          B_COL ? Bb + (size_t)j * 16 * ldb + k : Bb + (size_t)k * ldb + j * 16;
-      wmma::load_matrix_sync(a, ap, lda);
-      wmma::load_matrix_sync(bf, bp, ldb);
-      wmma::mma_sync(acc, a, bf, acc);
-    }
-    wmma::store_matrix_sync(Cp + (size_t)b * sc + (size_t)i * 16 * ldc + j * 16, acc, ldc,
-                            wmma::mem_row_major);
-  }
-}
-
-// fp32: each thread owns one output column of 8 consecutive rows of one
-// batch entry; M is a multiple of 8.
-template <bool A_COL, bool B_COL>
-__device__ __forceinline__ void gemm_batched(int nb, float* Cp, int ldc, int sc, const float* A,
-                                             int lda, int sa, const float* B, int ldb, int sb,
-                                             int M, int N, int K) {
-  constexpr int R = 8;
-  const int per = (M / R) * N, tasks = nb * per;
-  for (int task = threadIdx.x; task < tasks; task += kThreads) {
-    const int b = task / per, n = task % N, r0 = ((task % per) / N) * R;
-    const float* Ab = A + (size_t)b * sa;
-    const float* Bb = B + (size_t)b * sb;
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float bv = B_COL ? Bb[(size_t)n * ldb + k] : Bb[(size_t)k * ldb + n];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float av = A_COL ? Ab[(size_t)k * lda + r0 + r] : Ab[(size_t)(r0 + r) * lda + k];
-        acc[r] = fmaf(av, bv, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) Cp[(size_t)b * sc + (size_t)(r0 + r) * ldc + n] = acc[r];
-  }
-}
-
-// The head's q | k | v product of the tile's M token rows xr (global, ld C):
-// F[:, 0:D] = xr @ Wqkv[:, hD:(h+1)D], F[:, D:2D] and F[:, 2D:3D] from the
-// k and v column blocks at C + hD and 2C + hD (the whole-window path: D =
-// KD). Ends with a barrier.
-template <int KD, typename T>
-__device__ __forceinline__ void project_head(float* F, const T* xr, const T* wqkv, int M, int C,
-                                             int h) {
-#pragma unroll
-  for (int part = 0; part < 3; ++part)
-    gemm<false, false>(F + part * KD, HeadDims<KD>::kLdF, xr, C, wqkv + part * C + h * KD, 3 * C,
-                       M, KD, C, false);
-  __syncthreads();
-}
-
-// Scores to probabilities, rows [0, M) of the tile, in base 2 as the TPU
-// kernel: s = S + rel[h] log2(e) + (region ids differ ? mask2 : 0), where S
-// holds (q scale log2(e)) k^T and mask2 = mask_value log2(e); p = exp2(s -
-// max) / sum. p stays in S in fp32 and goes to P in T. Window w of the tile
-// is window w0 + w of the call, whose region ids are rid[(w0 + w) % nW]
-// (rid == nullptr: no mask). One warp per row.
-template <typename T>
-__device__ __forceinline__ void softmax_rows(float* S, int lds, T* P, int ldp, int M, int V,
-                                             const float* __restrict__ rel_h,
-                                             const int* __restrict__ rid, int nW, long long w0,
-                                             float mask2) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < M; r += kWarps) {
-    const int w = r / V, i = r % V;
-    const int* rr = rid == nullptr ? nullptr : rid + (size_t)((w0 + w) % nW) * V;
-    float s[2];
-    float m = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int j = lane + 32 * u;
-      s[u] = -INFINITY;
-      if (j < V) {
-        s[u] = S[(size_t)r * lds + j] + rel_h[i * V + j] * kLog2e;
-        if (rr != nullptr) s[u] += rr[i] != rr[j] ? mask2 : 0.f;
-        m = fmaxf(m, s[u]);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float l = 0.f;
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      s[u] = lane + 32 * u < V ? exp2f(s[u] - m) : 0.f;
-      l += s[u];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int j = lane + 32 * u;
-      if (j < V) {
-        const float p = s[u] / l;
-        S[(size_t)r * lds + j] = p;
-        P[(size_t)r * ldp + j] = from_f32<T>(p);
-      }
-    }
-  }
-}
-
-// The tile of a block: windows [w0, w0 + nwin) of BW, token rows [row0,
-// row0 + M) of the (BW * V, C) stream.
-struct Tile {
-  long long w0;
-  size_t row0;
-  int nwin, M;
-};
-
-__device__ __forceinline__ Tile tile_of(long long t, int BW, int V) {
-  const int tw = kTileRows / V;
-  Tile tl;
-  tl.w0 = t * tw;
-  tl.nwin = (int)min((long long)tw, (long long)BW - tl.w0);
-  tl.M = tl.nwin * V;
-  tl.row0 = (size_t)tl.w0 * V;
-  return tl;
-}
-
 // Shapes the kernels take: V in [1, 512], H heads of any D = C / H.
 constexpr int kMaxTokens = 512;
 __host__ __forceinline__ bool attn_shape_ok(int BW, int V, int C, int H) {
@@ -215,13 +53,14 @@ __host__ __forceinline__ bool attn_shape_ok(int BW, int V, int C, int H) {
 }
 
 
-// Shapes the whole-window path takes; every other shape takes the general
-// path. Its products read x and the weights straight from global memory in
-// 16-column WMMA tiles, so C % 16 == 0 and D must be a padded head dim.
+// Shapes the whole-window path takes in bf16; every other shape, and fp32,
+// takes the general path. A warp of its core holds a window's tiles of one
+// head, 16 query rows at a time, read by 16-byte copies: V % 16 == 0 up to
+// 64, C % 16 == 0 (every head's row 16-byte aligned) and D one of the
+// fragment widths 16, 32, 64.
 __host__ __forceinline__ bool whole_window_path(int V, int C, int H) {
   const int D = C / H;
-  return V >= 16 && V <= kTileRows && V % 16 == 0 && C % 16 == 0 &&
-         (D == 16 || D == 32 || D == 64);
+  return V >= 16 && V <= 64 && V % 16 == 0 && C % 16 == 0 && (D == 16 || D == 32 || D == 64);
 }
 
 // The chunk width of the shared-memory kernels at head dim D: the least of
@@ -231,11 +70,6 @@ __host__ __forceinline__ int padded_head_dim(int D, bool fp32) {
   return D <= 16 ? 16 : D <= 32 || fp32 ? 32 : 64;
 }
 
-// The padded head dim a launch takes: D itself on the whole-window path,
-// else the chunk width.
-__host__ __forceinline__ int launch_head_dim(int V, int C, int H, bool fp32) {
-  return whole_window_path(V, C, H) ? C / H : padded_head_dim(C / H, fp32);
-}
 
 // ---------------------------------------------------------------------------
 // The general path
@@ -614,10 +448,3 @@ int launch_rows(const void* qkv, int ldq, const float* rel, const int* rid, cons
 }
 
 }  // namespace lcbi
-
-// 1 where the whole-window path takes (V, C, H), 0 where the general path
-// does, -1 for a shape neither takes. Launches nothing.
-extern "C" int lcbi_window_attention_whole(int V, int C, int H) {
-  if (!lcbi::attn_shape_ok(1, V, C, H)) return -1;
-  return lcbi::whole_window_path(V, C, H) ? 1 : 0;
-}

@@ -31,17 +31,19 @@
 //
 // The whole-window path (bf16; V = 16, 32, 48 or 64 at D = 16, 32 or 64 and
 // C % 16 == 0, the ptx_attn windows) runs the attention core in one kernel,
-// wattn_whole_bwd_kernel, in which one warp owns one (head, window) item:
+// wattn_whole_bwd_kernel, in which one warp owns one (head, window) item, on
+// the code it shares with the forward's core (window_attention_whole.cuh):
 //   - Its five (V, D) tiles (q scaled, q, k, v, do) arrive by cp.async 16-byte
 //     copies into the warp's own shared memory, the next item's while this
 //     one computes (two buffers, at V = 16; one above).
 //   - Per 16 query rows: s = q k^T on mma.sync.m16n8k16 fragments, the bias
 //     rel[h] log2(e) and the region-id mask added on the fragments, the
 //     base-2 softmax over the V keys held in the warp's registers (a row's
-//     max and sum by two shuffles), dp = do v^T, delta = sum p dp, ds = p (dp
-//     - delta), all fp32 in registers; p and ds pass from the accumulator
-//     fragments to A fragments (rounded to bf16 once) for o = p v and dq = ds
-//     k, which are stored from their fragments.
+//     max and sum by two shuffles), as the forward computes p from the same
+//     streams; then dp = do v^T, delta = sum p dp, ds = p (dp - delta), all
+//     fp32 in registers; p and ds pass from the accumulator fragments to A
+//     fragments (rounded to bf16 once) for o = p v and dq = ds k, which are
+//     stored from their fragments.
 //   - The same rounded p and ds go to the warp's shared memory (V x V bf16
 //     each), from which dv = p^T do and dk = ds^T q (unscaled) read them
 //     transposed through ldmatrix.trans: the transposed scores are not
@@ -76,7 +78,7 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "window_attention_mma.cuh"
+#include "window_attention_whole.cuh"
 
 namespace lcbi {
 
@@ -320,24 +322,16 @@ wattn_whole_bwd_kernel(const bf16* __restrict__ qkvu, const bf16* __restrict__ d
   const int it_begin = (int)(N * gw / GW), it_end = (int)(N * (gw + 1) / GW);
   const size_t ld = (size_t)4 * C;
 
-  // item it's five tiles into buffer b, 16 bytes a copy (C % 16 == 0: every
-  // row of a head is 16-byte aligned)
+  // item it's five tiles into buffer b: q scale log2(e), q, k, v, do
   auto prefetch = [&](int it, int b) {
     const int h = it / BW, w = it % BW;
     bf16* S = bufs + b * Cf::kStage;
     const bf16* base = qkvu + (size_t)w * V * ld + h * KD;
-    const bf16* dbase = dO + (size_t)w * V * C + h * KD;
-    constexpr int kCh = KD / 8;
-    for (int e = lane; e < V * kCh; e += 32) {
-      const int r = e / kCh, c = (e % kCh) * 8;
-      const bf16* src = base + (size_t)r * ld + c;
-      bf16* d = S + r * kLd + c;
-      cp_async16(smem_addr(d), src, 16);                                   // q scale log2(e)
-      cp_async16(smem_addr(d + kTile), src + 3 * C, 16);                   // q
-      cp_async16(smem_addr(d + 2 * kTile), src + C, 16);                   // k
-      cp_async16(smem_addr(d + 3 * kTile), src + 2 * C, 16);               // v
-      cp_async16(smem_addr(d + 4 * kTile), dbase + (size_t)r * C + c, 16);  // do
-    }
+    whole_tile_async<V, KD>(S, base, ld, lane);
+    whole_tile_async<V, KD>(S + kTile, base + 3 * C, ld, lane);
+    whole_tile_async<V, KD>(S + 2 * kTile, base + C, ld, lane);
+    whole_tile_async<V, KD>(S + 3 * kTile, base + 2 * C, ld, lane);
+    whole_tile_async<V, KD>(S + 4 * kTile, dO + (size_t)w * V * C + h * KD, C, lane);
   };
 
   for (int e = lane; e < V * kLdR; e += 32) dr[e] = 0.f;
@@ -379,77 +373,34 @@ wattn_whole_bwd_kernel(const bf16* __restrict__ qkvu, const bf16* __restrict__ d
 #pragma unroll
     for (int qt = 0; qt < NQ; ++qt) {
       const int i0 = qt * 16 + g;   // this lane's rows: i0 and i0 + 8
+      // s, then p = softmax2(s + rel[h] log2(e) + mask), as the forward
       float sc[kNT][4], dp[kNT][4];
+      whole_scores<V, KD>(sc, Q, K, qt, lane);
+      whole_softmax<V>(sc, relh, rr, i0, t, mask2);
+      // dp = do v^T, delta = sum p dp
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) dp[nt][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kKK; ++kk) {
-        uint32_t qa[4], da[4];
-        frag_a(qa, Q, kLd, qt * 16, kk * 16, lane);
+        uint32_t da[4];
         frag_a(da, DOt, kLd, qt * 16, kk * 16, lane);
 #pragma unroll
         for (int n2 = 0; n2 < kKT; ++n2) {
-          uint32_t bk[4], bv[4];
-          frag_b_rows(bk, K, kLd, n2 * 16, kk * 16, lane);
+          uint32_t bv[4];
           frag_b_rows(bv, Vt, kLd, n2 * 16, kk * 16, lane);
-          mma_bf16(sc[2 * n2], qa, bk[0], bk[1]);
-          mma_bf16(sc[2 * n2 + 1], qa, bk[2], bk[3]);
           mma_bf16(dp[2 * n2], da, bv[0], bv[1]);
           mma_bf16(dp[2 * n2 + 1], da, bv[2], bv[3]);
         }
       }
-      // s += rel[h] log2(e) + mask; p = exp2(s - max) / sum over the V keys
-      int rq[2] = {0, 0};
-      if (rr != nullptr) {
-        rq[0] = rr[i0];
-        rq[1] = rr[i0 + 8];
-      }
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int j = nt * 8 + 2 * t;
-        int rk[2] = {0, 0};
-        if (rr != nullptr) {
-          rk[0] = rr[j];
-          rk[1] = rr[j + 1];
-        }
-#pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2) {
-          const float2 bb = *reinterpret_cast<const float2*>(relh + (i0 + 8 * h2) * V + j);
-          float v0 = sc[nt][2 * h2] + bb.x * kLog2e, v1 = sc[nt][2 * h2 + 1] + bb.y * kLog2e;
-          if (rr != nullptr) {
-            v0 += rq[h2] != rk[0] ? mask2 : 0.f;
-            v1 += rq[h2] != rk[1] ? mask2 : 0.f;
-          }
-          sc[nt][2 * h2] = v0;
-          sc[nt][2 * h2 + 1] = v1;
-          mx[h2] = fmaxf(mx[h2], fmaxf(v0, v1));
-        }
-      }
-      float il[2], delta[2];
+      float delta[2];
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
-        mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
-        mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
-        float l = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          sc[nt][2 * h2] = fast_exp2(sc[nt][2 * h2] - mx[h2]);
-          sc[nt][2 * h2 + 1] = fast_exp2(sc[nt][2 * h2 + 1] - mx[h2]);
-          l += sc[nt][2 * h2] + sc[nt][2 * h2 + 1];
-        }
-        l += __shfl_xor_sync(0xffffffffu, l, 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
-        il[h2] = 1.f / l;
         float dl = 0.f;
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          sc[nt][2 * h2] *= il[h2];
-          sc[nt][2 * h2 + 1] *= il[h2];
+        for (int nt = 0; nt < kNT; ++nt)
           dl += sc[nt][2 * h2] * dp[nt][2 * h2] + sc[nt][2 * h2 + 1] * dp[nt][2 * h2 + 1];
-        }
         dl += __shfl_xor_sync(0xffffffffu, dl, 1);
         dl += __shfl_xor_sync(0xffffffffu, dl, 2);
         delta[h2] = dl;
@@ -484,21 +435,12 @@ wattn_whole_bwd_kernel(const bf16* __restrict__ qkvu, const bf16* __restrict__ d
       // o = p v, then dq = ds k (scale)
 #pragma unroll
       for (int pass = 0; pass < 2; ++pass) {
-        const bf16* Bt = pass == 0 ? Vt : K;
         float acc[kDT][4];
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kKT; ++kk)
-#pragma unroll
-          for (int d2 = 0; d2 < KD / 16; ++d2) {
-            uint32_t bf[4];
-            frag_b_cols(bf, Bt, kLd, kk * 16, d2 * 16, lane);
-            mma_bf16(acc[2 * d2], pass == 0 ? pa[kk] : sa[kk], bf[0], bf[1]);
-            mma_bf16(acc[2 * d2 + 1], pass == 0 ? pa[kk] : sa[kk], bf[2], bf[3]);
-          }
+        if (pass == 0) {
+          whole_rows_times<V, KD>(acc, pa, Vt, lane);
+        } else {
+          whole_rows_times<V, KD>(acc, sa, K, lane);
+        }
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
           const size_t row = row0 + i0 + 8 * h2;
@@ -667,25 +609,6 @@ struct BwdPlan {
                                   // blocks, key blocks or window ranges
   long long slots, kslots, ksums, stats;   // floats of the four scratch buffers
 };
-
-template <int N> using Ic = std::integral_constant<int, N>;
-
-// f(Ic<NQ>, Ic<KD>) at the whole-window path's V = 16 NQ and D = KD.
-template <class F> int whole_dispatch(int V, int D, F&& f) {
-  auto by_d = [&](auto nq) {
-    switch (D) {
-      case 16: return f(nq, Ic<16>{});
-      case 32: return f(nq, Ic<32>{});
-      default: return f(nq, Ic<64>{});
-    }
-  };
-  switch (V / 16) {
-    case 1: return by_d(Ic<1>{});
-    case 2: return by_d(Ic<2>{});
-    case 3: return by_d(Ic<3>{});
-    default: return by_d(Ic<4>{});
-  }
-}
 
 template <int NQ, int KD> int plan_whole(int BW, int V, int C, int H, int sms, BwdPlan* P) {
   using Cf = WholeCfg<NQ, KD>;

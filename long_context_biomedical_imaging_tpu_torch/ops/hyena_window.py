@@ -36,16 +36,16 @@ the rest in fp32.
 
 Widths: the kernels take any C (K3 up to 192). They walk the channels in
 chunks of 32, load the rows at the true C (LayerNorm statistics over C,
-zeros past it) and store only the true columns. K1's backward stages its
-weight slices through shared memory with the tails past C zeroed, and K3's
-backward runs its products in the shared kernels of ``csrc/mma_gemm.cuh``,
-which mask every tail, so both take the weights, taps, biases (and
-Toeplitz blocks) as they are. The forwards of K1 and K3 read their weights
-as WMMA tiles from device memory, which cannot mask a tail: they run on C
-rounded up to 32, as their libraries report (``lcbi_padded_channels``;
-``csrc/common.cuh``), and the wrappers hand them the weights, taps and
-biases padded with zeros per [x1 | x2 | v] block (:func:`_padded_operands`,
-a copy only where C % 32 != 0; the activations are never padded).
+zeros past it) and store only the true columns. K1's forward and backward
+stage their weight slices through shared memory with the tails past C
+zeroed, and K3's backward runs its products in the shared kernels of
+``csrc/mma_gemm.cuh``, which mask every tail, so these take the weights,
+taps, biases (and Toeplitz blocks) as they are. K3's forward reads its
+weights as WMMA tiles from device memory, which cannot mask a tail: it runs
+on C rounded up to 32, as its library reports (``lcbi_padded_channels``;
+``csrc/common.cuh``), and the wrapper hands it the weights, taps and biases
+padded with zeros per [x1 | x2 | v] block (:func:`_padded_operands`, a copy
+only where C % 32 != 0; the activations are never padded).
 """
 
 from __future__ import annotations
@@ -205,7 +205,7 @@ def _check_operands(x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale, ln_bias):
 def _padded_operands(kernel, c, *operands):
     """The padded width cp that the kernel's library reports for C, then
     each (operand, dims) of ``operands`` with every C-wide block along dims
-    padded with zeros to cp: the kernel's layout of its weights, taps and
+    padded with zeros to cp: K3's forward's layout of its weights, taps and
     biases."""
     cp = padded_width(kernel, "lcbi_padded_channels", c)
     return (cp, *(pad_channel_blocks(t, c, cp, dims) for t, dims in operands))
@@ -228,11 +228,10 @@ def _chunked_bwd_grads(red, layout, wgrads, c, k, w_dtype, has_ln):
 
 
 def _fwd_cuda(x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale, ln_bias):
+    """The forward kernel on CUDA, on prepared taps, at the true C (no padded
+    copies)."""
     _check_operands(x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale, ln_bias)
     bw, v, c = x.shape
-    _, w_in, b_in, ws, bs, w_out, kl = _padded_operands(
-        HYENA_WINDOW_FWD, c, (w_in, (0, 1)), (b_in, (0,)), (ws, (1,)), (bs, (0,)),
-        (w_out, (0, 1)), (kl, (1,)))
     out = torch.empty_like(x)
     HYENA_WINDOW_FWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in), ptr(b_in), ptr(ws),
                      ptr(bs), ptr(kl), ptr(w_out), ptr(b_out), ptr(out),

@@ -36,25 +36,25 @@ package's ``jnp.tile`` of the table over the batch.
 
 The kernels take every window of 1 to ``MAX_TOKENS`` tokens, as the TPU
 kernel does, at any head dim D = C / H, as it does (32 in the tiny, small
-and base presets, 16 in ``unetr``, any in ``custom``). Windows of 16, 32, 48
-or 64 tokens (2D windows 4x4 to 8x8) at D of 16, 32 or 64 and C % 16 == 0
-take the whole-window path: in the forward a block per tile of whole
-windows; in the bf16 backward the projection streams (q, k, v, the unscaled
-q and do, written to device memory), then a core kernel in which one warp
-owns a (head, window) on register-resident mma.sync fragments, then dx. In
-fp32 those shapes take the general path's backward. Every other shape (3D
-windows of up to 8x8x8, shrunk and ragged windows such as 7x7, other head
-dims) takes the general path, which writes q, k, v (and in the backward do
-and each query row's softmax statistics) to device memory in scratch that
-the wrappers allocate. There, bf16 up to D = 128 runs on the mma.sync
-kernels of ``csrc/window_attention_mma.cuh`` (a two-pass softmax on
-register-resident fragments, the bias slice of a head and query tile kept in
-shared memory over many windows, a key pass that accumulates drel per key
-tile in shared memory); fp32, and bf16 above D = 128, on shared-memory
-kernels that walk D in chunks (``csrc/window_attention.cuh``). The CUDA
-library says which path takes a shape's forward
-(``lcbi_window_attention_whole``) and how much fp32 scratch its backward
-needs (``lcbi_window_attention_bwd_scratch``).
+and base presets, 16 in ``unetr``, any in ``custom``). Every path runs as
+passes over streams that the wrappers allocate: the q | k | v projection
+(and in the backward the unscaled q and do) written to device memory, the
+attention, then the out projection (in the backward dx). In bf16, windows
+of 16, 32, 48 or 64 tokens (2D windows 4x4 to 8x8) at D of 16, 32 or 64 and
+C % 16 == 0 take the whole-window path, whose attention core gives one
+warp a (head, window) on register-resident mma.sync fragments; the forward's
+and the backward's cores share their score and softmax code, so the
+backward recomputes the forward's probabilities exactly. Every other shape
+(3D windows of up to 8x8x8, shrunk and ragged windows such as 7x7, other
+head dims), and fp32 everywhere, takes the general path, which also keeps
+each query row's softmax statistics in the backward. There, bf16 up to D =
+128 runs on the mma.sync kernels of ``csrc/window_attention_mma.cuh`` (a
+two-pass softmax on register-resident fragments, the bias slice of a head
+and query tile kept in shared memory over many windows, a key pass that
+accumulates drel per key tile in shared memory); fp32, and bf16 above D =
+128, on shared-memory kernels that walk D in chunks
+(``csrc/window_attention.cuh``). The CUDA library says how much fp32
+scratch a backward needs (``lcbi_window_attention_bwd_scratch``).
 
 :func:`window_attention_bwd_passes_plain` composes the whole-window
 backward's passes in plain PyTorch, in the kernels' rounding order: the CPU
@@ -178,17 +178,8 @@ def window_attention_bwd_passes_plain(do, x, wqkv, bqkv, wout, bout, rel, heads:
             do2.float().sum(dim=0), ds.sum(dim=0))
 
 
-def _whole_window(v: int, c: int, heads: int) -> bool:
-    """Whether the whole-window path takes (V, C, H), as the CUDA library
-    decides it (launches nothing)."""
-    return WINDOW_ATTENTION_FWD.query("lcbi_window_attention_whole", [ctypes.c_int] * 3,
-                                      ctypes.c_int, v, c, heads) == 1
-
-
 def _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads, bwd=False):
-    """Raise unless the kernels take these operands; returns (BW, V, C, nW,
-    whole), whole saying which path takes the forward (the backward writes a
-    4C-wide stream on every path)."""
+    """Raise unless the kernels take these operands; returns (BW, V, C, nW)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"K8 kernels take fp32 or bf16, got {x.dtype}")
     bw, v, c = x.shape
@@ -199,8 +190,7 @@ def _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads, bwd=False):
                          f"larger window takes the plain version, as in the JAX package)")
     if not x.is_cuda:
         raise ValueError(f"K8 kernels take CUDA tensors, got x on {x.device}")
-    whole = _whole_window(v, c, heads)
-    width = 4 * c if bwd or not whole else 3 * c   # the widest stream the call writes
+    width = 4 * c if bwd else 3 * c   # the widest stream the call writes
     if bw == 0 or bw * v * width >= 2**31:
         raise ValueError(f"K8 kernels take 0 < BW*V*{width // c}C < 2^31, got BW={bw}, V={v}, "
                          f"C={c}")
@@ -217,26 +207,38 @@ def _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads, bwd=False):
         check_cuda_operand("rid", rid, dev, torch.int32, (nw, v))
         if bw % nw:
             raise ValueError(f"{bw} windows are not a multiple of the {nw} rows of rid")
-    return bw, v, c, nw, whole
+    return bw, v, c, nw
 
 
 def _scales(scale: float, mask_value: float):
     return ctypes.c_float(scale * LOG2E), ctypes.c_float(mask_value * LOG2E)
 
 
-def window_attention_fwd(x, wqkv, bqkv, wout, bout, rel, heads: int, rid=None,
-                         mask_value: float = -100.0, scale: float = 1.0):
-    """The K8 forward kernel on CUDA: the output of :func:`window_attention_plain`
-    for operands as :func:`windowed_attention_proj` prepares them."""
-    bw, v, c, nw, whole = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads)
+def window_attention_fwd_streams(x, wqkv, bqkv, wout, bout, rel, heads: int, rid=None,
+                                 mask_value: float = -100.0, scale: float = 1.0):
+    """The K8 forward kernels on CUDA: (out, qkv, o), the output of
+    :func:`window_attention_plain` for operands as
+    :func:`windowed_attention_proj` prepares them, and the streams the
+    kernels write on the way, q scale log2(e) | k | v (BW V, 3C) and every
+    head's o (BW V, C), in x.dtype."""
+    bw, v, c, nw = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads)
     out = torch.empty_like(x)
-    obuf = torch.empty_like(x)       # each head's o, read back by the out projection
-    qkv = None if whole else torch.empty(bw * v, 3 * c, device=x.device, dtype=x.dtype)
+    o = torch.empty(bw * v, c, device=x.device, dtype=x.dtype)
+    qkv = torch.empty(bw * v, 3 * c, device=x.device, dtype=x.dtype)
     WINDOW_ATTENTION_FWD(ptr(x), ptr(wqkv), ptr(bqkv), ptr(wout), ptr(bout), ptr(rel), ptr(rid),
-                         ptr(obuf), ptr(qkv), ptr(out), bw, v, c, heads, nw,
+                         ptr(o), ptr(qkv), ptr(out), bw, v, c, heads, nw,
                          *_scales(scale, mask_value), int(x.dtype == torch.bfloat16),
                          stream_handle(x.device))
-    return out
+    return out, qkv, o
+
+
+def window_attention_fwd(x, wqkv, bqkv, wout, bout, rel, heads: int, rid=None,
+                         mask_value: float = -100.0, scale: float = 1.0):
+    """The K8 forward kernels on CUDA: the output of
+    :func:`window_attention_plain` for operands as
+    :func:`windowed_attention_proj` prepares them."""
+    return window_attention_fwd_streams(x, wqkv, bqkv, wout, bout, rel, heads, rid, mask_value,
+                                        scale)[0]
 
 
 def window_attention_bwd_streams(do, x, wqkv, bqkv, wout, bout, rel, heads: int, rid=None,
@@ -244,7 +246,7 @@ def window_attention_bwd_streams(do, x, wqkv, bqkv, wout, bout, rel, heads: int,
     """The K8 backward kernels on CUDA: (dx, dqkv (BW V, 3C) and o (BW V, C) in
     x.dtype, dbqkv, dbout, drel in fp32); dqkv and o are the operands of the
     weight gradients (:func:`window_attention_wgrad`)."""
-    bw, v, c, nw, _ = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads, bwd=True)
+    bw, v, c, nw = _check_operands(x, wqkv, bqkv, wout, bout, rel, rid, heads, bwd=True)
     check_cuda_operand("do", do, x.device, x.dtype, (bw, v, c))
     n, dev = bw * v, x.device
     is_bf16 = int(x.dtype == torch.bfloat16)

@@ -9,19 +9,15 @@ tree's own ``chip_smoke.py`` and runs its train-step phases for every
 configuration: ptx (12: Hyena, K1 and K2), emb (16: K3), vessel (20: Mamba,
 K4), vit16k (24: K5), vit65k_hyena (28: K6), vit65k_mamba (32: K7),
 ptx_attn (36: K8's whole-window path), micro_w7 (40: K9) and emb_attn (45:
-K8's general path). Then its K2 phase (4), its K8 phase (33) and its K2'
-phase (46), from which it prints K2's forward per ptx step (phase 4's bf16
-times per stage times the stage's depth), K8's whole-window backward per
-ptx_attn step (phase 33's ``bwd`` per stage times the depth: the
-projection streams, the attention core and dx, without the weight
-gradients) and K2''s forward per call at 32,770 x 384 beside its plain
-version; and last K1's backward per ptx step and K8's weight gradients per
-ptx_attn step (the users of the split-K weight-gradient kernel, whose
-row-tiled product the projections now share): the same functions in both
-trees, so the turns differ only in the package they import. Configurations
-named after the checkout limit the turns to those configurations' train
-steps (to read a step's spread again); the name ``k3`` runs K3's phase 13
-alone. Kernels build at their first launch into each tree's own
+K8's general path). Then its K1 phase (3) and its K8 phase (33), from which
+it prints K1's forward per call at each ptx stage shape and per ptx step
+(phase 3's bf16 times with the folded LN, times the stage's depth), and
+K8's whole-window forward and backward per call at each ptx_attn stage
+shape and per ptx_attn step (phase 33's ``fwd`` and ``bwd``: the
+projection streams, the attention core and the out projection or dx,
+without the weight gradients). Configurations named after the checkout
+limit the turns to those configurations' train steps (to read a step's
+spread again); the name ``k3`` runs K3's phase 13 alone. Kernels build at their first launch into each tree's own
 ``build/kernels/``. Every line a turn prints is echoed with the turn's
 label; a summary of the step times, the per-step kernel times and the
 profiled device time per step of the kernels named in ``KERNELS`` ends the
@@ -67,36 +63,19 @@ STEP_PHASES = {
           "cs.phase_k3(torch, hyena_window, dev)",
 }
 KERNEL_PHASES = r"""
-from long_context_biomedical_imaging_tpu_torch.ops import fused_mlp, window_attention
-k2 = cs.phase_k2(torch, fused_mlp, dev)["bfloat16"]
-k2_step = sum(depth * r[1] for r, (_, _, depth) in zip(k2, cs.STAGES))
+from long_context_biomedical_imaging_tpu_torch.ops import hyena_window, window_attention
+k1 = cs.phase_k1(torch, hyena_window, dev)[("bfloat16", True)]
+k1_step = sum(depth * r[1] for r, (_, _, depth) in zip(k1, cs.STAGES))
 k8 = cs.phase_k8(torch, window_attention, dev)
-k8_step = sum(depth * r[1] for r, (*_, depth) in zip(k8["bwd"], cs.ATTN_STAGES))
-k2p = cs.phase_k2_prime(torch, fused_mlp, dev)[0]["fwd"]
-print(f"per-step kernels: K2 fwd {k2_step:.3f} ms per ptx step; K8 whole-window bwd "
-      f"{k8_step:.3f} ms per ptx_attn step; K2' fwd {k2p[1]:.3f} ms per call (plain "
-      f"{k2p[2]:.3f})", flush=True)
-# the users of the split-K weight gradients, bf16 at the ptx and ptx_attn
-# stage shapes: K1's backward with the folded LN, K8's weight gradients
-from long_context_biomedical_imaging_tpu_torch.ops import hyena_window
-gen = torch.Generator().manual_seed(7)
-def mk(shape, scale=0.3):
-    return (torch.randn(shape, generator=gen) * scale).to(dev)
-k1_step = k8w_step = 0.0
-for c, grid, depth in cs.STAGES:
-    bw, v, bf = cs.BATCH * (grid // 4) ** 2, 16, torch.bfloat16
-    ws, kl = hyena_window.prepare_taps(mk((3 * c, 5)), mk((c, v)), mk((c,)))
-    a = [mk((bw, v, c), 1.0).to(bf), mk((c, 3 * c)).to(bf), mk((3 * c,)), ws, mk((3 * c,)), kl,
-         mk((c, c)).to(bf), mk((c,)), mk((c,)) + 1.0, mk((c,))]
-    d = mk((bw, v, c), 1.0).to(bf)
-    k1_step += depth * cs.median_ms(torch, lambda: hyena_window.hyena_window_bwd(d, *a),
-                                    warmup=1, reps=5)
-    s = [mk((bw * v, w), 1.0).to(bf) for w in (c, 3 * c, c, c)]
-    k8w_step += depth * cs.median_ms(torch, lambda: window_attention.window_attention_wgrad(*s),
-                                     warmup=1, reps=5)
-    del a, d, s
-print(f"split-K users: K1 bwd {k1_step:.3f} ms per ptx step; K8 weight gradients "
-      f"{k8w_step:.3f} ms per ptx_attn step", flush=True)
+k8_step = sum(depth * r[1] for r, (*_, depth) in zip(k8["fwd"], cs.ATTN_STAGES))
+k8b_step = sum(depth * r[1] for r, (*_, depth) in zip(k8["bwd"], cs.ATTN_STAGES))
+print("per-call kernels (ms, bf16, C = 96 .. 768): K1 fwd "
+      + ", ".join(f"{r[1]:.3f}" for r in k1) + "; K8 whole-window fwd "
+      + ", ".join(f"{r[1]:.3f}" for r in k8["fwd"]) + "; K8 whole-window bwd "
+      + ", ".join(f"{r[1]:.3f}" for r in k8["bwd"]), flush=True)
+print(f"per-step kernels: K1 fwd {k1_step:.3f} ms per ptx step; K8 whole-window fwd "
+      f"{k8_step:.3f} ms per ptx_attn step; K8 whole-window bwd {k8b_step:.3f} ms per "
+      f"ptx_attn step", flush=True)
 """
 TAIL = 'print(f"turn seconds {time.time() - t0:.1f}", flush=True)\n'
 
@@ -112,20 +91,16 @@ def turn_code(configs=None) -> str:
 STEP = re.compile(r"phase (\d+) (?:train throughput: )?(\S+) train step .*?: ([0-9.]+) ms/step")
 PROFILE = re.compile(r"phase (\d+) ((?:\S+ )*?)profile: one step, device time ([0-9.]+) ms; "
                      r"top: (.*)")
-PER_STEP = re.compile(r"per-step kernels: K2 fwd ([0-9.]+) ms per ptx step; K8 whole-window bwd "
-                      r"([0-9.]+) ms per ptx_attn step; K2' fwd ([0-9.]+) ms per call")
-SPLIT_K = re.compile(r"split-K users: K1 bwd ([0-9.]+) ms per ptx step; K8 weight gradients "
-                     r"([0-9.]+) ms per ptx_attn step")
+PER_STEP = re.compile(r"per-step kernels: K1 fwd ([0-9.]+) ms per ptx step; K8 whole-window fwd "
+                      r"([0-9.]+) ms per ptx_attn step; K8 whole-window bwd ([0-9.]+) ms")
 # kernel names (substrings) whose device time per step the summary reports:
-# K2's forward (the parent's fused_ln_mlp_fwd_kernel, this tree's
-# mlp_fwd_mma_kernel), K8's backward (the parent's whole-window kernel, this
-# tree's core, column sums and segment sums), the projections (the parent's
-# proj_mma_kernel, this tree's proj_rows_kernel), and the shared row-tiled
-# and split-K products and row passes
-KERNELS = ("fused_ln_mlp_fwd_kernel", "mlp_fwd_mma_kernel", "window_attention_bwd_kernel",
-           "wattn_whole_bwd_kernel", "col_sums_kernel", "wattn_whole_reduce", "proj_mma_kernel",
-           "proj_rows_kernel", "gemm_rows_kernel", "lcbi::wgrad_kernel", "ln_bwd_kernel",
-           "reduce_slots_kernel")
+# K1's forward (the parent's hyena_window_fwd_kernel, this tree's
+# hyena_fwd_mma_kernel), K8's whole-window forward (the parent's
+# window_attention_fwd_kernel, this tree's wattn_whole_fwd_kernel and the
+# projections' proj_rows_kernel, which the backward shares) and backward core
+KERNELS = ("hyena_window_fwd_kernel", "hyena_fwd_mma_kernel", "window_attention_fwd_kernel",
+           "wattn_whole_fwd_kernel", "proj_rows_kernel", "wattn_whole_bwd_kernel",
+           "hyena_window_bwd_kernel", "mlp_fwd_mma_kernel")
 NAMES = {"12": "ptx", "16": "emb", "20": "vessel", "24": "vit16k", "28": "vit65k_hyena",
          "32": "vit65k_mamba", "36": "ptx_attn", "40": "micro_w7", "45": "emb_attn"}
 
@@ -144,13 +119,9 @@ def run_turn(label: str, root: str, env: dict, code: str) -> dict:
     for line in proc.stdout.splitlines():
         m = PER_STEP.search(line)
         if m:
-            steps.update({"K2 fwd/ptx step": float(m.group(1)),
-                          "K8 whole-window bwd/ptx_attn step": float(m.group(2)),
-                          "K2' fwd/call": float(m.group(3))})
-        m = SPLIT_K.search(line)
-        if m:
-            steps.update({"K1 bwd/ptx step": float(m.group(1)),
-                          "K8 wgrad/ptx_attn step": float(m.group(2))})
+            steps.update({"K1 fwd/ptx step": float(m.group(1)),
+                          "K8 whole-window fwd/ptx_attn step": float(m.group(2)),
+                          "K8 whole-window bwd/ptx_attn step": float(m.group(3))})
         m = STEP.search(line)
         if m:
             steps[m.group(2)] = float(m.group(3))

@@ -37,21 +37,39 @@ VARIANTS = [
 ]
 
 
-def build_variant(index, replacements, out_dir):
-    """Build one variant; returns (library path or None, compiler log)."""
+def build_variant(index, replacements, out_dir, source=SOURCE):
+    """Build one variant of csrc/<source>; returns (library path or None,
+    compiler log)."""
     from ..ops import cuda_build as cb
 
-    text = (cb.CSRC_DIR / SOURCE).read_text()
+    text = (cb.CSRC_DIR / source).read_text()
     for old, new in replacements:
         if text.count(old) != 1 or new == old:
-            raise RuntimeError(f"{SOURCE} no longer holds {old!r} once: update VARIANTS")
+            raise RuntimeError(f"{source} no longer holds {old!r} once: update VARIANTS")
         text = text.replace(old, new)
-    src = out_dir / f"variant{index}_{SOURCE}"
+    src = out_dir / f"variant{index}_{source}"
     src.write_text(text)
     lib = out_dir / f"libvariant{index}.so"
     proc = subprocess.run([cb.find_nvcc(), *cb.NVCC_FLAGS, "-I", str(cb.CSRC_DIR), "-o", str(lib),
                            str(src)], capture_output=True, text=True)
     return (lib if proc.returncode == 0 else None), proc.stdout + proc.stderr
+
+
+def median_event_ms(torch, call, warmup=2, reps=7):
+    """The median of reps timed calls (CUDA events, each synchronised) after
+    warmup untimed ones."""
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
 
 
 def main():
@@ -98,19 +116,8 @@ def main():
                 if code != 0:
                     raise RuntimeError(f"{label} at C={c}: CUDA error {code}")
 
-            for _ in range(2):
-                call()
-            torch.cuda.synchronize()
+            ms = median_event_ms(torch, call)
             err = ((out.float() - ref).abs().max() / ref.abs().max()).item()
-            times = []
-            for _ in range(7):
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                call()
-                end.record()
-                torch.cuda.synchronize()
-                times.append(start.elapsed_time(end))
-            ms = sorted(times)[3]
             step += depth * ms
             parts.append(f"C={c} {ms:.3f} ms (rel err {err:.1e})")
         print(f"{label}: " + ", ".join(parts) + f"; per ptx step {step:.2f} ms", flush=True)

@@ -16,8 +16,10 @@ against the host), and the Swin checkpointing's memory. The widths of the
 ``unetr`` and ``custom`` presets run in every kernel that takes them: K1,
 K3 and K4 at C = 48 and 24, K2 and K2' at C = 24 with a hidden width of 96,
 K8 at head dims 16 and 8 (and 40) on 16- and 512-token windows, and past 64
-(96, 128, 192) on the general path, K5 at head dims 8 to 512. Marked
-``cuda``;
+(96, 128, 192) on the general path, K5 at head dims 8 to 512. K1's forward
+takes its weights at their true widths (C = 24, 40, 48, 100, 768 with no
+padded copy) and K8's forward and backward run every whole-window class.
+Marked ``cuda``;
 without a card every test skips. This file imports neither JAX nor flax,
 so that it runs where only PyTorch is installed:
 
@@ -83,6 +85,59 @@ def test_hyena_window_kernel_matches_plain(cuda_device, dtype, bw, v, c, with_ln
     ref = thw.hyena_window_plain(*args, **kw).float()
     err = (out.float() - ref).abs().max().item()
     assert err <= _tol(dtype) * ref.abs().max().item(), err
+
+
+# (BW, V, C, K) of K1's forward at unaligned and small widths, every window
+# class and two short-filter lengths: C = 24, 40, 48 and 100 (not multiples
+# of the 32-channel chunk), 768 (ptx stage 3), V = 1, 8, 16, 24, 64, K = 3, 5;
+# ragged window counts. fp32 takes V = 64 at C = 768 no more than the
+# parent did (the fp32 tiles do not fit), so that case expects a refusal.
+_K1_FWD_CASES = [(300, 16, 24, 5), (37, 16, 40, 5), (64, 16, 48, 3), (33, 16, 100, 5),
+                 (129, 16, 768, 5), (9, 1, 40, 3), (13, 8, 100, 5), (11, 24, 48, 5),
+                 (5, 64, 40, 3), (3, 64, 100, 5), (7, 24, 768, 3), (2, 64, 768, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ln", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,v,c,taps", _K1_FWD_CASES)
+def test_hyena_window_forward_at_true_widths(cuda_device, monkeypatch, dtype, bw, v, c, taps,
+                                             with_ln):
+    """K1's forward takes its weights, taps and biases at their true C: no
+    padded copy is made (the padding helpers raise if the call reaches
+    them), the output agrees with the plain version within _tol, and two
+    launches give the same bits."""
+    from long_context_biomedical_imaging_tpu_torch.ops import cuda_build
+
+    def no_pad(*args, **kwargs):
+        raise AssertionError("K1's forward made a padded copy")
+
+    for mod in (cuda_build, thw):
+        monkeypatch.setattr(mod, "pad_channel_blocks", no_pad)
+    monkeypatch.setattr(thw, "_padded_operands", no_pad)
+    gen = torch.Generator().manual_seed(bw * 1000 + v * 10 + taps)
+    w = [_randn(gen, s) for s in ((c, 3 * c), (3 * c,), (3 * c, taps), (3 * c,),
+                                  (c, v), (c,), (c, c), (c,))]
+    args = [_randn(gen, (bw, v, c), 1.0).to(cuda_device, dtype)] + [
+        a.to(cuda_device, dtype if i in (0, 6) else torch.float32) for i, a in enumerate(w)]
+    kw = {}
+    if with_ln:
+        kw = dict(ln_scale=(_randn(gen, (c,)) + 1).to(cuda_device),
+                  ln_bias=_randn(gen, (c,)).to(cuda_device))
+    if dtype == torch.float32 and (v, c) == (64, 768):
+        with pytest.raises(RuntimeError, match="lcbi_hyena_window_fwd"):
+            thw.hyena_window_mixer(*args, **kw)
+        return
+    before = thw.HYENA_WINDOW_FWD.launches
+    out = thw.hyena_window_mixer(*args, **kw)
+    again = thw.hyena_window_mixer(*args, **kw)
+    torch.cuda.synchronize()
+    assert thw.HYENA_WINDOW_FWD.launches == before + 2
+    assert torch.equal(out, again)
+    assert out.dtype == dtype and out.shape == (bw, v, c)
+    ref = thw.hyena_window_plain(*args, **kw).float()
+    err = (out.float() - ref).abs().max().item()
+    assert torch.isfinite(out).all() and err <= _tol(dtype) * ref.abs().max().item(), err
 
 
 @pytest.mark.cuda
@@ -1411,6 +1466,39 @@ def test_window_attention_backward_at_whole_window_classes(cuda_device, dtype, w
         assert g.dtype == r.dtype and g.shape == r.shape, name
         err = (g.float() - r.float()).abs().max().item()
         assert torch.isfinite(g).all() and err <= gtol * r.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw", [36, 37])
+@pytest.mark.parametrize("with_rid", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("v", [16, 32, 48, 64])
+def test_window_attention_forward_at_whole_window_classes(cuda_device, dtype, bw, with_rid, v, d):
+    """K8's forward at every whole-window class (V = 16 to 64, D = 16, 32,
+    64; two heads; 36 windows, region ids in 6 rows, or a ragged 37 with
+    theirs in 37 rows; or no region ids): the output against the plain
+    version within _tol and two launches bitwise equal. bf16 takes the
+    whole-window core, whose every head's o is bitwise the o that the
+    backward's core recomputes from the same streams (one score and softmax
+    code for both); fp32 takes the general path."""
+    heads = 2
+    c = heads * d
+    nw = (6 if bw == 36 else bw) if with_rid else None
+    x, wq, bq, wo, bo, rel, rid, do, heads = _k8_args(
+        torch.Generator().manual_seed(v * 100 + d + bw), bw, v, c, dtype, cuda_device, nw, heads)
+    args = (x, wq, bq, wo, bo, rel, heads, rid, -100.0, d ** -0.5)
+    before = twa.WINDOW_ATTENTION_FWD.launches
+    out, qkv, o = twa.window_attention_fwd_streams(*args)
+    again = twa.window_attention_fwd_streams(*args)
+    torch.cuda.synchronize()
+    assert twa.WINDOW_ATTENTION_FWD.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip((out, qkv, o), again))
+    ref = twa.window_attention_plain(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(out).all() and err <= _tol(dtype) * ref.float().abs().max().item(), err
+    if dtype == torch.bfloat16:
+        assert torch.equal(o, twa.window_attention_bwd_streams(do, *args)[2])
 
 
 @pytest.mark.cuda
