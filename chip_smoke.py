@@ -37,7 +37,8 @@ Phases, each printing one line of numbers (or a few):
      lower its loss;
  13. K3, the chunked Hyena mixer of the emb path (512-token windows):
      forward, backward and dM against their plain versions at the two emb
-     K3 stage shapes, fp32 and bf16, with the folded pre-LN;
+     K3 stage shapes, fp32 and bf16, with the folded pre-LN, each timed,
+     the forward beside its bound per call;
  14. emb train slice: run_torch.main trains emb (--debug, 2 epochs) on a
      synthetic dataset of 256x256x64 volumes with the flags of
      projects/run_emb.sh, saves and reloads checkpoints, evaluates; checks
@@ -53,7 +54,8 @@ Phases, each printing one line of numbers (or a few):
      profile;
  17. K4, the fused Mamba window mixer of the vessel path (64-token
      windows): forward and backward against their plain versions at the
-     three vessel K4 stage shapes, fp32 and bf16, with the folded pre-LN;
+     three vessel K4 stage shapes, fp32 and bf16, with the folded pre-LN,
+     each timed beside its bound per call; then d_state 16;
  18. vessel train slice: run_torch.main trains vessel (--debug, 2 epochs)
      on a synthetic dataset of 1024x1024x3 images with 2-class masks with
      the flags of projects/run_vessel.sh (Swin-tiny + Mamba + UperNet2D),
@@ -1095,8 +1097,10 @@ def phase_k3(torch, hyena_window, dev):
                 k_ms = median_ms(torch, lambda: hw.hyena_chunked_fwd(*args), warmup=1, reps=5)
                 p_ms = median_ms(torch, lambda: hw.hyena_chunked_plain(*args), warmup=1, reps=3)
             res["fwd"].append((err, k_ms, p_ms))
+            b_ms, b_by = k3_fwd_bound(bw, c)
             print(f"phase 13 K3 fwd BW={bw} V={v} C={c} {dname}: max_abs_err={err:.3e} "
-                  f"max|out|={scale:.3e} kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} ok", flush=True)
+                  f"max|out|={scale:.3e} kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} "
+                  f"bound_ms={b_ms:.3f} ({b_by}, bf16 peak) ok", flush=True)
 
             got = hw.hyena_chunked_bwd(d, *args)
             torch.cuda.synchronize()
@@ -1381,8 +1385,10 @@ def phase_k4(torch, mamba_window, dev):
                 k_ms = median_ms(torch, lambda: mw.mamba_window_fwd(*args), warmup=1, reps=5)
                 p_ms = median_ms(torch, lambda: mw.mamba_window_plain(*args), warmup=1, reps=3)
             res["fwd"].append((err, k_ms, p_ms))
+            b_ms, b_by = k4_fwd_bound(bw, c)
             print(f"phase 17 K4 fwd BW={bw} V={v} C={c} {dname}: max_abs_err={err:.3e} "
-                  f"max|out|={scale:.3e} kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} ok", flush=True)
+                  f"max|out|={scale:.3e} kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} "
+                  f"bound_ms={b_ms:.3f} ({b_by}, bf16 peak) ok", flush=True)
 
             got = mw.mamba_window_bwd(d, *args)
             torch.cuda.synchronize()
@@ -3461,6 +3467,30 @@ def k4_bwd_bound(bw, c, states=8):
                  6 * t * c + 3 * w)
 
 
+def k3_fwd_bound(bw, c):
+    """K3's forward per call at BW windows of 512 tokens and C channels in
+    bf16 (chunk 128, n = 4): in_proj and out_proj 8 T C^2 and the Toeplitz
+    products 2 BW C chunk^2 n(n+1)/2 on the tensor cores; bytes x and out
+    (bf16), the weights and the Toeplitz blocks."""
+    v, chunk = 512, 128
+    n, t = v // chunk, bw * v
+    toeplitz = 2 * bw * c * chunk * chunk * n * (n + 1) // 2
+    return bound(8 * t * c * c + toeplitz, 0,
+                 4 * t * c + 2 * (4 * c * c + n * c * chunk * chunk))
+
+
+def k4_fwd_bound(bw, c, states=8):
+    """K4's forward per call at BW windows of 64 tokens and C channels in
+    bf16 (Dh = C/2, R = ceil(C/16), N states): in_proj and out_proj 4 T C^2,
+    x_proj 2 T Dh (R + 2N) and dt_proj 2 T R Dh on the tensor cores; the LN,
+    conv, SiLU and gates about 20 T C and the scan and softplus about (7N +
+    8) T Dh in fp32; bytes x and out (bf16) and the weights."""
+    t, dh, r, n = bw * 64, c // 2, -(-c // 16), states
+    prod = 4 * t * c * c + 2 * t * dh * (r + 2 * n) + 2 * t * r * dh
+    f32 = 20 * t * c + (7 * n + 8) * t * dh
+    return bound(prod, f32, 4 * t * c + 2 * (2 * c * c + dh * (r + 2 * n) + r * dh))
+
+
 def k6_bounds():
     """K6 per call at the vit65k_hyena shape in bf16, {"conv" | "dk": (ms,
     bound_by)}. The yardstick of a transform is 2.5 n log2 n fp32 operations
@@ -3611,22 +3641,12 @@ def kernel_bounds():
         t = bw * v
         toeplitz = 2 * bw * c * chunk * chunk * n * (n + 1) // 2
         w = 2 * (4 * c * c + n * c * chunk * chunk)
-        add("hyena_chunked_fwd", depth, bound(8 * t * c * c + toeplitz, 0, 4 * t * c + w))
+        add("hyena_chunked_fwd", depth, k3_fwd_bound(bw, c))
         add("hyena_chunked_bwd", depth,
             bound(22 * t * c * c + 2 * toeplitz, 0, 10 * t * c + w + 16 * c * c))
         add("hyena_dm", depth, bound(toeplitz, 0, 4 * t * c + 4 * n * c * chunk * chunk))
     for c, bw, depth in VESSEL_K4_STAGES:
-        # vessel K4 (T = BW * 64 tokens, Dh = C/2, R = ceil(C/16), N = 8):
-        # products in_proj and out_proj 4TC^2, x_proj 2T Dh (R + 2N), dt_proj
-        # 2T R Dh; fp32 LN, conv, SiLU and gates about 20TC, the scan and
-        # softplus about (7N + 8) T Dh; the backward recomputes the forward
-        # and does twice its products more (10TC^2 in all) and about twice its
-        # fp32 work, and writes fp32 weight gradients
-        t, dh, r, n = bw * 64, c // 2, -(-c // 16), 8
-        prod = 4 * t * c * c + 2 * t * dh * (r + 2 * n) + 2 * t * r * dh
-        f32 = 20 * t * c + (7 * n + 8) * t * dh
-        w = 2 * (2 * c * c + dh * (r + 2 * n) + r * dh)
-        add("mamba_window_fwd", depth, bound(prod, f32, 4 * t * c + w))
+        add("mamba_window_fwd", depth, k4_fwd_bound(bw, c))
         add("mamba_window_bwd", depth, k4_bwd_bound(bw, c))
     # vit16k K5, per layer: BH head-batches of L tokens at D = 64; each product
     # 2 BH L^2 D, each pass of exp2 BH L^2 in fp32. The forward is 2 products

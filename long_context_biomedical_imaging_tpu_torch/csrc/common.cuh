@@ -36,18 +36,6 @@ __host__ __device__ __forceinline__ size_t align128(size_t bytes) {
 __host__ __device__ __forceinline__ int round_up16(int v) { return (v + 15) & ~15; }
 __host__ __device__ __forceinline__ int round_up32(int v) { return (v + 31) & ~31; }
 
-// The padded width of the forwards whose WMMA tiles read weights straight
-// from global memory (a fragment load cannot mask a tail): the forwards of
-// K3 and K4 run on C rounded up to 32 (their channel chunk; K4's two C/2
-// halves each to 16). Every other kernel (K1's, K2's and K2''s forward and
-// backward, the backwards of K3 and K4) stages its weight slices through
-// shared memory with the tails masked and takes the true widths.
-// The rows, the LayerNorm statistics and the stores keep the true C. This is
-// the one place the rounding is decided: each of those libraries reports it
-// through lcbi_padded_channels, and the wrappers lay the weights out at the
-// width reported.
-__host__ __device__ __forceinline__ int chunk_padded_channels(int C) { return round_up32(C); }
-
 // Rows [0, rows) of the (rows, C) tile x -> ys (leading dimension lds) in T:
 // LayerNorm with fp32 statistics in the fast-variance form E[x^2] - mu^2,
 // eps 1e-6, then the affine g, b (both fp32). With ln == 0 the rows are
@@ -168,13 +156,6 @@ __device__ __forceinline__ void gemm(float* Cp, int ldc, const float* A, int lda
 #pragma unroll
     for (int r = 0; r < R; ++r) Cp[(size_t)(r0 + r) * ldc + n] = acc[r];
   }
-}
-
-// The forward kernels' product: A (shared, row-major) @ B (global, row-major).
-template <typename T>
-__device__ __forceinline__ void gemm_tile(float* Cs, int ldc, const T* As, int lda, const T* B,
-                                          int ldb, int M, int N, int K, bool accumulate) {
-  gemm<false, false>(Cs, ldc, As, lda, B, ldb, M, N, K, accumulate);
 }
 
 // Largest dynamic shared memory a block of this device may opt in to.

@@ -10,23 +10,18 @@
 // The four products take operands rounded to the stream type T (bf16 under
 // AMP) and sum in fp32; everything else is fp32.
 //
-// States: the kernels run on a padded state count NP (8 or 16, a template
-// argument) that holds the true N: a padded state has A = 0, B = 0 and C =
-// 0, so its h stays 0 and it adds nothing to y (the pattern of K5's and K8's
-// padded head dims). The forward takes its state blocks padded with zeros by
-// the wrapper, as it takes its channels; the backward takes the true N at
-// run time, reads the padded states as zeros and never stores their
-// gradients.
+// States: the kernels take the true d_state N at run time and run on a
+// padded state count NP (8 or 16, a template argument) that holds it, reading
+// the padded states' A, B and C as zeros, so a padded state's h stays 0 and
+// adds nothing to y (the pattern of K5's and K8's padded head dims).
 //
-// Widths: the forward takes any even C. Its tiles and weights run on Cp = C
-// rounded up to 32 (Dhp = Cp / 2 per half): the rows of x, do and dx load
-// and store at the true C (LayerNorm statistics over C, zeros in columns
-// [C, Cp)), and the weights and per-channel operands arrive with each Dh
-// block padded with zeros to Dhp (the wrapper pads the weights, never the
-// activations), so a padded channel's x and z are SiLU(0) = 0, its scan state
-// stays 0 and it adds nothing to out_proj. Inside the forward C names the
-// padded width and Ct the true one. The backward takes the weights at the
-// true C (mamba_window_bwd.cu).
+// Widths: both kernels take any even C and every operand at its true C and
+// N, with no padded copy: the rows of x, do and dx load and store at the true
+// C (LayerNorm statistics over C), the forward's bf16 kernel and the
+// backward stage their weight slices through shared memory with the tails
+// past C, C/2, R and R + 2N zeroed, and the forward's general kernel (fp32,
+// and bf16 past the bf16 kernel's tiles) reads its weights at their true
+// widths in FMA loops.
 #pragma once
 
 #include "common.cuh"
@@ -51,52 +46,6 @@ __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v
 // v rounded to T and back (the products' operand rounding)
 template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f32(from_f32<T>(v));
-}
-
-// u = conv3_same(xz) per window (zero outside it), s = SiLU(u), for windows
-// [0, nwin) of V rows and channels [0, C); taps (3, C), tap j on row t-1+j.
-// s may alias xz: each thread walks one column and has read rows t and t+1
-// before it writes row t.
-__device__ inline void conv3_silu(const float* xz, int ldx, float* s, int lds,
-                                  const float* __restrict__ wconv, int nwin, int V, int C) {
-  for (int p = threadIdx.x; p < nwin * C; p += kThreads) {
-    const int w = p / C, c = p % C;
-    const float w0 = wconv[c], w1 = wconv[C + c], w2 = wconv[2 * C + c];
-    const float* xr = xz + (size_t)w * V * ldx + c;
-    float* sr = s + (size_t)w * V * lds + c;
-    float prev = 0.f, cur = xr[0];
-    for (int t = 0; t < V; ++t) {
-      const float next = t + 1 < V ? xr[(size_t)(t + 1) * ldx] : 0.f;
-      const float u = cur * w1 + prev * w0 + next * w2;
-      sr[(size_t)t * lds] = u * sigmoidf(u);
-      prev = cur;
-      cur = next;
-    }
-  }
-}
-
-// dbl[r, j] = sum_k rnd(s[r, k]) wdbl[k, j] for rows [0, rows), j < W: the
-// x_proj product, as FMA loops (W is 22 to 40 columns, too narrow to tile).
-template <typename T>
-__device__ inline void x_proj(const float* s, int lds, const T* __restrict__ wdbl, float* dbl,
-                              int ldd, int rows, int Dh, int W) {
-  for (int p = threadIdx.x; p < rows * W; p += kThreads) {
-    const int r = p / W, j = p % W;
-    const float* sr = s + (size_t)r * lds;
-    float a = 0.f;
-    for (int k = 0; k < Dh; ++k) a = fmaf(rnd<T>(sr[k]), to_f32(wdbl[(size_t)k * W + j]), a);
-    dbl[(size_t)r * ldd + j] = a;
-  }
-}
-
-// dtv of channel d at one token: dt (the first R columns of its dbl row)
-// rounded to T, times wdt[:, d], plus dtb2[d].
-template <typename T>
-__device__ __forceinline__ float dt_value(const float* db, const T* __restrict__ wdt, int R,
-                                          int Dh, int d, float bias) {
-  float a = 0.f;
-  for (int r = 0; r < R; ++r) a = fmaf(rnd<T>(db[r]), to_f32(wdt[(size_t)r * Dh + d]), a);
-  return a + bias;
 }
 
 }  // namespace lcbi

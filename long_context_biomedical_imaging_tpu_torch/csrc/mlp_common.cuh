@@ -58,4 +58,68 @@ __device__ __forceinline__ void stage_slice16(bf16* dst, int ldd, const bf16* __
   }
 }
 
+// Rows [0, rows_pad) of a bf16 tile of cpad columns (cpad a multiple of 8,
+// at least C) into ys (leading dimension lds), row r from src + (r - lo) C:
+// rows outside [lo, hi) and columns [C, cpad) zero. 16-byte cp.async copies
+// where vec (C % 8 == 0 and src 16-byte aligned), else element by element;
+// the caller commits the group. The block's kThreads threads share it.
+__device__ __forceinline__ void stage_rows16(bf16* ys, int lds, const bf16* __restrict__ src,
+                                             int lo, int hi, int rows_pad, int C, int cpad,
+                                             bool vec) {
+  const int per = cpad / 8;
+  for (int e = threadIdx.x; e < rows_pad * per; e += kThreads) {
+    const int r = e / per, c = (e % per) * 8;
+    const long long sr = r >= lo && r < hi ? r - lo : hi - lo;   // hi - lo: outside, zeros
+    stage16(ys + r * lds + c, src, sr, hi - lo, c, C, C, vec);
+  }
+}
+
+// LayerNorm in place over rows [0, rows) of a bf16 tile in shared memory, as
+// common.cuh layernorm_rows computes it from the same bf16 values (fp32
+// statistics E[x^2] - mu^2, eps 1e-6, the affine g, b in fp32, rounded to
+// bf16 once); nothing with ln == 0. One warp per row.
+__device__ __forceinline__ void layernorm_rows_inplace(bf16* ys, int lds, int rows, int C,
+                                                       const float* __restrict__ g,
+                                                       const float* __restrict__ b, int ln) {
+  if (!ln) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float inv = 1.f / (float)C;
+  // two rows a warp at a time (r and r + kWarps), their sums interleaved
+  for (int r0 = warp; r0 < rows; r0 += 2 * kWarps) {
+    const bool two = r0 + kWarps < rows;
+    bf16* yr[2] = {ys + (size_t)r0 * lds, ys + (size_t)(two ? r0 + kWarps : r0) * lds};
+    float s[2] = {0.f, 0.f}, ss[2] = {0.f, 0.f};
+    for (int c = lane; c < C; c += 32) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float v = __bfloat162float(yr[i][c]);
+        s[i] += v;
+        ss[i] += v * v;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
+        ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], o);
+      }
+    float mu[2], rstd[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mu[i] = s[i] * inv;
+      rstd[i] = rsqrtf(ss[i] * inv - mu[i] * mu[i] + kLnEps);
+    }
+    for (int c = lane; c < C; c += 32) {
+      const float gc = g[c], bc = b[c];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (i == 1 && !two) break;
+        const float xhat = (__bfloat162float(yr[i][c]) - mu[i]) * rstd[i];
+        yr[i][c] = __float2bfloat16(xhat * gc + bc);
+      }
+    }
+  }
+}
+
 }  // namespace lcbi

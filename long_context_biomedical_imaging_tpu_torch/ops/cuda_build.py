@@ -168,36 +168,6 @@ def slot_count(slot_floats: int, device) -> int:
     return max(1, min(4 * sms, SLOT_BYTES_BUDGET // (4 * slot_floats)))
 
 
-def padded_width(kernel: CudaKernel, symbol: str, width: int) -> int:
-    """width as the kernel's library pads it for its tiles (its
-    ``lcbi_padded_channels`` or ``lcbi_padded_hidden``; ``csrc/common.cuh``
-    decides the rounding): the width a wrapper lays the weights out at."""
-    return kernel.query(symbol, [ctypes.c_int], ctypes.c_int, width)
-
-
-def pad_channel_blocks(t, c: int, cp: int, dims):
-    """t with each dimension in ``dims`` read as blocks of c entries (C, or
-    the [x1 | x2 | v] blocks of a 3C axis), each block padded with zeros to
-    cp: the weight layout of a kernel whose channel chunks run past the true
-    C. Returns t itself when cp == c."""
-    if cp == c:
-        return t
-    for d in dims:
-        n = t.shape[d] // c
-        out = t.new_zeros(*t.shape[:d], n, cp, *t.shape[d + 1:])
-        out.narrow(d + 1, 0, c).copy_(t.unflatten(d, (n, c)))
-        t = out.flatten(d, d + 1)
-    return t
-
-
-def pad_blocks(t, blocks):
-    """t padded by :func:`pad_channel_blocks` along every (width, padded
-    width, dims) of ``blocks``."""
-    for c, cp, dims in blocks:
-        t = pad_channel_blocks(t, c, cp, dims)
-    return t
-
-
 def check_cuda_operand(name: str, t, device, dtype, shape) -> None:
     """Raise unless t is a contiguous, 32-byte-aligned tensor of the given
     device, dtype and shape: what the kernels take."""

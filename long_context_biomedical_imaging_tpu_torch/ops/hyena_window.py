@@ -34,18 +34,13 @@ The backward kernels round the operands of their products to ``x.dtype`` as
 the TPU kernels do and return dw_in, dw_out (and dM) in their input's dtype,
 the rest in fp32.
 
-Widths: the kernels take any C (K3 up to 192). They walk the channels in
+Widths: the kernels take any C (K3 up to 192) and every weight, tap, bias
+and Toeplitz block as it is, with no padded copy. They walk the channels in
 chunks of 32, load the rows at the true C (LayerNorm statistics over C,
-zeros past it) and store only the true columns. K1's forward and backward
-stage their weight slices through shared memory with the tails past C
-zeroed, and K3's backward runs its products in the shared kernels of
-``csrc/mma_gemm.cuh``, which mask every tail, so these take the weights,
-taps, biases (and Toeplitz blocks) as they are. K3's forward reads its
-weights as WMMA tiles from device memory, which cannot mask a tail: it runs
-on C rounded up to 32, as its library reports (``lcbi_padded_channels``;
-``csrc/common.cuh``), and the wrapper hands it the weights, taps and biases
-padded with zeros per [x1 | x2 | v] block (:func:`_padded_operands`, a copy
-only where C % 32 != 0; the activations are never padded).
+zeros past it) and store only the true columns; their products stage the
+weight slices (and K3's Toeplitz blocks) through shared memory with the
+tails past C zeroed, in their own row kernels or in the shared products of
+``csrc/mma_gemm.cuh``.
 """
 
 from __future__ import annotations
@@ -56,8 +51,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import (CudaKernel, check_cuda_operand, pad_channel_blocks, padded_width, ptr,
-                         slot_count, slot_layout, stream_handle)
+from .cuda_build import (CudaKernel, check_cuda_operand, ptr, slot_count, slot_layout,
+                         stream_handle)
 from .fftconv import diagonal_sums, lag_sums
 from .fused_mlp import layer_norm_f32, matmul_rounded
 
@@ -200,15 +195,6 @@ def _check_operands(x, w_in, b_in, ws, bs, kl, w_out, b_out, ln_scale, ln_bias):
     for name, t in f32.items():
         check_cuda_operand(name, t, dev, torch.float32,
                            (3 * c,) if name in ("b_in", "b_short") else (c,))
-
-
-def _padded_operands(kernel, c, *operands):
-    """The padded width cp that the kernel's library reports for C, then
-    each (operand, dims) of ``operands`` with every C-wide block along dims
-    padded with zeros to cp: K3's forward's layout of its weights, taps and
-    biases."""
-    cp = padded_width(kernel, "lcbi_padded_channels", c)
-    return (cp, *(pad_channel_blocks(t, c, cp, dims) for t, dims in operands))
 
 
 def _chunked_bwd_grads(red, layout, wgrads, c, k, w_dtype, has_ln):
@@ -422,14 +408,12 @@ def _check_chunked(x, w_in, b_in, ws, bs, m, w_out, b_out, ln_scale, ln_bias):
 
 def hyena_chunked_fwd(x, w_in, b_in, ws, bs, m, w_out, b_out, ln_scale=None, ln_bias=None):
     """The K3 forward kernel on CUDA, on prepared short taps and Toeplitz
-    blocks (biases and LN parameters fp32): :func:`hyena_chunked_plain`."""
+    blocks (biases and LN parameters fp32), every operand at the true C (no
+    padded copies): :func:`hyena_chunked_plain`."""
     bw, v, c, chunk = _check_chunked(x, w_in, b_in, ws, bs, m, w_out, b_out, ln_scale, ln_bias)
-    cp, w_in, b_in, ws, bs, w_out, m = _padded_operands(
-        HYENA_CHUNKED_FWD, c, (w_in, (0, 1)), (b_in, (0,)), (ws, (1,)), (bs, (0,)),
-        (w_out, (0, 1)), (m, (1,)))
     out = torch.empty_like(x)
-    g = torch.empty(cp, bw, v, device=x.device, dtype=x.dtype)      # g, then v2
-    x2 = torch.empty(cp, bw, v, device=x.device, dtype=torch.float32)
+    g = torch.empty(c, bw, v, device=x.device, dtype=x.dtype)      # g, then v2
+    x2 = torch.empty(c, bw, v, device=x.device, dtype=torch.float32)
     HYENA_CHUNKED_FWD(ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(w_in), ptr(b_in), ptr(ws),
                       ptr(bs), ptr(m), ptr(w_out), ptr(b_out), ptr(out), ptr(g), ptr(x2),
                       bw, v, c, ws.shape[0], chunk, int(ln_scale is not None),

@@ -31,19 +31,16 @@ and returns the projection weights' gradients in their dtype, the rest in fp32.
 
 The kernels take every window length of the gate (:func:`mamba_window_supported`)
 at any even C, a dt rank up to 64 and a d_state N up to 16 (run at a padded
-state count of 8 or 16, whose padded states stay zero: the forward's wrapper
-pads the state blocks, :func:`_padded_states`; a larger N raises).
-The forward's tiles run on C rounded up to 32, as its library reports
-(``lcbi_padded_channels``; ``csrc/common.cuh``); the rows load at the true C
+state count of 8 or 16, the padded states read as zeros; a larger N raises),
+and every operand at its true C and N: the rows load at the true C
 (LayerNorm statistics over C) and only the true columns are stored, and the
-wrapper hands it the weights and per-channel operands with each C/2 block
-padded with zeros (:func:`_padded_operands`, a copy only where C % 32 != 0;
-the activations are never padded). The backward stages its weight tiles
-through shared memory with the tails masked and takes every operand at the
-true C. Each kernel sizes its global scratch itself (the forward's tile
-moves there, wholly or in part, where it outgrows shared memory; the
-backward's passes hand each other streams); the wrappers ask the library
-(``lcbi_mamba_window_{fwd,bwd}_workspace``) and allocate it.
+kernels stage their weight slices through shared memory with the tails
+masked (the forward's general kernel, for fp32 and bf16 tiles too wide for
+its bf16 kernel, reads them at their true widths in FMA loops), so no
+operand is ever padded. Each kernel sizes its global scratch itself (the
+general forward's tile moves there, wholly or in part, where it outgrows
+shared memory; the backward's passes hand each other streams); the wrappers
+ask the library (``lcbi_mamba_window_{fwd,bwd}_workspace``) and allocate it.
 """
 
 from __future__ import annotations
@@ -53,8 +50,8 @@ import math
 
 import torch
 
-from .cuda_build import (CudaKernel, check_cuda_operand, pad_blocks, padded_width, ptr,
-                         slot_count, slot_layout, stream_handle)
+from .cuda_build import (CudaKernel, check_cuda_operand, ptr, slot_count, slot_layout,
+                         stream_handle)
 from .fused_mlp import layer_norm_f32, matmul_rounded
 from .selective_scan import selective_scan_cm
 
@@ -163,43 +160,6 @@ def _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out, ln_scal
     return bw, v, c, r, n
 
 
-# each operand's (dims read as one C-wide block, dims read as C/2-wide blocks):
-# x | z, y | z and the scan's channels are C/2 blocks, w_xz's rows and w_out's
-# columns (the LayerNorm's channels) one C block
-_OPERAND_DIMS = {"w_xz": ((0,), (1,)), "wconv": ((), (1,)), "w_dbl": ((), (0,)),
-                 "w_dt": ((), (1,)), "dtb2": ((), (0,)), "at": ((), (1,)), "dskip": ((), (0,)),
-                 "w_out": ((1,), (0,))}
-
-
-def _blocks(c, cp, name):
-    """The (width, padded width, dims) blocks of operand ``name`` at C and
-    the padded width cp: C/2 blocks go to cp / 2."""
-    c_dims, dh_dims = _OPERAND_DIMS[name]
-    return [(c, cp, c_dims), (c // 2, cp // 2, dh_dims)]
-
-
-def _padded_operands(kernel, c, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out):
-    """The padded width cp that the forward's library reports for C (a
-    multiple of 32), then the operands in its layout: each C/2 block padded
-    with zeros to cp / 2, w_xz's rows and w_out's columns to cp."""
-    cp = padded_width(kernel, "lcbi_padded_channels", c)
-    operands = (w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out)
-    return (cp, *(pad_blocks(t, _blocks(c, cp, name)) for name, t in zip(_OPERAND_DIMS, operands)))
-
-
-def _padded_states(w_dbl, at, r):
-    """w_dbl and at with d_state N padded with zeros to the forward's state
-    count (8 or 16): at's rows and w_dbl's B and C column blocks. A padded
-    state has A = B = C = 0, so its h stays 0 and it adds nothing to y."""
-    n = at.shape[0]
-    pad = (8 if n <= 8 else 16) - n
-    if pad == 0:
-        return w_dbl, at
-    zeros = w_dbl.new_zeros(w_dbl.shape[0], pad)
-    return (torch.cat([w_dbl[:, :r + n], zeros, w_dbl[:, r + n:], zeros], dim=1),
-            torch.cat([at, at.new_zeros(pad, at.shape[1])]))
-
-
 def _workspace_bytes(kernel, symbol, *shape) -> int:
     """Global scratch the kernel needs, from its library's own query (the
     layout lives in the CUDA source alone); raises where it cannot take the
@@ -213,14 +173,10 @@ def _workspace_bytes(kernel, symbol, *shape) -> int:
 
 def mamba_window_fwd(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
                      ln_scale=None, ln_bias=None):
-    """The K4 forward kernel on CUDA, on prepared operands: the output of
-    :func:`mamba_window_plain`."""
-    bw, v, c, r, _ = _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
+    """The K4 forward kernel on CUDA, on prepared operands at the true C and
+    d_state (no padded copies): the output of :func:`mamba_window_plain`."""
+    bw, v, c, r, n = _check_operands(x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
                                      ln_scale, ln_bias)
-    w_dbl, at = _padded_states(w_dbl, at, r)
-    n = at.shape[0]
-    _, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out = _padded_operands(
-        MAMBA_WINDOW_FWD, c, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out)
     bf16 = int(x.dtype == torch.bfloat16)
     nbytes = _workspace_bytes(MAMBA_WINDOW_FWD, "lcbi_mamba_window_fwd_workspace",
                               bw, v, c, r, n, bf16)
@@ -267,13 +223,24 @@ def mamba_window_bwd(do, x, w_xz, wconv, w_dbl, w_dt, dtb2, at, dskip, w_out,
                      *(layout[k] for k in ("dwconv", "ddtb", "dat", "dd", "dg", "dbln")),
                      stream_handle(dev))
 
+    return (dx, *_bwd_grads(red, layout, wgrads, c, r, n, x.dtype, has_ln))
+
+
+def _bwd_grads(red, layout, wgrads, c, r, n, w_dtype, has_ln):
+    """K4's backward gradients at the true C and d_state: dw_xz, dwconv,
+    dw_dbl, dw_dt, d dtb2, d at, d dskip, dw_out (and the LN parameters'),
+    the projections' from the split-K product's [dw_xz | dw_out | dw_dt |
+    dw_dbl] in w_dtype, the rest from the reduced slot ``red`` (offsets
+    ``layout``) in fp32."""
+    dh, w = c // 2, r + 2 * n
+
     def small(name, shape):
         return red[layout[name]:layout[name] + math.prod(shape)].view(shape)
 
     def wgrad(at_, shape):
-        return wgrads[at_:at_ + math.prod(shape)].view(shape).to(x.dtype)
+        return wgrads[at_:at_ + math.prod(shape)].view(shape).to(w_dtype)
 
-    grads = (dx, wgrad(0, (c, c)), small("dwconv", (3, c)), wgrad(2 * c * c + r * dh, (dh, w)),
+    grads = (wgrad(0, (c, c)), small("dwconv", (3, c)), wgrad(2 * c * c + r * dh, (dh, w)),
              wgrad(2 * c * c, (r, dh)), small("ddtb", (dh,)), small("dat", (n, dh)),
              small("dd", (dh,)), wgrad(c * c, (c, c)))
     if has_ln:

@@ -9,15 +9,19 @@ tree's own ``chip_smoke.py`` and runs its train-step phases for every
 configuration: ptx (12: Hyena, K1 and K2), emb (16: K3), vessel (20: Mamba,
 K4), vit16k (24: K5), vit65k_hyena (28: K6), vit65k_mamba (32: K7),
 ptx_attn (36: K8's whole-window path), micro_w7 (40: K9) and emb_attn (45:
-K8's general path). Then its K1 phase (3) and its K8 phase (33), from which
-it prints K1's forward per call at each ptx stage shape and per ptx step
-(phase 3's bf16 times with the folded LN, times the stage's depth), and
-K8's whole-window forward and backward per call at each ptx_attn stage
-shape and per ptx_attn step (phase 33's ``fwd`` and ``bwd``: the
-projection streams, the attention core and the out projection or dx,
-without the weight gradients). Configurations named after the checkout
-limit the turns to those configurations' train steps (to read a step's
-spread again); the name ``k3`` runs K3's phase 13 alone. Kernels build at their first launch into each tree's own
+K8's general path). Then its K3 phase (13) and its K4 phase (17), from which it
+prints K3's forward per call at each emb stage shape and K3's forward,
+backward and dM per emb step, and K4's forward per call at each vessel
+stage shape and K4's forward and backward per vessel step (the phases'
+bf16 times with the folded LN, times the stage's depth); then its K1 phase
+(3) and its K8 phase (33), from which it prints K1's forward per call at
+each ptx stage shape and per ptx step, and K8's whole-window forward and
+backward per call at each ptx_attn stage shape and per ptx_attn step
+(phase 33's ``fwd`` and ``bwd``: the projection streams, the attention
+core and the out projection or dx, without the weight gradients).
+Configurations named after the checkout limit the turns to those
+configurations' train steps (to read a step's spread again); the names
+``k3`` and ``k4`` run K3's phase 13 or K4's phase 17 alone. Kernels build at their first launch into each tree's own
 ``build/kernels/``. Every line a turn prints is echoed with the turn's
 label; a summary of the step times, the per-step kernel times and the
 profiled device time per step of the kernels named in ``KERNELS`` ends the
@@ -57,13 +61,28 @@ STEP_PHASES = {
                 'batch=cs.BATCH)',
     "emb_attn": 'cs.phase_config_throughput(torch, dev, cs.emb_attn_flags(), 45, "emb_attn", '
                 'batch=cs.BATCH, volume=cs.EMB_VOLUME)',
-    # not a train step: K3's kernel phase alone (forward, backward, dM per
-    # call at the emb stage shapes, fp32 and bf16)
+    # not train steps: K3's kernel phase alone (forward, backward, dM per
+    # call at the emb stage shapes, fp32 and bf16), K4's (forward and
+    # backward at the vessel stage shapes, then d_state 16)
     "k3": "from long_context_biomedical_imaging_tpu_torch.ops import hyena_window\n"
           "cs.phase_k3(torch, hyena_window, dev)",
+    "k4": "from long_context_biomedical_imaging_tpu_torch.ops import mamba_window\n"
+          "cs.phase_k4(torch, mamba_window, dev)",
 }
 KERNEL_PHASES = r"""
-from long_context_biomedical_imaging_tpu_torch.ops import hyena_window, window_attention
+from long_context_biomedical_imaging_tpu_torch.ops import hyena_window, mamba_window, window_attention
+k3 = cs.phase_k3(torch, hyena_window, dev)["bfloat16"]
+k4 = cs.phase_k4(torch, mamba_window, dev)["bfloat16"]
+k3_step = {key: sum(depth * r[1] for r, (_, _, depth) in zip(k3[key], cs.EMB_K3_STAGES))
+           for key in ("fwd", "bwd", "dm")}
+k4_step = {key: sum(depth * r[1] for r, (_, _, depth) in zip(k4[key], cs.VESSEL_K4_STAGES))
+           for key in ("fwd", "bwd")}
+print("per-call kernels (ms, bf16): K3 fwd (C = 96, 192) "
+      + ", ".join(f"{r[1]:.3f}" for r in k3["fwd"]) + "; K4 fwd (C = 96, 192, 384) "
+      + ", ".join(f"{r[1]:.3f}" for r in k4["fwd"]), flush=True)
+print(f"per-step kernels: K3 fwd {k3_step['fwd']:.3f} ms per emb step; K3 bwd "
+      f"{k3_step['bwd']:.3f}; K3 dM {k3_step['dm']:.3f}; K4 fwd {k4_step['fwd']:.3f} ms per "
+      f"vessel step; K4 bwd {k4_step['bwd']:.3f}", flush=True)
 k1 = cs.phase_k1(torch, hyena_window, dev)[("bfloat16", True)]
 k1_step = sum(depth * r[1] for r, (_, _, depth) in zip(k1, cs.STAGES))
 k8 = cs.phase_k8(torch, window_attention, dev)
@@ -93,12 +112,19 @@ PROFILE = re.compile(r"phase (\d+) ((?:\S+ )*?)profile: one step, device time ([
                      r"top: (.*)")
 PER_STEP = re.compile(r"per-step kernels: K1 fwd ([0-9.]+) ms per ptx step; K8 whole-window fwd "
                       r"([0-9.]+) ms per ptx_attn step; K8 whole-window bwd ([0-9.]+) ms")
+PER_STEP_34 = re.compile(r"per-step kernels: K3 fwd ([0-9.]+) ms per emb step; K3 bwd ([0-9.]+); "
+                         r"K3 dM ([0-9.]+); K4 fwd ([0-9.]+) ms per vessel step; K4 bwd ([0-9.]+)")
 # kernel names (substrings) whose device time per step the summary reports:
-# K1's forward (the parent's hyena_window_fwd_kernel, this tree's
-# hyena_fwd_mma_kernel), K8's whole-window forward (the parent's
-# window_attention_fwd_kernel, this tree's wattn_whole_fwd_kernel and the
-# projections' proj_rows_kernel, which the backward shares) and backward core
-KERNELS = ("hyena_window_fwd_kernel", "hyena_fwd_mma_kernel", "window_attention_fwd_kernel",
+# K3's forward (its three launches, k3_rows_in, k3_toeplitz and k3_rows_out,
+# the older tree's and this tree's by the same names; k3_toeplitz also
+# matches the backward's k3_toeplitz_bwd_kernel), K4's forward (the older
+# tree's mamba_window_fwd_kernel, this tree's mamba_fwd_mma_kernel; the
+# general kernel keeps the older name), K1's forward (hyena_fwd_mma_kernel)
+# and backward, K2's forward, K8's whole-window forward
+# (wattn_whole_fwd_kernel and the projections' proj_rows_kernel, which the
+# backward shares) and backward core
+KERNELS = ("k3_rows_in", "k3_toeplitz_fwd", "k3_toeplitz_mma", "k3_rows_out",
+           "mamba_window_fwd_kernel", "mamba_fwd_mma_kernel", "hyena_fwd_mma_kernel",
            "wattn_whole_fwd_kernel", "proj_rows_kernel", "wattn_whole_bwd_kernel",
            "hyena_window_bwd_kernel", "mlp_fwd_mma_kernel")
 NAMES = {"12": "ptx", "16": "emb", "20": "vessel", "24": "vit16k", "28": "vit65k_hyena",
@@ -122,6 +148,11 @@ def run_turn(label: str, root: str, env: dict, code: str) -> dict:
             steps.update({"K1 fwd/ptx step": float(m.group(1)),
                           "K8 whole-window fwd/ptx_attn step": float(m.group(2)),
                           "K8 whole-window bwd/ptx_attn step": float(m.group(3))})
+        m = PER_STEP_34.search(line)
+        if m:
+            steps.update(zip(("K3 fwd/emb step", "K3 bwd/emb step", "K3 dM/emb step",
+                              "K4 fwd/vessel step", "K4 bwd/vessel step"),
+                             map(float, m.groups())))
         m = STEP.search(line)
         if m:
             steps[m.group(2)] = float(m.group(3))

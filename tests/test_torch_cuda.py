@@ -16,10 +16,11 @@ against the host), and the Swin checkpointing's memory. The widths of the
 ``unetr`` and ``custom`` presets run in every kernel that takes them: K1,
 K3 and K4 at C = 48 and 24, K2 and K2' at C = 24 with a hidden width of 96,
 K8 at head dims 16 and 8 (and 40) on 16- and 512-token windows, and past 64
-(96, 128, 192) on the general path, K5 at head dims 8 to 512. K1's forward
-takes its weights at their true widths (C = 24, 40, 48, 100, 768 with no
-padded copy) and K8's forward and backward run every whole-window class.
-Marked ``cuda``;
+(96, 128, 192) on the general path, K5 at head dims 8 to 512. The forwards
+of K1, K3 and K4 take their weights at their true widths (K1 at C = 24, 40,
+48, 100, 768; K3 at 24, 48, 80, 100, 192; K4 at 24, 40, 48, 100, 768 with
+d_state 1 to 16; no padded copy) and K8's forward and backward run every
+whole-window class. Marked ``cuda``;
 without a card every test skips. This file imports neither JAX nor flax,
 so that it runs where only PyTorch is installed:
 
@@ -101,20 +102,15 @@ _K1_FWD_CASES = [(300, 16, 24, 5), (37, 16, 40, 5), (64, 16, 48, 3), (33, 16, 10
 @pytest.mark.parametrize("with_ln", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bw,v,c,taps", _K1_FWD_CASES)
-def test_hyena_window_forward_at_true_widths(cuda_device, monkeypatch, dtype, bw, v, c, taps,
-                                             with_ln):
+def test_hyena_window_forward_at_true_widths(cuda_device, dtype, bw, v, c, taps, with_ln):
     """K1's forward takes its weights, taps and biases at their true C: no
-    padded copy is made (the padding helpers raise if the call reaches
-    them), the output agrees with the plain version within _tol, and two
-    launches give the same bits."""
+    padded copy is made (no padding helper is left), the output agrees with
+    the plain version within _tol, and two launches give the same bits."""
     from long_context_biomedical_imaging_tpu_torch.ops import cuda_build
 
-    def no_pad(*args, **kwargs):
-        raise AssertionError("K1's forward made a padded copy")
-
-    for mod in (cuda_build, thw):
-        monkeypatch.setattr(mod, "pad_channel_blocks", no_pad)
-    monkeypatch.setattr(thw, "_padded_operands", no_pad)
+    assert not any(hasattr(cuda_build, n) for n in ("padded_width", "pad_channel_blocks",
+                                                    "pad_blocks"))
+    assert not hasattr(thw, "_padded_operands")
     gen = torch.Generator().manual_seed(bw * 1000 + v * 10 + taps)
     w = [_randn(gen, s) for s in ((c, 3 * c), (3 * c,), (3 * c, taps), (3 * c,),
                                   (c, v), (c,), (c, c), (c,))]
@@ -486,6 +482,37 @@ def test_hyena_chunked_kernel_matches_plain(cuda_device, dtype, bw, v, c, with_l
     assert err <= _tol(dtype) * ref.abs().max().item(), err
 
 
+# K3's forward at widths that are not multiples of 32 (unetr's 48, custom's
+# 24, and 80 and 100) and at 192, on 128- to 512-token windows (chunks of 64
+# at V = 192), with ragged window groups and short-conv tap counts other than
+# the models' 5 (the conv's shared-memory path): (BW, V, C, taps)
+_K3_FWD_CASES = [(37, 128, 24, 5), (45, 192, 48, 3), (13, 256, 80, 5), (33, 512, 100, 9),
+                 (70, 512, 192, 5), (9, 128, 100, 16), (17, 256, 24, 1), (40, 192, 192, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ln", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,v,c,taps", _K3_FWD_CASES)
+def test_hyena_chunked_forward_at_true_widths(cuda_device, dtype, bw, v, c, taps, with_ln):
+    """K3's forward takes its weights, taps, biases and Toeplitz blocks at
+    their true C: no padding helper is left, the output agrees with the plain
+    version within _tol, and two launches give the same bits."""
+    assert not hasattr(thw, "_padded_operands")
+    gen = torch.Generator().manual_seed(bw * 1000 + v + c + taps)
+    args = _chunked_args(gen, bw, v, c, dtype, cuda_device, with_ln, taps)
+    before = thw.HYENA_CHUNKED_FWD.launches
+    out = thw.hyena_chunked_fwd(*args)
+    again = thw.hyena_chunked_fwd(*args)
+    torch.cuda.synchronize()
+    assert thw.HYENA_CHUNKED_FWD.launches == before + 2
+    assert torch.equal(out, again)
+    assert out.dtype == dtype and out.shape == (bw, v, c)
+    ref = thw.hyena_chunked_plain(*args).float()
+    err = (out.float() - ref).abs().max().item()
+    assert torch.isfinite(out).all() and err <= _tol(dtype) * ref.abs().max().item(), err
+
+
 _K3_NAMES = ("x", "w_in", "b_in", "ws", "bs", "m", "w_out", "b_out", "ln_scale", "ln_bias")
 
 
@@ -597,6 +624,39 @@ def test_mamba_window_kernel_matches_plain(cuda_device, dtype, bw, v, c, with_ln
     ref = tmw.mamba_window_plain(*args).float()
     err = (out.float() - ref).abs().max().item()
     assert err <= _tol(dtype) * ref.abs().max().item(), err
+
+
+# K4's forward at widths that are not multiples of 32 (custom's 24, 40,
+# unetr's 48, 100) and at 768 (V = 16: the bf16 kernel on a tile of fewer
+# windows; V = 64: the general kernel), every window class, and d_state 1, 4,
+# 8 and 16 passed unpadded: (BW, V, C, N)
+_K4_FWD_CASES = [(37, 16, 24, 1), (29, 24, 40, 4), (11, 40, 48, 8), (13, 64, 100, 16),
+                 (9, 16, 768, 8), (5, 64, 768, 4), (300, 64, 24, 16), (21, 40, 100, 1),
+                 (70, 24, 768, 16), (130, 64, 48, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ln", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,v,c,n", _K4_FWD_CASES)
+def test_mamba_window_forward_at_true_widths(cuda_device, dtype, bw, v, c, n, with_ln):
+    """K4's forward takes every operand at its true C and d_state: no padding
+    helper is left, the output agrees with the plain version within _tol,
+    and two launches give the same bits."""
+    assert not any(hasattr(tmw, h) for h in ("_padded_operands", "_padded_states"))
+    gen = torch.Generator().manual_seed(bw * 1000 + v + c + n)
+    args = _mamba_args(gen, bw, v, c, dtype, cuda_device, with_ln, n=n)
+    assert args[6].shape == (n, c // 2)
+    before = tmw.MAMBA_WINDOW_FWD.launches
+    out = tmw.mamba_window_fwd(*args)
+    again = tmw.mamba_window_fwd(*args)
+    torch.cuda.synchronize()
+    assert tmw.MAMBA_WINDOW_FWD.launches == before + 2
+    assert torch.equal(out, again)
+    assert out.dtype == dtype and out.shape == (bw, v, c)
+    ref = tmw.mamba_window_plain(*args).float()
+    err = (out.float() - ref).abs().max().item()
+    assert torch.isfinite(out).all() and err <= _tol(dtype) * ref.abs().max().item(), err
 
 
 @pytest.mark.cuda

@@ -175,22 +175,11 @@ def _vit_flash_route(monkeypatch, argv, expected_calls, seed):
 
 
 # --------------------------------------------------------------------------- #
-# The kernels' padded weight layouts (built on the CPU; the kernels read them
-# on the card): every true block lands at the start of its padded block with
-# zeros after it, and the gradient cut returns the true blocks
+# The kernels take their weights at their true widths (no padded copy): the
+# backwards' gradients come out of their weight-gradient products and the
+# small gradients' reduced slot as they are (built on the CPU; the kernels
+# write them on the card)
 # --------------------------------------------------------------------------- #
-
-class _Widths:
-    """Stands in for a kernel library's width query (``lcbi_padded_channels``):
-    C rounded up to ``channels``, as ``csrc/common.cuh`` rounds it."""
-
-    def __init__(self, channels: int):
-        self.round = {"lcbi_padded_channels": channels}
-
-    def query(self, symbol, argtypes, restype, width):
-        m = self.round[symbol]
-        return -(-width // m) * m
-
 
 def _slots(named):
     """(reduced slot holding each (name, tensor) flat, its layout)."""
@@ -201,23 +190,6 @@ def _slots(named):
     for n, t in named:
         red[layout[n]:layout[n] + t.numel()] = t.reshape(-1)
     return red, layout
-
-
-def _cut_checked(padded, c, cp, dims):
-    """The first c entries of each cp-wide block of padded along dims, after
-    checking that the rest of each block is zero."""
-    t = padded
-    for d in dims:
-        t = t.unflatten(d, (t.shape[d] // cp, cp))
-        assert bool((t.narrow(d + 1, c, cp - c) == 0).all())
-        t = t.narrow(d + 1, 0, c).flatten(d, d + 1)
-    return t
-
-
-def _blocks_hold(padded, true, c, cp, dims):
-    """padded holds true's c-wide blocks along dims at the start of cp-wide
-    blocks, zeros after them."""
-    assert torch.equal(_cut_checked(padded, c, cp, dims), true)
 
 
 @pytest.mark.parametrize("c, hidden", [(24, 96), (48, 192), (64, 256)])
@@ -239,20 +211,19 @@ def test_mlp_weight_layout_round_trips(c, hidden):
 
 @pytest.mark.parametrize("c", [24, 48, 64])
 def test_hyena_operand_layout_round_trips(c):
-    from long_context_biomedical_imaging_tpu_torch.ops import hyena_window
+    """K1's and K3's kernels take their weights, taps, biases and Toeplitz
+    blocks at the true C: no padding helper is left, and K3's backward
+    gradients come out of [dw_in | dw_out] and the small gradients' reduced
+    slot as they are."""
+    from long_context_biomedical_imaging_tpu_torch.ops import cuda_build, hyena_window
 
-    v, k = 16, 5
+    k = 5
     g = torch.Generator().manual_seed(c)
-    w_in, b_in, ws, bs, w_out, b_out, kl = (torch.randn(s, generator=g) for s in (
-        (c, 3 * c), (3 * c,), (k, 3 * c), (3 * c,), (c, c), (c,), (v, c)))
-    dims = ((0, 1), (0,), (1,), (0,), (0, 1), (1,))
-    cp, *padded = hyena_window._padded_operands(
-        _Widths(32), c, *zip((w_in, b_in, ws, bs, w_out, kl), dims))
-    assert cp == -(-c // 32) * 32
-    for p, t, d in zip(padded, (w_in, b_in, ws, bs, w_out, kl), dims):
-        _blocks_hold(p, t, c, cp, d)
-    # the backwards of K1 and K3 take the true C: K3's gradients come out of
-    # [dw_in | dw_out] and the small gradients' reduced slot as they are
+    w_in, b_in, ws, bs, w_out, b_out = (torch.randn(s, generator=g) for s in (
+        (c, 3 * c), (3 * c,), (k, 3 * c), (3 * c,), (c, c), (c,)))
+    assert not hasattr(hyena_window, "_padded_operands")
+    assert not any(hasattr(cuda_build, n) for n in ("padded_width", "pad_channel_blocks",
+                                                    "pad_blocks"))
     red, layout = _slots([("dws", ws), ("dbin", b_in), ("dbs", bs), ("dbo", b_out)])
     wgrads = torch.cat([w_in.reshape(-1), w_out.reshape(-1)])
     got = hyena_window._chunked_bwd_grads(red, layout, wgrads, c, k, torch.float32, False)
@@ -262,18 +233,25 @@ def test_hyena_operand_layout_round_trips(c):
 
 @pytest.mark.parametrize("c", [24, 48, 64])
 def test_mamba_operand_layout_round_trips(c):
+    """K4's kernels take every operand at the true C and d_state: no padding
+    helper is left, and the backward's gradients come out of [dw_xz | dw_out
+    | dw_dt | dw_dbl] (in the weights' dtype) and the small gradients'
+    reduced slot (with the LN parameters') as they are, at a d_state that is
+    no padded state count."""
     from long_context_biomedical_imaging_tpu_torch.ops import mamba_window
 
-    dh, r, n = c // 2, -(-c // 16), 8
+    dh, r, n = c // 2, -(-c // 16), 5
     g = torch.Generator().manual_seed(c)
     shapes = {"w_xz": (c, c), "wconv": (3, c), "w_dbl": (dh, r + 2 * n), "w_dt": (r, dh),
-              "dtb2": (dh,), "at": (n, dh), "dskip": (dh,), "w_out": (c, c)}
+              "dtb2": (dh,), "at": (n, dh), "dskip": (dh,), "w_out": (c, c), "dg": (c,),
+              "dbln": (c,)}
     ops = {name: torch.randn(s, generator=g) for name, s in shapes.items()}
-    cp, *padded = mamba_window._padded_operands(_Widths(32), c, *ops.values())
-    assert cp == -(-c // 32) * 32
-    # each operand holds its C blocks and its C/2 blocks at the start of
-    # blocks of cp and cp / 2, zeros after them (the backward takes the true C)
-    for (name, t), p in zip(ops.items(), padded):
-        for bc, bcp, dims in mamba_window._blocks(c, cp, name):
-            p = _cut_checked(p, bc, bcp, dims)
-        assert torch.equal(p, t), name
+    assert not any(hasattr(mamba_window, h) for h in ("_padded_operands", "_padded_states"))
+    red, layout = _slots([("dwconv", ops["wconv"]), ("ddtb", ops["dtb2"]), ("dat", ops["at"]),
+                          ("dd", ops["dskip"]), ("dg", ops["dg"]), ("dbln", ops["dbln"])])
+    wgrads = torch.cat([ops[k].reshape(-1) for k in ("w_xz", "w_out", "w_dt", "w_dbl")])
+    got = mamba_window._bwd_grads(red, layout, wgrads, c, r, n, torch.bfloat16, True)
+    assert len(got) == len(shapes)
+    for name, t in zip(shapes, got):
+        dtype = torch.bfloat16 if name in ("w_xz", "w_dbl", "w_dt", "w_out") else torch.float32
+        assert t.dtype == dtype and torch.equal(t, ops[name].to(dtype)), name
