@@ -122,8 +122,11 @@ Phases, each printing one line of numbers (or a few):
      gradients of all seven inputs at the vit65k_mamba shape (2, 65536, 192),
      a ragged length with an odd batch (3, 2113, 40) and the gate's widest
      channels (1, 4096, 1024), fp32 and bf16, two runs bitwise equal; each
-     kernel against its pass's plain version; the refusals; then the times
-     of the kernels and the plain version at the vit65k_mamba shape;
+     kernel against its pass's plain version; at d_state 16 and without
+     softplus, each kernel against its pass twice, bitwise equal, and the op
+     against the chunked scan; the refusals (a CPU tensor, d_state 17); then
+     the times of the kernels and the plain version at the vit65k_mamba
+     shape;
  30. vit65k_mamba train slice: run_torch.main trains vit65k_mamba (--debug,
      2 epochs) on synthetic 1024x1024x1 images with the flags of
      projects/run_ptx.sh for the ViT-small encoder (patch 4, Mamba),
@@ -170,9 +173,11 @@ Phases, each printing one line of numbers (or a few):
      VJP at micro_w7's two K9 stage shapes (batch 4: 21,904 and 5,476 7x7
      windows, d 48 and 96), at 3x3 windows (L = 9) at a window count no tile
      divides, at L = 64 with d = 130 and d = 1024 (N d = 8192), fp32 and
-     bf16; two launches bitwise equal; each kernel against its plain pass;
-     the refusals (a CPU tensor, L > 64, N d > 8192); then the times of the
-     kernels and the plain version at the two stage shapes;
+     bf16; two launches bitwise equal; each kernel against its plain pass,
+     twice, bitwise equal; at d_state 16, each kernel against its pass and
+     the op against selective_scan_cm; the refusals (a CPU tensor, L > 64,
+     N d > 8192, d_state 17); then the times of the kernels and the plain
+     version at the two stage shapes;
  38. micro_w7 train slice: run_torch.main trains micro_w7 (--debug, 2
      epochs) on synthetic 1024x1024x1 enhancement pairs with the flags of
      projects/run_micro.sh and --Swin.window_size 7 (Swin-tiny + Mamba +
@@ -425,6 +430,12 @@ K7_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 3e-2)}
 # each kernel against its pass's plain version on the same fp32 inputs: the
 # exp2 and softplus forms, dA's sum order
 K7_PASS_TOL = 1e-4
+# phases 29 and 37 beyond d_state 8 with softplus, at K7_SHAPES[1] and at
+# K9_STATES_SHAPE (3,001 windows of micro_w7's stage-0 window and width):
+# (d_state, softplus); tests/test_torch_cuda.py runs d_state 1, 4, 13 and 16
+# and no softplus in both
+K7_STATES = [(16, True), (8, False)]
+K9_STATES, K9_STATES_SHAPE = [(16, True)], (3001, 49, 48)
 # phase 31, bf16: each parameter's card error may exceed BF16_GRAD_RATIO x the
 # host's by this much of its max
 M65_BF16_GRAD_FLOOR = 2e-2
@@ -2199,16 +2210,20 @@ def phase_k6(torch, sc, dev):
             "dk": (worst["dk"], k_dk, (1 - share) * p_vjp)}
 
 
-def _k7_inputs(torch, gen, shape, dtype, dev):
-    """u, delta, A, B, C, D, delta_bias and a cotangent g of one K7 case:
-    A = -(1..8) per channel times exp(0.3 N(0, 1)), as A_log's init plus
-    noise; u, delta, B, C and g in dtype, the rest fp32."""
+def _k7_inputs(torch, gen, shape, dtype, dev, n=K7_N, softplus=True):
+    """u, delta, A, B, C, D, delta_bias and a cotangent g of one K7 case with
+    n states: A = -(1..n) per channel times exp(0.3 N(0, 1)), as A_log's init
+    plus noise; u, delta, B, C and g in dtype, the rest fp32. Without
+    softplus, delta and its bias are made positive, as softplus would make
+    them (the decays would grow past fp32 otherwise)."""
     b, length, d = shape
-    a = -torch.arange(1, K7_N + 1.0) * torch.exp(0.3 * torch.randn(d, K7_N, generator=gen))
+    a = -torch.arange(1, n + 1.0) * torch.exp(0.3 * torch.randn(d, n, generator=gen))
     args = [torch.randn(shape, generator=gen), torch.randn(shape, generator=gen), a,
-            torch.randn(b, length, K7_N, generator=gen),
-            torch.randn(b, length, K7_N, generator=gen), torch.randn(d, generator=gen),
+            torch.randn(b, length, n, generator=gen),
+            torch.randn(b, length, n, generator=gen), torch.randn(d, generator=gen),
             torch.randn(d, generator=gen), torch.randn(shape, generator=gen)]
+    if not softplus:
+        args[1], args[6] = torch.nn.functional.softplus(args[1]), args[6].abs()
     return [t.to(dev, dtype if i in (0, 1, 3, 4, 7) else torch.float32)
             for i, t in enumerate(args)]
 
@@ -2218,6 +2233,33 @@ def _k7_vjp(torch, fn, args):
     leaves = [t.detach().requires_grad_(True) for t in args[:7]]
     y = fn(*leaves)
     return [y.detach()] + list(torch.autograd.grad(y, leaves, args[7]))
+
+
+def _hold_scan_states(torch, label, args, runs, plain_op, op, phase):
+    """A scan's passes at another d_state or without softplus: runs(kernels)
+    gives every pass's outputs through the kernels (True) or their plain
+    versions (False); the kernels twice, bitwise equal, each output within
+    K7_PASS_TOL of its plain version's max; then the op's y and gradients
+    against its plain version at K7_TOL's fp32 tolerances. Returns the
+    worst error of the passes."""
+    got, again, ref = runs(True), runs(True), runs(False)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    errs = [(x - r).abs().max().item() for x, r in zip(got, ref)]
+    ok = same and all(bool(torch.isfinite(x).all().item())
+                      and e <= K7_PASS_TOL * r.abs().max().item()
+                      for x, r, e in zip(got, ref, errs))
+    o, p = _k7_vjp(torch, op, args), _k7_vjp(torch, plain_op, args)
+    op_errs = [(x - r).abs().max().item() for x, r in zip(o, p)]
+    ok = ok and all(bool(torch.isfinite(x).all().item())
+                    and e <= K7_TOL["float32"][i > 0] * r.abs().max().item()
+                    for i, (x, r, e) in enumerate(zip(o, p, op_errs)))
+    print(f"phase {phase} {label}: max_abs_err of the kernels against their plain passes "
+          f"{max(errs):.3e}, two launches bitwise {'equal' if same else 'DIFFERENT'}; the op's y "
+          f"and gradients against its plain version {max(op_errs):.3e}"
+          + (" ok" if ok else " MISMATCH"), flush=True)
+    check(ok, f"{label}: {errs} {op_errs} same={same}")
+    return max(errs)
 
 
 def phase_k7(torch, ssl, dev):
@@ -2300,17 +2342,43 @@ def phase_k7(torch, ssl, dev):
         del u, delta, a, bm, cm, g, at, hl, ap, hstart, dht, pairs
         torch.cuda.empty_cache()
 
+    for n, softplus in K7_STATES:
+        shape = K7_SHAPES[1]
+        args = _k7_inputs(torch, gen, shape, torch.float32, dev, n, softplus)
+        u, delta, a, bm, cm, _, _, g = args
+        at = a.t().contiguous()
+        rows = shape[0] * -(-shape[1] // ssl.SEG)
+        h0, dht = (torch.randn(rows, n, shape[2], generator=gen).to(dev) for _ in range(2))
+
+        def runs(kernels):
+            fwd, carry, bwd = ((ssl.long_scan_fwd, ssl.long_scan_carry_bwd, ssl.long_scan_bwd)
+                               if kernels else (ssl.long_scan_fwd_plain,
+                                                ssl.long_scan_carry_bwd_plain,
+                                                ssl.long_scan_bwd_plain))
+            return [*fwd(u, delta, at, bm, cm, emit_y=False, softplus=softplus)[1:],
+                    fwd(u, delta, at, bm, cm, h0, softplus=softplus)[0],
+                    carry(delta, at, cm, g, softplus=softplus),
+                    *bwd(u, delta, at, bm, cm, g, h0, dht, softplus=softplus)]
+
+        _hold_scan_states(
+            torch, f"K7 b,L,D={shape} d_state {n}{'' if softplus else ' without softplus'} "
+            "float32 (fwd, carry bwd, bwd)", args, runs,
+            lambda *t: ssl.selective_scan_long_plain(*t, delta_softplus=softplus),
+            lambda *t: ssl.selective_scan_long(*t, delta_softplus=softplus), 29)
+        del args, u, delta, a, bm, cm, g, at, h0, dht
+
     u, delta, a, bm, cm, _, _, g = _k7_inputs(torch, gen, K7_SHAPES[2], torch.float32, dev)
+    a17 = torch.cat([a, a, a[:, :1]], dim=1)
+    b17, c17 = (torch.cat([x, x, x[..., :1]], dim=-1) for x in (bm, cm))
     for args, what in (((u.cpu(), delta.cpu(), a.t().contiguous().cpu(), bm.cpu(), cm.cpu()),
                         "a CPU tensor"),
-                       ((u, delta, a.t()[:4].contiguous(), bm[..., :4].contiguous(),
-                         cm[..., :4].contiguous()), "d_state 4")):
+                       ((u, delta, a17.t().contiguous(), b17, c17), "d_state 17")):
         try:
             ssl.long_scan_fwd(*args)
         except ValueError:
             continue
         raise SmokeFailure(f"K7 took {what}")
-    print("phase 29 K7 refusals: a CPU tensor, d_state 4: refused", flush=True)
+    print("phase 29 K7 refusals: a CPU tensor, d_state 17: refused", flush=True)
 
     b, length, _ = K7_SHAPES[0]
     nseg = -(-length // ssl.SEG)
@@ -2852,16 +2920,42 @@ def phase_k9(torch, ssw, dev):
                             and v <= K7_PASS_TOL * r.abs().max().item()
                             for x, r, v in zip(got, ref, e))
             errs[key] = max(e)
+        again = [ssw.window_scan_fwd(u, delta, at, bm, cm),
+                 *ssw.window_scan_bwd(u, delta, at, bm, cm, g)]
+        same = all(torch.equal(x, y) for x, y in zip(pairs["fwd"][0] + list(pairs["bwd"][0]),
+                                                     again))
+        ok = ok and same
         print(f"phase 37 K9 kernels against their plain passes, BW,L,d={shape} float32: "
               f"max_abs_err fwd (y) {errs['fwd']:.3e}, bwd (du, ddelta, dat, dB, dC) "
-              f"{errs['bwd']:.3e}" + (" ok" if ok else " MISMATCH"), flush=True)
+              f"{errs['bwd']:.3e}; two launches bitwise {'equal' if same else 'DIFFERENT'}"
+              + (" ok" if ok else " MISMATCH"), flush=True)
         check(ok, f"a K9 kernel disagrees with its plain pass at {shape}: {errs}")
         if shape in stages:
             worst.append(errs)
         del u, delta, a, bm, cm, g, at, pairs
         torch.cuda.empty_cache()
 
+    for n, softplus in K9_STATES:
+        shape = K9_STATES_SHAPE
+        args = _k7_inputs(torch, gen, shape, torch.float32, dev, n, softplus)
+        u, delta, a, bm, cm, _, _, g = args
+        at = a.t().contiguous()
+
+        def runs(kernels):
+            fwd, bwd = ((ssw.window_scan_fwd, ssw.window_scan_bwd) if kernels else
+                        (ssw.window_scan_fwd_plain, ssw.window_scan_bwd_plain))
+            return [fwd(u, delta, at, bm, cm, softplus), *bwd(u, delta, at, bm, cm, g, softplus)]
+
+        _hold_scan_states(
+            torch, f"K9 BW,L,d={shape} d_state {n}{'' if softplus else ' without softplus'} "
+            "float32 (fwd, bwd)", args, runs,
+            lambda *t: ssw.selective_scan_window_plain(*t, delta_softplus=softplus),
+            lambda *t: ssw.selective_scan_window(*t, delta_softplus=softplus), 37)
+        del args, u, delta, a, bm, cm, g, at
+
     u, delta, a, bm, cm, _, _, g = _k7_inputs(torch, gen, (3001, 49, 96), torch.float32, dev)
+    a17 = torch.cat([a, a, a[:, :1]], dim=1)
+    b17, c17 = (torch.cat([x, x, x[..., :1]], dim=-1) for x in (bm, cm))
     wide = torch.zeros(4, 49, 1040, device=dev)
     long_seq, long_bc = torch.zeros(4, 65, 96, device=dev), torch.zeros(4, 65, K9_N, device=dev)
     for fn, what in ((lambda: ssw.window_scan_fwd(u.cpu(), delta.cpu(), a.t().contiguous().cpu(),
@@ -2869,14 +2963,17 @@ def phase_k9(torch, ssw, dev):
                      (lambda: ssw.selective_scan_window(long_seq, long_seq, a, long_bc, long_bc),
                       "L = 65"),
                      (lambda: ssw.window_scan_fwd(wide, wide, torch.zeros(K9_N, 1040, device=dev),
-                                                  bm[:4], cm[:4]), "N d = 8320")):
+                                                  bm[:4], cm[:4]), "N d = 8320"),
+                     (lambda: ssw.window_scan_bwd(u, delta, a17.t().contiguous(), b17, c17, g),
+                      "d_state 17")):
         try:
             fn()
         except ValueError:
             continue
         raise SmokeFailure(f"K9 took {what}")
-    print("phase 37 K9 refusals: a CPU tensor, L = 65, N d = 8320: refused", flush=True)
-    del u, delta, a, bm, cm, g, wide, long_seq, long_bc
+    print("phase 37 K9 refusals: a CPU tensor, L = 65, N d = 8320, d_state 17: refused",
+          flush=True)
+    del u, delta, a, bm, cm, g, wide, long_seq, long_bc, a17, b17, c17
 
     out = {"fwd": [], "bwd": []}
     for (bw, length, d), errs in zip(stages, worst):

@@ -12,8 +12,9 @@
 // a row block on the lanes, broadcasts B and C over the channels and sums
 // over the states with constant 0/1 matrix products, and cuts wide channel
 // counts into chunks on a second grid axis. None of that is carried over:
-// here one thread owns one (window, channel) and its N = 8 states in
-// registers, and the states are summed in registers.
+// here one thread owns one (window, channel) and its NP = 8 or 16 padded
+// states in registers (the states n >= N zero), and the states are summed in
+// registers.
 //
 // What bounds it on the H100: device memory. It reads u and delta and writes
 // y, 12 bytes per (token, channel), and reads B and C, 64 bytes per token,
@@ -31,63 +32,65 @@ namespace lcbi {
 
 constexpr int kWinMaxGroup = 128;   // channels of a block at most
 constexpr int kWinFwdThreads = 256; // threads of a block at most
-constexpr int kWinMaxTile = 8;      // windows of a block at most
+constexpr int kWinStage = 64;       // windows x padded states a block stages at most
 
 // Geometry of a call: the channels split into `groups` groups of `dg`
 // channels; a block covers `wpb` windows of one group, dg threads each.
 struct WinFwd {
-  int BW, L, D, groups, dg, wpb;
+  int BW, L, D, N, groups, dg, wpb;
 };
 
 inline bool win_fwd_geom(int BW, int L, int D, int N, WinFwd* g) {
-  if (BW < 1 || L < 1 || L > kScanSeg || D < 1 || N != kScanN || N * D > 8192) return false;
+  if (BW < 1 || L < 1 || L > kScanSeg || D < 1 || N < 1 || N > kScanMaxState || N * D > 8192)
+    return false;
   if ((long long)BW * L * D >= (1LL << 31)) return false;
   g->BW = BW;
   g->L = L;
   g->D = D;
+  g->N = N;
   g->groups = (D + kWinMaxGroup - 1) / kWinMaxGroup;
   g->dg = (D + g->groups - 1) / g->groups;
   g->wpb = kWinFwdThreads / g->dg;
-  if (g->wpb > kWinMaxTile) g->wpb = kWinMaxTile;
+  const int tile = kWinStage / scan_np(N);
+  if (g->wpb > tile) g->wpb = tile;
   if (g->wpb < 1) g->wpb = 1;
   return true;
 }
 
-template <bool SOFTPLUS>
+template <int NP, bool SOFTPLUS>
 __global__ void __launch_bounds__(kWinFwdThreads)
 window_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__ delta,
                        const float* __restrict__ at, const float* __restrict__ Bm,
                        const float* __restrict__ Cm, float* __restrict__ y, WinFwd g) {
-  __shared__ float sB[kWinMaxTile * kScanSeg * kScanN], sC[kWinMaxTile * kScanSeg * kScanN];
-  const int LN = g.L * kScanN;
+  __shared__ float sB[kWinStage * kScanSeg], sC[kWinStage * kScanSeg];
+  const int N = g.N, LP = g.L * NP;
   const int w0 = blockIdx.x * g.wpb;
   const int nw = min(g.wpb, g.BW - w0);
-  for (int i = threadIdx.x; i < nw * LN; i += blockDim.x) {
-    sB[i] = Bm[(size_t)w0 * LN + i];
-    sC[i] = Cm[(size_t)w0 * LN + i];
+  for (int i = threadIdx.x; i < nw * LP; i += blockDim.x) {
+    const int q = i / NP, n = i % NP;
+    const size_t src = ((size_t)w0 * g.L + q) * N + n;
+    sB[i] = n < N ? Bm[src] : 0.f;
+    sC[i] = n < N ? Cm[src] : 0.f;
   }
   __syncthreads();
   const int wl = threadIdx.x / g.dg, c = threadIdx.x % g.dg;
   const int d = blockIdx.y * g.dg + c;
   if (wl >= nw || d >= g.D) return;
   const int D = g.D;
-  float a2[kScanN], h[kScanN];
+  float a2[NP], h[NP];
+  load_a2<NP>(a2, at, d, D, N);
 #pragma unroll
-  for (int n = 0; n < kScanN; ++n) {
-    a2[n] = at[n * D + d] * kLog2e;
-    h[n] = 0.f;
-  }
-  const float* sb = sB + wl * LN;
-  const float* sc = sC + wl * LN;
+  for (int n = 0; n < NP; ++n) h[n] = 0.f;
+  const float* sb = sB + wl * LP;
+  const float* sc = sC + wl * LP;
   const size_t base = (size_t)(w0 + wl) * g.L * D + d;
   for (int t = 0; t < g.L; ++t) {
     const size_t o = base + (size_t)t * D;
-    const float raw = delta[o];
-    const float dt = SOFTPLUS ? scan_softplus(raw) : raw;
-    scan_step(h, a2, dt, dt * u[o], sb + t * kScanN);
+    const float dt = scan_dt<SOFTPLUS>(delta[o]);
+    scan_step<NP>(h, a2, dt, dt * u[o], sb + t * NP);
     float acc = 0.f;
 #pragma unroll
-    for (int n = 0; n < kScanN; ++n) acc = fmaf(sc[t * kScanN + n], h[n], acc);
+    for (int n = 0; n < NP; ++n) acc = fmaf(sc[t * NP + n], h[n], acc);
     y[o] = acc;
   }
 }
@@ -95,8 +98,8 @@ window_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__ de
 }  // namespace lcbi
 
 // u, delta, y: (BW, L, D); at: (N, D); B, C: (BW, L, N); all fp32,
-// contiguous. N must be 8, L at most 64 and N D at most 8192; softplus != 0
-// applies softplus to delta. Returns cudaGetLastError() of the launch (or
+// contiguous. N from 1 to 16, L at most 64 and N D at most 8192; softplus !=
+// 0 applies softplus to delta. Returns cudaGetLastError() of the launch (or
 // cudaErrorInvalidValue for a shape it does not take).
 extern "C" int lcbi_window_scan_fwd(const void* u, const void* delta, const void* at,
                                     const void* B, const void* C, void* y, int BW, int L, int D,
@@ -107,13 +110,11 @@ extern "C" int lcbi_window_scan_fwd(const void* u, const void* delta, const void
   const dim3 grid((BW + g.wpb - 1) / g.wpb, g.groups);
   const int threads = g.wpb * g.dg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float *uf = static_cast<const float*>(u), *df = static_cast<const float*>(delta),
-              *af = static_cast<const float*>(at), *bf = static_cast<const float*>(B),
-              *cf = static_cast<const float*>(C);
-  float* yf = static_cast<float*>(y);
-  if (softplus)
-    lcbi::window_scan_fwd_kernel<true><<<grid, threads, 0, s>>>(uf, df, af, bf, cf, yf, g);
-  else
-    lcbi::window_scan_fwd_kernel<false><<<grid, threads, 0, s>>>(uf, df, af, bf, cf, yf, g);
-  return (int)cudaGetLastError();
+  return lcbi::with_np_softplus(N, softplus != 0, [&](auto np, auto sp) {
+    lcbi::window_scan_fwd_kernel<decltype(np)::value, decltype(sp)::value>
+        <<<grid, threads, 0, s>>>(static_cast<const float*>(u), static_cast<const float*>(delta),
+                                  static_cast<const float*>(at), static_cast<const float*>(B),
+                                  static_cast<const float*>(C), static_cast<float*>(y), g);
+    return (int)cudaGetLastError();
+  });
 }

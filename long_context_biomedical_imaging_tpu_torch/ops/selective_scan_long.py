@@ -35,8 +35,10 @@ Precision: everything is fp32 (u, delta, B and C are cast at the boundary,
 as the JAX package casts them); the kernels compute exp(delta A) as
 exp2(delta A log2 e) and softplus as max(v, 0) + log1p(exp(-|v|)) (JAX's
 ``logaddexp(v, 0)``), the plain versions ``torch.exp`` and ``F.softplus``:
-both agree within fp32 round-off. The kernels take d_state 8 only, the
-MambaVisionMixer's (every model of the repo builds it so).
+both agree within fp32 round-off. delta goes through softplus unless the
+caller passes ``delta_softplus=False``, as in the JAX package. The kernels
+take any d_state from 1 to LONG_SCAN_STATE (16; the MambaVisionMixer's is
+8) and refuse more; the plain versions take any.
 """
 
 from __future__ import annotations
@@ -52,17 +54,17 @@ from .selective_scan import affine_scan, selective_scan_chunked
 SEG = 64                     # tokens per segment row (the TPU kernel's)
 LONG_SCAN_MIN_LEN = 2048     # the gate of the JAX package (long_scan_supported)
 LONG_SCAN_MAX_ND = 8192
-LONG_SCAN_STATE = 8          # the kernels' d_state
+LONG_SCAN_STATE = 16         # the kernels' largest d_state
 
 LONG_SCAN_FWD = CudaKernel(
     "selective_scan_long.cu", "lcbi_long_scan_fwd",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 LONG_SCAN_CARRY_BWD = CudaKernel(
     "selective_scan_long_carry_bwd.cu", "lcbi_long_scan_carry_bwd",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 LONG_SCAN_BWD = CudaKernel(
     "selective_scan_long_bwd.cu", "lcbi_long_scan_bwd",
-    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def long_scan_supported(length: int, n: int, d: int) -> bool:
@@ -119,7 +121,11 @@ def _stitch_bwd(dh0, ap, b, nseg):
 # The three passes: plain versions (CPU) and kernels (CUDA)
 # ---------------------------------------------------------------------------
 
-def _scan_rows_plain(u, delta, at, B, C, h0, emit_y):
+def _delta(d, softplus):
+    return F.softplus(d) if softplus else d
+
+
+def _scan_rows_plain(u, delta, at, B, C, h0, emit_y, softplus=True):
     """One pass over every segment row from the carries h0 (rows, N, D; None
     for zeros): y (b, L, D), None without ``emit_y``; each row's final state
     and decay product (rows, N, D), all fp32. Steps past L are the identity."""
@@ -133,7 +139,7 @@ def _scan_rows_plain(u, delta, at, B, C, h0, emit_y):
     p = torch.ones_like(h)
     ys = []
     for t in range(SEG):
-        d = F.softplus(ds[:, t])
+        d = _delta(ds[:, t], softplus)
         a = torch.where(valid[:, t, None, None], torch.exp(d[:, None, :] * at), 1.0)
         h = a * h + (d * us[:, t])[:, None, :] * bs[:, t, :, None]
         p = p * a
@@ -142,17 +148,17 @@ def _scan_rows_plain(u, delta, at, B, C, h0, emit_y):
     return (_unsegment(torch.stack(ys, dim=1), b, length) if emit_y else None), h, p
 
 
-def long_scan_fwd_plain(u, delta, at, B, C, h0=None, emit_y=True):
+def long_scan_fwd_plain(u, delta, at, B, C, h0=None, emit_y=True, softplus=True):
     """One pass over every segment row from the carries h0 (rows, N, D; None
     for zeros): with ``emit_y`` (y (b, L, D), None, None), else (None, hl,
     ap), each row's final state and decay product (rows, N, D); all fp32.
-    u, delta (b, L, D), delta before softplus; at = A^T (N, D); B, C (b, L,
-    N). Steps past L are the identity."""
-    y, hl, ap = _scan_rows_plain(u, delta, at, B, C, h0, emit_y)
+    u, delta (b, L, D), delta before softplus (with ``softplus``); at = A^T
+    (N, D); B, C (b, L, N). Steps past L are the identity."""
+    y, hl, ap = _scan_rows_plain(u, delta, at, B, C, h0, emit_y, softplus)
     return (y, None, None) if emit_y else (None, hl, ap)
 
 
-def long_scan_carry_bwd_plain(delta, at, C, g):
+def long_scan_carry_bwd_plain(delta, at, C, g, softplus=True):
     """Each row's dh at its start from a zero tail (rows, N, D): the reverse
     chain dh_{t-1} = a_t (dh_t + C_t g_t) over the row."""
     ds, _ = _segment(delta)
@@ -160,27 +166,28 @@ def long_scan_carry_bwd_plain(delta, at, C, g):
     gs, _ = _segment(g)
     dh = torch.zeros(ds.shape[0], *at.shape, device=delta.device)
     for t in reversed(range(SEG)):
-        a = torch.exp(F.softplus(ds[:, t])[:, None, :] * at)
+        a = torch.exp(_delta(ds[:, t], softplus)[:, None, :] * at)
         dh = a * (dh + cs[:, t, :, None] * gs[:, t, None, :])
     return dh
 
 
-def long_scan_bwd_plain(u, delta, at, B, C, g, h0, dht):
+def long_scan_bwd_plain(u, delta, at, B, C, g, h0, dht, softplus=True):
     """(du, ddelta, dat, dB, dC) of the seeded pass for the cotangents g of y
     and dht of each row's final state: the VJP of the pass's (y, hl)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (u, delta, at, B, C)]
-        y, hl, _ = _scan_rows_plain(*leaves, h0, True)
+        y, hl, _ = _scan_rows_plain(*leaves, h0, True, softplus)
         return torch.autograd.grad((y, hl), leaves, (g, dht))
 
 
 def _check(at, seqs, states, carries=()):
-    """Raise unless the kernels take these operands: at (8, D); seqs
-    {name: (b, L, D)}, states {name: (b, L, 8)}, carries {name: (rows, 8,
-    D)}; all contiguous fp32 tensors on one CUDA device. Returns (b, L, D)."""
+    """Raise unless the kernels take these operands: at (N, D), N from 1 to
+    LONG_SCAN_STATE; seqs {name: (b, L, D)}, states {name: (b, L, N)},
+    carries {name: (rows, N, D)}; all contiguous fp32 tensors on one CUDA
+    device. Returns (b, L, D)."""
     n = at.shape[0]
-    if n != LONG_SCAN_STATE:
-        raise ValueError(f"the long-scan kernels take d_state {LONG_SCAN_STATE}, got {n}")
+    if not 1 <= n <= LONG_SCAN_STATE:
+        raise ValueError(f"the long-scan kernels take d_state <= {LONG_SCAN_STATE}, got {n}")
     first = next(iter(seqs.values()))
     if not first.is_cuda:
         raise ValueError(f"the long-scan kernels take CUDA tensors, got {first.device}")
@@ -197,49 +204,59 @@ def _check(at, seqs, states, carries=()):
     return b, length, d
 
 
-def _carries(u, d):
-    return torch.empty(u.shape[0] * -(-u.shape[1] // SEG), LONG_SCAN_STATE, d,
-                       device=u.device, dtype=torch.float32)
+def _carries(u, n, d):
+    return torch.empty(u.shape[0] * -(-u.shape[1] // SEG), n, d, device=u.device,
+                       dtype=torch.float32)
 
 
-def long_scan_fwd(u, delta, at, B, C, h0=None, emit_y=True):
+def long_scan_fwd(u, delta, at, B, C, h0=None, emit_y=True, softplus=True):
     """The K7 forward kernel (``csrc/selective_scan_long.cu``):
     :func:`long_scan_fwd_plain` on CUDA tensors."""
     b, length, d = _check(at, {"u": u, "delta": delta}, {"B": B, "C": C},
                           {} if h0 is None else {"h0": h0})
+    n = at.shape[0]
     if emit_y:
         y, hl, ap = torch.empty_like(u), None, None
     else:
-        y, hl, ap = None, _carries(u, d), _carries(u, d)
+        y, hl, ap = None, _carries(u, n, d), _carries(u, n, d)
     LONG_SCAN_FWD(ptr(u), ptr(delta), ptr(at), ptr(B), ptr(C), ptr(h0), ptr(y), ptr(hl), ptr(ap),
-                  b, length, d, LONG_SCAN_STATE, stream_handle(u.device))
+                  b, length, d, n, int(softplus), stream_handle(u.device))
     return y, hl, ap
 
 
-def long_scan_carry_bwd(delta, at, C, g):
+def long_scan_carry_bwd(delta, at, C, g, softplus=True):
     """The K7 carry-backward kernel (``csrc/selective_scan_long_carry_bwd.cu``):
     :func:`long_scan_carry_bwd_plain` on CUDA tensors."""
     b, length, d = _check(at, {"delta": delta, "g": g}, {"C": C})
-    dh0 = _carries(delta, d)
-    LONG_SCAN_CARRY_BWD(ptr(delta), ptr(at), ptr(C), ptr(g), ptr(dh0), b, length, d,
-                        LONG_SCAN_STATE, stream_handle(delta.device))
+    n = at.shape[0]
+    dh0 = _carries(delta, n, d)
+    LONG_SCAN_CARRY_BWD(ptr(delta), ptr(at), ptr(C), ptr(g), ptr(dh0), b, length, d, n,
+                        int(softplus), stream_handle(delta.device))
     return dh0
 
 
-def long_scan_bwd(u, delta, at, B, C, g, h0, dht):
+def long_scan_bwd(u, delta, at, B, C, g, h0, dht, softplus=True):
     """The K7 backward kernel (``csrc/selective_scan_long_bwd.cu``):
     :func:`long_scan_bwd_plain` on CUDA tensors. Its blocks sum dA over their
-    rows into their own fp32 slots, summed in a fixed order at the end."""
+    rows into their own fp32 slots, and dB, dC over a row's channel tiles
+    into per-tile partials, each summed in a fixed order at the end."""
     b, length, d = _check(at, {"u": u, "delta": delta, "g": g}, {"B": B, "C": C},
                           {"h0": h0, "dht": dht})
+    n = at.shape[0]
     du, dd = torch.empty_like(u), torch.empty_like(u)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
-    n_slots = slot_count(LONG_SCAN_STATE * d, u.device)
-    slots = torch.empty(n_slots, LONG_SCAN_STATE * d, device=u.device, dtype=torch.float32)
+    n_slots = slot_count(n * d, u.device)
+    slots = torch.empty(n_slots, n * d, device=u.device, dtype=torch.float32)
+    n_parts = LONG_SCAN_BWD.query("lcbi_long_scan_bwd_parts", [ctypes.c_int] * 4,
+                                  ctypes.c_longlong, b, length, d, n)
+    if n_parts < 0:
+        raise ValueError(f"the long-scan backward kernel cannot take (b, L, D, N) = "
+                         f"{(b, length, d, n)}")
+    parts = torch.empty(n_parts, device=u.device, dtype=torch.float32) if n_parts else None
     dat = torch.empty_like(at)
     LONG_SCAN_BWD(ptr(u), ptr(delta), ptr(at), ptr(B), ptr(C), ptr(g), ptr(h0), ptr(dht),
-                  ptr(du), ptr(dd), ptr(dB), ptr(dC), ptr(slots), ptr(dat), b, length, d,
-                  LONG_SCAN_STATE, n_slots, stream_handle(u.device))
+                  ptr(du), ptr(dd), ptr(dB), ptr(dC), ptr(slots), ptr(parts), ptr(dat), b, length,
+                  d, n, int(softplus), n_slots, stream_handle(u.device))
     return du, dd, dat, dB, dC
 
 
@@ -252,19 +269,21 @@ def _passes(u):
 
 
 class _LongScan(torch.autograd.Function):
-    """y of the scan (no D skip; delta before softplus, its bias added) on
-    fp32 (b, L, D) operands. Forward: the zero-carry pass, the stitch, the
-    seeded pass (JAX ``_fwd_impl``). Backward: the carry pass, the reverse
-    stitch, the backward pass (JAX ``_long_bwd_rule``)."""
+    """y of the scan (no D skip; delta with its bias added, before softplus
+    with ``softplus``) on fp32 (b, L, D) operands. Forward: the zero-carry
+    pass, the stitch, the seeded pass (JAX ``_fwd_impl``). Backward: the
+    carry pass, the reverse stitch, the backward pass (JAX
+    ``_long_bwd_rule``)."""
 
     @staticmethod
-    def forward(ctx, u, delta, at, B, C):
+    def forward(ctx, u, delta, at, B, C, softplus):
         fwd, _, _ = _passes(u)
         b, length, _ = u.shape
         nseg = -(-length // SEG)
-        _, hl, ap = fwd(u, delta, at, B, C, None, emit_y=False)
+        _, hl, ap = fwd(u, delta, at, B, C, None, emit_y=False, softplus=softplus)
         hstart = _stitch_fwd(hl, ap, b, nseg)
-        y, _, _ = fwd(u, delta, at, B, C, hstart)
+        y, _, _ = fwd(u, delta, at, B, C, hstart, softplus=softplus)
+        ctx.softplus = softplus
         ctx.save_for_backward(u, delta, at, B, C, hstart, ap)
         return y
 
@@ -274,9 +293,9 @@ class _LongScan(torch.autograd.Function):
         _, carry_bwd, bwd = _passes(u)
         g = g.float().contiguous()
         b, length, _ = u.shape
-        dh0 = carry_bwd(delta, at, C, g)
+        dh0 = carry_bwd(delta, at, C, g, softplus=ctx.softplus)
         dht = _stitch_bwd(dh0, ap, b, -(-length // SEG))
-        return bwd(u, delta, at, B, C, g, hstart, dht)
+        return (*bwd(u, delta, at, B, C, g, hstart, dht, softplus=ctx.softplus), None)
 
 
 def selective_scan_long(u, delta, A, B, C, D=None, delta_bias=None, delta_softplus=True):
@@ -285,8 +304,6 @@ def selective_scan_long(u, delta, A, B, C, D=None, delta_bias=None, delta_softpl
     (b, L, d) in u.dtype, differentiable in every argument. delta_bias and
     the D skip stay outside the autograd Function (as in the JAX package's
     ``_long_core``), so autograd carries their gradients."""
-    if not delta_softplus:
-        raise ValueError("the long-scan kernels apply softplus to delta")
     if u.device.type not in ("cuda", "cpu"):
         raise NotImplementedError(f"no long scan for device {u.device}")
     u32 = u.float().contiguous()
@@ -294,7 +311,7 @@ def selective_scan_long(u, delta, A, B, C, D=None, delta_bias=None, delta_softpl
     if delta_bias is not None:
         d32 = d32 + delta_bias.float()
     y = _LongScan.apply(u32, d32.contiguous(), A.float().t().contiguous(),
-                        B.float().contiguous(), C.float().contiguous())
+                        B.float().contiguous(), C.float().contiguous(), bool(delta_softplus))
     if D is not None:
         y = y + u32 * D.float()
     return y.to(u.dtype)

@@ -23,8 +23,9 @@ and its VJP by autograd.
 Precision: everything inside is fp32; the kernels compute exp(delta A) as
 exp2(delta A log2 e) and softplus as JAX's logaddexp(v, 0), the plain
 version ``torch.exp`` and ``F.softplus`` (exact to 2e-9 past its threshold
-of 20): both agree within fp32 round-off. The kernels take d_state 8 only,
-the MambaVisionMixer's (every model of the repo builds it so).
+of 20): both agree within fp32 round-off. The kernels take any d_state from 1
+to WINDOW_SCAN_STATE (16; the MambaVisionMixer's is 8) and refuse more; the
+plain versions take any.
 """
 
 from __future__ import annotations
@@ -40,14 +41,14 @@ from .selective_scan import selective_scan_cm
 WINDOW_SCAN_MAX_LEN = 64
 WINDOW_SCAN_MAX_ND = 8192
 WINDOW_SCAN_MIN_BATCH = 2048
-WINDOW_SCAN_STATE = 8        # the kernels' d_state
+WINDOW_SCAN_STATE = 16       # the kernels' largest d_state
 
 WINDOW_SCAN_FWD = CudaKernel(
     "selective_scan_window.cu", "lcbi_window_scan_fwd",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 WINDOW_SCAN_BWD = CudaKernel(
     "selective_scan_window_bwd.cu", "lcbi_window_scan_bwd",
-    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def window_scan_supported(length: int, n: int, d: int, batch: int | None = None) -> bool:
@@ -88,15 +89,16 @@ def window_scan_bwd_plain(u, delta, at, B, C, g, softplus=True):
 
 
 def _check(at, seqs, states):
-    """Raise unless the kernels take these operands: at (8, D); seqs
-    {name: (BW, L, D)}, states {name: (BW, L, 8)}; all contiguous fp32
-    tensors on one CUDA device. Returns (BW, L, D)."""
+    """Raise unless the kernels take these operands: at (N, D), N from 1 to
+    WINDOW_SCAN_STATE; seqs {name: (BW, L, D)}, states {name: (BW, L, N)};
+    all contiguous fp32 tensors on one CUDA device. Returns (BW, L, D)."""
     first = next(iter(seqs.values()))
     if not first.is_cuda:
         raise ValueError(f"the windowed-scan kernels take CUDA tensors, got {first.device}")
     n = at.shape[0]
-    if n != WINDOW_SCAN_STATE:
-        raise ValueError(f"the windowed-scan kernels take d_state {WINDOW_SCAN_STATE}, got {n}")
+    if not 1 <= n <= WINDOW_SCAN_STATE:
+        raise ValueError(f"the windowed-scan kernels take d_state <= {WINDOW_SCAN_STATE}, "
+                         f"got {n}")
     if first.dim() != 3:
         raise ValueError(f"the sequences must be (BW, L, D), got {tuple(first.shape)}")
     bw, length, d = first.shape
@@ -117,28 +119,32 @@ def window_scan_fwd(u, delta, at, B, C, softplus=True):
     bw, length, d = _check(at, {"u": u, "delta": delta}, {"B": B, "C": C})
     y = torch.empty_like(u)
     WINDOW_SCAN_FWD(ptr(u), ptr(delta), ptr(at), ptr(B), ptr(C), ptr(y), bw, length, d,
-                    WINDOW_SCAN_STATE, int(softplus), stream_handle(u.device))
+                    at.shape[0], int(softplus), stream_handle(u.device))
     return y
 
 
 def window_scan_bwd(u, delta, at, B, C, g, softplus=True):
     """The K9 backward kernel (``csrc/selective_scan_window_bwd.cu``):
     :func:`window_scan_bwd_plain` on CUDA tensors. Its blocks sum dA over
-    their windows into their own fp32 slots, summed in a fixed order at the
+    their windows into their own fp32 slots, and dB, dC over a window's
+    channel tiles into per-tile partials, each summed in a fixed order at the
     end."""
     bw, length, d = _check(at, {"u": u, "delta": delta, "g": g}, {"B": B, "C": C})
-    shape = (bw, length, d, WINDOW_SCAN_STATE, int(softplus))
-    n_slots = WINDOW_SCAN_BWD.query("lcbi_window_scan_bwd_slots", [ctypes.c_int] * len(shape),
-                                    ctypes.c_longlong, *shape)
-    if n_slots < 1:
-        raise ValueError(f"the windowed-scan backward kernel cannot take (BW, L, D) = "
-                         f"{(bw, length, d)}")
+    n = at.shape[0]
+    n_slots = WINDOW_SCAN_BWD.query("lcbi_window_scan_bwd_slots", [ctypes.c_int] * 5,
+                                    ctypes.c_longlong, bw, length, d, n, int(softplus))
+    n_parts = WINDOW_SCAN_BWD.query("lcbi_window_scan_bwd_parts", [ctypes.c_int] * 4,
+                                    ctypes.c_longlong, bw, length, d, n)
+    if n_slots < 1 or n_parts < 0:
+        raise ValueError(f"the windowed-scan backward kernel cannot take (BW, L, D, N) = "
+                         f"{(bw, length, d, n)}")
     du, dd = torch.empty_like(u), torch.empty_like(u)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
-    slots = torch.empty(n_slots, WINDOW_SCAN_STATE * d, device=u.device, dtype=torch.float32)
+    slots = torch.empty(n_slots, n * d, device=u.device, dtype=torch.float32)
+    parts = torch.empty(n_parts, device=u.device, dtype=torch.float32) if n_parts else None
     dat = torch.empty_like(at)
     WINDOW_SCAN_BWD(ptr(u), ptr(delta), ptr(at), ptr(B), ptr(C), ptr(g), ptr(du), ptr(dd),
-                    ptr(dB), ptr(dC), ptr(slots), ptr(dat), bw, length, d, WINDOW_SCAN_STATE,
+                    ptr(dB), ptr(dC), ptr(slots), ptr(parts), ptr(dat), bw, length, d, n,
                     int(softplus), n_slots, stream_handle(u.device))
     return du, dd, dat, dB, dC
 

@@ -18,14 +18,19 @@ bf16 times with the folded LN, times the stage's depth); then its K1 phase
 each ptx stage shape and per ptx step, and K8's whole-window forward and
 backward per call at each ptx_attn stage shape and per ptx_attn step
 (phase 33's ``fwd`` and ``bwd``: the projection streams, the attention
-core and the out projection or dx, without the weight gradients).
+core and the out projection or dx, without the weight gradients); then its
+K7 phase (29) and its K9 phase (37), from which it prints K7's forward
+(both calls), carry backward and backward per call at the vit65k_mamba
+shape and K9's forward and backward per call at micro_w7's stages, and K7's
+backward per vit65k_mamba step and K9's backward per micro_w7 step.
 Configurations named after the checkout limit the turns to those
 configurations' train steps (to read a step's spread again); the names
-``k3`` and ``k4`` run K3's phase 13 or K4's phase 17 alone. Kernels build at their first launch into each tree's own
-``build/kernels/``. Every line a turn prints is echoed with the turn's
-label; a summary of the step times, the per-step kernel times and the
-profiled device time per step of the kernels named in ``KERNELS`` ends the
-output. Needs one card.
+``k3``, ``k4``, ``k7`` and ``k9`` run K3's phase 13, K4's phase 17, K7's
+phase 29 or K9's phase 37 alone. Kernels build at their first launch into
+each tree's own ``build/kernels/``. Every line a turn prints is echoed with
+the turn's label; a summary of the step times, the per-step kernel times
+and the profiled device time of each step and of the kernels named in
+``KERNELS`` ends the output. Needs one card.
 """
 
 from __future__ import annotations
@@ -68,6 +73,12 @@ STEP_PHASES = {
           "cs.phase_k3(torch, hyena_window, dev)",
     "k4": "from long_context_biomedical_imaging_tpu_torch.ops import mamba_window\n"
           "cs.phase_k4(torch, mamba_window, dev)",
+    # K7's kernel phase alone (the op at three shapes, each kernel against its
+    # pass, times at the vit65k_mamba shape), K9's (micro_w7's stages)
+    "k7": "from long_context_biomedical_imaging_tpu_torch.ops import selective_scan_long\n"
+          "cs.phase_k7(torch, selective_scan_long, dev)",
+    "k9": "from long_context_biomedical_imaging_tpu_torch.ops import selective_scan_window\n"
+          "cs.phase_k9(torch, selective_scan_window, dev)",
 }
 KERNEL_PHASES = r"""
 from long_context_biomedical_imaging_tpu_torch.ops import hyena_window, mamba_window, window_attention
@@ -95,14 +106,30 @@ print("per-call kernels (ms, bf16, C = 96 .. 768): K1 fwd "
 print(f"per-step kernels: K1 fwd {k1_step:.3f} ms per ptx step; K8 whole-window fwd "
       f"{k8_step:.3f} ms per ptx_attn step; K8 whole-window bwd {k8b_step:.3f} ms per "
       f"ptx_attn step", flush=True)
+from long_context_biomedical_imaging_tpu_torch.ops import selective_scan_long, selective_scan_window
+k7 = cs.phase_k7(torch, selective_scan_long, dev)
+k9 = cs.phase_k9(torch, selective_scan_window, dev)
+k9_depths = [depth for *_, depth in cs.micro_k9_shapes(cs.BATCH)]
+print(f"per-call kernels (ms, fp32 operands): K7 fwd (both calls) {k7['fwd'][1]:.3f}, K7 carry "
+      f"bwd {k7['carry'][1]:.3f}, K7 bwd {k7['bwd'][1]:.3f}; K9 fwd (d = 48, 96) "
+      + ", ".join(f"{r[1]:.3f}" for r in k9["fwd"]) + "; K9 bwd (d = 48, 96) "
+      + ", ".join(f"{r[1]:.3f}" for r in k9["bwd"]), flush=True)
+print(f"per-step kernels: K7 bwd {cs.VIT_LAYERS * k7['bwd'][1]:.3f} ms per vit65k_mamba step; "
+      f"K9 bwd {sum(d * r[1] for d, r in zip(k9_depths, k9['bwd'])):.3f} ms per micro_w7 step",
+      flush=True)
 """
 TAIL = 'print(f"turn seconds {time.time() - t0:.1f}", flush=True)\n'
+
+
+# the entries of STEP_PHASES that are kernel phases, not configurations: a
+# default turn runs them once, in KERNEL_PHASES
+KERNEL_ONLY = ("k3", "k4", "k7", "k9")
 
 
 def turn_code(configs=None) -> str:
     """A turn's program: every configuration's train step and the kernel
     phases, or (configs given) only those configurations' train steps."""
-    names = list(STEP_PHASES) if not configs else configs
+    names = [n for n in STEP_PHASES if n not in KERNEL_ONLY] if not configs else configs
     return (HEAD + "".join(STEP_PHASES[n] + "\n" for n in names)
             + ("" if configs else KERNEL_PHASES) + TAIL)
 
@@ -114,6 +141,8 @@ PER_STEP = re.compile(r"per-step kernels: K1 fwd ([0-9.]+) ms per ptx step; K8 w
                       r"([0-9.]+) ms per ptx_attn step; K8 whole-window bwd ([0-9.]+) ms")
 PER_STEP_34 = re.compile(r"per-step kernels: K3 fwd ([0-9.]+) ms per emb step; K3 bwd ([0-9.]+); "
                          r"K3 dM ([0-9.]+); K4 fwd ([0-9.]+) ms per vessel step; K4 bwd ([0-9.]+)")
+PER_STEP_79 = re.compile(r"per-step kernels: K7 bwd ([0-9.]+) ms per vit65k_mamba step; K9 bwd "
+                         r"([0-9.]+) ms per micro_w7 step")
 # kernel names (substrings) whose device time per step the summary reports:
 # K3's forward (its three launches, k3_rows_in, k3_toeplitz and k3_rows_out,
 # the older tree's and this tree's by the same names; k3_toeplitz also
@@ -122,11 +151,16 @@ PER_STEP_34 = re.compile(r"per-step kernels: K3 fwd ([0-9.]+) ms per emb step; K
 # general kernel keeps the older name), K1's forward (hyena_fwd_mma_kernel)
 # and backward, K2's forward, K8's whole-window forward
 # (wattn_whole_fwd_kernel and the projections' proj_rows_kernel, which the
-# backward shares) and backward core
+# backward shares) and backward core, K7's and K9's backwards (the older
+# tree's long_scan_bwd_kernel and window_scan_bwd_kernel, this tree's
+# scan_bwd_lanes_kernel with its tiles' dB | dC sum scan_bc_tiles_kernel) and
+# the other K7 and K9 kernels
 KERNELS = ("k3_rows_in", "k3_toeplitz_fwd", "k3_toeplitz_mma", "k3_rows_out",
            "mamba_window_fwd_kernel", "mamba_fwd_mma_kernel", "hyena_fwd_mma_kernel",
            "wattn_whole_fwd_kernel", "proj_rows_kernel", "wattn_whole_bwd_kernel",
-           "hyena_window_bwd_kernel", "mlp_fwd_mma_kernel")
+           "hyena_window_bwd_kernel", "mlp_fwd_mma_kernel", "long_scan_bwd_kernel",
+           "window_scan_bwd_kernel", "scan_bwd_lanes_kernel", "scan_bc_tiles_kernel",
+           "long_scan_fwd_kernel", "long_scan_carry_bwd_kernel", "window_scan_fwd_kernel")
 NAMES = {"12": "ptx", "16": "emb", "20": "vessel", "24": "vit16k", "28": "vit65k_hyena",
          "32": "vit65k_mamba", "36": "ptx_attn", "40": "micro_w7", "45": "emb_attn"}
 
@@ -148,6 +182,10 @@ def run_turn(label: str, root: str, env: dict, code: str) -> dict:
             steps.update({"K1 fwd/ptx step": float(m.group(1)),
                           "K8 whole-window fwd/ptx_attn step": float(m.group(2)),
                           "K8 whole-window bwd/ptx_attn step": float(m.group(3))})
+        m = PER_STEP_79.search(line)
+        if m:
+            steps.update({"K7 bwd/vit65k_mamba step": float(m.group(1)),
+                          "K9 bwd/micro_w7 step": float(m.group(2))})
         m = PER_STEP_34.search(line)
         if m:
             steps.update(zip(("K3 fwd/emb step", "K3 bwd/emb step", "K3 dM/emb step",
@@ -158,6 +196,7 @@ def run_turn(label: str, root: str, env: dict, code: str) -> dict:
             steps[m.group(2)] = float(m.group(3))
         m = PROFILE.search(line)
         if m and "eval" not in m.group(2) and m.group(1) in NAMES:
+            steps[f"{NAMES[m.group(1)]} device"] = float(m.group(3))
             per = kernels.setdefault(NAMES[m.group(1)], {})
             for part in m.group(4).split("; "):
                 km = re.match(r"(.*?) ([0-9.]+) ms \(", part)

@@ -19,7 +19,8 @@ K8 at head dims 16 and 8 (and 40) on 16- and 512-token windows, and past 64
 (96, 128, 192) on the general path, K5 at head dims 8 to 512. The forwards
 of K1, K3 and K4 take their weights at their true widths (K1 at C = 24, 40,
 48, 100, 768; K3 at 24, 48, 80, 100, 192; K4 at 24, 40, 48, 100, 768 with
-d_state 1 to 16; no padded copy) and K8's forward and backward run every
+d_state 1 to 16; no padded copy), K7's and K9's kernels take d_state 1 to
+16 and a delta without softplus, and K8's forward and backward run every
 whole-window class. Marked ``cuda``;
 without a card every test skips. This file imports neither JAX nor flax,
 so that it runs where only PyTorch is installed:
@@ -1230,16 +1231,20 @@ K7_SHAPES = [(2, 65536, 192), (3, 2113, 40), (1, 4096, 1024)]
 K7_NAMES = ("y", "du", "ddelta", "dA", "dB", "dC", "dD", "ddelta_bias")
 
 
-def _k7_args(gen, shape, dtype, device):
-    """u, delta, A, B, C, D, delta_bias and a cotangent g of one K7 case:
-    A = -(1..8) per channel times exp(0.3 N(0, 1)), as A_log's init plus
-    noise; u, delta and g in dtype, the rest fp32."""
+def _k7_args(gen, shape, dtype, device, n=8, softplus=True):
+    """u, delta, A, B, C, D, delta_bias and a cotangent g of one K7 case with
+    n states: A = -(1..n) per channel times exp(0.3 N(0, 1)), as A_log's init
+    plus noise; u, delta and g in dtype, the rest fp32. Without softplus,
+    delta and its bias are made positive, as softplus would make them (the
+    decays would grow past fp32 otherwise)."""
     b, length, d = shape
-    a = -torch.arange(1, 9.0) * torch.exp(0.3 * torch.randn(d, 8, generator=gen))
+    a = -torch.arange(1, n + 1.0) * torch.exp(0.3 * torch.randn(d, n, generator=gen))
     args = [torch.randn(shape, generator=gen), torch.randn(shape, generator=gen), a,
-            torch.randn(b, length, 8, generator=gen), torch.randn(b, length, 8, generator=gen),
+            torch.randn(b, length, n, generator=gen), torch.randn(b, length, n, generator=gen),
             torch.randn(d, generator=gen), torch.randn(d, generator=gen),
             torch.randn(shape, generator=gen)]
+    if not softplus:
+        args[1], args[6] = torch.nn.functional.softplus(args[1]), args[6].abs()
     return [t.to(device, dtype if i in (0, 1, 3, 4, 7) else torch.float32)
             for i, t in enumerate(args)]
 
@@ -1309,12 +1314,57 @@ def test_long_scan_passes_match_plain(cuda_device, shape):
             assert torch.isfinite(x).all() and err <= 1e-4 * r.abs().max().item(), (i, j, err)
 
 
+# K7 and K9 at other d_states and without softplus: (n, softplus)
+SCAN_STATES = [(1, True), (4, True), (16, True), (8, False), (13, False)]
+
+
+def _long_scan_passes(u, delta, at, bm, cm, g, h0, dht, softplus, kernels):
+    """Each K7 pass (the forward from zero carries and seeded, the carry
+    backward, the backward) through its kernel or its plain version."""
+    fwd, carry, bwd = ((tsl.long_scan_fwd, tsl.long_scan_carry_bwd, tsl.long_scan_bwd) if kernels
+                       else (tsl.long_scan_fwd_plain, tsl.long_scan_carry_bwd_plain,
+                             tsl.long_scan_bwd_plain))
+    return [*fwd(u, delta, at, bm, cm, emit_y=False, softplus=softplus)[1:],
+            fwd(u, delta, at, bm, cm, h0, softplus=softplus)[0],
+            carry(delta, at, cm, g, softplus=softplus),
+            *bwd(u, delta, at, bm, cm, g, h0, dht, softplus=softplus)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,softplus", SCAN_STATES)
+def test_long_scan_kernels_at_states_and_without_softplus(cuda_device, n, softplus):
+    """Each K7 kernel against its pass's plain version at d_state 1, 4, 13
+    and 16 and without softplus, on fp32 inputs at a ragged length with an
+    odd batch (3, 2113, 40), within 1e-4 of each output's max; two launches
+    give the same bits. Then the whole op (selective_scan_long, all seven
+    gradients) against the chunked scan at K7's fp32 tolerances."""
+    shape = (3, 2113, 40)
+    args = _k7_args(torch.Generator().manual_seed(70 + n), shape, torch.float32, cuda_device, n,
+                    softplus)
+    u, delta, a, bm, cm, _, _, g = args
+    at = a.t().contiguous()
+    rows = shape[0] * -(-shape[1] // tsl.SEG)
+    h0 = torch.randn(rows, n, shape[2], device=cuda_device)
+    dht = torch.randn(rows, n, shape[2], device=cuda_device)
+    got = _long_scan_passes(u, delta, at, bm, cm, g, h0, dht, softplus, True)
+    again = _long_scan_passes(u, delta, at, bm, cm, g, h0, dht, softplus, True)
+    ref = _long_scan_passes(u, delta, at, bm, cm, g, h0, dht, softplus, False)
+    torch.cuda.synchronize()
+    for i, (x, y, r) in enumerate(zip(got, again, ref)):
+        assert torch.equal(x, y), i
+        err = (x - r).abs().max().item()
+        assert torch.isfinite(x).all() and err <= 1e-4 * r.abs().max().item(), (i, err)
+    op = _k7_vjp(lambda *t: tsl.selective_scan_long(*t, delta_softplus=softplus), args)
+    plain = _k7_vjp(lambda *t: tsl.selective_scan_long_plain(*t, delta_softplus=softplus), args)
+    _check_k7(op, plain, torch.float32)
+
+
 @pytest.mark.cuda
 def test_long_scan_kernels_are_deterministic_and_refuse(cuda_device):
     """Two launches of each K7 kernel give the same bits (the backward sums
     dB, dC over the channels and dA over the rows in a fixed order); the
-    wrappers refuse a CPU tensor, d_state 4, fp16 and a non-contiguous
-    tensor."""
+    wrappers refuse a CPU tensor, d_state 17 (naming the limit), fp16 and a
+    non-contiguous tensor."""
     u, delta, a, bm, cm, _, _, g = _k7_args(torch.Generator().manual_seed(8), (3, 2113, 40),
                                             torch.float32, cuda_device)
     at = a.t().contiguous()
@@ -1330,11 +1380,12 @@ def test_long_scan_kernels_are_deterministic_and_refuse(cuda_device):
     with pytest.raises(ValueError, match="CUDA"):
         tsl.long_scan_bwd(u.cpu(), delta.cpu(), at.cpu(), bm.cpu(), cm.cpu(), g.cpu(), hl.cpu(),
                           ap.cpu())
-    with pytest.raises(ValueError, match="d_state 8"):
-        tsl.long_scan_fwd(u, delta, at[:4].contiguous(), bm[..., :4].contiguous(),
-                          cm[..., :4].contiguous())
-    with pytest.raises(ValueError, match="d_state 8"):
-        tsl.selective_scan_long(u, delta, a[:, :4], bm[..., :4], cm[..., :4])
+    a17 = torch.cat([a, a, a[:, :1]], dim=1)
+    b17, c17 = (torch.cat([x, x, x[..., :1]], dim=-1) for x in (bm, cm))
+    with pytest.raises(ValueError, match="d_state <= 16"):
+        tsl.long_scan_fwd(u, delta, a17.t().contiguous(), b17, c17)
+    with pytest.raises(ValueError, match="d_state <= 16"):
+        tsl.selective_scan_long(u, delta, a17, b17, c17)
     with pytest.raises(TypeError):
         tsl.long_scan_carry_bwd(delta.half(), at, cm, g)
     with pytest.raises(ValueError, match="contiguous"):
@@ -1705,7 +1756,7 @@ def test_window_scan_passes_match_plain(cuda_device, shape, softplus):
 def test_window_scan_kernels_are_deterministic_and_refuse(cuda_device):
     """Two launches of each K9 kernel give the same bits (the backward sums
     dB, dC over the channels and dA over the windows in a fixed order); the
-    wrappers refuse a CPU tensor, L > 64, N d > 8192 and d_state 4, each
+    wrappers refuse a CPU tensor, L > 64, N d > 8192 and d_state 17, each
     with a ValueError naming the limit."""
     u, delta, a, bm, cm, _, _, g = _k7_args(torch.Generator().manual_seed(10), (3001, 49, 96),
                                             torch.float32, cuda_device)
@@ -1729,9 +1780,38 @@ def test_window_scan_kernels_are_deterministic_and_refuse(cuda_device):
     with pytest.raises(ValueError, match="8192"):
         tsw.window_scan_fwd(wide, wide, torch.zeros(8, 1040, device=cuda_device), bm[:4],
                             cm[:4])
-    with pytest.raises(ValueError, match="d_state 8"):
-        tsw.window_scan_fwd(u, delta, at[:4].contiguous(), bm[..., :4].contiguous(),
-                            cm[..., :4].contiguous())
+    a17 = torch.cat([a, a, a[:, :1]], dim=1)
+    b17, c17 = (torch.cat([x, x, x[..., :1]], dim=-1) for x in (bm, cm))
+    with pytest.raises(ValueError, match="d_state <= 16"):
+        tsw.window_scan_fwd(u, delta, a17.t().contiguous(), b17, c17)
+    with pytest.raises(ValueError, match="d_state <= 16"):
+        tsw.window_scan_bwd(u, delta, a17.t().contiguous(), b17, c17, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,softplus", SCAN_STATES)
+def test_window_scan_kernels_at_states_and_without_softplus(cuda_device, n, softplus):
+    """Each K9 kernel against its plain pass at d_state 1, 4, 13 and 16 and
+    without softplus, on fp32 inputs at 7x7 windows of micro_w7's stage-0
+    width (3001, 49, 48), within 1e-4 of each output's max; two launches
+    give the same bits. Then the whole op (selective_scan_window, all seven
+    gradients) against selective_scan_cm at K7's fp32 tolerances."""
+    args = _k7_args(torch.Generator().manual_seed(90 + n), (3001, 49, 48), torch.float32,
+                    cuda_device, n, softplus)
+    u, delta, a, bm, cm, _, _, g = args
+    at = a.t().contiguous()
+    runs = [[tsw.window_scan_fwd(u, delta, at, bm, cm, softplus),
+             *tsw.window_scan_bwd(u, delta, at, bm, cm, g, softplus)] for _ in range(2)]
+    ref = [tsw.window_scan_fwd_plain(u, delta, at, bm, cm, softplus),
+           *tsw.window_scan_bwd_plain(u, delta, at, bm, cm, g, softplus)]
+    torch.cuda.synchronize()
+    for i, (x, y, r) in enumerate(zip(*runs, ref)):
+        assert torch.equal(x, y), i
+        err = (x - r).abs().max().item()
+        assert torch.isfinite(x).all() and err <= 1e-4 * r.abs().max().item(), (i, err)
+    op = _k7_vjp(lambda *t: tsw.selective_scan_window(*t, delta_softplus=softplus), args)
+    plain = _k7_vjp(lambda *t: tsw.selective_scan_window_plain(*t, delta_softplus=softplus), args)
+    _check_k7(op, plain, torch.float32)
 
 
 @pytest.mark.cuda

@@ -120,15 +120,18 @@ def _jax_vjp(fn, arrs, dtype):
 
 
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bw,length,d", [(24, 4, 8), (16, 9, 12), (10, 49, 16), (6, 64, 130)])
-def test_window_scan_matches_jax(bw, length, d, dname):
+@pytest.mark.parametrize("bw,length,d,n", [
+    pytest.param(24, 4, 8, 8, id="24-4-8"), pytest.param(16, 9, 12, 8, id="16-9-12"),
+    pytest.param(10, 49, 16, 8, id="10-49-16"), pytest.param(6, 64, 130, 8, id="6-64-130"),
+    pytest.param(10, 49, 16, 4, id="10-49-16-n4"), pytest.param(10, 49, 16, 16, id="10-49-16-n16")])
+def test_window_scan_matches_jax(bw, length, d, n, dname):
     """K9's autograd Function on CPU tensors (its plain forward and
     backward; no kernel launches) and its plain version (selective_scan_cm)
     against the JAX package's Pallas selective_scan_pallas in interpret
     mode: y and the gradients of all seven inputs, at L = 4, 9, 49 (the 7x7
-    window) and 64, and d = 130 (two TPU channel chunks), within
-    SCAN_TOL of each output's max|reference|."""
-    arrs = _scan_inputs(length * 1000 + d, bw, length, d)
+    window) and 64, d = 130 (two TPU channel chunks), and d_state 4 and 16
+    besides 8, within SCAN_TOL of each output's max|reference|."""
+    arrs = _scan_inputs(length * 1000 + d + (n if n != 8 else 0), bw, length, d, n)
     tdt = getattr(torch, dname)
     before = (twin.WINDOW_SCAN_FWD.launches, twin.WINDOW_SCAN_BWD.launches)
     got = _torch_vjp(twin.selective_scan_window, arrs, tdt)

@@ -6,8 +6,9 @@ ViTLinear) against the JAX package on the CPU.
 * K7's autograd Function on CPU tensors (the three passes' plain versions
   and the stitches) and ``selective_scan_long_plain`` against the JAX
   package's Pallas ``selective_scan_long`` in interpret mode and its exact
-  ``selective_scan_reference``; the kernels' wrappers refuse CPU tensors and
-  d_state != 8.
+  ``selective_scan_reference``, at d_state 1 to 16 and with
+  delta_softplus=False; the kernels' wrappers refuse CPU tensors and
+  d_state past 16.
 * The Mamba mixer's scan routes by length (``selective_scan_cm``, the
   chunked scan, K7), chosen as the JAX package chooses them.
 * A tiny ViT-mamba (2 layers, hidden 32, 4,096 tokens) from converted JAX
@@ -133,28 +134,41 @@ def test_affine_scan_matches_sequential_recurrence():
             torch.testing.assert_close(pa[:, i], p, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("b,length,d,n", [(2, 136, 12, 4), (3, 200, 160, 8)])
-def test_long_scan_matches_jax(b, length, d, n):
+@pytest.mark.parametrize("b,length,d,n,softplus", [
+    pytest.param(2, 136, 12, 4, True, id="2-136-12-4"),
+    pytest.param(3, 200, 160, 8, True, id="3-200-160-8"),
+    pytest.param(1, 72, 12, 1, True, id="1-72-12-1"),
+    pytest.param(1, 72, 12, 16, True, id="1-72-12-16"),
+    pytest.param(2, 72, 12, 8, False, id="2-72-12-8-no_softplus")])
+def test_long_scan_matches_jax(b, length, d, n, softplus):
     """K7 on CPU tensors (its autograd Function: the zero-carry pass, the
     stitch, the seeded pass, the carry pass, the reverse stitch and the
     backward pass, each pass's plain version; no kernel launches) and
     selective_scan_long_plain (the chunked scan) against the JAX package's
     Pallas selective_scan_long in interpret mode and its exact
     selective_scan_reference: y and every gradient, at ragged lengths (136
-    = 2 x 64 + 8; 200), b = 2 and 3 (the carries stay within their batch
-    row), N = 4 and 8, and n * d = 1280, over one TPU channel chunk."""
+    = 2 x 64 + 8; 200; 72), b = 2 and 3 (the carries stay within their batch
+    row), N = 1, 4, 8 and 16, n * d = 1280, over one TPU channel chunk, and
+    with delta_softplus=False (delta and its bias made positive, as softplus
+    would make them, or the decays grow past fp32)."""
     arrs = _scan_inputs(np.random.default_rng(length), b, length, d, n, channel_minor=True)
+    if not softplus:
+        arrs[1] = np.logaddexp(arrs[1], 0).astype(np.float32)
+        arrs[6] = np.abs(arrs[6])
 
     def reference(u, delta, A, B, C, D, db):
         return selective_scan_reference(
             u.transpose(0, 2, 1), delta.transpose(0, 2, 1), A, B.transpose(0, 2, 1),
-            C.transpose(0, 2, 1), D, db).transpose(0, 2, 1)
+            C.transpose(0, 2, 1), D, db, delta_softplus=softplus).transpose(0, 2, 1)
+
+    def bind(fn):
+        return lambda *a: fn(*a, delta_softplus=softplus)
 
     before = _launches()
-    got = _torch_vjp(tlong.selective_scan_long, arrs)
-    plain = _torch_vjp(tlong.selective_scan_long_plain, arrs)
+    got = _torch_vjp(bind(tlong.selective_scan_long), arrs)
+    plain = _torch_vjp(bind(tlong.selective_scan_long_plain), arrs)
     assert _launches() == before
-    for ref in (_jax_vjp(jlong.selective_scan_long, arrs), _jax_vjp(reference, arrs)):
+    for ref in (_jax_vjp(bind(jlong.selective_scan_long), arrs), _jax_vjp(reference, arrs)):
         _check_scan(got, ref)
         _check_scan(plain, ref)
 
@@ -190,8 +204,10 @@ def test_long_scan_passes_are_the_kernels_contract():
 
 def test_long_scan_kernels_refuse():
     """The kernels' wrappers take CUDA tensors only (ValueError naming CUDA)
-    and d_state 8 only (ValueError naming the limit); the public op refuses
-    delta_softplus=False."""
+    and d_state at most 16 (ValueError naming the limit, before the device
+    is looked at); the public op takes delta_softplus=False on CPU tensors
+    and gives the plain version's y within 1e-5 of its max (parity with JAX
+    in test_long_scan_matches_jax)."""
     u = torch.zeros(1, 2048, 16)
     bc = torch.zeros(1, 2048, 8)
     at = torch.zeros(8, 16)
@@ -199,12 +215,17 @@ def test_long_scan_kernels_refuse():
         tlong.long_scan_fwd(u, u, at, bc, bc)
     with pytest.raises(ValueError, match="CUDA"):
         tlong.long_scan_carry_bwd(u, at, bc, u)
-    with pytest.raises(ValueError, match="d_state 8"):
-        tlong.long_scan_fwd(u, u, torch.zeros(4, 16), bc[..., :4], bc[..., :4])
-    with pytest.raises(ValueError, match="d_state 8"):
-        tlong.long_scan_bwd(u, u, torch.zeros(16, 16), bc, bc, u, None, None)
-    with pytest.raises(ValueError, match="softplus"):
-        tlong.selective_scan_long(u, u, at.t(), bc, bc, delta_softplus=False)
+    bc17 = torch.zeros(1, 2048, 17)
+    with pytest.raises(ValueError, match="d_state <= 16"):
+        tlong.long_scan_fwd(u, u, torch.zeros(17, 16), bc17, bc17)
+    with pytest.raises(ValueError, match="d_state <= 16"):
+        tlong.long_scan_bwd(u, u, torch.zeros(32, 16), bc, bc, u, None, None)
+    gen = torch.Generator().manual_seed(6)
+    x, d = torch.randn(2, 130, 16, generator=gen), torch.rand(2, 130, 16, generator=gen)
+    a, b, c = -torch.rand(16, 8, generator=gen), *torch.randn(2, 2, 130, 8, generator=gen)
+    y = tlong.selective_scan_long(x, d, a, b, c, delta_softplus=False)
+    ref = tlong.selective_scan_long_plain(x, d, a, b, c, delta_softplus=False)
+    torch.testing.assert_close(y, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
 
 
 # ---------------------------------------------------------------------------
