@@ -117,12 +117,13 @@ Phases, each printing one line of numbers (or a few):
      1024x1024 in bf16, steady state, with peak memory and one-step
      profiles;
  29. K7, the long-sequence scan of the vit65k_mamba path: selective_scan_long
-     (the forward kernel twice, the carry and backward kernels, the
-     stitches) against its plain version (the chunked scan) and the
+     (the forward kernel twice, the carry and backward kernels, the stitch
+     kernel each way) against its plain version (the chunked scan) and the
      gradients of all seven inputs at the vit65k_mamba shape (2, 65536, 192),
      a ragged length with an odd batch (3, 2113, 40) and the gate's widest
      channels (1, 4096, 1024), fp32 and bf16, two runs bitwise equal; each
-     kernel against its pass's plain version; at d_state 16 and without
+     kernel against its pass's plain version (the stitch against
+     affine_scan, both directions, two launches bitwise equal); at d_state 16 and without
      softplus, each kernel against its pass twice, bitwise equal, and the op
      against the chunked scan; the refusals (a CPU tensor, d_state 17); then
      the times of the kernels and the plain version at the vit65k_mamba
@@ -132,6 +133,7 @@ Phases, each printing one line of numbers (or a few):
      projects/run_ptx.sh for the ViT-small encoder (patch 4, Mamba),
      ViTLinear and batch 1, saves and reloads checkpoints, evaluates; checks
      that the K7 forward ran 24 times per forward batch (twice per block),
+     the K7 stitch 12 times per forward batch and 12 more per train step,
      K7 carry backward, K7 backward and K2 backward 12 times per train step,
      K2 forward 12 times per forward batch, K1 and K3-K6 never; then
      --inference_only, which must reproduce the test metrics;
@@ -568,7 +570,8 @@ def all_kernels():
     K5 fwd, K5 dq, K5 dkv, K6 conv, K6 dk, K7 fwd, K7 carry bwd, K7 bwd, K8
     fwd, K8 bwd, K8 weight gradients, K9 fwd, K9 bwd, K2' fwd, K2' bwd (K2'
     shares K2's sources, behind its own entry points: runs key launches by
-    the entry point's symbol)."""
+    the entry point's symbol), K7's stitch (no TPU kernel: JAX stitches with
+    jax.lax.associative_scan)."""
     from long_context_biomedical_imaging_tpu_torch.ops import (flash_attention, fused_mlp,
                                                                hyena_window, mamba_window,
                                                                selective_scan_long,
@@ -586,7 +589,7 @@ def all_kernels():
             window_attention.WINDOW_ATTENTION_FWD, window_attention.WINDOW_ATTENTION_BWD,
             window_attention.WINDOW_ATTENTION_WGRAD, selective_scan_window.WINDOW_SCAN_FWD,
             selective_scan_window.WINDOW_SCAN_BWD, fused_mlp.FUSED_MLP_FWD,
-            fused_mlp.FUSED_MLP_BWD)
+            fused_mlp.FUSED_MLP_BWD, selective_scan_long.LONG_SCAN_STITCH)
 
 
 def check_launches(kernels, launches, expected, where):
@@ -2265,18 +2268,22 @@ def _hold_scan_states(torch, label, args, runs, plain_op, op, phase):
 def phase_k7(torch, ssl, dev):
     """K7, the long-sequence scan of the vit65k_mamba path. selective_scan_long
     on the card (the forward kernel twice, the carry and backward kernels,
-    the stitches) against its plain version (the chunked scan) at K7_SHAPES,
-    fp32 and bf16: y and the gradients of u, delta, A, B, C, D and
-    delta_bias, two runs bitwise equal. Then each kernel against its pass's
-    plain version on the same fp32 inputs at K7_SHAPES, the refusals, and
-    the times at the vit65k_mamba shape (fp32 operands, as the path casts its
-    bf16 ones). Returns {"fwd" | "carry" | "bwd": (max abs err against the
-    pass's plain version at that shape, kernel ms, plain ms)} per layer: the
-    fwd row's kernel time is both forward calls, its plain time the plain
-    forward; the plain backward (the VJP less the forward) is split between
-    the carry and bwd rows as their bounds split the backward's work."""
+    the stitch kernel each way) against its plain version (the chunked scan)
+    at K7_SHAPES, fp32 and bf16: y and the gradients of u, delta, A, B, C, D
+    and delta_bias, two runs bitwise equal. Then each kernel against its
+    pass's plain version on the same fp32 inputs at K7_SHAPES (the stitch
+    against affine_scan's, both directions, two launches bitwise equal), the
+    refusals, and the times at the vit65k_mamba shape (fp32 operands, as the
+    path casts its bf16 ones). Returns {"fwd" | "carry" | "bwd" | "stitch":
+    (max abs err against the pass's plain version at that shape, kernel ms,
+    plain ms)} per layer: the fwd row's kernel time is both forward calls,
+    its plain time the plain forward; the plain backward (the VJP less the
+    forward) is split between the carry and bwd rows as their bounds split
+    the backward's work; the stitch row's times are both stitches (the
+    kernel's, and affine_scan's in torch ops)."""
     gen = torch.Generator().manual_seed(29)
-    kernels = (ssl.LONG_SCAN_FWD, ssl.LONG_SCAN_CARRY_BWD, ssl.LONG_SCAN_BWD)
+    kernels = (ssl.LONG_SCAN_FWD, ssl.LONG_SCAN_CARRY_BWD, ssl.LONG_SCAN_BWD,
+               ssl.LONG_SCAN_STITCH)
     names = ("y", "du", "ddelta", "dA", "dB", "dC", "dD", "ddelta_bias")
     for shape in K7_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2287,7 +2294,8 @@ def phase_k7(torch, ssl, dev):
             again = _k7_vjp(torch, ssl.selective_scan_long, args)
             torch.cuda.synchronize()
             ran = [k.launches - b for k, b in zip(kernels, before)]
-            check(ran == [4, 2, 2], f"K7 {shape} {dname}: launches {ran}, expected [4, 2, 2]")
+            check(ran == [4, 2, 2, 4],
+                  f"K7 {shape} {dname}: launches {ran}, expected [4, 2, 2, 4]")
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"K7 {shape} {dname}: two runs gave different bits")
             ref = _k7_vjp(torch, ssl.selective_scan_long_plain, args)
@@ -2315,7 +2323,17 @@ def phase_k7(torch, ssl, dev):
         at = a.t().contiguous()
         _, hl, ap = ssl.long_scan_fwd_plain(u, delta, at, bm, cm, emit_y=False)
         hstart = ssl._stitch_fwd(hl, ap, b, nseg)
-        dht = ssl._stitch_bwd(ssl.long_scan_carry_bwd_plain(delta, at, cm, g), ap, b, nseg)
+        dh0 = ssl.long_scan_carry_bwd_plain(delta, at, cm, g)
+        dht = ssl._stitch_bwd(dh0, ap, b, nseg)
+        # the decay products of 64 tokens at these inputs' steps are mostly
+        # below fp32's range, which leaves little to stitch: the stitch is
+        # also held on products drawn from U(0, 1)
+        ap_u = torch.rand(ap.shape, generator=gen).to(dev)
+        stitches = [ssl.long_scan_stitch(hl, ap, b, nseg), ssl.long_scan_stitch(hl, ap, b, nseg),
+                    ssl.long_scan_stitch(dh0, ap, b, nseg, reverse=True),
+                    ssl.long_scan_stitch(dh0, ap, b, nseg, reverse=True),
+                    ssl.long_scan_stitch(hl, ap_u, b, nseg),
+                    ssl.long_scan_stitch(dh0, ap_u, b, nseg, reverse=True)]
         pairs = {
             "fwd": ([*ssl.long_scan_fwd(u, delta, at, bm, cm, emit_y=False)[1:],
                      ssl.long_scan_fwd(u, delta, at, bm, cm, hstart)[0]],
@@ -2323,9 +2341,13 @@ def phase_k7(torch, ssl, dev):
             "carry": ([ssl.long_scan_carry_bwd(delta, at, cm, g)],
                       [ssl.long_scan_carry_bwd_plain(delta, at, cm, g)]),
             "bwd": (ssl.long_scan_bwd(u, delta, at, bm, cm, g, hstart, dht),
-                    ssl.long_scan_bwd_plain(u, delta, at, bm, cm, g, hstart, dht))}
+                    ssl.long_scan_bwd_plain(u, delta, at, bm, cm, g, hstart, dht)),
+            "stitch": ([stitches[0], stitches[2], *stitches[4:]],
+                       [hstart, dht, ssl._stitch_fwd(hl, ap_u, b, nseg),
+                        ssl._stitch_bwd(dh0, ap_u, b, nseg)])}
         torch.cuda.synchronize()
-        errs, ok = {}, True
+        same = torch.equal(*stitches[:2]) and torch.equal(*stitches[2:4])
+        errs, ok = {}, same
         for key, (got, ref) in pairs.items():
             e = [(x - r).abs().max().item() for x, r in zip(got, ref)]
             ok = ok and all(bool(torch.isfinite(x).all().item())
@@ -2334,12 +2356,15 @@ def phase_k7(torch, ssl, dev):
             errs[key] = max(e)
         print(f"phase 29 K7 kernels against their passes' plain versions, b,L,D={shape} "
               f"float32: max_abs_err fwd (hl, ap, y) {errs['fwd']:.3e}, carry bwd (dh0) "
-              f"{errs['carry']:.3e}, bwd (du, ddelta, dat, dB, dC) {errs['bwd']:.3e}"
-              + (" ok" if ok else " MISMATCH"), flush=True)
+              f"{errs['carry']:.3e}, bwd (du, ddelta, dat, dB, dC) {errs['bwd']:.3e}, stitch "
+              f"(hstart, dh_tail, against affine_scan; also on U(0, 1) decay products) "
+              f"{errs['stitch']:.3e}, two stitch launches "
+              f"bitwise {'equal' if same else 'DIFFERENT'}" + (" ok" if ok else " MISMATCH"),
+              flush=True)
         check(ok, f"a K7 kernel disagrees with its pass's plain version at {shape}: {errs}")
         if shape == K7_SHAPES[0]:
             worst = errs
-        del u, delta, a, bm, cm, g, at, hl, ap, hstart, dht, pairs
+        del u, delta, a, bm, cm, g, at, hl, ap, ap_u, hstart, dh0, dht, stitches, pairs
         torch.cuda.empty_cache()
 
     for n, softplus in K7_STATES:
@@ -2387,8 +2412,13 @@ def phase_k7(torch, ssl, dev):
     u32, d32, at = u.float(), (delta.float() + dbias).contiguous(), a.t().contiguous()
     b32, c32, g32 = bm.float(), cm.float(), g.float()
     _, hl, ap = ssl.long_scan_fwd(u32, d32, at, b32, c32, emit_y=False)
-    hstart = ssl._stitch_fwd(hl, ap, b, nseg)
-    dht = ssl._stitch_bwd(ssl.long_scan_carry_bwd(d32, at, c32, g32), ap, b, nseg)
+    hstart = ssl.long_scan_stitch(hl, ap, b, nseg)
+    dh0 = ssl.long_scan_carry_bwd(d32, at, c32, g32)
+    dht = ssl.long_scan_stitch(dh0, ap, b, nseg, reverse=True)
+    k_sf = median_ms(torch, lambda: ssl.long_scan_stitch(hl, ap, b, nseg))
+    k_sb = median_ms(torch, lambda: ssl.long_scan_stitch(dh0, ap, b, nseg, reverse=True))
+    p_sf = median_ms(torch, lambda: ssl._stitch_fwd(hl, ap, b, nseg))
+    p_sb = median_ms(torch, lambda: ssl._stitch_bwd(dh0, ap, b, nseg))
     k_zero = median_ms(torch, lambda: ssl.long_scan_fwd(u32, d32, at, b32, c32, emit_y=False))
     k_y = median_ms(torch, lambda: ssl.long_scan_fwd(u32, d32, at, b32, c32, hstart))
     k_carry = median_ms(torch, lambda: ssl.long_scan_carry_bwd(d32, at, c32, g32))
@@ -2407,23 +2437,26 @@ def phase_k7(torch, ssl, dev):
         torch.cuda.synchronize()
         peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
     del args, u, delta, a, bm, cm, dskip, dbias, g, u32, d32, at, b32, c32, g32, hl, ap
-    del hstart, dht
+    del hstart, dh0, dht
     torch.cuda.empty_cache()
     bounds = k7_bounds()
     share = bounds["carry_bwd"][0] / (bounds["carry_bwd"][0] + bounds["bwd"][0])
     p_bwd = max(p_vjp - p_fwd, 0.0)
     print(f"phase 29 K7 times at b,L,D={K7_SHAPES[0]}, N={K7_N}, fp32 operands, ms per call: "
-          f"kernel fwd zero-carry {k_zero:.3f}, fwd seeded with y {k_y:.3f}, carry bwd "
-          f"{k_carry:.3f}, bwd {k_bwd:.3f}; plain (chunked scan, bf16 inputs) fwd {p_fwd:.3f}, "
-          f"VJP {p_vjp:.3f}; peak memory of the forward and VJP above their inputs: K7 "
-          f"{peaks['K7']:.3f} GiB, plain {peaks['plain']:.3f} GiB; bounds fwd "
-          f"{bounds['fwd_zero'][0]:.4f} + {bounds['fwd_y'][0]:.4f} ({bounds['fwd_y'][1]}), "
-          f"carry bwd {bounds['carry_bwd'][0]:.4f} ({bounds['carry_bwd'][1]}), "
-          f"bwd {bounds['bwd'][0]:.4f} ({bounds['bwd'][1]})",
-          flush=True)
+          f"kernel fwd zero-carry {k_zero:.4f}, fwd seeded with y {k_y:.4f}, carry bwd "
+          f"{k_carry:.4f}, bwd {k_bwd:.3f}, stitch fwd {k_sf:.4f}, stitch bwd {k_sb:.4f}; torch "
+          f"stitch (affine_scan) fwd {p_sf:.4f}, bwd {p_sb:.4f}; plain (chunked scan, bf16 "
+          f"inputs) fwd {p_fwd:.3f}, VJP {p_vjp:.3f}; peak memory of the forward and VJP above "
+          f"their inputs: K7 {peaks['K7']:.3f} GiB, plain {peaks['plain']:.3f} GiB; bounds fwd "
+          f"{bounds['fwd_zero'][0]:.4f} + {bounds['fwd_y'][0]:.4f} ({bounds['fwd_y'][1]}; "
+          f"the function's one-read floor, u, delta, B, C read and y, hstart, ap written once: "
+          f"{bounds['one_read'][0]:.4f}), carry bwd {bounds['carry_bwd'][0]:.4f} "
+          f"({bounds['carry_bwd'][1]}), bwd {bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}), "
+          f"stitch {bounds['stitch'][0]:.4f} ({bounds['stitch'][1]}) each way", flush=True)
     return {"fwd": (worst["fwd"], k_zero + k_y, p_fwd),
             "carry": (worst["carry"], k_carry, share * p_bwd),
-            "bwd": (worst["bwd"], k_bwd, (1 - share) * p_bwd)}
+            "bwd": (worst["bwd"], k_bwd, (1 - share) * p_bwd),
+            "stitch": (worst["stitch"], k_sf + k_sb, p_sf + p_sb)}
 
 
 def _k8_case(torch, gen, bw, v, c, grid, dev, rid_rows=7, heads=None):
@@ -3618,7 +3651,12 @@ def k7_bounds():
     delta, B and the carries out, seeded u, delta, B, C, the carries in and
     y (the seeded pass writes no carries: nothing reads them); the carry
     backward delta, g, C, dh0;
-    the backward u, delta, g, B, C, h0, dht, du, ddelta, dB, dC, dA."""
+    the backward u, delta, g, B, C, h0, dht, du, ddelta, dB, dC, dA. The
+    stitch (each way, "stitch"): x and ap read and its output written once,
+    3 operations per element and segment (a X + x, the product). "one_read"
+    is the forward function's floor in one read: u, delta, B and C read
+    once, y, hstart and ap written once (beside the two passes' floors,
+    fwd_zero + fwd_y)."""
     from long_context_biomedical_imaging_tpu_torch.ops.selective_scan_long import SEG
 
     b, length, d = K7_SHAPES[0]
@@ -3630,7 +3668,9 @@ def k7_bounds():
             "fwd_y": bound(0, 7 * cells + 4 * tokens * d, 3 * seq + 2 * state + carry),
             "carry_bwd": bound(0, 5 * cells + 4 * tokens * d, 2 * seq + state + carry),
             "bwd": bound(0, 20 * cells + 10 * tokens * d,
-                         5 * seq + 4 * state + 2 * carry + 4 * n * d)}
+                         5 * seq + 4 * state + 2 * carry + 4 * n * d),
+            "stitch": bound(0, 3 * rows * n * d, 3 * carry),
+            "one_read": bound(0, 7 * cells + 4 * tokens * d, 3 * seq + 2 * state + 2 * carry)}
 
 
 def k8_bounds(cases=None):
@@ -3770,6 +3810,7 @@ def kernel_bounds():
     add("long_scan_fwd", VIT_LAYERS, k7["fwd_y"])
     add("long_scan_carry_bwd", VIT_LAYERS, k7["carry_bwd"])
     add("long_scan_bwd", VIT_LAYERS, k7["bwd"])
+    add("long_scan_stitch", 2 * VIT_LAYERS, k7["stitch"])
     for b, (*_, depth) in zip(k9_bounds(), micro_k9_shapes(BATCH)):
         add("window_scan_fwd", depth, b["fwd"])
         add("window_scan_bwd", depth, b["bwd"])
@@ -3857,11 +3898,12 @@ def run():
             torch, tmp, vit65k_mamba_flags(), "vit65k_mamba", 30,
             lambda forward, steps: {1: VIT_LAYERS * forward, 3: VIT_LAYERS * steps,
                                     14: 2 * VIT_LAYERS * forward, 15: VIT_LAYERS * steps,
-                                    16: VIT_LAYERS * steps})
+                                    16: VIT_LAYERS * steps,
+                                    24: VIT_LAYERS * (forward + steps)})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_config_grads(torch, dev, vit65k_mamba_flags(), (128, 256), 31, "vit65k_mamba",
-                       {14: 2 * VIT_LAYERS, 15: VIT_LAYERS, 16: VIT_LAYERS},
+                       {14: 2 * VIT_LAYERS, 15: VIT_LAYERS, 16: VIT_LAYERS, 24: 2 * VIT_LAYERS},
                        M65_BF16_GRAD_FLOOR, long_vit_label(128, 256))
     phase_config_throughput(torch, dev, vit65k_mamba_flags(), 32, "vit65k_mamba")
     from long_context_biomedical_imaging_tpu_torch.ops import window_attention
@@ -3998,7 +4040,11 @@ def run():
     for label, kernel, key, line in (
             ("long_scan_fwd", selective_scan_long.LONG_SCAN_FWD, "fwd", 253),
             ("long_scan_carry_bwd", selective_scan_long.LONG_SCAN_CARRY_BWD, "carry", 289),
-            ("long_scan_bwd", selective_scan_long.LONG_SCAN_BWD, "bwd", 320)):
+            ("long_scan_bwd", selective_scan_long.LONG_SCAN_BWD, "bwd", 320),
+            # the stitches: no TPU kernel, JAX's jax.lax.associative_scan
+            # calls (:381 forward, :396 backward); the row's ms is both
+            # stitches of each layer
+            ("long_scan_stitch", selective_scan_long.LONG_SCAN_STITCH, "stitch", 381)):
         rows.append((label, kernel, [k7[key]], [VIT_LAYERS], m65_launches,
                      f"{tpu}selective_scan_long.py:{line}", None))
     # K8: the weight-gradient kernel computes the part of the TPU backward

@@ -59,8 +59,6 @@
 //     give the same bits.
 #pragma once
 
-#include <cstdint>
-
 #include "selective_scan_long.cuh"
 
 namespace lcbi {
@@ -89,24 +87,6 @@ __host__ __device__ constexpr int bwd_ldp(int lg) {
 // bwd_ldp each) and its B^T, C^T (NP x kBwdLdBC each).
 __host__ __device__ constexpr int bwd_row_floats(int lg, int s, bool softplus) {
   return (softplus ? 4 : 3) * kScanSeg * bwd_ldp(lg) + 2 * lg * s * kBwdLdBC;
-}
-
-__device__ __forceinline__ uint32_t scan_smem(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// Copy 4 (or 16) bytes to shared memory asynchronously, or zeros where !live
-// (src must still be a valid address).
-__device__ __forceinline__ void scan_cp4(float* dst, const float* src, bool live) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(scan_smem(dst)), "l"(src),
-               "r"(live ? 4 : 0));
-}
-__device__ __forceinline__ void scan_cp16(float* dst, const float* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(scan_smem(dst)), "l"(src),
-               "r"(live ? 16 : 0));
-}
-__device__ __forceinline__ void scan_cp_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float f4at(const float4& v, int q) {

@@ -1,8 +1,10 @@
-// Long-sequence selective scan (K7), shared device code of its three kernels
+// Long-sequence selective scan (K7), shared device code of its four kernels
 // (selective_scan_long.cu, selective_scan_long_carry_bwd.cu,
-// selective_scan_long_bwd.cu); the windowed scan K9 (selective_scan_window.cu,
-// selective_scan_window_bwd.cu) shares its step, softplus and sigmoid, and
-// both backwards share selective_scan_bwd.cuh. Per batch row of u, delta (b,
+// selective_scan_long_bwd.cu, selective_scan_long_stitch.cu); the windowed
+// scan K9 (selective_scan_window.cu, selective_scan_window_bwd.cu) shares its
+// step, softplus and sigmoid, K7's forward and carry backward stream their
+// rows through selective_scan_long_stream.cuh, and both backwards share
+// selective_scan_bwd.cuh. Per batch row of u, delta (b,
 // L, D) and B, C (b, L, N), all fp32, with A^T = at (N, D):
 //     d_t = softplus(delta_t) (or delta_t itself without softplus)
 //     h_t = exp(d_t A) h_{t-1} + d_t u_t B_t;  y_t = C_t . h_t
@@ -18,6 +20,7 @@
 // and softplus as max(v, 0) + log1p(exp(-|v|)), JAX's logaddexp(v, 0).
 #pragma once
 
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
@@ -26,7 +29,6 @@ namespace lcbi {
 
 constexpr int kScanSeg = 64;        // tokens per segment row (the TPU kernel's SEG)
 constexpr int kScanMaxState = 16;   // d_state at most
-constexpr int kScanMaxGroup = 128;  // channels (threads) of a forward block at most
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The padded state count of a call's kernels.
@@ -42,10 +44,9 @@ __device__ __forceinline__ float scan_dt(float v) {
   return SOFTPLUS ? scan_softplus(v) : v;
 }
 
-// Geometry of a call: the channels split into `groups` groups of at most
-// `threads` (a multiple of 32, at most kScanMaxGroup) channels.
+// Geometry of a call: rows = b * nseg segment rows of at most kScanSeg tokens.
 struct ScanGeom {
-  int b, L, D, N, nseg, rows, groups, threads;
+  int b, L, D, N, nseg, rows;
 };
 
 inline bool scan_geom(int b, int L, int D, int N, ScanGeom* g) {
@@ -57,8 +58,6 @@ inline bool scan_geom(int b, int L, int D, int N, ScanGeom* g) {
   g->N = N;
   g->nseg = (L + kScanSeg - 1) / kScanSeg;
   g->rows = b * g->nseg;
-  g->groups = (D + kScanMaxGroup - 1) / kScanMaxGroup;
-  g->threads = ((D + g->groups - 1) / g->groups + 31) / 32 * 32;
   return true;
 }
 
@@ -74,15 +73,31 @@ __device__ __forceinline__ ScanRow scan_row(int L, int nseg, int row) {
   return {(size_t)(row / nseg) * L + t0, min(kScanSeg, L - t0)};
 }
 
-// Stage the row's (len, N) values of x (B or C) in s (kScanSeg x NP), the
-// states n >= N zero.
-template <int NP>
-__device__ __forceinline__ void stage_row(float* s, const float* __restrict__ x, ScanRow r,
-                                          int N) {
-  for (int i = threadIdx.x; i < r.len * NP; i += blockDim.x) {
-    const int t = i / NP, n = i % NP;
-    s[i] = n < N ? x[(r.tok0 + t) * N + n] : 0.f;
-  }
+__device__ __forceinline__ uint32_t scan_smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// Copy 4 (or 16) bytes to shared memory asynchronously, or zeros where !live
+// (src must still be a valid address).
+__device__ __forceinline__ void scan_cp4(float* dst, const float* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(scan_smem(dst)), "l"(src),
+               "r"(live ? 4 : 0));
+}
+__device__ __forceinline__ void scan_cp16(float* dst, const float* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(scan_smem(dst)), "l"(src),
+               "r"(live ? 16 : 0));
+}
+__device__ __forceinline__ void scan_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most PENDING of this thread's committed copy groups are in
+// flight.
+template <int PENDING>
+__device__ __forceinline__ void scan_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+__device__ __forceinline__ void scan_cp_wait_all() {
+  scan_cp_commit();
+  scan_cp_wait<0>();
 }
 
 // A = at[n, d] log2 e over the NP states of channel d, zero for n >= N.

@@ -11,22 +11,26 @@ segments' order factors out:
   backward  dh_start(s, T) = dh_start(s, 0) + P_s T
 
 Each direction is (1) one pass over all rows at once from zero carries,
-giving each segment's boundary values, (2) a log-depth scan over the
-segments' (P_s, boundary) pairs in torch ops, the stitch, and (3) one pass
-seeded with the true carries, giving the outputs. The forward runs the
+giving each segment's boundary values, (2) a scan over the segments'
+(P_s, boundary) pairs, the stitch, and (3) one pass seeded with the true
+carries, giving the outputs. The forward runs the
 forward kernel twice (from zero carries, writing the carries out; then
 seeded, writing y alone); the backward
 runs the carry kernel (dh at each segment's start from a zero tail), the
 reverse stitch, and the backward kernel (du, ddelta, dB, dC and dA, the
 h history recomputed from each segment's true start carry).
 
-On CUDA tensors each pass launches its hand-written kernel
-(:func:`long_scan_fwd`, :func:`long_scan_carry_bwd`, :func:`long_scan_bwd`:
-``csrc/selective_scan_long.cu``, ``selective_scan_long_carry_bwd.cu``,
-``selective_scan_long_bwd.cu``), which raises on what it does not take; on
-CPU tensors it runs its plain PyTorch version (``long_scan_*_plain``), so the
-CPU runs the same passes and stitches, as the JAX package runs its kernels in
-interpret mode there.
+On CUDA tensors each pass and each stitch launches its hand-written kernel
+(:func:`long_scan_fwd`, :func:`long_scan_carry_bwd`, :func:`long_scan_bwd`,
+:func:`long_scan_stitch`: ``csrc/selective_scan_long.cu``,
+``selective_scan_long_carry_bwd.cu``, ``selective_scan_long_bwd.cu``,
+``selective_scan_long_stitch.cu``), which raises on what it does not take; on
+CPU tensors it runs its plain PyTorch version (``long_scan_*_plain``; the
+stitches :func:`_stitch_fwd` and :func:`_stitch_bwd`, a log-depth
+``affine_scan``), so the CPU runs the same passes and stitches, as the JAX
+package runs its kernels in interpret mode there. The stitch kernel walks the
+segments in a fixed order of spans (:func:`long_scan_stitch_plain` is that
+order in torch ops), so two launches give the same bits.
 :func:`selective_scan_long_plain`, the chunked scan of ``ops.selective_scan``,
 computes the same function by another algorithm: it is the yardstick the
 kernels are held against on the card.
@@ -65,6 +69,11 @@ LONG_SCAN_CARRY_BWD = CudaKernel(
 LONG_SCAN_BWD = CudaKernel(
     "selective_scan_long_bwd.cu", "lcbi_long_scan_bwd",
     [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+LONG_SCAN_STITCH = CudaKernel(
+    "selective_scan_long_stitch.cu", "lcbi_long_scan_stitch",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+STITCH_MIN_SPAN = 32         # the stitch kernel's spans: at least 32 segments,
+STITCH_SPANS = 128           # at most 128 spans a batch row
 
 
 def long_scan_supported(length: int, n: int, d: int) -> bool:
@@ -115,6 +124,47 @@ def _stitch_bwd(dh0, ap, b, nseg):
     _, t_in = affine_scan(ap.reshape(b, nseg, -1), dh0.reshape(b, nseg, -1), dim=1,
                           reverse=True)
     return F.pad(t_in[:, 1:], (0, 0, 0, 1)).reshape(shape)
+
+
+def _stitch(x, ap, b, nseg, reverse=False):
+    """The CPU path's stitch: :func:`_stitch_bwd` with ``reverse``, else
+    :func:`_stitch_fwd`."""
+    return (_stitch_bwd if reverse else _stitch_fwd)(x, ap, b, nseg)
+
+
+def long_scan_stitch_plain(x, ap, b, nseg, reverse=False):
+    """The stitch kernel's function in its order: within each batch row, the
+    exclusive affine scan out[s] = X_s, X_{s+1} = ap[s] X_s + x[s], X_0 = 0,
+    over the segments in walk order (descending with ``reverse``), element
+    by element; x, ap (b * nseg, N, D). The walk is cut into spans of
+    max(32, ceil(nseg / 128)) segments: each span's map composed from a zero
+    start, the spans walked in order for their starts, then each span again
+    from its start. Equals :func:`_stitch_fwd` (:func:`_stitch_bwd` with
+    ``reverse``) up to rounding; the kernel rounds each a X + x once."""
+    shape = x.shape
+    xs, aps = x.reshape(b, nseg, -1), ap.reshape(b, nseg, -1)
+    if reverse:
+        xs, aps = xs.flip(1), aps.flip(1)
+    span = max(STITCH_MIN_SPAN, -(-nseg // STITCH_SPANS))
+    nspan = -(-nseg // span)
+    pad = nspan * span - nseg  # identity maps past the last segment
+    xs = F.pad(xs, (0, 0, 0, pad)).reshape(b, nspan, span, -1)
+    aps = F.pad(aps, (0, 0, 0, pad), value=1.0).reshape(b, nspan, span, -1)
+    big_a, big_h = torch.ones_like(xs[:, :, 0]), torch.zeros_like(xs[:, :, 0])
+    for k in range(span):
+        big_h = aps[:, :, k] * big_h + xs[:, :, k]
+        big_a = big_a * aps[:, :, k]
+    starts, carry = [], torch.zeros_like(big_h[:, 0])
+    for sp in range(nspan):
+        starts.append(carry)
+        carry = big_a[:, sp] * carry + big_h[:, sp]
+    carry = torch.stack(starts, dim=1)
+    out = torch.empty_like(xs)
+    for k in range(span):
+        out[:, :, k] = carry
+        carry = aps[:, :, k] * carry + xs[:, :, k]
+    out = out.reshape(b, nspan * span, -1)[:, :nseg]
+    return (out.flip(1) if reverse else out).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -260,12 +310,28 @@ def long_scan_bwd(u, delta, at, B, C, g, h0, dht, softplus=True):
     return du, dd, dat, dB, dC
 
 
+def long_scan_stitch(x, ap, b, nseg, reverse=False):
+    """The K7 stitch kernel (``csrc/selective_scan_long_stitch.cu``):
+    :func:`long_scan_stitch_plain` on CUDA tensors x, ap (b * nseg, N, D)."""
+    if not x.is_cuda:
+        raise ValueError(f"the long-scan stitch kernel takes CUDA tensors, got {x.device}")
+    if x.dim() != 3 or x.shape[0] != b * nseg or x.numel() >= 2**31:
+        raise ValueError(f"the carries must be (b * nseg, N, D) = ({b} * {nseg}, N, D), got "
+                         f"{tuple(x.shape)}")
+    for name, t in (("x", x), ("ap", ap)):
+        check_cuda_operand(name, t, x.device, torch.float32, x.shape)
+    out = torch.empty_like(x)
+    LONG_SCAN_STITCH(ptr(x), ptr(ap), ptr(out), b, nseg, x.shape[1] * x.shape[2], int(reverse),
+                     stream_handle(x.device))
+    return out
+
+
 def _passes(u):
-    """The three passes for u's device: the kernels on CUDA, the plain
-    versions on the CPU."""
+    """The three passes and the stitch for u's device: the kernels on CUDA,
+    the plain versions (the stitch by ``affine_scan``) on the CPU."""
     if u.is_cuda:
-        return long_scan_fwd, long_scan_carry_bwd, long_scan_bwd
-    return long_scan_fwd_plain, long_scan_carry_bwd_plain, long_scan_bwd_plain
+        return long_scan_fwd, long_scan_carry_bwd, long_scan_bwd, long_scan_stitch
+    return long_scan_fwd_plain, long_scan_carry_bwd_plain, long_scan_bwd_plain, _stitch
 
 
 class _LongScan(torch.autograd.Function):
@@ -273,15 +339,16 @@ class _LongScan(torch.autograd.Function):
     with ``softplus``) on fp32 (b, L, D) operands. Forward: the zero-carry
     pass, the stitch, the seeded pass (JAX ``_fwd_impl``). Backward: the
     carry pass, the reverse stitch, the backward pass (JAX
-    ``_long_bwd_rule``)."""
+    ``_long_bwd_rule``). On CUDA tensors the stitches are kernels too: no
+    torch op runs between the passes."""
 
     @staticmethod
     def forward(ctx, u, delta, at, B, C, softplus):
-        fwd, _, _ = _passes(u)
+        fwd, _, _, stitch = _passes(u)
         b, length, _ = u.shape
         nseg = -(-length // SEG)
         _, hl, ap = fwd(u, delta, at, B, C, None, emit_y=False, softplus=softplus)
-        hstart = _stitch_fwd(hl, ap, b, nseg)
+        hstart = stitch(hl, ap, b, nseg)
         y, _, _ = fwd(u, delta, at, B, C, hstart, softplus=softplus)
         ctx.softplus = softplus
         ctx.save_for_backward(u, delta, at, B, C, hstart, ap)
@@ -290,11 +357,11 @@ class _LongScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         u, delta, at, B, C, hstart, ap = ctx.saved_tensors
-        _, carry_bwd, bwd = _passes(u)
+        _, carry_bwd, bwd, stitch = _passes(u)
         g = g.float().contiguous()
         b, length, _ = u.shape
         dh0 = carry_bwd(delta, at, C, g, softplus=ctx.softplus)
-        dht = _stitch_bwd(dh0, ap, b, -(-length // SEG))
+        dht = stitch(dh0, ap, b, -(-length // SEG), reverse=True)
         return (*bwd(u, delta, at, B, C, g, hstart, dht, softplus=ctx.softplus), None)
 
 

@@ -110,8 +110,10 @@ from long_context_biomedical_imaging_tpu_torch.ops import selective_scan_long, s
 k7 = cs.phase_k7(torch, selective_scan_long, dev)
 k9 = cs.phase_k9(torch, selective_scan_window, dev)
 k9_depths = [depth for *_, depth in cs.micro_k9_shapes(cs.BATCH)]
-print(f"per-call kernels (ms, fp32 operands): K7 fwd (both calls) {k7['fwd'][1]:.3f}, K7 carry "
-      f"bwd {k7['carry'][1]:.3f}, K7 bwd {k7['bwd'][1]:.3f}; K9 fwd (d = 48, 96) "
+print(f"per-call kernels (ms, fp32 operands): K7 fwd (both calls) {k7['fwd'][1]:.4f}, K7 carry "
+      f"bwd {k7['carry'][1]:.4f}, K7 bwd {k7['bwd'][1]:.3f}"
+      + (f", K7 stitch kernel (both ways) {k7['stitch'][1]:.4f}, torch stitch (both ways) "
+         f"{k7['stitch'][2]:.4f}" if "stitch" in k7 else "") + "; K9 fwd (d = 48, 96) "
       + ", ".join(f"{r[1]:.3f}" for r in k9["fwd"]) + "; K9 bwd (d = 48, 96) "
       + ", ".join(f"{r[1]:.3f}" for r in k9["bwd"]), flush=True)
 print(f"per-step kernels: K7 bwd {cs.VIT_LAYERS * k7['bwd'][1]:.3f} ms per vit65k_mamba step; "
@@ -154,13 +156,17 @@ PER_STEP_79 = re.compile(r"per-step kernels: K7 bwd ([0-9.]+) ms per vit65k_mamb
 # backward shares) and backward core, K7's and K9's backwards (the older
 # tree's long_scan_bwd_kernel and window_scan_bwd_kernel, this tree's
 # scan_bwd_lanes_kernel with its tiles' dB | dC sum scan_bc_tiles_kernel) and
-# the other K7 and K9 kernels
+# the other K7 and K9 kernels (K7's forward and carry backward: the older
+# tree's long_scan_fwd_kernel and long_scan_carry_bwd_kernel, this tree's
+# long_scan_stream_kernel; this tree's stitch, long_scan_stitch_kernel, where
+# the older tree ran torch ops)
 KERNELS = ("k3_rows_in", "k3_toeplitz_fwd", "k3_toeplitz_mma", "k3_rows_out",
            "mamba_window_fwd_kernel", "mamba_fwd_mma_kernel", "hyena_fwd_mma_kernel",
            "wattn_whole_fwd_kernel", "proj_rows_kernel", "wattn_whole_bwd_kernel",
            "hyena_window_bwd_kernel", "mlp_fwd_mma_kernel", "long_scan_bwd_kernel",
            "window_scan_bwd_kernel", "scan_bwd_lanes_kernel", "scan_bc_tiles_kernel",
-           "long_scan_fwd_kernel", "long_scan_carry_bwd_kernel", "window_scan_fwd_kernel")
+           "long_scan_fwd_kernel", "long_scan_carry_bwd_kernel", "long_scan_stream_kernel",
+           "long_scan_stitch_kernel", "window_scan_fwd_kernel")
 NAMES = {"12": "ptx", "16": "emb", "20": "vessel", "24": "vit16k", "28": "vit65k_hyena",
          "32": "vit65k_mamba", "36": "ptx_attn", "40": "micro_w7", "45": "emb_attn"}
 

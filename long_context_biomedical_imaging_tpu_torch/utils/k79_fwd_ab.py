@@ -1,6 +1,6 @@
-"""K7's forward (from zero carries and seeded with y) and carry backward and
-K9's forward, this tree against another checkout (its parent, say), both
-trees' kernels in one process, in interleaved rounds:
+"""K7's forward (from zero carries and seeded with y), carry backward and
+stitches and K9's forward, this tree against another checkout (its parent,
+say), both trees' kernels in one process, in interleaved rounds:
 
     git archive <parent> | tar -x -C build/parent
     python3 -m long_context_biomedical_imaging_tpu_torch.utils.k79_fwd_ab build/parent
@@ -16,7 +16,11 @@ on, fp32. Twelve rounds, the trees' order alternating; in each, every
 kernel's mean time over 20 calls after 3, from CUDA events. Prints each
 kernel's median, least and largest round per tree, then the card's name and
 power limit. A device-time comparison finer than chip_smoke.py's per-call
-medians, which include a launch each.
+medians, which include a launch each. The stitches (forward: hstart from hl
+and ap; backward: dh_tail from dh0 and ap, over the 1,024 segments of each
+batch row) run through a tree's ``csrc/selective_scan_long_stitch.cu`` where
+it has one, else as such a tree ran them: this package's torch stitches
+(``_stitch_fwd``, ``_stitch_bwd``: a log-depth ``affine_scan``).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import sys
 from pathlib import Path
 
 SOURCES = ("selective_scan_long.cu", "selective_scan_long_carry_bwd.cu",
-           "selective_scan_window.cu")
+           "selective_scan_window.cu", "selective_scan_long_stitch.cu")
 K7_CALL = (2, 65536, 192)
 K9_STAGES = ((21904, 48), (5476, 96))
 ROUNDS, CALLS = 12, 20
@@ -39,7 +43,7 @@ def _build(name, csrc, out):
     from ..ops import cuda_build as cb
 
     procs = []
-    for src in SOURCES:
+    for src in [s for s in SOURCES if (csrc / s).exists()]:
         lib = out / f"{name}_{src[:-3]}.so"
         procs.append((src, lib, subprocess.Popen(
             [cb.find_nvcc(), *cb.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib), str(csrc / src)],
@@ -51,6 +55,14 @@ def _build(name, csrc, out):
             raise SystemExit(f"{name}: nvcc failed for {src}\n{log[-2000:]}")
         libs[src] = ctypes.CDLL(str(lib))
     return libs
+
+
+def _code0(fn):
+    """fn as a call that returns 0, as a C entry whose launch succeeded."""
+    def call():
+        fn()
+        return 0
+    return call
 
 
 def _calls(libs, softplus_flag, ops):
@@ -65,6 +77,7 @@ def _calls(libs, softplus_flag, ops):
     wfwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     u, delta, g, at, bm, cm, h0, y, hl, ap, dh0, win, s = ops
     b, length, d = K7_CALL
+    nseg = length // 64
     out = {
         "K7 fwd from zero carries": lambda: fwd(p(u), p(delta), p(at), p(bm), p(cm), None, None,
                                                 p(hl), p(ap), b, length, d, 8, *sp, s),
@@ -73,6 +86,17 @@ def _calls(libs, softplus_flag, ops):
         "K7 carry bwd": lambda: carry(p(delta), p(at), p(cm), p(g), p(dh0), b, length, d, 8, *sp,
                                       s),
     }
+    if SOURCES[3] in libs:
+        stitch = libs[SOURCES[3]].lcbi_long_scan_stitch
+        stitch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        for rev, x in ((0, hl), (1, dh0)):
+            out[f"K7 stitch {('fwd', 'bwd')[rev]}"] = (
+                lambda x=x, rev=rev: stitch(p(x), p(ap), p(h0), b, nseg, 8 * d, rev, s))
+    else:
+        from ..ops import selective_scan_long as ssl
+
+        out["K7 stitch fwd"] = _code0(lambda: ssl._stitch_fwd(hl, ap, b, nseg))
+        out["K7 stitch bwd"] = _code0(lambda: ssl._stitch_bwd(dh0, ap, b, nseg))
     for (bw, wd), tensors in zip(K9_STAGES, win):
         out[f"K9 fwd d={wd}"] = (lambda t=tensors, bw=bw, wd=wd:
                                  wfwd(*[p(x) for x in t], bw, 49, wd, 8, 1, s))
@@ -105,10 +129,11 @@ def main(argv=None):
     win = [[mk(bw, 49, wd), mk(bw, 49, wd), (-torch.rand(8, wd, generator=gen) - 0.1).to(dev),
             mk(bw, 49, 8), mk(bw, 49, 8), torch.empty(bw, 49, wd, device=dev)]
            for bw, wd in K9_STAGES]
+    # hl, ap and dh0 hold values (ap in (0, 1)) for the stitches
     ops = (mk(b, length, d), mk(b, length, d), mk(b, length, d), at.to(dev).contiguous(),
            mk(b, length, 8), mk(b, length, 8), mk(rows, 8, d),
-           torch.empty(b, length, d, device=dev), *(torch.empty(rows, 8, d, device=dev)
-                                                    for _ in range(3)),
+           torch.empty(b, length, d, device=dev), mk(rows, 8, d),
+           torch.rand(rows, 8, d, generator=gen).to(dev), mk(rows, 8, d),
            win, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fns = {}
     for name, csrc in trees.items():

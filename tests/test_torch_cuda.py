@@ -1274,15 +1274,17 @@ def _check_k7(got, ref, dtype):
 @pytest.mark.parametrize("shape", K7_SHAPES)
 def test_long_scan_kernels_match_plain(cuda_device, dtype, shape):
     """selective_scan_long on the card (K7: the forward kernel twice, the
-    carry kernel and the backward kernel, with the stitches) against its
+    carry kernel and the backward kernel, and the stitch kernel once each
+    way) against its
     plain version (the chunked scan) on the same inputs: y and the gradients
     of u, delta, A, B, C, D and delta_bias."""
     args = _k7_args(torch.Generator().manual_seed(shape[1]), shape, dtype, cuda_device)
-    kernels = (tsl.LONG_SCAN_FWD, tsl.LONG_SCAN_CARRY_BWD, tsl.LONG_SCAN_BWD)
+    kernels = (tsl.LONG_SCAN_FWD, tsl.LONG_SCAN_CARRY_BWD, tsl.LONG_SCAN_BWD,
+               tsl.LONG_SCAN_STITCH)
     before = [k.launches for k in kernels]
     got = _k7_vjp(tsl.selective_scan_long, args)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 1, 1]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 1, 1, 2]
     _check_k7(got, _k7_vjp(tsl.selective_scan_long_plain, args), dtype)
 
 
@@ -1359,6 +1361,103 @@ def test_long_scan_kernels_at_states_and_without_softplus(cuda_device, n, softpl
     _check_k7(op, plain, torch.float32)
 
 
+# the streamed K7 kernels' odd shapes: one-token last rows with D % 4 != 0
+# (4-byte staging), a ragged 37-token last row across two channel tiles
+# (300 channels), a single short row
+K7_ODD_SHAPES = [(2, 321, 37), (1, 2085, 300), (1, 10, 12)]
+
+
+def _k7_streamed(u, delta, at, bm, cm, g, h0, softplus, kernels):
+    """The streamed K7 kernels (the forward from zero carries and seeded,
+    the carry backward) and the stitch in both directions, through the
+    kernels or their plain versions (the stitch's: affine_scan)."""
+    fwd, carry, stitch = ((tsl.long_scan_fwd, tsl.long_scan_carry_bwd, tsl.long_scan_stitch)
+                          if kernels else (tsl.long_scan_fwd_plain, tsl.long_scan_carry_bwd_plain,
+                                           tsl._stitch))
+    b, length, _ = u.shape
+    nseg = -(-length // tsl.SEG)
+    _, hl, ap = fwd(u, delta, at, bm, cm, emit_y=False, softplus=softplus)
+    dh0 = carry(delta, at, cm, g, softplus=softplus)
+    return [hl, ap, fwd(u, delta, at, bm, cm, h0, softplus=softplus)[0], dh0,
+            stitch(hl, ap, b, nseg), stitch(dh0, ap, b, nseg, reverse=True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softplus", [True, False])
+@pytest.mark.parametrize("n", [1, 4, 13, 16])
+@pytest.mark.parametrize("shape", K7_SHAPES + K7_ODD_SHAPES)
+def test_long_scan_streamed_kernels_match_plain(cuda_device, shape, n, softplus):
+    """K7's streamed forward (hl, ap from zero carries; y seeded), its carry
+    backward (dh0) and the stitch kernel in both directions (hstart from
+    hl; dh_tail from dh0) against their plain versions on the same fp32
+    inputs, at K7's shapes and odd ones (one-token and ragged last rows, D %
+    4 != 0, two channel tiles), d_state 1, 4, 13 and 16, with and without
+    softplus: within 1e-4 of each output's max (exp2 and softplus forms, the
+    stitch's order against affine_scan's), two launches bitwise equal."""
+    args = _k7_args(torch.Generator().manual_seed(shape[1] + n), shape, torch.float32,
+                    cuda_device, n, softplus)
+    u, delta, a, bm, cm, _, _, g = args
+    at = a.t().contiguous()
+    rows = shape[0] * -(-shape[1] // tsl.SEG)
+    h0 = torch.randn(rows, n, shape[2], device=cuda_device)
+    got = _k7_streamed(u, delta, at, bm, cm, g, h0, softplus, True)
+    again = _k7_streamed(u, delta, at, bm, cm, g, h0, softplus, True)
+    ref = _k7_streamed(u, delta, at, bm, cm, g, h0, softplus, False)
+    torch.cuda.synchronize()
+    for i, (x, y, r) in enumerate(zip(got, again, ref)):
+        assert torch.equal(x, y), i
+        err = (x - r).abs().max().item()
+        assert torch.isfinite(x).all() and err <= 1e-4 * r.abs().max().item(), (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16])
+def test_long_scan_small_steps_match_plain(cuda_device, n):
+    """K7's streamed kernels and stitches at the small steps the model's dt
+    bias gives (delta about -6 +- 0.5, softplus about 0.0025; the other
+    tests' delta is N(0, 1)): every output within 1e-5 of its max of the
+    plain passes' (F.softplus). A softplus accurate only to 1e-7 in absolute
+    terms is off by 2e-5 to 5e-5 of dt here, and so are the states; the
+    kernels' exp2s and softplus are accurate to a few 1e-7 relative."""
+    shape = (2, 4096, 192)
+    args = _k7_args(torch.Generator().manual_seed(60 + n), shape, torch.float32, cuda_device, n)
+    u, delta, a, bm, cm, _, _, g = args
+    delta = (delta * 0.5 - 6.0).contiguous()
+    at = a.t().contiguous()
+    rows = shape[0] * -(-shape[1] // tsl.SEG)
+    h0 = torch.randn(rows, n, shape[2], device=cuda_device)
+    got = _k7_streamed(u, delta, at, bm, cm, g, h0, True, True)
+    ref = _k7_streamed(u, delta, at, bm, cm, g, h0, True, False)
+    torch.cuda.synchronize()
+    for i, (x, r) in enumerate(zip(got, ref)):
+        err = (x - r).abs().max().item()
+        assert torch.isfinite(x).all() and err <= 1e-5 * r.abs().max().item(), (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,nseg", [(3, 1), (3, 31), (3, 33), (3, 70), (2, 1024), (1, 5000)])
+def test_long_scan_stitch_matches_its_order_and_affine_scan(cuda_device, b, nseg, reverse):
+    """The stitch kernel against long_scan_stitch_plain (its own order) and
+    the log-depth affine_scan stitch at nseg = 1 (all zero), within one span
+    (31), across span boundaries (33, 70, 1024) and with spans longer than
+    32 segments (5,000: 40 a span), E = 8 x 37 (a ragged last block of
+    lanes); within 1e-5 of max, two launches bitwise equal."""
+    gen = torch.Generator().manual_seed(nseg)
+    x = torch.randn(b * nseg, 8, 37, generator=gen).to(cuda_device)
+    ap = (torch.rand(b * nseg, 8, 37, generator=gen) * 0.99).to(cuda_device)
+    got = tsl.long_scan_stitch(x, ap, b, nseg, reverse)
+    again = tsl.long_scan_stitch(x, ap, b, nseg, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if nseg == 1:
+        assert not got.any()
+    for ref in (tsl.long_scan_stitch_plain(x, ap, b, nseg, reverse),
+                tsl._stitch(x, ap, b, nseg, reverse)):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * max(ref.abs().max().item(), 1e-30), err
+
+
 @pytest.mark.cuda
 def test_long_scan_kernels_are_deterministic_and_refuse(cuda_device):
     """Two launches of each K7 kernel give the same bits (the backward sums
@@ -1397,8 +1496,8 @@ def test_long_scan_kernels_are_deterministic_and_refuse(cuda_device):
 def test_vit_mamba_gradients_on_the_card_match_the_host(cuda_device, amp):
     """A ViT-mamba (hidden 32, 2 heads, 2 layers, MLP 64) on 128x256 images
     with patch 4: 2,048 tokens, K7's floor. One train step on the card
-    launches the K7 forward twice per block, the carry and backward kernels
-    once; every parameter's gradient is finite and non-zero and, in fp32,
+    launches the K7 forward and the stitch twice per block, the carry and
+    backward kernels once; every parameter's gradient is finite and non-zero and, in fp32,
     within 1e-4 of its max of the host's (K7's plain passes), in bf16 within
     1e-1 (bf16 roundings compounded over the blocks)."""
     from long_context_biomedical_imaging_tpu_torch.losses import cross_entropy_loss
@@ -1414,7 +1513,8 @@ def test_vit_mamba_gradients_on_the_card_match_the_host(cuda_device, amp):
     model = build_model(check_args(parse_config(argv)))
     x = torch.randn(1, 1, 128, 256, 1, generator=torch.Generator().manual_seed(0))
     y = torch.tensor([1])
-    kernels = (tsl.LONG_SCAN_FWD, tsl.LONG_SCAN_CARRY_BWD, tsl.LONG_SCAN_BWD)
+    kernels = (tsl.LONG_SCAN_FWD, tsl.LONG_SCAN_CARRY_BWD, tsl.LONG_SCAN_BWD,
+               tsl.LONG_SCAN_STITCH)
     grads = {}
     for dev in (torch.device("cpu"), cuda_device):
         model.to(dev).zero_grad(set_to_none=True)
@@ -1423,7 +1523,7 @@ def test_vit_mamba_gradients_on_the_card_match_the_host(cuda_device, amp):
         cross_entropy_loss(out.float(), y.to(dev)).backward()
         torch.cuda.synchronize()
         ran = [k.launches - b for k, b in zip(kernels, before)]
-        assert ran == ([4, 2, 2] if dev.type == "cuda" else [0, 0, 0]), (dev, ran)
+        assert ran == ([4, 2, 2, 4] if dev.type == "cuda" else [0, 0, 0, 0]), (dev, ran)
         grads[dev.type] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
     tol = 1e-1 if amp else 1e-4
     for name, g in grads["cuda"].items():

@@ -66,7 +66,7 @@ SCAN_ARGS = ("u", "delta", "A", "B", "C", "D", "delta_bias")
 
 def _launches():
     return tuple(k.launches for k in (tlong.LONG_SCAN_FWD, tlong.LONG_SCAN_CARRY_BWD,
-                                      tlong.LONG_SCAN_BWD))
+                                      tlong.LONG_SCAN_BWD, tlong.LONG_SCAN_STITCH))
 
 
 def _scan_inputs(rng, b, length, d, n, channel_minor):
@@ -134,13 +134,14 @@ def test_affine_scan_matches_sequential_recurrence():
             torch.testing.assert_close(pa[:, i], p, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("b,length,d,n,softplus", [
-    pytest.param(2, 136, 12, 4, True, id="2-136-12-4"),
-    pytest.param(3, 200, 160, 8, True, id="3-200-160-8"),
-    pytest.param(1, 72, 12, 1, True, id="1-72-12-1"),
-    pytest.param(1, 72, 12, 16, True, id="1-72-12-16"),
-    pytest.param(2, 72, 12, 8, False, id="2-72-12-8-no_softplus")])
-def test_long_scan_matches_jax(b, length, d, n, softplus):
+@pytest.mark.parametrize("b,length,d,n,softplus,interpret", [
+    pytest.param(2, 136, 12, 4, True, True, id="2-136-12-4"),
+    pytest.param(3, 200, 160, 8, True, True, id="3-200-160-8"),
+    pytest.param(1, 72, 12, 1, True, True, id="1-72-12-1"),
+    pytest.param(1, 72, 12, 16, True, True, id="1-72-12-16"),
+    pytest.param(2, 72, 12, 8, False, True, id="2-72-12-8-no_softplus"),
+    pytest.param(2, 64 * 37 + 5, 8, 4, True, False, id="2-2373-8-4-38_segments")])
+def test_long_scan_matches_jax(b, length, d, n, softplus, interpret):
     """K7 on CPU tensors (its autograd Function: the zero-carry pass, the
     stitch, the seeded pass, the carry pass, the reverse stitch and the
     backward pass, each pass's plain version; no kernel launches) and
@@ -150,7 +151,10 @@ def test_long_scan_matches_jax(b, length, d, n, softplus):
     = 2 x 64 + 8; 200; 72), b = 2 and 3 (the carries stay within their batch
     row), N = 1, 4, 8 and 16, n * d = 1280, over one TPU channel chunk, and
     with delta_softplus=False (delta and its bias made positive, as softplus
-    would make them, or the decays grow past fp32)."""
+    would make them, or the decays grow past fp32); and at 38 segments a
+    batch row (L = 64 x 37 + 5), past the stitch kernel's first span of 32,
+    against selective_scan_reference alone (the interpret-mode kernel is
+    slow at that length)."""
     arrs = _scan_inputs(np.random.default_rng(length), b, length, d, n, channel_minor=True)
     if not softplus:
         arrs[1] = np.logaddexp(arrs[1], 0).astype(np.float32)
@@ -168,7 +172,8 @@ def test_long_scan_matches_jax(b, length, d, n, softplus):
     got = _torch_vjp(bind(tlong.selective_scan_long), arrs)
     plain = _torch_vjp(bind(tlong.selective_scan_long_plain), arrs)
     assert _launches() == before
-    for ref in (_jax_vjp(bind(jlong.selective_scan_long), arrs), _jax_vjp(reference, arrs)):
+    refs = [_jax_vjp(bind(jlong.selective_scan_long), arrs)] if interpret else []
+    for ref in refs + [_jax_vjp(reference, arrs)]:
         _check_scan(got, ref)
         _check_scan(plain, ref)
 
@@ -202,8 +207,38 @@ def test_long_scan_passes_are_the_kernels_contract():
     torch.testing.assert_close(y, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
 
 
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("nseg", [1, 31, 33, 70])
+def test_long_scan_stitch_plain_matches_affine_scan_and_jax(nseg, reverse):
+    """The stitch kernel's plain contract (long_scan_stitch_plain: the
+    exclusive affine scan over the segments in spans of 32, their aggregates
+    walked in order, then each span from its start) against the CPU path's
+    log-depth affine_scan stitch (_stitch_fwd, _stitch_bwd with reverse)
+    and the JAX package's _stitch_fwd / _stitch_bwd (jax.lax.associative_scan,
+    in their (n_j, b * nseg, nd) layout) at b = 3 and nseg = 1 (all zero),
+    31 (one span), 33 and 70 (two and three), both directions, within 1e-5
+    of max."""
+    rng = np.random.default_rng(nseg)
+    b, n, d = 3, 4, 5
+    x = rng.normal(size=(b * nseg, n, d)).astype(np.float32)
+    ap = rng.uniform(0.05, 1.0, size=(b * nseg, n, d)).astype(np.float32)
+    got = tlong.long_scan_stitch_plain(torch.from_numpy(x), torch.from_numpy(ap), b, nseg,
+                                       reverse).numpy()
+    ref = tlong._stitch(torch.from_numpy(x), torch.from_numpy(ap), b, nseg, reverse).numpy()
+    jfn = jlong._stitch_bwd if reverse else jlong._stitch_fwd
+    jref = np.asarray(jfn(jnp.asarray(x.reshape(1, b * nseg, n * d)),
+                          jnp.asarray(ap.reshape(1, b * nseg, n * d)), b, nseg)).reshape(x.shape)
+    assert got.shape == x.shape
+    if nseg == 1:
+        assert not got.any() and not ref.any() and not jref.any()
+        return
+    for r in (ref, jref):
+        np.testing.assert_allclose(got, r, rtol=0, atol=1e-5 * np.abs(r).max())
+
+
 def test_long_scan_kernels_refuse():
-    """The kernels' wrappers take CUDA tensors only (ValueError naming CUDA)
+    """The kernels' wrappers take CUDA tensors only (ValueError naming CUDA;
+    the stitch kernel's too)
     and d_state at most 16 (ValueError naming the limit, before the device
     is looked at); the public op takes delta_softplus=False on CPU tensors
     and gives the plain version's y within 1e-5 of its max (parity with JAX
@@ -215,6 +250,11 @@ def test_long_scan_kernels_refuse():
         tlong.long_scan_fwd(u, u, at, bc, bc)
     with pytest.raises(ValueError, match="CUDA"):
         tlong.long_scan_carry_bwd(u, at, bc, u)
+    carries = torch.zeros(32, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlong.long_scan_stitch(carries, carries, 1, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlong.long_scan_stitch(carries, carries, 1, 32, reverse=True)
     bc17 = torch.zeros(1, 2048, 17)
     with pytest.raises(ValueError, match="d_state <= 16"):
         tlong.long_scan_fwd(u, u, torch.zeros(17, 16), bc17, bc17)
