@@ -61,11 +61,14 @@ Phases, each printing one line of numbers (or a few):
      the flags of projects/run_vessel.sh (Swin-tiny + Mamba + UperNet2D),
      saves and reloads checkpoints, evaluates with F1; checks that K4
      forward ran 10 times per forward batch (stages 0-2), K4 backward 10
-     times per train step, K2 12 times, K1 and K3 never; then
-     --inference_only, which must reproduce the test metrics;
+     times per train step, K9 forward 2 times per forward batch and K9
+     backward 2 times per train step (stage 3's 256 windows, under K4's
+     floor), K2 12 times, K1 and K3 never; then --inference_only, which
+     must reproduce the test metrics;
  19. vessel model gradients: one train step's gradients of the full-width
-     vessel model on 512x512 images at batch 4 (K4 at stages 0-1, the
-     composed scan at stages 2-3), dropout off, on the card against the
+     vessel model on 512x512 images at batch 4 (K4 at stages 0-1, K9 at
+     stages 2-3 on the card, the host's composed scan there), dropout off,
+     each kernel's launches checked, on the card against the
      host, fp32 and bf16 on one seed, per parameter; the card's bf16
      gradient of each parameter may stray from its fp32 one at most twice as
      far as the host's, plus a floor;
@@ -169,29 +172,35 @@ Phases, each printing one line of numbers (or a few):
  36. ptx_attn throughput: the train step and eval forward at batch 4 on
      1024x1024 in bf16, steady state, with peak memory and one-step
      profiles;
- 37. K9, the windowed selective scan of the micro_w7 path: the forward and
-     backward kernels through selective_scan_window (y and the gradients of
-     all seven inputs) against its plain version (selective_scan_cm) and its
-     VJP at micro_w7's two K9 stage shapes (batch 4: 21,904 and 5,476 7x7
-     windows, d 48 and 96), at 3x3 windows (L = 9) at a window count no tile
-     divides, at L = 64 with d = 130 and d = 1024 (N d = 8192), fp32 and
-     bf16; two launches bitwise equal; each kernel against its plain pass,
-     twice, bitwise equal; at d_state 16, each kernel against its pass and
-     the op against selective_scan_cm; the refusals (a CPU tensor, L > 64,
-     N d > 8192, d_state 17); then the times of the kernels and the plain
-     version at the two stage shapes;
+ 37. K9, the windowed selective scan of the micro_w7 and vessel paths: the
+     forward and backward kernels through selective_scan_window (y and the
+     gradients of all seven inputs) against its plain version
+     (selective_scan_cm) and its VJP at micro_w7's four K9 stage shapes
+     (batch 4: 21,904, 5,476, 1,444 and 400 7x7 windows, d 48, 96, 192 and
+     384; stages 2-3 under the JAX package's 2,048-window floor, K9's on the
+     card), vessel's stage 3 (256 windows of 64 tokens, d 384), at 3x3
+     windows (L = 9) at a window count no tile divides, at L = 64 with d =
+     130 and d = 1024 (N d = 8192), fp32 and bf16; two launches bitwise
+     equal; each kernel against its plain pass, twice, bitwise equal; at
+     d_state 16, each kernel against its pass and the op against
+     selective_scan_cm; the refusals (a CPU tensor, L > 64, N d > 8192,
+     d_state 17); the times of the kernels and the plain version at the
+     stage shapes; then the card's window floor: the op (casts, both
+     kernels, D skip) against selective_scan_cm's forward and autograd
+     backward at micro_w7's stages 2-3, vessel's stage 3, 32 windows of 64
+     tokens and one window of 49, K9 faster at each;
  38. micro_w7 train slice: run_torch.main trains micro_w7 (--debug, 2
      epochs) on synthetic 1024x1024x1 enhancement pairs with the flags of
      projects/run_micro.sh and --Swin.window_size 7 (Swin-tiny + Mamba +
      UperNet2D, CombinationEnhance), saves and reloads checkpoints,
      evaluates loss, SSIM and PSNR; checks that K9 forward ran as the gate
-     routes each forward batch (stages 0-1 at batch 4: 4 blocks) and K9
+     routes each forward batch (all four stages at batch 4: 12 blocks) and K9
      backward as it routes each train step, K2 12 times per forward batch
      and per train step, K1 and K3-K8 never; then --inference_only, which
      must reproduce the test metrics;
  39. micro_w7 model gradients: one train step's gradients of the
      full-width micro_w7 model under CombinationEnhance on 512x512 images at
-     batch 4 (stage 0 reaches K9 by the gate itself: 5,476 windows), dropout
+     batch 4 (every stage reaches K9 by the card's gate: 12 blocks), dropout
      off, on the card against the host, fp32 and bf16, per parameter, as
      phase 19 holds vessel;
  40. micro_w7 throughput: the train step and eval forward at batch 4 on
@@ -240,8 +249,9 @@ Phases, each printing one line of numbers (or a few):
      with a hidden width of 96): one full-width train step each at batch 4
      on 1024x1024 in bf16 on the card, whose launch counts show K8, K1 or
      K4 and K2 in every block the gates send to them; then the gradients of
-     one train step on 256x256 images at batch 2, card against host, fp32
-     and bf16, per parameter, as phase 35.
+     one train step on 256x256 images at batch 2 (Mamba: K4 at stage 0, K9
+     at stages 1-3), card against host, fp32 and bf16, per parameter, as
+     phase 35.
 Then one JSON line with the kernels' numbers, and last the result line.
 Every time is on this card, with its name and power limit printed in phase 1.
 It imports neither JAX nor the JAX package, and fails (exit code != 0, no
@@ -463,6 +473,13 @@ MICRO_STAGES = [(c, -(-grid // 7) * 7, depth) for c, grid, depth in STAGES]
 # gate's widest channels (N d = 8192)
 K9_EXTRA = [(3001, 9, 40), (2049, 64, 130), (257, 64, 1024)]
 K9_N = 8
+# vessel's K9 call at batch 4 on 1024x1024x3: stage 3's 256 windows of 64
+# tokens, under K4's floor
+VESSEL_K9_SHAPE = (256, 64, 384)
+# phase 37's window floor on the card (BW, L, d): the op against
+# selective_scan_cm at micro_w7's stages 2-3, vessel's stage 3 and two small
+# calls
+K9_FLOOR_SHAPES = [(1444, 49, 192), (400, 49, 384), VESSEL_K9_SHAPE, (32, 64, 384), (1, 49, 96)]
 # phase 39 holds the micro_w7 gradients at this batch of 512x512 images
 MICRO_GRAD_BATCH = 4
 # emb_attn's (T, H, W) volume
@@ -505,7 +522,7 @@ WIDTH_CONFIGS = [("unetr_attention", ["--Swin.size", "unetr"], "attention"),
 WIDE_VIT_FLAGS = ["--ViT.size", "custom", "--ViT.hidden_size", "768", "--ViT.num_heads", "2"]
 # phase 47's gradients: batch 2 of 256x256 (token grids 128 .. 16: every
 # stage runs 16-token windows; Mamba's K4 gate, 1,024 windows, passes at
-# stage 0 alone), bf16 floor as phase 35's
+# stage 0 alone, K9's card gate at the others), bf16 floor as phase 35's
 WIDTH_GRAD_SIZE, WIDTH_GRAD_BATCH, WIDTH_BF16_GRAD_FLOOR = (256, 256), 2, 2e-2
 # the card's peaks for the bounds (H100 SXM data sheet, dense): bf16 tensor
 # cores, fp32 outside them, device memory
@@ -1514,8 +1531,12 @@ def phase_vessel_slice(torch, tmp):
     check(rc == 0, f"run_torch.main returned {rc}")
     forward = steps + eval_batches
     k4 = VESSEL_K4_BLOCKS
+    # stage 3's 256 windows: under K4's floor, K9 on the card
+    routes = mamba_routes(BATCH, 8)
+    k9 = route_blocks(routes, "k9")
+    check(route_blocks(routes, "k4") == k4 and k9 == 2, f"vessel's Mamba routes {routes}")
     check_launches(kernels, launches, {1: 12 * forward, 3: 12 * steps, 7: k4 * forward,
-                                       8: k4 * steps},
+                                       8: k4 * steps, 20: k9 * forward, 21: k9 * steps},
                    f"the vessel train slice ({steps} train steps, {eval_batches} eval batches)")
     for name in ("model_last_epoch", "model_epoch_0", "model_best_checkpoint"):
         path = os.path.join(run_dir, "models", name)
@@ -1552,7 +1573,7 @@ def phase_vessel_slice(torch, tmp):
     check(rc == 0, f"inference-only run returned {rc}")
     inference = {kernel.symbol: kernel.launches for kernel in kernels}
     batches = val_batches + test_batches
-    check_launches(kernels, inference, {1: 12 * batches, 7: k4 * batches},
+    check_launches(kernels, inference, {1: 12 * batches, 7: k4 * batches, 20: k9 * batches},
                    "the vessel inference-only run")
     inf_dir = os.path.join(tmp, "logs", "chip_smoke_vessel_inference")
     path = os.path.join(inf_dir, "test_metrics.txt")
@@ -1612,7 +1633,8 @@ def phase_vessel_grads(torch, dev, seed=20, flags=None, channels=3, enhance=Fals
                        name="vessel", path_kernels=None):
     """One train step's gradients of the full-width vessel model on 512x512x3
     images at batch 4 (windows of 64 tokens: K4 at stages 0-1, 4096 and 1024
-    windows; the composed scan at stages 2-3, 256 and 64 windows), BatchNorm
+    windows; the composed scan at stages 2-3, 256 and 64 windows, K9 on the
+    card), BatchNorm
     on batch statistics and dropout off, weights and images from one seed: on
     the card (kernels) against the host (plain versions), fp32 and bf16.
     Errors are per parameter, max|err| / max|reference|. Another UperNet2D
@@ -2855,19 +2877,41 @@ def phase_k2_prime(torch, fm, dev):
              "bwd": (worst["bfloat16"][1], b_ms, pb_ms)}, launches)
 
 
-def micro_k9_shapes(batch, height=1024):
-    """(BW, L, d, depth) of each micro_w7 stage whose Mamba call the gate
-    routes to K9, for a batch of images of height x height: the gate of the
-    port's models/mamba.py, the JAX package's."""
-    from long_context_biomedical_imaging_tpu_torch.models.mamba import _window_scan_supported
+def mamba_routes(batch, window, height=1024):
+    """(route, BW, L, d, depth) of each stage's Mamba call of a Swin-tiny
+    (patch 2) with windows of window x window tokens, for a batch of images
+    of height x height on the card, as the port's models/mamba.py routes it:
+    "k4" (the fused mixer, from MAMBA_WINDOW_MIN_CALL windows), "k9" (the
+    windowed scan by its gate on CUDA tensors, from
+    WINDOW_SCAN_MIN_BATCH_CUDA windows) or "cm" (selective_scan_cm)."""
+    from long_context_biomedical_imaging_tpu_torch.models.mamba import (MAMBA_WINDOW_MIN_CALL,
+                                                                         _window_scan_supported)
+    from long_context_biomedical_imaging_tpu_torch.ops.mamba_window import mamba_window_supported
 
     out = []
     for c, grid, depth in STAGES:
-        g = -(-(grid * height // 1024) // 7) * 7
-        bw = batch * (g // 7) ** 2
-        if _window_scan_supported(49, K9_N, c // 2, batch=bw):
-            out.append((bw, 49, c // 2, depth))
+        g = -(-(grid * height // 1024) // window) * window
+        bw, length = batch * (g // window) ** 2, window * window
+        if mamba_window_supported(length) and bw >= MAMBA_WINDOW_MIN_CALL:
+            route = "k4"
+        elif _window_scan_supported(length, K9_N, c // 2, batch=bw, cuda=True):
+            route = "k9"
+        else:
+            route = "cm"
+        out.append((route, bw, length, c // 2, depth))
     return out
+
+
+def route_blocks(routes, route):
+    """The blocks of mamba_routes' stages that take the given route."""
+    return sum(depth for r, *_, depth in routes if r == route)
+
+
+def micro_k9_shapes(batch, height=1024):
+    """(BW, L, d, depth) of each micro_w7 stage (7x7 windows) whose Mamba
+    call the card's gate routes to K9, for a batch of images of height x
+    height (mamba_routes)."""
+    return [tuple(r[1:]) for r in mamba_routes(batch, 7, height) if r[0] == "k9"]
 
 
 def emb_attn_stages(batch=BATCH, volume=EMB_VOLUME):
@@ -2892,23 +2936,31 @@ def emb_attn_stages(batch=BATCH, volume=EMB_VOLUME):
 
 
 def phase_k9(torch, ssw, dev):
-    """K9, the windowed scan of the micro_w7 path. selective_scan_window on
-    the card (one forward and one backward launch) against its plain version
-    (selective_scan_cm) and its VJP at micro_w7's K9 stage shapes and
-    K9_EXTRA, fp32 and bf16: y and the gradients of u, delta, A, B, C, D and
-    delta_bias at K7_TOL (dA, dD and ddelta_bias sum over up to a million
-    tokens), two runs bitwise equal. Then each kernel against its plain
-    pass on the same fp32 operands, the refusals, and the times at the stage
-    shapes with bf16 inputs (the kernels on the fp32 operands the path casts
-    them to). Returns {"fwd" | "bwd": [(max abs err of the kernel against
-    its plain pass, fp32, kernel ms, plain ms) per stage]}: the plain fwd is
-    the plain version's forward, the plain bwd its VJP less its forward."""
+    """K9, the windowed scan of the micro_w7 and vessel paths.
+    selective_scan_window on the card (one forward and one backward launch)
+    against its plain version (selective_scan_cm) and its VJP at micro_w7's
+    K9 stage shapes, vessel's and K9_EXTRA, fp32 and bf16: y and the
+    gradients of u, delta, A, B, C, D and delta_bias at K7_TOL (dA, dD and
+    ddelta_bias sum over up to a million tokens), two runs bitwise equal.
+    Then each kernel against its plain pass on the same fp32 operands, the
+    refusals, the times at the stage shapes with bf16 inputs (the kernels on
+    the fp32 operands the path casts them to), and the card's window floor
+    (K9_FLOOR_SHAPES: the op faster than selective_scan_cm's forward and
+    autograd backward at every shape of at least WINDOW_SCAN_MIN_BATCH_CUDA
+    windows). Returns {"fwd" | "bwd": [(max abs err of the kernel against
+    its plain pass, fp32, kernel ms, plain ms) per micro_w7 stage]}: the
+    plain fwd is the plain version's forward, the plain bwd its VJP less its
+    forward."""
     gen = torch.Generator().manual_seed(37)
     kernels = (ssw.WINDOW_SCAN_FWD, ssw.WINDOW_SCAN_BWD)
     names = ("y", "du", "ddelta", "dA", "dB", "dC", "dD", "ddelta_bias")
     stages = [(bw, length, d) for bw, length, d, _ in micro_k9_shapes(BATCH)]
-    check(stages == [(21904, 49, 48), (5476, 49, 96)], f"micro_w7's K9 stages {stages}")
-    for shape in stages + K9_EXTRA:
+    check(stages == [(21904, 49, 48), (5476, 49, 96), (1444, 49, 192), (400, 49, 384)],
+          f"micro_w7's K9 stages {stages}")
+    vessel = [(bw, length, d) for route, bw, length, d, _ in mamba_routes(BATCH, 8)
+              if route == "k9"]
+    check(vessel == [VESSEL_K9_SHAPE], f"vessel's K9 stages {vessel}")
+    for shape in stages + vessel + K9_EXTRA:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             args = _k7_inputs(torch, gen, shape, dtype, dev)
@@ -2938,7 +2990,7 @@ def phase_k9(torch, ssw, dev):
             torch.cuda.empty_cache()
 
     worst = []
-    for shape in stages + K9_EXTRA:
+    for shape in stages + vessel + K9_EXTRA:
         u, delta, a, bm, cm, _, _, g = _k7_inputs(torch, gen, shape, torch.float32, dev)
         at = a.t().contiguous()
         pairs = {"fwd": ([ssw.window_scan_fwd(u, delta, at, bm, cm)],
@@ -2963,7 +3015,7 @@ def phase_k9(torch, ssw, dev):
               f"{errs['bwd']:.3e}; two launches bitwise {'equal' if same else 'DIFFERENT'}"
               + (" ok" if ok else " MISMATCH"), flush=True)
         check(ok, f"a K9 kernel disagrees with its plain pass at {shape}: {errs}")
-        if shape in stages:
+        if shape in stages + vessel:
             worst.append(errs)
         del u, delta, a, bm, cm, g, at, pairs
         torch.cuda.empty_cache()
@@ -3009,7 +3061,7 @@ def phase_k9(torch, ssw, dev):
     del u, delta, a, bm, cm, g, wide, long_seq, long_bc, a17, b17, c17
 
     out = {"fwd": [], "bwd": []}
-    for (bw, length, d), errs in zip(stages, worst):
+    for (bw, length, d), errs in zip(stages + vessel, worst):
         args = _k7_inputs(torch, gen, (bw, length, d), torch.bfloat16, dev)
         u, delta, a, bm, cm, dskip, dbias, g = args
         u32, d32, at = u.float(), (delta.float() + dbias).contiguous(), a.t().contiguous()
@@ -3022,17 +3074,32 @@ def phase_k9(torch, ssw, dev):
         p_vjp = median_ms(torch, lambda: _k7_vjp(torch, ssw.selective_scan_window_plain, args),
                           warmup=1, reps=5)
         op_ms = median_ms(torch, lambda: _k7_vjp(torch, ssw.selective_scan_window, args))
-        bounds = k9_bounds()[stages.index((bw, length, d))]
+        bounds = k9_call_bounds(bw, length, d)
         print(f"phase 37 K9 times at BW,L,d={(bw, length, d)}, N={K9_N}, bf16 inputs, fp32 "
               f"operands, ms per call: kernel fwd {k_fwd:.3f}, bwd {k_bwd:.3f}; the whole op "
               f"(casts, kernels, D skip) forward and backward {op_ms:.3f}; plain "
               f"(selective_scan_cm) fwd {p_fwd:.3f}, VJP {p_vjp:.3f}; bounds fwd "
               f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}), bwd {bounds['bwd'][0]:.4f} "
               f"({bounds['bwd'][1]})", flush=True)
-        out["fwd"].append((errs["fwd"], k_fwd, p_fwd))
-        out["bwd"].append((errs["bwd"], k_bwd, max(p_vjp - p_fwd, 0.0)))
+        if (bw, length, d) in stages:
+            out["fwd"].append((errs["fwd"], k_fwd, p_fwd))
+            out["bwd"].append((errs["bwd"], k_bwd, max(p_vjp - p_fwd, 0.0)))
         del args, u, delta, a, bm, cm, dskip, dbias, g, u32, d32, at, b32, c32, g32
         torch.cuda.empty_cache()
+
+    floor = ssw.WINDOW_SCAN_MIN_BATCH_CUDA
+    for shape in K9_FLOOR_SHAPES:
+        args = _k7_inputs(torch, gen, shape, torch.bfloat16, dev)
+        k9_ms = median_ms(torch, lambda: _k7_vjp(torch, ssw.selective_scan_window, args))
+        cm_ms = median_ms(torch, lambda: _k7_vjp(torch, ssw.selective_scan_window_plain, args),
+                          warmup=1, reps=5)
+        print(f"phase 37 K9 window floor at BW,L,d={shape}, N={K9_N}, bf16 inputs, forward "
+              f"and backward ms per call: selective_scan_window (K9) {k9_ms:.3f}, "
+              f"selective_scan_cm {cm_ms:.3f} ({cm_ms / k9_ms:.1f}x)", flush=True)
+        check(shape[0] < floor or k9_ms < cm_ms,
+              f"K9 slower than selective_scan_cm at {shape}, above the card's floor of {floor} "
+              f"windows: {k9_ms:.3f} ms against {cm_ms:.3f}")
+        del args
     return out
 
 
@@ -3318,10 +3385,12 @@ def width_launches(mixer, blocks, k4_blocks):
     """{index in all_kernels(): launches} of one train step (one forward, one
     backward) of a Swin with the given mixer in every one of its blocks: K2
     forward and backward in each block, the mixer's kernels in each block
-    (K4 in the k4_blocks whose window count passes its gate)."""
+    (K4 in the k4_blocks whose window count passes its gate, K9 in the
+    others: 16-token windows under K4's floor pass the card's K9 gate)."""
+    k9_blocks = blocks - k4_blocks
     mixer_kernels = {"attention": {17: blocks, 18: blocks, 19: blocks},
                      "hyena": {0: blocks, 2: blocks},
-                     "mamba": {7: k4_blocks, 8: k4_blocks}}[mixer]
+                     "mamba": {7: k4_blocks, 8: k4_blocks, 20: k9_blocks, 21: k9_blocks}}[mixer]
     return {1: blocks, 3: blocks, **mixer_kernels}
 
 
@@ -3494,7 +3563,8 @@ def phase_widths(torch, dev):
         del model, optim, train, stats
         torch.cuda.empty_cache()
         # the gradients at WIDTH_GRAD_SIZE: token grids 128 .. 16 at batch 2, so
-        # K4's gate passes at stage 0 alone (2,048 windows)
+        # K4's gate passes at stage 0 alone (2,048 windows), K9's on the card
+        # at stages 1-3
         grid0 = WIDTH_GRAD_SIZE[0] // 2
         k4_blocks = cfg.Swin.depths[0] if WIDTH_GRAD_BATCH * (grid0 // 4) ** 2 >= 1024 else 0
         phase_config_grads(torch, dev, flags, WIDTH_GRAD_SIZE, 47, name,
@@ -3722,7 +3792,13 @@ def k2p_bounds():
 
 def k9_bounds():
     """K9 per call at micro_w7's K9 stages (batch 4, 49-token windows),
-    [{"fwd" | "bwd": (ms, bound_by)} per stage]. Yardstick: the scan's fp32
+    [{"fwd" | "bwd": (ms, bound_by)} per stage] (k9_call_bounds)."""
+    return [k9_call_bounds(bw, length, d) for bw, length, d, _ in micro_k9_shapes(BATCH)]
+
+
+def k9_call_bounds(bw, length, d):
+    """K9 per call on BW windows of L tokens and d channels, {"fwd" | "bwd":
+    (ms, bound_by)}. Yardstick: the scan's fp32
     operations over 67 TFLOP/s, counted per (token, channel, state), an exp
     as one: the forward 7 (exp, d A, a h + b with the d u B product, C . h),
     the backward's function 20 (the h recompute 5; dh, its products with
@@ -3731,14 +3807,11 @@ def k9_bounds():
     Bytes: the fp32 operands read once and outputs written once: the
     forward u, delta, y and B, C; the backward u, delta, g, du, ddelta and B,
     C, dB, dC; A^T (and dA)."""
-    out = []
-    for bw, length, d, _ in micro_k9_shapes(BATCH):
-        tokens = bw * length
-        cells = tokens * d * K9_N
-        seq, state, at = 4 * tokens * d, 4 * tokens * K9_N, 4 * K9_N * d
-        out.append({"fwd": bound(0, 7 * cells + 4 * tokens * d, 3 * seq + 2 * state + at),
-                    "bwd": bound(0, 20 * cells + 10 * tokens * d, 5 * seq + 4 * state + 2 * at)})
-    return out
+    tokens = bw * length
+    cells = tokens * d * K9_N
+    seq, state, at = 4 * tokens * d, 4 * tokens * K9_N, 4 * K9_N * d
+    return {"fwd": bound(0, 7 * cells + 4 * tokens * d, 3 * seq + 2 * state + at),
+            "bwd": bound(0, 20 * cells + 10 * tokens * d, 5 * seq + 4 * state + 2 * at)}
 
 
 def kernel_bounds():
@@ -3864,7 +3937,10 @@ def run():
         vessel_launches = phase_vessel_slice(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_vessel_grads(torch, dev)
+    vessel_grad_routes = mamba_routes(BATCH, 8, height=512)
+    phase_vessel_grads(torch, dev, path_kernels={
+        i: route_blocks(vessel_grad_routes, route)
+        for i, route in ((7, "k4"), (8, "k4"), (20, "k9"), (21, "k9"))})
     phase_vessel_throughput(torch, dev)
     from long_context_biomedical_imaging_tpu_torch.ops import flash_attention
 
@@ -3928,9 +4004,9 @@ def run():
 
     k9 = phase_k9(torch, selective_scan_window, dev)
     # every loader batch is padded to BATCH, so each forward batch runs K9 in
-    # the blocks whose call the gate gives it at that batch (stages 0-1)
+    # the blocks whose call the gate gives it at that batch (every stage)
     k9_blocks = sum(depth for *_, depth in micro_k9_shapes(BATCH))
-    check(k9_blocks == 4, f"micro_w7 routes {k9_blocks} blocks to K9 at batch {BATCH}")
+    check(k9_blocks == 12, f"micro_w7 routes {k9_blocks} blocks to K9 at batch {BATCH}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_micro_w7_")
     try:
         micro_launches = phase_config_slice(

@@ -38,7 +38,7 @@ extern "C" int lcbi_long_scan_fwd(const void* u, const void* delta, const void* 
                            static_cast<float*>(ap)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto launch = [&](auto kernel) {
-    kernel<<<dim3(g.blocks, g.tiles), g.tc, g.smem, s>>>(a, g);
+    kernel<<<dim3(g.blocks, g.tiles), lcbi::stream_threads(g), g.smem, s>>>(a, g);
     return (int)cudaGetLastError();
   };
   return emit_y ? lcbi::stream_launch<lcbi::kFwdSeeded>(g, softplus != 0, launch)

@@ -1,9 +1,9 @@
 // Long-sequence selective scan (K7), shared device code of its four kernels
 // (selective_scan_long.cu, selective_scan_long_carry_bwd.cu,
-// selective_scan_long_bwd.cu, selective_scan_long_stitch.cu); the windowed
-// scan K9 (selective_scan_window.cu, selective_scan_window_bwd.cu) shares its
-// step, softplus and sigmoid, K7's forward and carry backward stream their
-// rows through selective_scan_long_stream.cuh, and both backwards share
+// selective_scan_long_bwd.cu, selective_scan_long_stitch.cu) and of the
+// windowed scan K9 (selective_scan_window.cu, selective_scan_window_bwd.cu):
+// K7's forward and carry backward and K9's forward stream their rows through
+// selective_scan_long_stream.cuh, and both backwards share
 // selective_scan_bwd.cuh. Per batch row of u, delta (b,
 // L, D) and B, C (b, L, N), all fp32, with A^T = at (N, D):
 //     d_t = softplus(delta_t) (or delta_t itself without softplus)
@@ -38,11 +38,6 @@ __device__ __forceinline__ float scan_softplus(float v) {
   return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
 }
 __device__ __forceinline__ float scan_sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-
-template <bool SOFTPLUS>
-__device__ __forceinline__ float scan_dt(float v) {
-  return SOFTPLUS ? scan_softplus(v) : v;
-}
 
 // Geometry of a call: rows = b * nseg segment rows of at most kScanSeg tokens.
 struct ScanGeom {
@@ -106,14 +101,6 @@ __device__ __forceinline__ void load_a2(float* a2, const float* __restrict__ at,
                                         int N) {
 #pragma unroll
   for (int n = 0; n < NP; ++n) a2[n] = n < N ? at[n * D + d] * kLog2e : 0.f;
-}
-
-// h <- exp(dt A) h + dt u B over the NP states (a2 = A log2 e).
-template <int NP>
-__device__ __forceinline__ void scan_step(float* h, const float* a2, float dt, float du,
-                                          const float* Bt) {
-#pragma unroll
-  for (int n = 0; n < NP; ++n) h[n] = fmaf(exp2f(dt * a2[n]), h[n], du * Bt[n]);
 }
 
 // Launch a kernel template instantiated for the call's padded state count

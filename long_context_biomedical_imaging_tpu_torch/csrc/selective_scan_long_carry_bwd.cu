@@ -29,7 +29,7 @@ extern "C" int lcbi_long_scan_carry_bwd(const void* delta, const void* at, const
                            nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return lcbi::stream_launch<lcbi::kCarryBwd>(geom, softplus != 0, [&](auto kernel) {
-    kernel<<<dim3(geom.blocks, geom.tiles), geom.tc, geom.smem, s>>>(a, geom);
+    kernel<<<dim3(geom.blocks, geom.tiles), lcbi::stream_threads(geom), geom.smem, s>>>(a, geom);
     return (int)cudaGetLastError();
   });
 }

@@ -16,8 +16,10 @@ of at least 1024 windows go through the fused K4 mixer
 stream dtype (in_proj, the 'same' depthwise conv, SiLU, x_proj, dt_proj, the
 scan and out_proj). The composed path's scan, in the JAX package's order, is
 the windowed scan K9 (``ops.selective_scan_window``) where its gate holds (L
-<= 64, N * d <= 8192, at least 2048 windows: Swin windows K4 does not take,
-such as 7x7), ``selective_scan_cm`` up to 1024 tokens, the long-sequence scan
+<= 64, N * d <= 8192, and at least 2048 windows on the CPU, the JAX
+package's TPU crossover, or WINDOW_SCAN_MIN_BATCH_CUDA on the card, its own:
+Swin windows K4 does not take, such as 7x7, and calls under K4's floor),
+``selective_scan_cm`` up to 1024 tokens, the long-sequence scan
 K7 (``ops.selective_scan_long``) where its gate holds (L >= 2048, N * d <=
 8192: the ViT's full-sequence mixing), and the chunked scan otherwise (1024
 < L < 2048, ``selective_scan_long_plain``), the JAX package's own route
@@ -125,7 +127,7 @@ class MambaVisionMixer(nn.Module):
         dt = x_dbl[..., :r] @ self.dt_proj_kernel + self.dt_proj_bias
         bm, cm = x_dbl[..., r:r + n], x_dbl[..., r + n:]
         # dt_proj's bias is added twice on purpose (the reference's quirk)
-        if _window_scan_supported(length, n, d_half, batch=b):
+        if _window_scan_supported(length, n, d_half, batch=b, cuda=u.is_cuda):
             y = selective_scan_window(x, dt, A, bm, cm, self.D, delta_bias=self.dt_proj_bias)
         elif length <= SCAN_CM_MAX_LEN:
             y = selective_scan_cm(x, dt, A, bm, cm, self.D, delta_bias=self.dt_proj_bias)

@@ -5,8 +5,10 @@ Counterpart of ``long_context_biomedical_imaging_tpu/ops/selective_scan_pallas.p
 (``selective_scan_pallas`` and its custom VJP ``_scan_core``). The Mamba
 mixer takes it where the fused window mixer K4 does not: Swin windows whose
 token count is not a multiple of 8 or is under 16 (a 7x7 window: 49
-tokens), in calls of at least 2048 windows (:func:`window_scan_supported`,
-the JAX package's gate).
+tokens), and windows in calls too small for K4 (:func:`window_scan_supported`:
+on CPU tensors the JAX package's gate, at least 2048 windows; on CUDA tensors
+at least WINDOW_SCAN_MIN_BATCH_CUDA, the card's own crossover against
+``selective_scan_cm``).
 
 The wrapper keeps the JAX package's semantics: the scan core takes fp32 u,
 delta + delta_bias, A^T, B and C and returns fp32 y; the D skip ``y + u D``
@@ -37,10 +39,16 @@ import torch
 from .cuda_build import CudaKernel, check_cuda_operand, ptr, stream_handle
 from .selective_scan import selective_scan_cm
 
-# the JAX package's gate (selective_scan_pallas.py PALLAS_SCAN_*)
+# the JAX package's gate (selective_scan_pallas.py PALLAS_SCAN_*); its window
+# floor is the crossover measured on a TPU, and the CPU route keeps it
 WINDOW_SCAN_MAX_LEN = 64
 WINDOW_SCAN_MAX_ND = 8192
 WINDOW_SCAN_MIN_BATCH = 2048
+# the floor on CUDA tensors: the kernels' forward and backward beat
+# selective_scan_cm's forward and autograd backward (a launch or more per
+# token each way) at every window count timed on an H100, down to one window
+# (PERF.md, chip_smoke.py phase 37's crossover)
+WINDOW_SCAN_MIN_BATCH_CUDA = 1
 WINDOW_SCAN_STATE = 16       # the kernels' largest d_state
 
 WINDOW_SCAN_FWD = CudaKernel(
@@ -51,12 +59,14 @@ WINDOW_SCAN_BWD = CudaKernel(
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
-def window_scan_supported(length: int, n: int, d: int, batch: int | None = None) -> bool:
-    """The JAX package's gate of the windowed scan: L <= 64, n * d <= 8192
-    and, where the call's window count is given, at least 2048 windows."""
+def window_scan_supported(length: int, n: int, d: int, batch: int | None = None,
+                          cuda: bool = False) -> bool:
+    """The gate of the windowed scan: L <= 64, n * d <= 8192 and, where the
+    call's window count is given, at least WINDOW_SCAN_MIN_BATCH_CUDA windows
+    for a call on CUDA tensors, else the JAX package's 2048."""
     ok = length <= WINDOW_SCAN_MAX_LEN and n * d <= WINDOW_SCAN_MAX_ND
     if batch is not None:
-        ok = ok and batch >= WINDOW_SCAN_MIN_BATCH
+        ok = ok and batch >= (WINDOW_SCAN_MIN_BATCH_CUDA if cuda else WINDOW_SCAN_MIN_BATCH)
     return ok
 
 
@@ -114,8 +124,9 @@ def _check(at, seqs, states):
 
 
 def window_scan_fwd(u, delta, at, B, C, softplus=True):
-    """The K9 forward kernel (``csrc/selective_scan_window.cu``):
-    :func:`window_scan_fwd_plain` on CUDA tensors."""
+    """The K9 forward kernel (``csrc/selective_scan_window.cu``, K7's streamed
+    pass with zero carries, a window a row): :func:`window_scan_fwd_plain` on
+    CUDA tensors."""
     bw, length, d = _check(at, {"u": u, "delta": delta}, {"B": B, "C": C})
     y = torch.empty_like(u)
     WINDOW_SCAN_FWD(ptr(u), ptr(delta), ptr(at), ptr(B), ptr(C), ptr(y), bw, length, d,

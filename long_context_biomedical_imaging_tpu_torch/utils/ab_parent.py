@@ -21,8 +21,10 @@ backward per call at each ptx_attn stage shape and per ptx_attn step
 core and the out projection or dx, without the weight gradients); then its
 K7 phase (29) and its K9 phase (37), from which it prints K7's forward
 (both calls), carry backward and backward per call at the vit65k_mamba
-shape and K9's forward and backward per call at micro_w7's stages, and K7's
-backward per vit65k_mamba step and K9's backward per micro_w7 step.
+shape and K9's forward and backward per call at micro_w7's stages (those
+its tree's gate routes to K9), and K7's backward per vit65k_mamba step and
+K9's backward and forward per micro_w7 step. The summary holds each train
+step's peak memory beside its time.
 Configurations named after the checkout limit the turns to those
 configurations' train steps (to read a step's spread again); the names
 ``k3``, ``k4``, ``k7`` and ``k9`` run K3's phase 13, K4's phase 17, K7's
@@ -113,12 +115,13 @@ k9_depths = [depth for *_, depth in cs.micro_k9_shapes(cs.BATCH)]
 print(f"per-call kernels (ms, fp32 operands): K7 fwd (both calls) {k7['fwd'][1]:.4f}, K7 carry "
       f"bwd {k7['carry'][1]:.4f}, K7 bwd {k7['bwd'][1]:.3f}"
       + (f", K7 stitch kernel (both ways) {k7['stitch'][1]:.4f}, torch stitch (both ways) "
-         f"{k7['stitch'][2]:.4f}" if "stitch" in k7 else "") + "; K9 fwd (d = 48, 96) "
-      + ", ".join(f"{r[1]:.3f}" for r in k9["fwd"]) + "; K9 bwd (d = 48, 96) "
+         f"{k7['stitch'][2]:.4f}" if "stitch" in k7 else "") + "; K9 fwd (d = "
+      + ", ".join(str(s[2]) for s in cs.micro_k9_shapes(cs.BATCH)) + ") "
+      + ", ".join(f"{r[1]:.3f}" for r in k9["fwd"]) + "; K9 bwd "
       + ", ".join(f"{r[1]:.3f}" for r in k9["bwd"]), flush=True)
 print(f"per-step kernels: K7 bwd {cs.VIT_LAYERS * k7['bwd'][1]:.3f} ms per vit65k_mamba step; "
-      f"K9 bwd {sum(d * r[1] for d, r in zip(k9_depths, k9['bwd'])):.3f} ms per micro_w7 step",
-      flush=True)
+      f"K9 bwd {sum(d * r[1] for d, r in zip(k9_depths, k9['bwd'])):.3f} ms per micro_w7 step; "
+      f"K9 fwd {sum(d * r[1] for d, r in zip(k9_depths, k9['fwd'])):.3f}", flush=True)
 """
 TAIL = 'print(f"turn seconds {time.time() - t0:.1f}", flush=True)\n'
 
@@ -144,7 +147,9 @@ PER_STEP = re.compile(r"per-step kernels: K1 fwd ([0-9.]+) ms per ptx step; K8 w
 PER_STEP_34 = re.compile(r"per-step kernels: K3 fwd ([0-9.]+) ms per emb step; K3 bwd ([0-9.]+); "
                          r"K3 dM ([0-9.]+); K4 fwd ([0-9.]+) ms per vessel step; K4 bwd ([0-9.]+)")
 PER_STEP_79 = re.compile(r"per-step kernels: K7 bwd ([0-9.]+) ms per vit65k_mamba step; K9 bwd "
-                         r"([0-9.]+) ms per micro_w7 step")
+                         r"([0-9.]+) ms per micro_w7 step(?:; K9 fwd ([0-9.]+))?")
+PEAK = re.compile(r"phase (\d+) (?:train throughput: )?(\S+) train step .*?peak memory ([0-9.]+) "
+                  r"GiB")
 # kernel names (substrings) whose device time per step the summary reports:
 # K3's forward (its three launches, k3_rows_in, k3_toeplitz and k3_rows_out,
 # the older tree's and this tree's by the same names; k3_toeplitz also
@@ -192,6 +197,8 @@ def run_turn(label: str, root: str, env: dict, code: str) -> dict:
         if m:
             steps.update({"K7 bwd/vit65k_mamba step": float(m.group(1)),
                           "K9 bwd/micro_w7 step": float(m.group(2))})
+            if m.group(3):
+                steps["K9 fwd/micro_w7 step"] = float(m.group(3))
         m = PER_STEP_34.search(line)
         if m:
             steps.update(zip(("K3 fwd/emb step", "K3 bwd/emb step", "K3 dM/emb step",
@@ -200,6 +207,9 @@ def run_turn(label: str, root: str, env: dict, code: str) -> dict:
         m = STEP.search(line)
         if m:
             steps[m.group(2)] = float(m.group(3))
+        m = PEAK.search(line)
+        if m:
+            steps[f"{m.group(2)} peak GiB"] = float(m.group(3))
         m = PROFILE.search(line)
         if m and "eval" not in m.group(2) and m.group(1) in NAMES:
             steps[f"{NAMES[m.group(1)]} device"] = float(m.group(3))

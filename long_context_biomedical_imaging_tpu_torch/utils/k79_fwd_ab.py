@@ -10,9 +10,10 @@ Each tree's ``csrc/selective_scan_long.cu``,
 built with this package's nvcc flags into ``build/k79_fwd_ab/`` (gitignored)
 and called through their C entries (a tree whose K7 entries take no
 softplus flag, as before d_state 1-16, is called without it) at K7's
-vit65k_mamba call ((b, L, D) = (2, 65536, 192)) and K9's micro_w7 stages
-(21,904 and 5,476 windows of 49 tokens, d = 48 and 96), d_state 8, softplus
-on, fp32. Twelve rounds, the trees' order alternating; in each, every
+vit65k_mamba call ((b, L, D) = (2, 65536, 192)) and K9's calls at micro_w7's
+four stages (21,904, 5,476, 1,444 and 400 windows of 49 tokens, d = 48, 96,
+192 and 384) and vessel's stage 3 (256 windows of 64 tokens, d = 384),
+d_state 8, softplus on, fp32. Twelve rounds, the trees' order alternating; in each, every
 kernel's mean time over 20 calls after 3, from CUDA events. Prints each
 kernel's median, least and largest round per tree, then the card's name and
 power limit. A device-time comparison finer than chip_smoke.py's per-call
@@ -34,7 +35,8 @@ from pathlib import Path
 SOURCES = ("selective_scan_long.cu", "selective_scan_long_carry_bwd.cu",
            "selective_scan_window.cu", "selective_scan_long_stitch.cu")
 K7_CALL = (2, 65536, 192)
-K9_STAGES = ((21904, 48), (5476, 96))
+K9_CALLS = ((21904, 49, 48), (5476, 49, 96), (1444, 49, 192), (400, 49, 384),
+            (256, 64, 384))
 ROUNDS, CALLS = 12, 20
 
 
@@ -97,9 +99,9 @@ def _calls(libs, softplus_flag, ops):
 
         out["K7 stitch fwd"] = _code0(lambda: ssl._stitch_fwd(hl, ap, b, nseg))
         out["K7 stitch bwd"] = _code0(lambda: ssl._stitch_bwd(dh0, ap, b, nseg))
-    for (bw, wd), tensors in zip(K9_STAGES, win):
-        out[f"K9 fwd d={wd}"] = (lambda t=tensors, bw=bw, wd=wd:
-                                 wfwd(*[p(x) for x in t], bw, 49, wd, 8, 1, s))
+    for (bw, wl, wd), tensors in zip(K9_CALLS, win):
+        out[f"K9 fwd {bw}x{wl}x{wd}"] = (lambda t=tensors, bw=bw, wl=wl, wd=wd:
+                                         wfwd(*[p(x) for x in t], bw, wl, wd, 8, 1, s))
     return out
 
 
@@ -126,9 +128,9 @@ def main(argv=None):
 
     rows = b * -(-length // 64)
     at = (-torch.arange(1, 9.0)[:, None] * torch.exp(0.3 * torch.randn(8, d, generator=gen)))
-    win = [[mk(bw, 49, wd), mk(bw, 49, wd), (-torch.rand(8, wd, generator=gen) - 0.1).to(dev),
-            mk(bw, 49, 8), mk(bw, 49, 8), torch.empty(bw, 49, wd, device=dev)]
-           for bw, wd in K9_STAGES]
+    win = [[mk(bw, wl, wd), mk(bw, wl, wd), (-torch.rand(8, wd, generator=gen) - 0.1).to(dev),
+            mk(bw, wl, 8), mk(bw, wl, 8), torch.empty(bw, wl, wd, device=dev)]
+           for bw, wl, wd in K9_CALLS]
     # hl, ap and dh0 hold values (ap in (0, 1)) for the stitches
     ops = (mk(b, length, d), mk(b, length, d), mk(b, length, d), at.to(dev).contiguous(),
            mk(b, length, 8), mk(b, length, 8), mk(rows, 8, d),

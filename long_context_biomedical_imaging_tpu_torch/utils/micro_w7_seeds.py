@@ -6,7 +6,9 @@ at other seeds, on one card:
 
 For each seed, the phase as ``chip_smoke.py`` runs it at its own seed (39):
 ``phase_vessel_grads`` with ``micro_w7_flags()``, 512x512 images at batch
-4, K9 launched by the gate at stage 0, from the ``chip_smoke.py`` of DIR (the
+4, K9 launched where that tree's gate routes it (stage 0 under the JAX
+package's 2,048-window floor, every stage under the card's own), from the
+``chip_smoke.py`` of DIR (the
 repository root this module lies in by default; another checkout, its
 parent commit say, takes its own package and its own kernel builds). The
 phase's checks are recorded instead of raised, so every seed runs to its

@@ -1804,10 +1804,13 @@ def test_swin_attention_gradients_on_the_card_match_the_host(cuda_device, amp):
         assert (g - ref).abs().max().item() <= tol * ref.abs().max().item(), name
 
 
-# K9 (BW, L, d): micro_w7's two stage shapes at batch 4 (7x7 windows of 49
-# tokens, d_half 48 and 96), 3x3 windows at a count no tile divides, the
-# gate's longest and widest window (N d = 8192)
-K9_SHAPES = [(21904, 49, 48), (5476, 49, 96), (3001, 9, 40), (257, 64, 1024)]
+# K9 (BW, L, d): micro_w7's four stage shapes at batch 4 (7x7 windows of 49
+# tokens, d_half 48, 96, 192 and 384; stages 2-3 under the JAX package's
+# 2048-window floor, K9's on the card), vessel's stage 3 (64-token windows),
+# 3x3 windows at a count no tile divides, the gate's longest and widest
+# window (N d = 8192)
+K9_SHAPES = [(21904, 49, 48), (5476, 49, 96), (1444, 49, 192), (400, 49, 384), (256, 64, 384),
+             (3001, 9, 40), (257, 64, 1024)]
 
 
 @pytest.mark.cuda
@@ -1830,7 +1833,7 @@ def test_window_scan_kernels_match_plain(cuda_device, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("softplus", [True, False])
-@pytest.mark.parametrize("shape", K9_SHAPES[1:3])
+@pytest.mark.parametrize("shape", [K9_SHAPES[1], K9_SHAPES[5]])
 def test_window_scan_passes_match_plain(cuda_device, shape, softplus):
     """Each K9 kernel against its plain pass on the same fp32 inputs, with
     and without softplus: the forward (y) and the backward (du, ddelta, dat,
@@ -1850,6 +1853,29 @@ def test_window_scan_passes_match_plain(cuda_device, shape, softplus):
         for j, (x, r) in enumerate(zip(got, ref)):
             err = (x - r).abs().max().item()
             assert torch.isfinite(x).all() and err <= 1e-4 * r.abs().max().item(), (i, j, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("shape", [(21904, 49, 48), (400, 49, 384), (33, 64, 40)])
+def test_window_scan_small_steps_match_plain(cuda_device, shape, n):
+    """K9's forward at the small steps the model's dt bias gives (delta
+    about -6 +- 0.5, softplus about 0.0025; the other tests' delta is N(0,
+    1)), at micro_w7's stage-0 and stage-3 shapes and at a window count that
+    leaves a unit of windows part empty: y within 1e-5 of its max of the
+    plain pass's (F.softplus), as K7's streamed passes are held; two launches
+    bitwise equal."""
+    u, delta, a, bm, cm, _, _, _ = _k7_args(torch.Generator().manual_seed(70 + n), shape,
+                                            torch.float32, cuda_device, n)
+    delta = (delta * 0.5 - 6.0).contiguous()
+    at = a.t().contiguous()
+    got = tsw.window_scan_fwd(u, delta, at, bm, cm)
+    again = tsw.window_scan_fwd(u, delta, at, bm, cm)
+    ref = tsw.window_scan_fwd_plain(u, delta, at, bm, cm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all() and err <= 1e-5 * ref.abs().max().item(), err
 
 
 @pytest.mark.cuda
@@ -1916,33 +1942,41 @@ def test_window_scan_kernels_at_states_and_without_softplus(cuda_device, n, soft
 
 @pytest.mark.cuda
 def test_mamba_mixer_takes_k9_on_the_card(cuda_device):
-    """The Mamba mixer on 2048 windows of 49 tokens (JAX's K9 route) launches
-    K9's forward and backward on the card and never the sequential scan;
-    its output matches the host's (plain versions) within 1e-4 of max and
-    every parameter's gradient within 1e-3 (sums over 100,352 tokens in
-    another order)."""
+    """The Mamba mixer on 2048 windows of 49 tokens at d_model 96 (JAX's K9
+    route) and on 400 windows of 49 tokens at d_model 768 (micro_w7's stage
+    3, under the JAX package's 2048-window floor, which the host keeps)
+    launches K9's forward and backward on the card and never the sequential
+    scan; the host takes K9's plain version on 2048 windows and
+    selective_scan_cm on 400. The output matches the host's within 1e-4 of
+    max and every parameter's gradient within 1e-3 (sums over up to 100,352
+    tokens in another order)."""
     from long_context_biomedical_imaging_tpu_torch.models import mamba as tmamba
 
-    mixer = tmamba.MambaVisionMixer(96, d_state=8, d_conv=3, expand=1)
-    mixer.init_params(torch.Generator().manual_seed(0))
-    x = torch.randn(2048, 49, 96, generator=torch.Generator().manual_seed(1))
-    results = {}
-    for dev in (torch.device("cpu"), cuda_device):
-        mixer.to(dev).zero_grad(set_to_none=True)
-        before = (tsw.WINDOW_SCAN_FWD.launches, tsw.WINDOW_SCAN_BWD.launches)
-        real, used = tmamba.selective_scan_cm, []
-        tmamba.selective_scan_cm = lambda *a, **k: used.append(1) or real(*a, **k)
-        try:
-            out = mixer(x.to(dev))
-            out.square().mean().backward()
-        finally:
-            tmamba.selective_scan_cm = real
-        torch.cuda.synchronize()
-        ran = (tsw.WINDOW_SCAN_FWD.launches - before[0], tsw.WINDOW_SCAN_BWD.launches - before[1])
-        assert not used and ran == ((1, 1) if dev.type == "cuda" else (0, 0)), (dev, ran)
-        results[dev.type] = [out.detach().cpu()] + [p.grad.detach().cpu()
-                                                    for p in mixer.parameters()]
-    for i, (got, ref) in enumerate(zip(results["cuda"], results["cpu"])):
-        assert torch.isfinite(got).all() and got.abs().max() > 0, i
-        tol = 1e-4 if i == 0 else 1e-3
-        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item(), i
+    for bw, width in ((2048, 96), (400, 768)):
+        mixer = tmamba.MambaVisionMixer(width, d_state=8, d_conv=3, expand=1)
+        mixer.init_params(torch.Generator().manual_seed(0))
+        x = torch.randn(bw, 49, width, generator=torch.Generator().manual_seed(1))
+        results = {}
+        for dev in (torch.device("cpu"), cuda_device):
+            mixer.to(dev).zero_grad(set_to_none=True)
+            before = (tsw.WINDOW_SCAN_FWD.launches, tsw.WINDOW_SCAN_BWD.launches)
+            real, used = tmamba.selective_scan_cm, []
+            tmamba.selective_scan_cm = lambda *a, **k: used.append(1) or real(*a, **k)
+            try:
+                out = mixer(x.to(dev))
+                out.square().mean().backward()
+            finally:
+                tmamba.selective_scan_cm = real
+            torch.cuda.synchronize()
+            ran = (tsw.WINDOW_SCAN_FWD.launches - before[0],
+                   tsw.WINDOW_SCAN_BWD.launches - before[1])
+            if dev.type == "cuda":
+                assert not used and ran == (1, 1), (bw, ran)
+            else:
+                assert bool(used) == (bw < 2048) and ran == (0, 0), (bw, ran)
+            results[dev.type] = [out.detach().cpu()] + [p.grad.detach().cpu()
+                                                        for p in mixer.parameters()]
+        for i, (got, ref) in enumerate(zip(results["cuda"], results["cpu"])):
+            assert torch.isfinite(got).all() and got.abs().max() > 0, (bw, i)
+            tol = 1e-4 if i == 0 else 1e-3
+            assert (got - ref).abs().max().item() <= tol * ref.abs().max().item(), (bw, i)

@@ -439,7 +439,8 @@ def forced_k9(monkeypatch):
     monkeypatch.setattr(jmamba, "pallas_scan_supported",
                         lambda length, n, d, batch=None: jpallas.pallas_scan_supported(length, n, d))
     monkeypatch.setattr(tmamba, "_window_scan_supported",
-                        lambda length, n, d, batch=None: twin.window_scan_supported(length, n, d))
+                        lambda length, n, d, batch=None, cuda=False:
+                        twin.window_scan_supported(length, n, d))
     calls, real = [], tmamba.selective_scan_window
     monkeypatch.setattr(tmamba, "selective_scan_window",
                         lambda *a, **k: calls.append(tuple(a[0].shape)) or real(*a, **k))
